@@ -1,0 +1,461 @@
+#!/usr/bin/env python3
+"""GPU smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Needs one NVIDIA GPU with ``nvcc`` (sm_90a); exits non-zero without one.
+In order it
+
+1. builds every CUDA kernel of the serving path from ``src/repro_torch/
+   kernels/csrc`` (one ``nvcc`` per source, in parallel);
+2. drives the main path once: ``repro_torch.launch.serve.serve_batch`` on
+   qwen3-0.6b at its published width (random weights from seed 0) with
+   ``dscim="kernel:dscim1:256"``, ``kv="int8"``, page size 8, batch 4,
+   prompt 64, 16 tokens; the kernels' launch counters are zeroed just
+   before and read just after, and must show 85 fused-MVM launches per
+   forward (1360) and 28 paged-attention launches per decode step (420);
+3. checks the output (shape, range, finite logits) and prints tok/s and
+   the prefill logit RMSE against the port's own ``dscim="off"`` run, then
+   serves one more such request under ``torch.profiler`` and prints the
+   device's busy time, its idle share and the costliest kernels;
+4. holds each kernel's wrapper, as the main path calls it, against its
+   plain PyTorch version on the same inputs at the main path's shapes,
+   and times kernel, wrapper, plain version, the least
+   time the card could take (``bound_ms``) and, for paged attention, one
+   ``scaled_dot_product_attention`` call over pre-gathered K/V; for the
+   fused MVM it also prints the estimator's RMSE against the exact f32
+   product ``x @ w`` at each shape (the accuracy DS-CIM costs);
+5. serves the reduced config on the GPU and on the CPU (plain versions)
+   and checks that they agree.
+
+Then it prints a ``{"kernels": [...]}`` JSON line, the card's name and
+power limit, and as its last line ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+F32_FLOPS_PER_S = 67e12
+
+BATCH, PROMPT, TOKENS, PAGE = 4, 64, 16, 8
+DSCIM = "kernel:dscim1:256"
+FUSED_RTOL = 2e-5            # f32 summation order; counts are exact
+PAGED_RTOL = 1e-5            # f32 summation order of dot products / sums
+
+
+def _log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _check_close(name, got, want, rtol):
+    """max |got - want| must stay within rtol * max|want| (f32 rounding of
+    a different summation order); returns the max abs error."""
+    import torch
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = float((got - want).abs().max())
+    scale = max(float(want.abs().max()), 1.0)
+    if err > rtol * scale:
+        raise AssertionError(f"{name}: max abs err {err:.3e} > "
+                             f"{rtol:.0e} x {scale:.3e}")
+    return err
+
+
+def main_path(torch, cfg, params, prompts):
+    """Phase 2 + 3: the main path once, with launch counts."""
+    from repro_torch.kernels import dscim_fused, paged_attention
+    from repro_torch.launch.serve import serve_batch
+
+    cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
+    # warm-up on a short run (CUDA context, cuBLAS, library loads)
+    serve_batch(cfg_ds, params, prompts, 2, kv="int8", page_size=PAGE)
+    torch.cuda.synchronize()
+    dscim_fused.LAUNCHES.reset()
+    paged_attention.LAUNCHES.reset()
+    t = {}
+    toks, logits, cache = serve_batch(cfg_ds, params, prompts, TOKENS,
+                                      kv="int8", page_size=PAGE, timings=t,
+                                      return_cache=True)
+    launches = {"dscim_fused_mvm": dscim_fused.LAUNCHES.count,
+                "paged_attention_decode": paged_attention.LAUNCHES.count}
+    want = {"dscim_fused_mvm": (3 * cfg.n_layers + 1) * TOKENS,
+            "paged_attention_decode": cfg.n_layers * (TOKENS - 1)}
+    _log(f"launches on the main path: {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    if toks.shape != (BATCH, TOKENS) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_padded:
+        raise AssertionError(f"bad tokens {toks.shape} {toks.min()} "
+                             f"{toks.max()}")
+    import numpy as np
+    if not np.isfinite(logits[0]).all():
+        raise AssertionError("non-finite prefill logits")
+    tok_s = BATCH * TOKENS / t["generate_s"]
+    _log(f"main path: {BATCH * TOKENS} tokens in {t['generate_s']:.4f} s "
+         f"= {tok_s:.1f} tok/s (prepare {t['prepare_s']:.2f} s)")
+    off_toks, off_logits = serve_batch(cfg, params, prompts, TOKENS,
+                                       kv="int8", page_size=PAGE)
+    rmse = float(np.sqrt(np.mean((logits[0] - off_logits[0]) ** 2)))
+    agree = float((toks == off_toks).mean())
+    _log(f"dscim={DSCIM} vs dscim=off: prefill logit RMSE {rmse:.6f}, "
+         f"token agreement {agree:.3f}")
+    if not math.isfinite(rmse):
+        raise AssertionError("non-finite logit RMSE")
+    return launches, cache, {"tok_s": tok_s, "logit_rmse": rmse,
+                             "generate_s": t["generate_s"]}
+
+
+def profile_main_path(torch, cfg, params, prompts):
+    """Phase 3b: one more main-path request under ``torch.profiler``: wall
+    time, the time the device spent running kernels (the sum of kernel
+    durations on the one stream the port uses), the idle share, and the
+    device time of the costliest kernel names."""
+    import collections
+
+    from repro_torch.launch.serve import serve_batch
+
+    cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        serve_batch(cfg_ds, params, prompts, TOKENS, kv="int8",
+                    page_size=PAGE)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name][0] += 1
+            by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(ms for _, ms in by_name.values())
+    top = sorted(by_name.items(), key=lambda it: -it[1][1])[:8]
+    out = {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+           "kernel_launches": sum(c for c, _ in by_name.values()),
+           "top_kernels": [{"name": n[:80], "calls": c, "device_ms": ms}
+                           for n, (c, ms) in top]}
+    _log(f"profile: wall {wall_ms:.1f} ms (profiler on), device busy "
+         f"{busy_ms:.1f} ms, idle {out['device_idle_share']:.3f}, "
+         f"{out['kernel_launches']} kernels")
+    if busy_ms <= 0.0:
+        raise AssertionError("the profiler saw no device time")
+    return out
+
+
+def check_fused(torch, cfg, params, launches):
+    """Fused DS-CIM MVM vs its plain version at the serving shapes."""
+    from repro_torch.kernels import dscim_fused
+    from repro_torch.kernels.dscim_mvm_blocked import block_point_tables
+    from repro_torch.launch.steps import prepare_serving_params
+
+    cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
+    prep = prepare_serving_params(cfg_ds, params)
+    from repro_torch.models.lm import _linear_for
+    dcfg = _linear_for(DSCIM).cfg
+    pmax = block_point_tables(dcfg)[2]
+    L = cfg.n_layers
+    mlp = prep["layers"]["mlp"]
+    fmlp = params["layers"]["mlp"]
+    # (site, prepared weights of every layer, layer 0's float weight,
+    #  activation dtype, calls per forward)
+    sites = [("w_gate", [mlp["w_gate"][i] for i in range(L)],
+              fmlp["w_gate"][0], torch.bfloat16, 2 * L),
+             ("w_down", [mlp["w_down"][i] for i in range(L)],
+              fmlp["w_down"][0], torch.bfloat16, L),
+             ("lm_head", [prep["lm_head"]], params["embed"].T,
+              torch.float32, 1)]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    calls = []
+    for m in (BATCH, BATCH * PROMPT):
+        for site, ws, wf, xdt, per_fwd in sites:
+            K, N = ws[0].k_orig, ws[0].n
+            x = torch.randn((m, K), generator=gen, device="cuda").to(xdt)
+            # the wrapper the main path calls (per-window quantization,
+            # leading-dim fold, dispatch) against the plain version on the
+            # same quantized activations, which are deterministic from x
+            got = dscim_fused.dscim_fused_mvm_prepared(x, ws[0], dcfg)
+            xq = dscim_fused.quantize_activations_windowed(x, ws[0].nw,
+                                                           ws[0].g)
+            q = xq.q.contiguous()
+            sx = xq.scale.reshape(m, ws[0].nw).contiguous()
+            want = dscim_fused.dscim_fused_mvm_plain(q, sx, ws[0].q,
+                                                     ws[0].scale, dcfg)
+            err = _check_close(f"dscim_fused {site} M={m}", got, want,
+                               FUSED_RTOL)
+            # accuracy cost of the estimator itself: against x @ w in f32
+            exact = x.float() @ wf.float()
+            est_rmse = float((got - exact).pow(2).mean().sqrt())
+            exact_rms = float(exact.pow(2).mean().sqrt())
+            # time over distinct layers' weights: the main path meets each
+            # weight once per forward, not hot in L2
+            reps = 5 if m > BATCH else 20
+            ms = _cuda_ms(lambda: [dscim_fused._launch_kernel(
+                q, sx, w.q, w.scale, dcfg) for w in ws], reps) / len(ws)
+            # the same with the wrapper's activation quantization around it
+            wrapper_ms = _cuda_ms(lambda: [
+                dscim_fused.dscim_fused_mvm_prepared(x, w, dcfg) for w in ws],
+                reps) / len(ws)
+            plain_ms = _cuda_ms(lambda: dscim_fused.dscim_fused_mvm_plain(
+                q, sx, ws[0].q, ws[0].scale, dcfg), reps=2, warmup=1)
+            kp = ws[0].nw * ws[0].g
+            nbytes = (q.numel() + 4 * sx.numel() + kp * N + 4 * ws[0].nw * N
+                      + 2 * 4 * dcfg.group * dcfg.sbits + 4 * m * N)
+            ops = 2.0 * m * N * kp * pmax
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / INT8_OPS_PER_S * 1e3
+            # prefill runs the head on the last token only (M = batch): the
+            # M=256 head call is a check at a larger shape, off the path
+            on_path = not (site == "lm_head" and m > BATCH)
+            calls.append({
+                "shape": f"{site} M={m} K={K} N={N}",
+                "per_forward": per_fwd if on_path else 0,
+                "phase": ("decode" if m == BATCH else "prefill") if on_path
+                else "check only, not on the main path",
+                "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper_ms,
+                "plain_ms": plain_ms,
+                "rmse_vs_float_matmul": est_rmse,
+                "float_matmul_rms": exact_rms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            _log(f"dscim_fused {calls[-1]['shape']}: err {err:.3e}, "
+                 f"{ms:.4f} ms (wrapper {wrapper_ms:.4f} ms, plain "
+                 f"{plain_ms:.3f} ms, bound "
+                 f"{calls[-1]['bound_ms']:.4f} ms, {calls[-1]['bound_by']}); "
+                 f"estimate vs f32 x @ w: RMSE {est_rmse:.4f}, "
+                 f"RMS of x @ w {exact_rms:.4f}")
+    dec = [c for c in calls if c["phase"] == "decode"]
+    step = {k: sum(c[k] * c["per_forward"] for c in dec)
+            for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms")}
+    return {
+        "name": "dscim_fused_mvm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dscim_fused.cu",
+        "replaces": "src/repro/kernels/dscim_fused.py:75",
+        "launches": launches["dscim_fused_mvm"],
+        "max_abs_err": max(c["max_abs_err"] for c in calls),
+        "ms": step["ms"], "wrapper_ms": step["wrapper_ms"],
+        "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
+        "bound_by": "bytes" if all(c["bound_by"] == "bytes" for c in dec)
+        else "operations",
+        "library_ms": None,
+        "per": "one decode step: 28 x (w_gate + w_up + w_down) + lm_head "
+               "at M=4",
+        "library": "n/a: no PyTorch call computes the DS-CIM estimator",
+        "tolerance": f"max abs err <= {FUSED_RTOL:g} x max|plain|",
+        "calls": calls}
+
+
+def check_paged(torch, cfg, cache, launches):
+    """Paged-attention kernel vs its plain version on the main run's final
+    pool (layer 0 and the last layer) with a random query."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_attention as pa
+
+    B, KV, HD = BATCH, cfg.n_kv, cfg.head_dim
+    R = cfg.n_heads // KV
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    if cache is None:       # the main path failed: a pool of its shapes
+        from repro_torch.core.kvcache import n_pages_for, paged_from_dense
+        shape = (cfg.n_layers, B, PROMPT + TOKENS, KV, HD)
+        kv = [torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(2)]
+        mp = n_pages_for(PROMPT + TOKENS, PAGE)
+        cache = paged_from_dense(*kv, PAGE, n_pages=B * mp, max_pages=mp)
+    q = torch.randn((B, KV, R, HD), generator=gen, device="cuda")
+    pos = cache["pos"] - 1          # the last decode step's position
+    table = cache["page_table"]
+    ps = cache["k_pages"].shape[2]
+    errs, out = [], {}
+    for li in (0, cfg.n_layers - 1):
+        args = (q, cache["k_pages"][li], cache["v_pages"][li],
+                cache["k_scale"][li], cache["v_scale"][li],
+                cache["k_tail"][li], cache["v_tail"][li], table, pos)
+        got = pa.paged_attention_decode(*args)
+        want = pa.paged_read_plain(*args)
+        errs.append(_check_close(f"paged_attention layer {li}", got, want,
+                                 PAGED_RTOL))
+    out["ms"] = _cuda_ms(lambda: pa._launch_kernel(*args), reps=50)
+    out["plain_ms"] = _cuda_ms(lambda: pa.paged_read_plain(*args), reps=10)
+    # library yardstick: SDPA over K/V already gathered and dequantized
+    # (the gather is not timed), one query per head, ragged mask
+    T = int(pos.max()) + 1
+    MP = table.shape[1]
+    kd = (args[1][table.long()].float() * args[3][table.long()][
+        :, :, None, :, None]).reshape(B, MP * ps, KV, HD)
+    vd = (args[2][table.long()].float() * args[4][table.long()][
+        :, :, None, :, None]).reshape(B, MP * ps, KV, HD)
+    rows = torch.arange(B, device="cuda")
+    for j in range(ps):                     # overlay the tails
+        tok = (pos // ps) * ps + j
+        kd[rows, tok] = args[5][:, j].float()
+        vd[rows, tok] = args[6][:, j].float()
+    kh = kd[:, :T].permute(0, 2, 1, 3).repeat_interleave(R, dim=1)
+    vh = vd[:, :T].permute(0, 2, 1, 3).repeat_interleave(R, dim=1)
+    qh = q.reshape(B, KV * R, 1, HD)
+    mask = (torch.arange(T, device="cuda")[None, :] <= pos[:, None])[
+        :, None, None, :]
+    lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    lib_err = float((lib.reshape(B, KV, R, HD) - got).abs().max())
+    out["library_ms"] = _cuda_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask), reps=50)
+    npages = (pos // ps).long()              # full pages read per slot
+    nbytes = (int(npages.sum()) * ps * HD * 2 * KV + 2 * 4 * int(
+        npages.sum()) * KV + 2 * 2 * B * ps * KV * HD + 4 * q.numel() * 2
+        + 4 * table.numel() + 4 * B)
+    flops = 4.0 * float((pos + 1).sum()) * KV * R * HD
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    _log(f"paged_attention: err {max(errs):.3e}, {out['ms']:.4f} ms "
+         f"(plain {out['plain_ms']:.3f} ms, sdpa {out['library_ms']:.4f} "
+         f"ms, bound {max(t_bytes, t_ops):.5f} ms; sdpa vs kernel max abs diff "
+         f"{lib_err:.2e})")
+    return {
+        "name": "paged_attention_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:95",
+        "launches": launches["paged_attention_decode"],
+        "max_abs_err": max(errs), "ms": out["ms"],
+        "plain_ms": out["plain_ms"], "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": out["library_ms"],
+        "per": f"one call: B={B} KV={KV} n_rep={R} HD={HD} ps={ps} "
+               f"pos={pos.tolist()} (the main run's last decode step)",
+        "library": "F.scaled_dot_product_attention over pre-gathered, "
+                   "dequantized K/V; excludes the gather",
+        "tolerance": f"max abs err <= {PAGED_RTOL:g} x max(1, max|plain|)"}
+
+
+def check_reduced(torch):
+    """Phase 5: the reduced config on the GPU (kernels) vs the CPU (plain
+    versions), same weights and prompts."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import logit_drift_rmse, serve_batch
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b").reduced(), dscim=DSCIM)
+    params = lm.init_params(cfg, 0, device="cpu")
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (3, 16))
+    res = {dev: serve_batch(cfg, params, prompts, 10, kv="int8",
+                            page_size=4, trace_logits=True, device=dev)
+           for dev in ("cpu", "cuda")}
+    (tc, lc), (tg, lg) = res["cpu"], res["cuda"]
+    drift = logit_drift_rmse(tc, tg, lc, lg)
+    _log(f"reduced config GPU vs CPU: first tokens {tg[:, 0].tolist()} vs "
+         f"{tc[:, 0].tolist()}, logit drift RMSE {drift:.3e}")
+    if not (tc[:, 0] == tg[:, 0]).all() or not drift <= 1e-3:
+        raise AssertionError("reduced config: GPU and CPU disagree")
+    return drift
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    if not (SRC / "repro_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
+              "checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    failures = []
+
+    def phase(name, fn, *args):
+        """Run one phase; a failure is reported and the later phases still
+        run (one run on the card shows every fault), but the script fails."""
+        try:
+            return fn(*args)
+        except Exception:                  # report, keep going, fail at end
+            traceback.print_exc()
+            failures.append(name)
+            _log(f"phase {name} FAILED")
+            return None
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.models import lm
+    _log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    t0 = time.time()
+    if phase("build", build.build) is None:
+        return 1
+    _log(f"built {list(build.SOURCES)} in {time.time() - t0:.1f} s")
+
+    cfg = get_arch("qwen3-0.6b")
+    params = lm.init_params(cfg, 0)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (BATCH, PROMPT))
+    launches, cache, e2e = phase("main_path", main_path, torch, cfg, params,
+                                 prompts) or (None, None, {})
+    prof = phase("profile", profile_main_path, torch, cfg, params, prompts)
+    counts = launches or {"dscim_fused_mvm": None,
+                          "paged_attention_decode": None}
+    kernels = [phase("dscim_fused", check_fused, torch, cfg, params, counts),
+               phase("paged_attention", check_paged, torch, cfg, cache,
+                     counts)]
+    drift = phase("reduced_gpu_vs_cpu", check_reduced, torch)
+    print(json.dumps({"kernels": kernels, "tok_s": e2e.get("tok_s"),
+                      "prefill_logit_rmse_vs_off": e2e.get("logit_rmse"),
+                      "reduced_gpu_vs_cpu_drift": drift,
+                      "profile": prof,
+                      "failed_phases": failures}), flush=True)
+    print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+    if failures or not smi:
+        print(f"chip_smoke: FAILED phases {failures}", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,186 @@
+"""GQA attention: chunked online-softmax prefill, dense-cache decode, and
+int8 paged-cache decode (port of ``repro/layers/attention.py``).
+
+Heads are laid out kv-major throughout: query head h = (g, r) with
+g = h // n_rep, which is what ``repeat_interleave`` of the kv heads gives
+on the dense path and what the paged kernel's (B, KV, n_rep, HD) query
+expects.  The decode paths update the caches they are handed in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.kvcache import quantize_page
+from ..core.qweights import QuantizedLinearWeight
+from ..kernels.paged_attention import NEG_INF, paged_attention_decode
+from .norms import qk_norm
+from .rope import apply_rope, rope_angles
+
+__all__ = ["attention", "decode_attention", "decode_attention_paged"]
+
+
+def _mm(x, w, linear):
+    """Projection matmul: exact by default, DS-CIM when ``linear`` given."""
+    if linear is None:
+        if isinstance(w, QuantizedLinearWeight):
+            raise TypeError("prepared attention weights need a DS-CIM "
+                            "`linear` operator (the '+attn' dscim mode)")
+        return x @ w
+    return linear(x, w).to(x.dtype)
+
+
+def _qkv(params, x, n_heads, n_kv, head_dim, positions, rope_theta,
+         use_qk_norm, linear=None):
+    B, S, _ = x.shape
+    n_heads = params["wq"].shape[-1] // head_dim
+    q = _mm(x, params["wq"], linear).reshape(B, S, n_heads, head_dim)
+    k = _mm(x, params["wk"], linear).reshape(B, S, n_kv, head_dim)
+    v = _mm(x, params["wv"], linear).reshape(B, S, n_kv, head_dim)
+    if use_qk_norm:
+        q = qk_norm(q, params.get("q_norm"))
+        k = qk_norm(k, params.get("k_norm"))
+    cos, sin = rope_angles(positions, head_dim, rope_theta)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 and compute on in f32: the reference's bf16-operand,
+    f32-accumulation einsums (products of bf16 values are exact in f32)."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _flash(q, k, v, q_pos, kv_pos, q_chunk: int, kv_chunk: int, n_rep: int):
+    """Online-softmax attention. q (B,S,H,D); k/v (B,T,Hkv,D); GQA grouped,
+    q/k/p/v rounded to bf16 with f32 statistics, as the reference does.
+    Square causal chunks walk only the lower-triangle (q, kv) chunk pairs.
+    Returns (B,S,H,D) in q's dtype."""
+    B, S, H, D = q.shape
+    T = k.shape[1]
+    G = k.shape[2]
+    scale = D ** -0.5
+    q_chunk = min(q_chunk, S)
+    kv_chunk = min(kv_chunk, T)
+    nq, nk = S // q_chunk, T // kv_chunk
+    if S % q_chunk or T % kv_chunk:
+        raise ValueError(f"chunks must divide: {(S, T, q_chunk, kv_chunk)}")
+    qc = q.reshape(B, nq, q_chunk, G, n_rep, D).permute(1, 0, 3, 4, 2, 5)
+    kc = k.reshape(B, nk, kv_chunk, G, D).permute(1, 0, 3, 2, 4)
+    vc = v.reshape(B, nk, kv_chunk, G, D).permute(1, 0, 3, 2, 4)
+    qp = q_pos.reshape(nq, q_chunk)
+    kp = kv_pos.reshape(nk, kv_chunk)
+    lower_only = S == T and q_chunk == kv_chunk and nq == nk
+    outs = []
+    for i in range(nq):
+        qi = _bf16(qc[i])
+        acc = torch.zeros((B, G, n_rep, q_chunk, D), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((B, G, n_rep, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        for j in range(i + 1 if lower_only else nk):
+            s = torch.einsum("bgrqd,bgkd->bgrqk", qi, _bf16(kc[j])) * scale
+            s = torch.where(qp[i][:, None] >= kp[j][None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bgrqk,bgkd->bgrqd", _bf16(p), _bf16(vc[j]))
+            m = m_new
+        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
+    out = torch.stack(outs)                      # (nq, B, G, R, cq, D)
+    return out.permute(1, 0, 4, 2, 3, 5).reshape(B, S, H, D).to(q.dtype)
+
+
+def attention(params, x, cfg, positions=None, q_chunk: int = 512,
+              return_kv: bool = False, linear=None):
+    """Full-sequence (prefill) GQA attention block.  Returns
+    (out, (k, v)) with the cacheable projections, or (out, None)."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
+    q, k, v = _qkv(params, x, cfg.n_heads, cfg.n_kv, cfg.head_dim,
+                   positions, cfg.rope_theta, cfg.qk_norm, linear)
+    n_rep = q.shape[2] // cfg.n_kv
+    pos1 = positions[0]
+    out = _flash(q, k, v, pos1, pos1, q_chunk, q_chunk, n_rep)
+    out = _mm(out.reshape(B, S, -1), params["wo"], linear)
+    return (out, (k, v)) if return_kv else (out, None)
+
+
+def decode_attention(params, x, cache_k, cache_v, pos, cfg, linear=None):
+    """Single-token decode against a dense cache, written in place.
+
+    x (B,1,D); cache_k/v (B, T, KV, HD); pos (B,) per-slot valid prefix
+    lengths (each row writes and masks at its own position).
+    Returns out (B,1,D)."""
+    B = x.shape[0]
+    T = cache_k.shape[1]
+    q, k, v = _qkv(params, x, cfg.n_heads, cfg.n_kv, cfg.head_dim,
+                   pos[:, None], cfg.rope_theta, cfg.qk_norm, linear)
+    rows = torch.arange(B, device=x.device)
+    cache_k[rows, pos.long()] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, pos.long()] = v[:, 0].to(cache_v.dtype)
+    mask = torch.arange(T, device=x.device)[None, None, None, :] \
+        <= pos[:, None, None, None]
+    n_rep = q.shape[2] // cfg.n_kv
+    kr = torch.repeat_interleave(cache_k, n_rep, dim=2)
+    vr = torch.repeat_interleave(cache_v, n_rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     kr.to(torch.float32)) * cfg.head_dim ** -0.5
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vr.to(torch.float32))
+    return _mm(out.reshape(B, 1, -1).to(x.dtype), params["wo"], linear)
+
+
+def decode_attention_paged(params, x, view, cfg, linear=None, done=None):
+    """Single-token decode against one layer of the int8 paged KV cache.
+
+    ``view`` holds one layer's k/v_pages (P, ps, KV, HD) int8, k/v_scale
+    (P, KV) f32, k/v_tail (B, ps, KV, HD) bf16 and the shared page_table
+    (B, MP) int32 and pos (B,) int32.  In order:
+
+    1. the new token is written to the slot's tail at ``pos % ps``;
+    2. the page walk reads pages + tail (``paged_attention_decode``: the
+       CUDA kernel on the card, its plain version on the CPU);
+    3. a tail that just filled is quantized once and flushed to its
+       physical page (done slots neither write nor flush).
+
+    The view's tensors are updated in place; pos advances at the model
+    level.  Returns out (B,1,D)."""
+    B = x.shape[0]
+    pos = view["pos"]
+    page_table = view["page_table"]
+    k_pages, v_pages = view["k_pages"], view["v_pages"]
+    k_scale, v_scale = view["k_scale"], view["v_scale"]
+    k_tail, v_tail = view["k_tail"], view["v_tail"]
+    ps, KV, HD = k_pages.shape[1:]
+    q, k, v = _qkv(params, x, cfg.n_heads, cfg.n_kv, cfg.head_dim,
+                   pos[:, None], cfg.rope_theta, cfg.qk_norm, linear)
+    rows = torch.arange(B, device=x.device)
+    off = (pos % ps).long()
+    for tail, val in ((k_tail, k), (v_tail, v)):
+        new = val[:, 0].to(tail.dtype)
+        if done is not None:
+            new = torch.where(done[:, None, None], tail[rows, off], new)
+        tail[rows, off] = new
+
+    n_rep = q.shape[2] // KV
+    qf = q[:, 0].to(torch.float32).reshape(B, KV, n_rep, HD).contiguous()
+    out = paged_attention_decode(qf, k_pages, v_pages, k_scale, v_scale,
+                                 k_tail, v_tail, page_table, pos)
+    out = out.reshape(B, 1, -1).to(x.dtype)
+
+    # flush: slots whose tail just filled write the quantized page; the
+    # others rewrite their tail page's current contents (no host sync)
+    full = (pos + 1) % ps == 0
+    if done is not None:
+        full = full & ~done
+    phys = page_table[rows, (pos // ps).long()].long()
+    for tail, pages, scales in ((k_tail, k_pages, k_scale),
+                                (v_tail, v_pages, v_scale)):
+        qt, st = quantize_page(tail)
+        pages[phys] = torch.where(full[:, None, None, None], qt, pages[phys])
+        scales[phys] = torch.where(full[:, None], st, scales[phys])
+    return _mm(out, params["wo"], linear)

@@ -1,0 +1,29 @@
+"""SwiGLU feed-forward block with an optional DS-CIM linear (port of
+``repro/layers/mlp.py``).  Weights may be float matrices or prepared
+``QuantizedLinearWeight``s; the latter need a DS-CIM ``linear``."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..core.qweights import QuantizedLinearWeight
+
+__all__ = ["mlp"]
+
+
+def mlp(params, x: torch.Tensor, kind: str = "swiglu", linear=None
+        ) -> torch.Tensor:
+    """linear: optional callable (x, w) -> y (e.g. DSCIMLinear), whose f32
+    output is cast back to the activation dtype."""
+    def mm(a, w):
+        if linear is None:
+            if isinstance(w, QuantizedLinearWeight):
+                raise TypeError("prepared (QuantizedLinearWeight) params "
+                                "need a DS-CIM `linear` operator")
+            return a @ w
+        return linear(a, w).to(a.dtype)
+
+    if kind != "swiglu":
+        raise NotImplementedError(f"mlp kind {kind!r} is not ported yet")
+    h = F.silu(mm(x, params["w_gate"])) * mm(x, params["w_up"])
+    return mm(h, params["w_down"])
