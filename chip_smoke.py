@@ -25,7 +25,24 @@ In order it
    ``scaled_dot_product_attention`` call over pre-gathered K/V; for the
    fused MVM it also prints the estimator's RMSE against the exact f32
    product ``x @ w`` at each shape (the accuracy DS-CIM costs);
-5. serves the reduced config on the GPU and on the CPU (plain versions)
+5. drives the DS-CIM operator path (``operators``): at qwen3-0.6b's MLP
+   shapes (M, K, N) = (256, 1024, 3072), (256, 3072, 1024) and (4, 1024,
+   3072), int8 operands from seed 0, it calls ``ops.int8_matmul`` (the
+   exact DCIM baseline), ``ops.dscim_mvm`` (all-L counts) and
+   ``dscim_counts_blocked`` for dscim1/L256 and dscim2/L64, the staged
+   per-window path ``dscim_windowed_vmap_mvm`` beside the fused one at
+   (256, 1024) x (1024, 3072), and ``flash_attention`` at (BH, S, d) =
+   (64, 1024, 128) in bf16 and f32 and (64, 64, 128) in bf16; the four
+   wrappers' launch counters are zeroed before and read after.  Then it
+   holds each result against its plain version (counts and int8 products
+   bitwise; the all-L plain counts on an N = 384 column slice, where the
+   full expansion is GBs), checks the blocked and all-L counts identical,
+   and times kernel, plain version, bound and the library yardstick
+   (``torch._int_mm``, ``scaled_dot_product_attention``);
+6. computes Table I through the card (``table1``): for all 12 presets the
+   counts of ``DSCIMMacro.rmse``'s operands through the count kernel must
+   equal the LUT's, and the RMSE must equal the JAX reference's;
+7. serves the reduced config on the GPU and on the CPU (plain versions)
    and checks that they agree.
 
 Then it prints a ``{"kernels": [...]}`` JSON line, the card's name and
@@ -48,12 +65,40 @@ SRC = ROOT / "src"
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12
 
 BATCH, PROMPT, TOKENS, PAGE = 4, 64, 16, 8
 DSCIM = "kernel:dscim1:256"
 FUSED_RTOL = 2e-5            # f32 summation order; counts are exact
 PAGED_RTOL = 1e-5            # f32 summation order of dot products / sums
+MVM_RTOL = 2e-5              # f32 correction terms; counts are exact
+FLASH_F32_ATOL = 3e-5        # the reference test's own tolerance
+# bf16 flash output against the plain version in f32 on the same bf16
+# inputs: the output's bf16 rounding (2^-8 relative) plus f32 order
+FLASH_BF16_RTOL = 8e-3
+OPS_SHAPES = ((256, 1024, 3072), (256, 3072, 1024), (4, 1024, 3072))
+OPS_PRESETS = (("dscim1", 256, "paper"), ("dscim2", 64, "paper"))
+SLICE_N = 384                # columns of the all-L plain count check
+FLASH_SHAPES = ((64, 1024, 128, "bfloat16"), (64, 1024, 128, "float32"),
+                (64, 64, 128, "bfloat16"))
+# Table I RMSE (unsigned full scale, %) of the JAX reference on the CPU:
+# benchmarks/t1_rmse.py run(), n_cols=256, n_vec=48, seed 0, uniform
+TABLE1_JAX = {
+    ("dscim1", 64, "paper"): 1.274342095885992,
+    ("dscim1", 64, "opt"): 0.9307239216821117,
+    ("dscim1", 128, "paper"): 0.7895493662023146,
+    ("dscim1", 128, "opt"): 0.6598209910414785,
+    ("dscim1", 256, "paper"): 0.4810205967700286,
+    ("dscim1", 256, "opt"): 0.29943956884213574,
+    ("dscim2", 64, "paper"): 2.7825406881695876,
+    ("dscim2", 64, "opt"): 2.378362476702778,
+    ("dscim2", 128, "paper"): 2.0183949099876872,
+    ("dscim2", 128, "opt"): 1.7375698968971294,
+    ("dscim2", 256, "paper"): 1.306199180683843,
+    ("dscim2", 256, "opt"): 1.0482831949140168,
+}
+TABLE1_RTOL = 1e-5
 
 
 def _log(msg: str) -> None:
@@ -360,8 +405,325 @@ def check_paged(torch, cfg, cache, launches):
         "tolerance": f"max abs err <= {PAGED_RTOL:g} x max(1, max|plain|)"}
 
 
+def _bound(nbytes, ops, ops_per_s):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the peak rate for their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _operands(torch):
+    """int8 (x, w) on the card for each of OPS_SHAPES, from seed 0."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return {shape: tuple(torch.from_numpy(rng.integers(
+        -128, 128, dims).astype(np.int8)).cuda() for dims in
+        ((shape[0], shape[1]), (shape[1], shape[2])))
+        for shape in OPS_SHAPES}
+
+
+def drive_operators(torch):
+    """Phase 5a: the operator path once, through the calls a user makes,
+    with the four new wrappers' launch counters zeroed just before and
+    read just after.  Returns (inputs, outputs, launches)."""
+    import numpy as np
+
+    from repro_torch.core.seed_search import calibrated_config
+    from repro_torch.kernels import (dscim_fused, dscim_mvm,
+                                     dscim_mvm_blocked, flash_attention,
+                                     int8_matmul, ops)
+
+    counters = {"int8_matmul": int8_matmul.LAUNCHES,
+                "dscim_counts": dscim_mvm.LAUNCHES,
+                "dscim_counts_blocked": dscim_mvm_blocked.LAUNCHES,
+                "flash_attention": flash_attention.LAUNCHES}
+    operands = _operands(torch)
+    rng = np.random.default_rng(1)
+    xs = torch.from_numpy(rng.normal(0, 1, (256, 1024)).astype(
+        np.float32)).cuda()
+    ws = torch.from_numpy(rng.normal(0, 1, (1024, 3072)).astype(
+        np.float32)).cuda()
+    qkv = {}
+    for bh, s_len, d, dt in FLASH_SHAPES:
+        qkv[(bh, s_len, d, dt)] = tuple(torch.from_numpy(rng.normal(
+            0, 1, (bh, s_len, d)).astype(np.float32)).cuda().to(
+            getattr(torch, dt)) for _ in range(3))
+    cfg1 = calibrated_config("dscim1", 256)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    out = {}
+    for shape, (x, w) in operands.items():
+        out[("int8", shape)] = ops.int8_matmul(x, w)
+        for key in OPS_PRESETS:
+            cfg = calibrated_config(*key)
+            out[("mvm", shape, key)] = ops.dscim_mvm(x, w, cfg)
+            out[("blocked", shape, key)] = \
+                dscim_mvm_blocked.dscim_counts_blocked(x, w, cfg)
+    out["staged"] = dscim_fused.dscim_windowed_vmap_mvm(xs, ws, cfg1,
+                                                        group_k=128)
+    out["fused"] = dscim_fused.dscim_fused_mvm(xs, ws, cfg1, group_k=128)
+    for key, (q, k, v) in qkv.items():
+        out[("flash", key)] = flash_attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    launches = {n: c.count for n, c in counters.items()}
+    n_sh, n_pre = len(OPS_SHAPES), len(OPS_PRESETS)
+    want = {"int8_matmul": n_sh, "dscim_counts": n_sh * n_pre,
+            "dscim_counts_blocked": n_sh * n_pre + 1024 // 128,
+            "flash_attention": len(FLASH_SHAPES)}
+    _log(f"launches on the operator path: {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"operator launch counts {launches} != {want}")
+    return {"operands": operands, "xs": xs, "ws": ws, "qkv": qkv,
+            "cfg1": cfg1}, out, launches
+
+
+def check_int8(torch, inp, out, launches):
+    """int8 GEMM vs its plain version (bitwise) and ``torch._int_mm``."""
+    from repro_torch.kernels import int8_matmul as im
+
+    calls = []
+    for shape, (x, w) in inp["operands"].items():
+        M, K, N = shape
+        got = out[("int8", shape)]
+        want = im.int8_matmul_plain(x, w)
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8_matmul {shape}: not bitwise equal, "
+                                 f"max diff {(got - want).abs().max()}")
+        # _int_mm needs M > 16: pad the rows with zeros (not timed apart)
+        mp = max(32, -(-M // 8) * 8)
+        xp = torch.zeros((mp, K), dtype=torch.int8, device="cuda")
+        xp[:M] = x
+        lib = torch._int_mm(xp, w)[:M]
+        if not torch.equal(lib, got):
+            raise AssertionError(f"torch._int_mm disagrees at {shape}")
+        ms = _cuda_ms(lambda: im._launch_kernel(x, w), reps=50)
+        plain_ms = _cuda_ms(lambda: im.int8_matmul_plain(x, w), reps=10)
+        lib_ms = _cuda_ms(lambda: torch._int_mm(xp, w), reps=50)
+        bound, by = _bound(M * K + K * N + 4 * M * N, 2.0 * M * N * K,
+                           INT8_OPS_PER_S)
+        calls.append({"shape": f"M={M} K={K} N={N}", "max_abs_err": 0.0,
+                      "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "library_rows": mp, "bound_ms": bound, "bound_by": by})
+        _log(f"int8_matmul {shape}: bitwise equal; {ms:.4f} ms (plain "
+             f"{plain_ms:.4f}, _int_mm {lib_ms:.4f} at M={mp}, bound "
+             f"{bound:.5f} {by})")
+    head = calls[0]
+    return {"name": "int8_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
+            "replaces": "src/repro/kernels/int8_matmul.py:22",
+            "launches": launches["int8_matmul"], "max_abs_err": 0.0,
+            **{k: head[k] for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by")},
+            "per": f"one call at {head['shape']} (the MLP up projection "
+                   "at 256 rows); every shape in calls",
+            "library": "torch._int_mm (cuBLASLt int8), rows zero-padded "
+                       "to a multiple of 8 above 16",
+            "tolerance": "bitwise", "calls": calls}
+
+
+def check_counts(torch, inp, out, launches):
+    """The count kernel through both wrappers: all-L (row 6) and blocked
+    (row 5) counts identical to each other and to their plain versions
+    (the all-L one on an N = SLICE_N column slice), ``ops.dscim_mvm``
+    against the estimate from the plain counts, and the staged path
+    against the fused one."""
+    from repro_torch.core.seed_search import calibrated_config
+    from repro_torch.kernels import build, dscim_fused, dscim_mvm, ops
+    from repro_torch.kernels import dscim_mvm_blocked as blocked
+
+    timing = build.LaunchCounter("timing, not counted")
+    rows = {"dscim_counts": [], "dscim_counts_blocked": []}
+    mvm_err = 0.0
+    for shape, (x, w) in inp["operands"].items():
+        M, K, N = shape
+        for key in OPS_PRESETS:
+            cfg = calibrated_config(*key)
+            name = f"{key[0]}/L{key[1]} M={M} K={K} N={N}"
+            pts = ops.fold_constants(cfg)
+            c5 = out[("blocked", shape, key)]
+            c6 = dscim_mvm.dscim_counts(x, w, *pts, k=cfg.k,
+                                        length=cfg.length)
+            p5 = blocked.dscim_counts_blocked_plain(x, w, cfg)
+            ws = w[:, :SLICE_N].contiguous()
+            p6 = dscim_mvm.dscim_counts_plain(x, ws, *pts, cfg.k)
+            for what, a, b in (("blocked vs all-L", c5, c6),
+                               ("blocked vs plain", c5, p5),
+                               (f"all-L vs plain, N[:{SLICE_N}]",
+                                c6[:, :SLICE_N], p6)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"counts {name} {what}: differ by "
+                                         f"{(a - b).abs().max()}")
+            est = out[("mvm", shape, key)]
+            mvm_err = max(mvm_err, _check_close(
+                f"dscim_mvm {name}", est, ops.mvm_from_counts(x, w, p5, cfg),
+                MVM_RTOL))
+            pmax = blocked.block_point_tables(cfg)[2]
+            t6 = dscim_mvm.point_tables(*pts, cfg.k, x.device)
+            t5 = blocked.count_tables(cfg, x.device)
+            W = t5[0].shape[-1]
+            nbytes = M * K + K * N + 4 * M * N + 2 * 4 * t5[0].numel()
+            bound, by = _bound(nbytes, 2.0 * M * N * K * pmax,
+                               INT8_OPS_PER_S)
+            reps = 20 if M > 16 else 50
+            common = {"shape": name, "pmax": pmax, "words": W,
+                      "bound_ms": bound, "bound_by": by,
+                      "max_abs_err": 0.0}
+            ms6 = _cuda_ms(lambda: dscim_mvm.launch_counts(
+                x, w, *t6, cfg.k, timing), reps)
+            ms5 = _cuda_ms(lambda: dscim_mvm.launch_counts(
+                x, w, *t5, cfg.k, timing), reps)
+            rows["dscim_counts"].append({**common, "ms": ms6,
+                "wrapper_ms": _cuda_ms(lambda: ops.dscim_mvm(x, w, cfg),
+                                       reps),
+                "plain_ms": _cuda_ms(lambda: dscim_mvm.dscim_counts_plain(
+                    x, ws, *pts, cfg.k), reps=2, warmup=1),
+                "plain_on": f"N[:{SLICE_N}] only"})
+            rows["dscim_counts_blocked"].append({**common, "ms": ms5,
+                "wrapper_ms": _cuda_ms(
+                    lambda: blocked.dscim_counts_blocked(x, w, cfg), reps),
+                "plain_ms": _cuda_ms(
+                    lambda: blocked.dscim_counts_blocked_plain(x, w, cfg),
+                    reps=2, warmup=1)})
+            _log(f"counts {name}: blocked == all-L == plain (all-L plain on "
+                 f"N[:{SLICE_N}]); kernel {ms6:.4f} ms all-L tables, "
+                 f"{ms5:.4f} ms blocked tables (W={W}, pmax={pmax}); plain "
+                 f"{rows['dscim_counts'][-1]['plain_ms']:.3f} ms on the "
+                 f"slice, {rows['dscim_counts_blocked'][-1]['plain_ms']:.3f}"
+                 f" ms blocked; bound {bound:.5f} ms ({by})")
+    # staged (one blocked launch per window) against fused, same operands
+    cfg1, xs, wsf = inp["cfg1"], inp["xs"], inp["ws"]
+    staged_err = _check_close("staged vs fused", out["staged"], out["fused"],
+                              MVM_RTOL)
+    staged_ms = _cuda_ms(lambda: dscim_fused.dscim_windowed_vmap_mvm(
+        xs, wsf, cfg1, group_k=128), reps=10)
+    fused_ms = _cuda_ms(lambda: dscim_fused.dscim_fused_mvm(
+        xs, wsf, cfg1, group_k=128), reps=10)
+    _log(f"staged vs fused at (256, 1024) x (1024, 3072), dscim1/L256: err "
+         f"{staged_err:.3e}; staged {staged_ms:.4f} ms, fused "
+         f"{fused_ms:.4f} ms (both from float x and w)")
+    result = []
+    for name, src_line, extra in (
+            ("dscim_counts", "src/repro/kernels/dscim_mvm.py:34",
+             {"dscim_mvm_max_abs_err": mvm_err,
+              "plain_on": f"plain_ms times the all-L expansion on the "
+                          f"N[:{SLICE_N}] column slice"}),
+            ("dscim_counts_blocked",
+             "src/repro/kernels/dscim_mvm_blocked.py:63",
+             {"staged_ms": staged_ms, "fused_ms": fused_ms,
+              "staged_vs_fused_max_abs_err": staged_err})):
+        head = rows[name][0]
+        result.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dscim_counts.cu",
+            "replaces": src_line, "launches": launches[name],
+            "max_abs_err": 0.0,
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by")},
+            "library_ms": None,
+            "per": f"one call at {head['shape']}; every shape in calls",
+            "library": "n/a: no PyTorch call computes the OR counts",
+            "tolerance": "bitwise (counts); dscim_mvm and staged: "
+                         f"{MVM_RTOL:g} x max|plain|",
+            **extra, "calls": rows[name]})
+    return result
+
+
+def check_flash(torch, inp, out, launches):
+    """Flash attention vs its plain version (f32 softmax on the same
+    inputs) and ``scaled_dot_product_attention(is_causal=True)``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    calls = []
+    for key, (q, k, v) in inp["qkv"].items():
+        bh, s_len, d, dt = key
+        got = out[("flash", key)]
+        want = fa.flash_attention_plain(q.float(), k.float(), v.float())
+        if dt == "float32":
+            err = float((got - want).abs().max())
+            ok = err <= FLASH_F32_ATOL
+        else:
+            err = float(((got.float() - want).abs()
+                         / want.abs().clamp_min(1.0)).max())
+            ok = err <= FLASH_BF16_RTOL
+        if not ok or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash {key}: error {err:.3e}")
+        # (1, BH, S, d): SDPA's fused backends take 4-D inputs only; on
+        # 3-D ones it falls back to its unfused math path
+        q4, k4, v4 = q[None], k[None], v[None]
+        lib = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)[0]
+        lib_err = float((lib.float() - want).abs().max())
+        reps = 5 if s_len > 256 else 50
+        ms = _cuda_ms(lambda: fa._launch_kernel(q, k, v), reps)
+        plain_ms = _cuda_ms(lambda: fa.flash_attention_plain(q, k, v),
+                            reps=3, warmup=1)
+        lib_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), reps)
+        flops = 4.0 * bh * d * s_len * (s_len + 1) / 2
+        bound, by = _bound(4 * q.numel() * q.element_size(), flops,
+                           BF16_FLOPS_PER_S if dt == "bfloat16"
+                           else F32_FLOPS_PER_S)
+        calls.append({"shape": f"BH={bh} S={s_len} d={d} {dt}",
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "library_max_abs_diff": lib_err,
+                      "bound_ms": bound, "bound_by": by})
+        _log(f"flash {calls[-1]['shape']}: err {err:.3e}, {ms:.4f} ms "
+             f"(plain {plain_ms:.3f}, sdpa {lib_ms:.4f} [max diff to plain "
+             f"{lib_err:.2e}], bound {bound:.5f} {by})")
+    head = calls[0]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:29",
+            "launches": launches["flash_attention"],
+            "max_abs_err": max(c["max_abs_err"] for c in calls
+                               if "float32" in c["shape"]),
+            **{k: head[k] for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by")},
+            "per": f"one call at {head['shape']}; every shape in calls "
+                   "(f32 bound at the 67 TFLOP/s f32 rate, bf16 at 989)",
+            "library": "F.scaled_dot_product_attention(is_causal=True) on "
+                       "(1, BH, S, d)",
+            "tolerance": f"f32: max abs err <= {FLASH_F32_ATOL:g}; bf16: "
+                         f"|err| <= {FLASH_BF16_RTOL:g} x max(1, |plain|) "
+                         "against the plain version in f32 on the same "
+                         "bf16 inputs (max_abs_err lists the f32 calls)",
+            "calls": calls}
+
+
+def table1(torch):
+    """Phase 6: Table I through the card: each preset's rmse operands go
+    through the count kernel; counts equal to the LUT's, RMSE equal to the
+    JAX reference's to TABLE1_RTOL."""
+    from repro_torch.core.macro import DSCIMMacro, rmse_operands
+    from repro_torch.core.seed_search import calibrated_config
+    from repro_torch.kernels import dscim_mvm
+
+    dscim_mvm.LAUNCHES.reset()
+    res = {}
+    for key, want in TABLE1_JAX.items():
+        mac = DSCIMMacro(calibrated_config(*key))
+        x, w = (torch.as_tensor(a, dtype=torch.int32, device="cuda")
+                for a in rmse_operands(mac.cfg.rows, 256, 48, 0, "uniform"))
+        counts = dscim_mvm.dscim_counts(x, w, *mac.folded, k=mac.cfg.k,
+                                        length=mac.cfg.length)
+        lut = mac.counts_lut(x, w)
+        if not torch.equal(counts, lut.to(torch.float32)):
+            raise AssertionError(f"table1 {key}: kernel counts != LUT")
+        got = mac.rmse(n_cols=256, n_vec=48, seed=0, backend="kernel",
+                       device="cuda")["unsigned_fullscale"]
+        res["/".join(map(str, key))] = got
+        _log(f"table1 {key}: RMSE {got:.6f} % (JAX {want:.6f} %)")
+        if abs(got - want) > TABLE1_RTOL * want:
+            raise AssertionError(f"table1 {key}: {got} vs JAX {want}")
+    _log(f"table1: {dscim_mvm.LAUNCHES.count} count-kernel launches")
+    return res
+
+
 def check_reduced(torch):
-    """Phase 5: the reduced config on the GPU (kernels) vs the CPU (plain
+    """Phase 7: the reduced config on the GPU (kernels) vs the CPU (plain
     versions), same weights and prompts."""
     import numpy as np
 
@@ -441,10 +803,25 @@ def main() -> int:
     kernels = [phase("dscim_fused", check_fused, torch, cfg, params, counts),
                phase("paged_attention", check_paged, torch, cfg, cache,
                      counts)]
+    del cache
+    ops_in, ops_out, ops_launches = phase(
+        "operators", drive_operators, torch) or (None, None, None)
+    if ops_in is None:
+        kernels += [None] * 4
+    else:
+        kernels.append(phase("int8_matmul", check_int8, torch, ops_in,
+                             ops_out, ops_launches))
+        kernels += phase("counts", check_counts, torch, ops_in, ops_out,
+                         ops_launches) or [None, None]
+        kernels.append(phase("flash_attention", check_flash, torch, ops_in,
+                             ops_out, ops_launches))
+    del ops_in, ops_out
+    t1 = phase("table1", table1, torch)
     drift = phase("reduced_gpu_vs_cpu", check_reduced, torch)
     print(json.dumps({"kernels": kernels, "tok_s": e2e.get("tok_s"),
                       "prefill_logit_rmse_vs_off": e2e.get("logit_rmse"),
                       "reduced_gpu_vs_cpu_drift": drift,
+                      "table1_rmse_pct": t1,
                       "profile": prof,
                       "failed_phases": failures}), flush=True)
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)

@@ -22,7 +22,8 @@ __all__ = ["LaunchCounter", "build", "load", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("dscim_fused", "paged_attention")
+SOURCES = ("dscim_fused", "paged_attention", "dscim_counts", "int8_matmul",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

@@ -20,24 +20,29 @@ tables; the plain version as the reference's {0,1} bit-expansion matmul,
 window by window and in N chunks (a one-shot expansion at the head's
 shape, K=1024, N=152064, pmax=18, would need about 11 GB).  Float outputs
 agree with the reference to f32 summation-order rounding.
+
+``dscim_windowed_vmap_mvm`` is the staged per-window path the fused kernel
+replaced, kept as its A/B baseline: one ``dscim_counts_blocked`` launch
+per window, the psum staged in memory, corrections and dequant in
+separate passes.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from ..core.macro import DSCIMConfig
 from ..core.qweights import QuantizedLinearWeight, prepare_linear_weight
 from ..core.quant import QuantizedTensor, quantize_int8
 from . import build
-from .dscim_mvm_blocked import block_point_tables
+from .dscim_mvm import count_mask_tables
+from .dscim_mvm_blocked import block_point_tables, dscim_counts_blocked
 
 __all__ = ["dscim_fused_mvm", "dscim_fused_mvm_prepared",
            "dscim_fused_mvm_plain", "quantize_activations_windowed",
-           "mask_tables", "LAUNCHES"]
+           "mask_tables", "dscim_windowed_vmap_mvm", "LAUNCHES"]
 
 LAUNCHES = build.LaunchCounter("dscim_fused_mvm")
 _N_CHUNK = 16384          # plain version: output columns per bit expansion
@@ -68,19 +73,15 @@ def _estimator_constants(cfg: DSCIMConfig, g: int):
 def mask_tables(cfg: DSCIMConfig):
     """(G, S) uint32 bit masks over each block's points:
     ta[g, a] = {p : lu[g,p] < a}, tb[g, b] = {p : lv[g,p] < b}; so the
-    count of one row is popcount(ta[g, a] & tb[g, b]).  Returned as int32
-    arrays (same bits) for torch."""
+    count of one row is popcount(ta[g, a] & tb[g, b]).  The one-word case
+    of ``dscim_mvm.count_mask_tables``, returned as int32 arrays (same
+    bits) for torch."""
     tu, tv, pmax = block_point_tables(cfg)
     if pmax > 32:
         raise ValueError(f"{cfg.name}: {pmax} points per block exceed the "
                          "kernel's 32-bit masks")
-    S = cfg.sbits
-    vals = np.arange(S, dtype=np.int64)[None, :, None]
-    bits = np.int64(1) << np.arange(tu.shape[1], dtype=np.int64)
-    ta = ((tu[:, None, :] < vals) * bits).sum(-1)
-    tb = ((tv[:, None, :] < vals) * bits).sum(-1)
-    return (ta.astype(np.uint32).view(np.int32),
-            tb.astype(np.uint32).view(np.int32))
+    ta, tb = count_mask_tables(tu, tv, cfg.sbits)
+    return ta[..., 0], tb[..., 0]
 
 
 @functools.lru_cache(maxsize=32)
@@ -192,3 +193,42 @@ def dscim_fused_mvm(x: torch.Tensor, w: torch.Tensor, cfg: DSCIMConfig, *,
     """Fused DS-CIM linear from float weights: ``prepare_linear_weight``
     + the prepared entry."""
     return dscim_fused_mvm_prepared(x, prepare_linear_weight(w, group_k), cfg)
+
+
+def dscim_windowed_vmap_mvm(x: torch.Tensor, w: torch.Tensor,
+                            cfg: DSCIMConfig, *,
+                            group_k: int | None = 128) -> torch.Tensor:
+    """The staged path (the reference's per-window ``vmap``), kept as the
+    fused path's A/B baseline: x (..., K), w (K, N) float -> (..., N) f32.
+
+    One ``dscim_counts_blocked`` launch per quantization window; the psum
+    (M, nw, N) is staged in memory, and the corrections and the dequant
+    are separate passes.  The window's float-zero pad rows are real
+    estimator rows (x = 0 fires), as in the reference."""
+    lead = x.shape[:-1]
+    K = x.shape[-1]
+    N = w.shape[-1]
+    qw = prepare_linear_weight(w, group_k)
+    nw, g = qw.nw, qw.g
+    xq = quantize_activations_windowed(x.reshape(-1, K), nw, g)
+    M = xq.q.shape[0]
+    scale, c1, wconst = _estimator_constants(cfg, g)
+    psum = torch.empty((M, nw, N), dtype=torch.float32, device=x.device)
+    for u in range(nw):
+        xg = xq.q[:, u].contiguous()                      # (M, g) int8
+        wg = qw.q[u]                                      # (g, N) int8
+        counts = dscim_counts_blocked(xg, wg, cfg)
+        x32 = xg.to(torch.int32)
+        w32 = wg.to(torch.int32)
+        p = scale * counts \
+            - 128.0 * x32.sum(-1, keepdim=True).to(torch.float32) \
+            - 128.0 * (w32 + 128).sum(0, keepdim=True).to(torch.float32)
+        if c1:
+            a = (x32 + 128) >> cfg.k
+            b = (w32 + 128) >> cfg.k
+            p = p + c1 * (a.sum(-1, keepdim=True)
+                          + b.sum(0, keepdim=True)).to(torch.float32) \
+                + wconst
+        psum[:, u] = p
+    out = (psum * xq.scale.reshape(M, nw, 1) * qw.scale[None]).sum(1)
+    return out.reshape(*lead, N)

@@ -84,3 +84,109 @@ def test_paged_kernel_vs_plain(cuda, ps, KV, R, HD):
     torch.cuda.synchronize()
     _close(got.cpu(), want, 1e-5)
 
+
+
+def _int8_pair(cuda, seed, M, K, N):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (K, N)).astype(np.int8))
+    return x.to(cuda), w.to(cuda)
+
+
+@pytest.mark.parametrize("key", [("dscim1", 256, "paper"),
+                                 ("dscim2", 64, "paper"),
+                                 ("dscim1", 64, "opt"),
+                                 ("dscim2", 256, "opt")])
+@pytest.mark.parametrize("M,K,N", [(1, 1, 1), (3, 100, 17), (9, 300, 65),
+                                   (37, 1024, 40)])
+def test_count_kernels_vs_plain(cuda, key, M, K, N):
+    """Both count wrappers (all-L and blocked) launch the count kernel;
+    each is bitwise equal to its plain version and to the other."""
+    from repro_torch.core.seed_search import calibrated_config
+    from repro_torch.kernels import dscim_mvm, dscim_mvm_blocked, ops
+
+    cfg = calibrated_config(*key)
+    x, w = _int8_pair(cuda, M * K + N, M, K, N)
+    pts = ops.fold_constants(cfg)
+    before = (dscim_mvm.LAUNCHES.count, dscim_mvm_blocked.LAUNCHES.count)
+    c6 = dscim_mvm.dscim_counts(x, w, *pts, k=cfg.k, length=cfg.length)
+    c5 = dscim_mvm_blocked.dscim_counts_blocked(x, w, cfg)
+    torch.cuda.synchronize()
+    assert (dscim_mvm.LAUNCHES.count, dscim_mvm_blocked.LAUNCHES.count) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(c6, dscim_mvm.dscim_counts_plain(x, w, *pts, cfg.k))
+    assert torch.equal(c5,
+                       dscim_mvm_blocked.dscim_counts_blocked_plain(x, w, cfg))
+    assert torch.equal(c5, c6)
+
+
+def test_count_kernel_all_points_in_one_block(cuda):
+    """All L=256 points in one block of k=3 (8-word masks, 128 KB of
+    tables): the kernel equals the all-L plain version."""
+    from repro_torch.kernels import dscim_mvm
+
+    rng = np.random.default_rng(8)
+    L, k = 256, 3
+    pts = [torch.full((L,), 3, dtype=torch.int32),
+           torch.from_numpy(rng.integers(0, 32, L).astype(np.int32)),
+           torch.full((L,), 6, dtype=torch.int32),
+           torch.from_numpy(rng.integers(0, 32, L).astype(np.int32))]
+    x, w = _int8_pair(cuda, 8, 20, 260, 70)
+    got = dscim_mvm.dscim_counts(x, w, *pts, k=k, length=L)
+    assert torch.equal(got, dscim_mvm.dscim_counts_plain(x, w, *pts, k))
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 1, 1), (7, 33, 5), (37, 300, 65),
+                                   (65, 129, 130), (4, 1024, 3072)])
+def test_int8_matmul_kernel_vs_plain(cuda, M, K, N):
+    from repro_torch.kernels import int8_matmul as im
+
+    x, w = _int8_pair(cuda, M + K + N, M, K, N)
+    before = im.LAUNCHES.count
+    got = im.int8_matmul(x, w)
+    torch.cuda.synchronize()
+    assert im.LAUNCHES.count == before + 1
+    assert torch.equal(got, im.int8_matmul_plain(x, w))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("BH,S,d", [(4, 64, 32), (2, 128, 64), (1, 96, 16),
+                                    (3, 77, 100), (2, 130, 256)])
+def test_flash_kernel_vs_plain(cuda, dtype, BH, S, d):
+    """f32: atol 3e-5 (the reference test's own).  bf16: against the plain
+    version run in f32 on the same bf16 inputs, within 8e-3 * max(1,
+    |plain|) per element (the kernel's bf16 output rounding, 2^-8
+    relative, plus f32 summation order)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(BH * S + d)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (BH, S, d)).astype(
+        np.float32)).to(cuda).to(dt) for _ in range(3))
+    before = fa.LAUNCHES.count
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES.count == before + 1 and got.dtype == dt
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float())
+    if dt == torch.float32:
+        assert float((got - want).abs().max()) <= 3e-5
+    else:
+        err = (got.float() - want).abs() / want.abs().clamp_min(1.0)
+        assert float(err.max()) <= 8e-3
+
+
+def test_staged_path_vs_fused_on_card(cuda):
+    """The staged baseline (one blocked launch per window) agrees with the
+    fused kernel to f32 order."""
+    from repro_torch.core.seed_search import calibrated_config
+    from repro_torch.kernels import dscim_fused, dscim_mvm_blocked
+
+    cfg = calibrated_config("dscim1", 256)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(0, 1, (5, 300)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 1, (300, 33)).astype(np.float32))
+    before = dscim_mvm_blocked.LAUNCHES.count
+    got = dscim_fused.dscim_windowed_vmap_mvm(x.to(cuda), w.to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert dscim_mvm_blocked.LAUNCHES.count == before + 3
+    _close(got.cpu(), dscim_fused.dscim_fused_mvm(x, w, cfg), 2e-5)

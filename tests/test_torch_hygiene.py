@@ -75,16 +75,44 @@ def test_kernel_wrappers_refuse_other_devices():
     else that is not CUDA raises instead of falling back."""
     from repro_torch.core.seed_search import calibrated_config
     from repro_torch.core.qweights import prepare_linear_weight
-    from repro_torch.kernels import dscim_fused, paged_attention
+    from repro_torch.kernels import (dscim_fused, dscim_mvm,
+                                     dscim_mvm_blocked, flash_attention,
+                                     int8_matmul, ops, paged_attention)
 
+    cfg = calibrated_config("dscim1", 256)
     x = torch.zeros((1, 8), device="meta")
     qw = prepare_linear_weight(torch.ones((8, 4)), 8)
     with pytest.raises((ValueError, NotImplementedError, RuntimeError)):
-        dscim_fused.dscim_fused_mvm_prepared(
-            x, qw, calibrated_config("dscim1", 256))
+        dscim_fused.dscim_fused_mvm_prepared(x, qw, cfg)
     q = torch.zeros((1, 1, 1, 8), device="meta")
     with pytest.raises(ValueError, match="route"):
         paged_attention.paged_attention_decode(q, *([None] * 8))
+    xi = torch.zeros((2, 8), dtype=torch.int8, device="meta")
+    wi = torch.zeros((8, 3), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="route"):
+        dscim_mvm.dscim_counts(xi, wi, *ops.fold_constants(cfg), k=cfg.k,
+                               length=cfg.length)
+    with pytest.raises(ValueError, match="route"):
+        dscim_mvm_blocked.dscim_counts_blocked(xi, wi, cfg)
+    with pytest.raises(ValueError, match="route"):
+        int8_matmul.int8_matmul(xi, wi)
+    qa = torch.zeros((1, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="route"):
+        flash_attention.flash_attention(qa, qa, qa)
+
+
+@pytest.mark.parametrize("path", PORT_FILES[:-1],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_calls_no_library_kernel(path):
+    """The port computes with its own kernels: no module calls
+    ``torch._int_mm``, ``scaled_dot_product_attention`` or
+    ``torch.compile`` (``chip_smoke.py`` times the first two only as
+    yardsticks)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+    names |= {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+    assert not names & {"_int_mm", "scaled_dot_product_attention",
+                        "compile"}, path
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):
