@@ -7,7 +7,10 @@ Needs one NVIDIA GPU with ``nvcc`` (sm_90a); exits non-zero without one.
 In order it
 
 1. builds every CUDA kernel of the serving path from ``src/repro_torch/
-   kernels/csrc`` (one ``nvcc`` per source, in parallel);
+   kernels/csrc`` (one ``nvcc`` per source, in parallel) and prints the
+   registers, spills and static shared memory ``ptxas`` reports for each
+   entry of the flash-attention and int8 GEMM kernels, and the tensor-core
+   instructions in their SASS;
 2. drives the main path once: ``repro_torch.launch.serve.serve_batch`` on
    qwen3-0.6b at its published width (random weights from seed 0) with
    ``dscim="kernel:dscim1:256"``, ``kv="int8"``, page size 8, batch 4,
@@ -32,7 +35,7 @@ In order it
    ``dscim_counts_blocked`` for dscim1/L256 and dscim2/L64, the staged
    per-window path ``dscim_windowed_vmap_mvm`` beside the fused one at
    (256, 1024) x (1024, 3072), and ``flash_attention`` at (BH, S, d) =
-   (64, 1024, 128) in bf16 and f32 and (64, 64, 128) in bf16; the four
+   (64, 1024, 128) in bf16, f32 and f16 and (64, 64, 128) in bf16; the four
    wrappers' launch counters are zeroed before and read after.  Then it
    holds each result against its plain version (counts and int8 products
    bitwise; the all-L plain counts on an N = 384 column slice, where the
@@ -45,6 +48,8 @@ In order it
 7. serves the reduced config on the GPU and on the CPU (plain versions)
    and checks that they agree.
 
+Every time is device time (``_cuda_ms``): the device sleeps while the host
+queues all the timed calls, so the host's time per call does not enter it.
 Then it prints a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
 """
@@ -66,6 +71,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
 F32_FLOPS_PER_S = 67e12
 
 BATCH, PROMPT, TOKENS, PAGE = 4, 64, 16, 8
@@ -77,11 +83,18 @@ FLASH_F32_ATOL = 3e-5        # the reference test's own tolerance
 # bf16 flash output against the plain version in f32 on the same bf16
 # inputs: the output's bf16 rounding (2^-8 relative) plus f32 order
 FLASH_BF16_RTOL = 8e-3
+# f16 keeps 10 bits: its output and P roundings come to about 7e-4, and a
+# path that rounded anything at bf16 precision (about 5e-3) fails this
+FLASH_F16_RTOL = 2e-3
 OPS_SHAPES = ((256, 1024, 3072), (256, 3072, 1024), (4, 1024, 3072))
 OPS_PRESETS = (("dscim1", 256, "paper"), ("dscim2", 64, "paper"))
 SLICE_N = 384                # columns of the all-L plain count check
 FLASH_SHAPES = ((64, 1024, 128, "bfloat16"), (64, 1024, 128, "float32"),
-                (64, 64, 128, "bfloat16"))
+                (64, 64, 128, "bfloat16"), (64, 1024, 128, "float16"))
+# instructions each library's SASS must hold: tensor-core products fed by
+# cp.async (LDGSTS)
+SASS_NEEDS = {"flash_attention": ("HMMA", "LDGSTS"),
+              "int8_matmul": ("IMMA", "LDGSTS")}
 # Table I RMSE (unsigned full scale, %) of the JAX reference on the CPU:
 # benchmarks/t1_rmse.py run(), n_cols=256, n_vec=48, seed 0, uniform
 TABLE1_JAX = {
@@ -106,18 +119,102 @@ def _log(msg: str) -> None:
 
 
 def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Device time of one call of ``fn``: the device first sleeps while the
+    host queues all ``reps`` calls between two events, so the host's time
+    per call cannot set the number.  If the device still woke before the
+    last call was queued (a call that waits on the host), the sleep is
+    lengthened once; if that does not help either, the time is reported
+    with a note that the host bounds it."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
+    for attempt in range(2):
+        # about 2e9 cycles a second; twice the host time of the calls
+        cycles = int(min(2.0 * reps * host_s * (4 ** attempt) + 2e-3, 1.0)
+                     * 2e9)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued_ahead = not start.query()
+        torch.cuda.synchronize()
+        if queued_ahead:
+            break
+    else:
+        _log("timing note: a timed call waits on the host, so the host "
+             "bounds the next time printed")
     return start.elapsed_time(end) / reps
+
+
+def ptxas_summary(names) -> dict:
+    """For each named source: registers, spills and static shared memory of
+    each kernel entry from its ``nvcc -Xptxas -v`` log (dynamic shared
+    memory is set at launch and is not in the log), and, where the toolkit
+    has ``cuobjdump``, how many tensor-core (HMMA, IMMA), async-copy
+    (LDGSTS) and ldmatrix (LDSM) instructions its SASS holds; there it
+    raises unless flash attention holds HMMA and the int8 GEMM IMMA, both
+    with LDGSTS (the kernels run on the tensor cores, fed by cp.async)."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import build
+    cuobjdump = shutil.which("cuobjdump") or next(
+        (str(p) for p in (Path(build._nvcc()).parent / "cuobjdump",)
+         if p.exists()), None)
+    out = {}
+    for name in names:
+        so = build._target(name)
+        log = build.BUILD_DIR / f"{so.stem}.log"
+        rows = []
+        for line in (log.read_text().splitlines() if log.exists() else []):
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                rows.append({"entry": m.group(1)})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and rows:
+                rows[-1]["spill_stores"] = int(m.group(1))
+                rows[-1]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and rows:
+                rows[-1]["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                rows[-1]["static_smem"] = int(sm.group(1)) if sm else 0
+        try:
+            names_d = subprocess.run(
+                ["c++filt"], input="\n".join(r["entry"] for r in rows),
+                capture_output=True, text=True, timeout=30).stdout.split("\n")
+        except OSError:
+            names_d = []
+        for i, r in enumerate(rows):
+            if i < len(names_d) and names_d[i]:    # drop the parameter list
+                r["entry"] = re.sub(r"^void |\((?:[^()]|\([^()]*\))*\)$",
+                                    "", names_d[i])
+            _log(f"ptxas {name}: {r['entry']}: {r.get('registers')} regs, "
+                 f"spill {r.get('spill_stores')}/{r.get('spill_loads')} B, "
+                 f"static smem {r.get('static_smem')} B")
+        sass = None
+        if cuobjdump and so.exists():
+            text = subprocess.run([cuobjdump, "-sass", str(so)],
+                                  capture_output=True, text=True,
+                                  timeout=300).stdout
+            sass = {op: len(re.findall(rf"\b{op}\b", text))
+                    for op in ("HMMA", "IMMA", "LDGSTS", "LDSM")}
+            _log(f"sass {name}: {sass}")
+            need = SASS_NEEDS.get(name, ())
+            if not all(sass[op] > 0 for op in need):
+                raise AssertionError(f"{name}: SASS lacks one of {need}: "
+                                     f"{sass}")
+        out[name] = {"entries": rows, "sass_counts": sass}
+    return out
 
 
 def _check_close(name, got, want, rtol):
@@ -648,7 +745,8 @@ def check_flash(torch, inp, out, launches):
         else:
             err = float(((got.float() - want).abs()
                          / want.abs().clamp_min(1.0)).max())
-            ok = err <= FLASH_BF16_RTOL
+            ok = err <= (FLASH_F16_RTOL if dt == "float16"
+                         else FLASH_BF16_RTOL)
         if not ok or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"flash {key}: error {err:.3e}")
         # (1, BH, S, d): SDPA's fused backends take 4-D inputs only; on
@@ -656,16 +754,20 @@ def check_flash(torch, inp, out, launches):
         q4, k4, v4 = q[None], k[None], v[None]
         lib = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)[0]
         lib_err = float((lib.float() - want).abs().max())
-        reps = 5 if s_len > 256 else 50
+        reps = 20 if s_len > 256 else 50
         ms = _cuda_ms(lambda: fa._launch_kernel(q, k, v), reps)
         plain_ms = _cuda_ms(lambda: fa.flash_attention_plain(q, k, v),
                             reps=3, warmup=1)
         lib_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True), reps)
         flops = 4.0 * bh * d * s_len * (s_len + 1) / 2
-        bound, by = _bound(4 * q.numel() * q.element_size(), flops,
-                           BF16_FLOPS_PER_S if dt == "bfloat16"
-                           else F32_FLOPS_PER_S)
+        # f32 is held to 3e-5, which one TF32 product cannot meet: the least
+        # time for f32-accurate work on the tensor cores is three TF32
+        # products (3xTF32), 3 x flops at the TF32 rate
+        bound, by = _bound(4 * q.numel() * q.element_size(),
+                           3 * flops if dt == "float32" else flops,
+                           TF32_FLOPS_PER_S if dt == "float32"
+                           else BF16_FLOPS_PER_S)
         calls.append({"shape": f"BH={bh} S={s_len} d={d} {dt}",
                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "library_ms": lib_ms, "library_max_abs_diff": lib_err,
@@ -683,13 +785,16 @@ def check_flash(torch, inp, out, launches):
             **{k: head[k] for k in ("ms", "plain_ms", "library_ms",
                                     "bound_ms", "bound_by")},
             "per": f"one call at {head['shape']}; every shape in calls "
-                   "(f32 bound at the 67 TFLOP/s f32 rate, bf16 at 989)",
+                   "(bf16/f16 bound: flops at 989 TFLOP/s; f32 bound: 3 x "
+                   "flops at the 495 TFLOP/s TF32 rate, since f32 accuracy "
+                   "(3e-5) takes three TF32 products on the tensor cores)",
             "library": "F.scaled_dot_product_attention(is_causal=True) on "
                        "(1, BH, S, d)",
             "tolerance": f"f32: max abs err <= {FLASH_F32_ATOL:g}; bf16: "
-                         f"|err| <= {FLASH_BF16_RTOL:g} x max(1, |plain|) "
+                         f"|err| <= {FLASH_BF16_RTOL:g} x max(1, |plain|), "
+                         f"f16: {FLASH_F16_RTOL:g} x max(1, |plain|), "
                          "against the plain version in f32 on the same "
-                         "bf16 inputs (max_abs_err lists the f32 calls)",
+                         "rounded inputs (max_abs_err lists the f32 calls)",
             "calls": calls}
 
 
@@ -791,6 +896,7 @@ def main() -> int:
     if phase("build", build.build) is None:
         return 1
     _log(f"built {list(build.SOURCES)} in {time.time() - t0:.1f} s")
+    ptxas = phase("ptxas", ptxas_summary, ("flash_attention", "int8_matmul"))
 
     cfg = get_arch("qwen3-0.6b")
     params = lm.init_params(cfg, 0)
@@ -822,7 +928,7 @@ def main() -> int:
                       "prefill_logit_rmse_vs_off": e2e.get("logit_rmse"),
                       "reduced_gpu_vs_cpu_drift": drift,
                       "table1_rmse_pct": t1,
-                      "profile": prof,
+                      "profile": prof, "ptxas": ptxas,
                       "failed_phases": failures}), flush=True)
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
     if failures or not smi:

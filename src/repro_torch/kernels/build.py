@@ -18,7 +18,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["LaunchCounter", "build", "load", "SOURCES"]
+__all__ = ["LaunchCounter", "bind", "build", "load", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_bound: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 @dataclasses.dataclass
@@ -98,3 +99,15 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build((name,))[name]))
             _loaded[name] = lib
         return lib
+
+
+def bind(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of ``csrc/<name>.cu`` (int return), loaded
+    and given its argument types once, at first use."""
+    fn = _bound.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        _bound[(name, symbol)] = fn
+    return fn

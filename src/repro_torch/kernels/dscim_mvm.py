@@ -38,6 +38,8 @@ __all__ = ["dscim_counts", "dscim_counts_plain", "points_by_block",
 LAUNCHES = build.LaunchCounter("dscim_counts")
 BIT_BUDGET = 1 << 26      # plain versions: bit-expansion elements per chunk
 _WARPS, _MT, _SMEM_MAX = 8, 16, 232448   # as in csrc/dscim_counts.cu
+# dscim_counts_launch(x, w, ta, tb, out, M, K, N, k, G, S, W, stream)
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def check_exact_matmuls(t: torch.Tensor, name: str) -> None:
@@ -166,11 +168,7 @@ def launch_counts(x, w, ta, tb, k: int, counter: build.LaunchCounter
     if (2 * G * S * W + _WARPS * _MT * 32) * 4 > _SMEM_MAX:
         raise ValueError(f"k={k}, W={W}: count tables exceed shared memory")
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    lib = build.load("dscim_counts")
-    fn = lib.dscim_counts_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
+    fn = build.bind("dscim_counts", "dscim_counts_launch", _ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), w.data_ptr(), ta.data_ptr(), tb.data_ptr(),
             out.data_ptr(), M, K, N, k, G, S, W, stream)

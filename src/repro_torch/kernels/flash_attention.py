@@ -1,8 +1,10 @@
 """Causal flash attention (port of ``repro/kernels/flash_attention.py``).
 
 ``flash_attention(q, k, v)`` on (BH, S, d) launches
-``csrc/flash_attention.cu`` (a hand-written online-softmax kernel in f32;
-its header gives the design and what bounds it) on CUDA tensors, and runs
+``csrc/flash_attention.cu`` (a hand-written FlashAttention-2 kernel on the
+tensor cores: bf16/f16 through ``mma.sync`` with f32 softmax state, f32
+through 3xTF32; its header gives the design and what bounds it) on CUDA
+tensors, and runs
 ``flash_attention_plain`` (``ref.py flash_attention_ref``: the full f32
 softmax with a -1e30 causal mask) on CPU tensors.  The output has q's
 dtype.  Unlike the reference, any S is taken: the kernel masks the ragged
@@ -25,7 +27,10 @@ __all__ = ["flash_attention", "flash_attention_plain", "LAUNCHES",
 
 NEG_INF = -1e30
 LAUNCHES = build.LaunchCounter("flash_attention")
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# flash_attention_launch(q, k, v, o, BH, S, d, dtype, scale, stream)
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+            + [ctypes.c_float, ctypes.c_void_p])
 
 
 def flash_attention_plain(q, k, v) -> torch.Tensor:
@@ -47,19 +52,15 @@ def _launch_kernel(q, k, v) -> torch.Tensor:
                 or t.device != q.device):
             raise ValueError("flash attention kernel: q, k, v must share "
                              "shape, dtype and device")
-    if q.dtype not in _DTYPES or not 0 < d <= 256 or BH > 65535:
+    if q.dtype not in DTYPE_CODES or not 0 < d <= 256 or BH > 65535:
         raise ValueError(f"flash attention kernel takes f32/bf16/f16 with "
                          f"d <= 256 and BH <= 65535, got {q.dtype} "
                          f"{tuple(q.shape)}")
     out = torch.empty_like(q)
-    lib = build.load("flash_attention")
-    fn = lib.flash_attention_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-        + [ctypes.c_float, ctypes.c_void_p]
+    fn = build.bind("flash_attention", "flash_attention_launch", ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, S,
-            d, _DTYPES[q.dtype], d ** -0.5, stream)
+            d, DTYPE_CODES[q.dtype], d ** -0.5, stream)
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: error {rc}")
     LAUNCHES.count += 1

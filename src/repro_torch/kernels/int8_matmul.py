@@ -1,8 +1,9 @@
 """Exact int8 matmul -> int32, the DCIM adder-tree baseline (port of
 ``repro/kernels/int8_matmul.py`` and ``ops.int8_matmul``).
 
-``int8_matmul`` launches ``csrc/int8_matmul.cu`` (a hand-written tiled
-``__dp4a`` GEMM; its header gives the design and what bounds it) on CUDA
+``int8_matmul`` launches ``csrc/int8_matmul.cu`` (a hand-written GEMM on
+the int8 tensor cores, ``mma.sync`` s8 with split-K where the output tiles
+leave SMs idle; its header gives the design and what bounds it) on CUDA
 tensors, and runs ``int8_matmul_plain`` (``ref.py int8_matmul_ref``) on
 CPU tensors.  Both are exact.
 """
@@ -17,6 +18,8 @@ from . import build
 __all__ = ["int8_matmul", "int8_matmul_plain", "LAUNCHES"]
 
 LAUNCHES = build.LaunchCounter("int8_matmul")
+# int8_matmul_launch(x, w, out, M, N, K, stream)
+ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def int8_matmul_plain(x_i8, w_i8) -> torch.Tensor:
@@ -39,11 +42,7 @@ def _launch_kernel(x, w) -> torch.Tensor:
         raise ValueError(f"int8_matmul kernel: x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)} on {x.device}, {w.device}")
     out = torch.empty((M, N), dtype=torch.int32, device=x.device)
-    lib = build.load("int8_matmul")
-    fn = lib.int8_matmul_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
+    fn = build.bind("int8_matmul", "int8_matmul_launch", ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, stream)
     if rc != 0:

@@ -149,18 +149,58 @@ def test_int8_matmul_kernel_vs_plain(cuda, M, K, N):
     assert torch.equal(got, im.int8_matmul_plain(x, w))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("BH,S,d", [(4, 64, 32), (2, 128, 64), (1, 96, 16),
-                                    (3, 77, 100), (2, 130, 256)])
-def test_flash_kernel_vs_plain(cuda, dtype, BH, S, d):
-    """f32: atol 3e-5 (the reference test's own).  bf16: against the plain
-    version run in f32 on the same bf16 inputs, within 8e-3 * max(1,
-    |plain|) per element (the kernel's bf16 output rounding, 2^-8
-    relative, plus f32 summation order)."""
+@pytest.mark.parametrize("M,K,N", [(256, 1024, 3072), (256, 3072, 1024),
+                                   (4, 1024, 3072), (1536, 256, 1536),
+                                   (300, 2048, 4096), (64, 4096, 256)])
+def test_int8_matmul_kernel_split_plans(cuda, M, K, N):
+    """qwen3-0.6b's MLP shapes and three more cover the kernel's plans on
+    a 132-SM card: 64-row tiles unsplit (96 and 160 tiles), split 4 ways
+    (32 and 24 tiles) and 64 ways (2 tiles), and 128-row tiles (144); each
+    is bitwise equal to the plain version and to ``torch._int_mm``."""
+    from repro_torch.kernels import int8_matmul as im
+
+    x, w = _int8_pair(cuda, M * 7 + K + N, M, K, N)
+    got = im.int8_matmul(x, w)
+    assert torch.equal(got, im.int8_matmul_plain(x, w))
+    xp = torch.zeros((max(32, -(-M // 8) * 8), K), dtype=torch.int8,
+                     device=cuda)
+    xp[:M] = x
+    assert torch.equal(got, torch._int_mm(xp, w)[:M])
+
+
+@pytest.mark.parametrize("K", [1, 31, 33, 4097])
+@pytest.mark.parametrize("M,N", [(5, 7), (130, 160)])
+def test_int8_matmul_kernel_ragged_k(cuda, M, K, N):
+    from repro_torch.kernels import int8_matmul as im
+
+    x, w = _int8_pair(cuda, M + K * 3 + N, M, K, N)
+    assert torch.equal(im.int8_matmul(x, w), im.int8_matmul_plain(x, w))
+
+
+def test_int8_matmul_kernel_wraps_like_int32(cuda):
+    """x = w = -128 over K = 2^17: every sum is 2^31, which wraps to -2^31
+    in int32 accumulation; the split-K atomics wrap the same way."""
+    from repro_torch.kernels import int8_matmul as im
+
+    K = 1 << 17
+    x = torch.full((3, K), -128, dtype=torch.int8, device=cuda)
+    w = torch.full((K, 5), -128, dtype=torch.int8, device=cuda)
+    got = im.int8_matmul(x, w)
+    assert torch.equal(got, im.int8_matmul_plain(x, w))
+    assert bool((got == -(1 << 31)).all())
+
+
+def _flash_check(cuda, dtype, BH, S, d, seed):
+    """One launch against the plain version: f32 within atol 3e-5 (the
+    reference test's own); bf16/f16 against the plain version run in f32
+    on the same rounded inputs, per element within 8e-3 * max(1, |plain|)
+    in bf16 (the output's rounding, 2^-8 relative, plus what rounding P
+    and the f32 summation order add) and 2e-3 * max(1, |plain|) in f16
+    (10 bits: about 7e-4, so a rounding at bf16 precision fails)."""
     from repro_torch.kernels import flash_attention as fa
 
     dt = getattr(torch, dtype)
-    rng = np.random.default_rng(BH * S + d)
+    rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.normal(0, 1, (BH, S, d)).astype(
         np.float32)).to(cuda).to(dt) for _ in range(3))
     before = fa.LAUNCHES.count
@@ -172,7 +212,49 @@ def test_flash_kernel_vs_plain(cuda, dtype, BH, S, d):
         assert float((got - want).abs().max()) <= 3e-5
     else:
         err = (got.float() - want).abs() / want.abs().clamp_min(1.0)
-        assert float(err.max()) <= 8e-3
+        assert float(err.max()) <= (2e-3 if dt == torch.float16 else 8e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("BH,S,d", [(4, 64, 32), (2, 128, 64), (1, 96, 16),
+                                    (3, 77, 100), (2, 130, 256)])
+def test_flash_kernel_vs_plain(cuda, dtype, BH, S, d):
+    _flash_check(cuda, dtype, BH, S, d, BH * S + d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("d", [16, 24, 100, 256])
+@pytest.mark.parametrize("S", [1, 63, 65, 1024])
+def test_flash_kernel_edges(cuda, dtype, S, d):
+    """Ragged S (one query; one key tile short of, and one past, a
+    64-query tile; 16 tiles) and head dims that leave a zero-filled tail
+    in the padded head (16 -> 32, 24 -> 32, 100 -> 128) or take the
+    256-wide variant (32-key tiles, Q read from shared memory)."""
+    _flash_check(cuda, dtype, 2, S, d, S * 1000 + d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("BH,S,d", [(34, 1000, 96), (40, 1030, 64),
+                                    (300, 130, 128)])
+def test_flash_kernel_large_grids(cuda, dtype, BH, S, d):
+    """Grids of at least two 128-query blocks per SM (on a 132-SM card),
+    where 16-bit inputs with the head padded to 128 take two m16 row tiles
+    per warp (d = 64 keeps one); S = 130 leaves warps of the last
+    128-query tile wholly past S."""
+    _flash_check(cuda, dtype, BH, S, d, BH + S + d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_kernel_deterministic(cuda, dtype):
+    """Two launches on the same inputs give the same bytes."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (8, 300, 128)).astype(
+        np.float32)).to(cuda).to(getattr(torch, dtype)) for _ in range(3))
+    a = fa.flash_attention(q, k, v)
+    b = fa.flash_attention(q, k, v)
+    assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
 def test_staged_path_vs_fused_on_card(cuda):

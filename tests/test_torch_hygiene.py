@@ -115,6 +115,22 @@ def test_port_calls_no_library_kernel(path):
                         "compile"}, path
 
 
+CSRC_FILES = sorted((ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob(
+    "*.cu*"))
+
+
+@pytest.mark.parametrize("path", CSRC_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_kernel_sources_are_written_by_hand(path):
+    """No CUDA source includes or calls a library's finished kernels:
+    cuBLAS, cuDNN, or CUTLASS's device-level GEMMs (CuTe/CUTLASS building
+    blocks inside a kernel of the repository would be allowed)."""
+    text = path.read_text().lower()
+    for bad in ("cublas", "cudnn", "cutlass/gemm/device",
+                "cutlass/gemm/kernel/default_gemm"):
+        assert bad not in text, f"{path.name}: {bad}"
+
+
 def test_chip_smoke_fails_without_a_gpu(tmp_path):
     """Without CUDA, and alone in a directory without the package, the
     smoke script exits non-zero and prints no result line."""
