@@ -9,8 +9,8 @@ In order it
 1. builds every CUDA kernel of the serving path from ``src/repro_torch/
    kernels/csrc`` (one ``nvcc`` per source, in parallel) and prints the
    registers, spills and static shared memory ``ptxas`` reports for each
-   entry of the flash-attention and int8 GEMM kernels, and the tensor-core
-   instructions in their SASS;
+   entry of the flash-attention, int8 GEMM, fused DS-CIM MVM and paged
+   attention kernels, and the tensor-core instructions in their SASS;
 2. drives the main path once: ``repro_torch.launch.serve.serve_batch`` on
    qwen3-0.6b at its published width (random weights from seed 0) with
    ``dscim="kernel:dscim1:256"``, ``kv="int8"``, page size 8, batch 4,
@@ -25,8 +25,11 @@ In order it
    plain PyTorch version on the same inputs at the main path's shapes,
    and times kernel, wrapper, plain version, the least
    time the card could take (``bound_ms``) and, for paged attention, one
-   ``scaled_dot_product_attention`` call over pre-gathered K/V; for the
-   fused MVM it also prints the estimator's RMSE against the exact f32
+   ``scaled_dot_product_attention`` call over pre-gathered K/V, and again
+   at 2048 tokens of context on a synthetic pool of the same head layout;
+   for the fused MVM it checks that the kernel's own activation
+   quantization is bitwise the torch one, prints kernel and wrapper time
+   per shape and regime, and the estimator's RMSE against the exact f32
    product ``x @ w`` at each shape (the accuracy DS-CIM costs);
 5. drives the DS-CIM operator path (``operators``): at qwen3-0.6b's MLP
    shapes (M, K, N) = (256, 1024, 3072), (256, 3072, 1024) and (4, 1024,
@@ -73,11 +76,17 @@ INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
 TF32_FLOPS_PER_S = 495e12
 F32_FLOPS_PER_S = 67e12
+# b1 AND + popcount adds (2 per bit pair), the type of the DS-CIM OR
+# counts: the data sheet gives no rate, so this is the highest that
+# scripts/mma_sync_peak.py measured (b1 wgmma m64n256k256, NVIDIA H100
+# 80GB HBM3, 700 W)
+B1_OPS_PER_S = 15532e12
 
 BATCH, PROMPT, TOKENS, PAGE = 4, 64, 16, 8
 DSCIM = "kernel:dscim1:256"
 FUSED_RTOL = 2e-5            # f32 summation order; counts are exact
 PAGED_RTOL = 1e-5            # f32 summation order of dot products / sums
+LONG_POS = 2047              # paged attention's long-context position
 MVM_RTOL = 2e-5              # f32 correction terms; counts are exact
 FLASH_F32_ATOL = 3e-5        # the reference test's own tolerance
 # bf16 flash output against the plain version in f32 on the same bf16
@@ -94,7 +103,8 @@ FLASH_SHAPES = ((64, 1024, 128, "bfloat16"), (64, 1024, 128, "float32"),
 # instructions each library's SASS must hold: tensor-core products fed by
 # cp.async (LDGSTS)
 SASS_NEEDS = {"flash_attention": ("HMMA", "LDGSTS"),
-              "int8_matmul": ("IMMA", "LDGSTS")}
+              "int8_matmul": ("IMMA", "LDGSTS"),
+              "dscim_fused": ("BMMA", "LDGSTS")}
 # Table I RMSE (unsigned full scale, %) of the JAX reference on the CPU:
 # benchmarks/t1_rmse.py run(), n_cols=256, n_vec=48, seed 0, uniform
 TABLE1_JAX = {
@@ -158,10 +168,11 @@ def ptxas_summary(names) -> dict:
     """For each named source: registers, spills and static shared memory of
     each kernel entry from its ``nvcc -Xptxas -v`` log (dynamic shared
     memory is set at launch and is not in the log), and, where the toolkit
-    has ``cuobjdump``, how many tensor-core (HMMA, IMMA), async-copy
+    has ``cuobjdump``, how many tensor-core (HMMA, IMMA, BMMA), async-copy
     (LDGSTS) and ldmatrix (LDSM) instructions its SASS holds; there it
-    raises unless flash attention holds HMMA and the int8 GEMM IMMA, both
-    with LDGSTS (the kernels run on the tensor cores, fed by cp.async)."""
+    raises unless flash attention holds HMMA, the int8 GEMM IMMA and the
+    fused DS-CIM MVM BMMA (its b1 counts), each with LDGSTS (the kernels
+    run on the tensor cores, fed by cp.async)."""
     import re
     import shutil
 
@@ -207,7 +218,7 @@ def ptxas_summary(names) -> dict:
                                   capture_output=True, text=True,
                                   timeout=300).stdout
             sass = {op: len(re.findall(rf"\b{op}\b", text))
-                    for op in ("HMMA", "IMMA", "LDGSTS", "LDSM")}
+                    for op in ("HMMA", "IMMA", "BMMA", "LDGSTS", "LDSM")}
             _log(f"sass {name}: {sass}")
             need = SASS_NEEDS.get(name, ())
             if not all(sass[op] > 0 for op in need):
@@ -320,14 +331,12 @@ def profile_main_path(torch, cfg, params, prompts):
 def check_fused(torch, cfg, params, launches):
     """Fused DS-CIM MVM vs its plain version at the serving shapes."""
     from repro_torch.kernels import dscim_fused
-    from repro_torch.kernels.dscim_mvm_blocked import block_point_tables
     from repro_torch.launch.steps import prepare_serving_params
 
     cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
     prep = prepare_serving_params(cfg_ds, params)
     from repro_torch.models.lm import _linear_for
     dcfg = _linear_for(DSCIM).cfg
-    pmax = block_point_tables(dcfg)[2]
     L = cfg.n_layers
     mlp = prep["layers"]["mlp"]
     fmlp = params["layers"]["mlp"]
@@ -346,9 +355,9 @@ def check_fused(torch, cfg, params, launches):
         for site, ws, wf, xdt, per_fwd in sites:
             K, N = ws[0].k_orig, ws[0].n
             x = torch.randn((m, K), generator=gen, device="cuda").to(xdt)
-            # the wrapper the main path calls (per-window quantization,
-            # leading-dim fold, dispatch) against the plain version on the
-            # same quantized activations, which are deterministic from x
+            # the wrapper the main path calls (leading-dim fold, dispatch,
+            # one C call: the quantize kernel, then the MVM)
+            # against the plain version on the torch-quantized activations
             got = dscim_fused.dscim_fused_mvm_prepared(x, ws[0], dcfg)
             xq = dscim_fused.quantize_activations_windowed(x, ws[0].nw,
                                                            ws[0].g)
@@ -358,6 +367,12 @@ def check_fused(torch, cfg, params, launches):
                                                      ws[0].scale, dcfg)
             err = _check_close(f"dscim_fused {site} M={m}", got, want,
                                FUSED_RTOL)
+            # the kernel's quantization is the torch one, bitwise
+            _, kq, ksx = dscim_fused._launch_kernel(x, ws[0], dcfg)
+            if not (torch.equal(kq, q) and torch.equal(
+                    ksx.view(torch.int32), sx.view(torch.int32))):
+                raise AssertionError(f"dscim_fused {site} M={m}: the "
+                                     "kernel's quantized activations differ")
             # accuracy cost of the estimator itself: against x @ w in f32
             exact = x.float() @ wf.float()
             est_rmse = float((got - exact).pow(2).mean().sqrt())
@@ -365,20 +380,21 @@ def check_fused(torch, cfg, params, launches):
             # time over distinct layers' weights: the main path meets each
             # weight once per forward, not hot in L2
             reps = 5 if m > BATCH else 20
-            ms = _cuda_ms(lambda: [dscim_fused._launch_kernel(
-                q, sx, w.q, w.scale, dcfg) for w in ws], reps) / len(ws)
-            # the same with the wrapper's activation quantization around it
+            ms = _cuda_ms(lambda: [dscim_fused._launch_kernel(x, w, dcfg)
+                                   for w in ws], reps) / len(ws)
+            # the same through the wrapper the main path calls
             wrapper_ms = _cuda_ms(lambda: [
                 dscim_fused.dscim_fused_mvm_prepared(x, w, dcfg) for w in ws],
                 reps) / len(ws)
             plain_ms = _cuda_ms(lambda: dscim_fused.dscim_fused_mvm_plain(
                 q, sx, ws[0].q, ws[0].scale, dcfg), reps=2, warmup=1)
             kp = ws[0].nw * ws[0].g
-            nbytes = (q.numel() + 4 * sx.numel() + kp * N + 4 * ws[0].nw * N
-                      + 2 * 4 * dcfg.group * dcfg.sbits + 4 * m * N)
-            ops = 2.0 * m * N * kp * pmax
+            nbytes = (x.numel() * x.element_size() + kp * N
+                      + 4 * ws[0].nw * N + 2 * 4 * dcfg.group * dcfg.sbits
+                      + 4 * m * N)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / INT8_OPS_PER_S * 1e3
+            t_ops = _count_ops(m, N, ws[0].nw, ws[0].g, dcfg) \
+                / B1_OPS_PER_S * 1e3
             # prefill runs the head on the last token only (M = batch): the
             # M=256 head call is a check at a larger shape, off the path
             on_path = not (site == "lm_head" and m > BATCH)
@@ -393,7 +409,9 @@ def check_fused(torch, cfg, params, launches):
                 "float_matmul_rms": exact_rms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
-            _log(f"dscim_fused {calls[-1]['shape']}: err {err:.3e}, "
+            _log(f"dscim_fused {calls[-1]['shape']} ({calls[-1]['phase']}, "
+                 f"{'decode' if m <= 16 else 'prefill'} regime): err "
+                 f"{err:.3e}, quantization bitwise; "
                  f"{ms:.4f} ms (wrapper {wrapper_ms:.4f} ms, plain "
                  f"{plain_ms:.3f} ms, bound "
                  f"{calls[-1]['bound_ms']:.4f} ms, {calls[-1]['bound_by']}); "
@@ -402,6 +420,19 @@ def check_fused(torch, cfg, params, launches):
     dec = [c for c in calls if c["phase"] == "decode"]
     step = {k: sum(c[k] * c["per_forward"] for c in dec)
             for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms")}
+    pre = [c for c in calls if c["phase"] == "prefill"
+           and not c["shape"].startswith("lm_head")]
+    regimes = {
+        "decode_step": step,
+        "prefill_mlp_per_call": {k: sum(c[k] * c["per_forward"] for c in pre)
+                                 / sum(c["per_forward"] for c in pre)
+                                 for k in ("ms", "wrapper_ms", "bound_ms")},
+        "head_decode_per_call": {k: c[k] for c in dec
+                                 if c["shape"].startswith("lm_head")
+                                 for k in ("ms", "wrapper_ms", "bound_ms")}}
+    for name, r in regimes.items():
+        _log(f"dscim_fused {name}: kernel {r['ms']:.4f} ms, wrapper "
+             f"{r['wrapper_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
     return {
         "name": "dscim_fused_mvm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dscim_fused.cu",
@@ -415,7 +446,11 @@ def check_fused(torch, cfg, params, launches):
         "library_ms": None,
         "per": "one decode step: 28 x (w_gate + w_up + w_down) + lm_head "
                "at M=4",
+        "regimes": regimes,
         "library": "n/a: no PyTorch call computes the DS-CIM estimator",
+        "bound_rate": f"bytes at {HBM_BYTES_PER_S:g} B/s; count bit "
+                      f"operations at {B1_OPS_PER_S:g}/s (b1 wgmma, "
+                      "measured: no published b1 peak)",
         "tolerance": f"max abs err <= {FUSED_RTOL:g} x max|plain|",
         "calls": calls}
 
@@ -475,31 +510,82 @@ def check_paged(torch, cfg, cache, launches):
     lib_err = float((lib.reshape(B, KV, R, HD) - got).abs().max())
     out["library_ms"] = _cuda_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask), reps=50)
-    npages = (pos // ps).long()              # full pages read per slot
-    nbytes = (int(npages.sum()) * ps * HD * 2 * KV + 2 * 4 * int(
-        npages.sum()) * KV + 2 * 2 * B * ps * KV * HD + 4 * q.numel() * 2
-        + 4 * table.numel() + 4 * B)
-    flops = 4.0 * float((pos + 1).sum()) * KV * R * HD
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    bound, by = _paged_bound(pos, ps, KV, R, HD, table)
     _log(f"paged_attention: err {max(errs):.3e}, {out['ms']:.4f} ms "
          f"(plain {out['plain_ms']:.3f} ms, sdpa {out['library_ms']:.4f} "
-         f"ms, bound {max(t_bytes, t_ops):.5f} ms; sdpa vs kernel max abs diff "
+         f"ms, bound {bound:.5f} ms; sdpa vs kernel max abs diff "
          f"{lib_err:.2e})")
+    # long context: a synthetic pool of the same head layout, 2048 tokens
+    # a slot (16.8 MB of int8 K/V at B = 4), pages in random order
+    MPL = LONG_POS // ps + 1
+    PL = B * MPL
+    largs = (q,
+             *(torch.randint(-127, 128, (PL, ps, KV, HD), generator=gen,
+                             device="cuda").to(torch.int8) for _ in range(2)),
+             *(torch.rand((PL, KV), generator=gen, device="cuda") * 0.02
+               for _ in range(2)),
+             *(torch.randn((B, ps, KV, HD), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(2)),
+             torch.randperm(PL, generator=gen, device="cuda").reshape(
+                 B, MPL).to(torch.int32),
+             torch.full((B,), LONG_POS, dtype=torch.int32, device="cuda"))
+    lerr = _check_close("paged_attention long context",
+                        pa.paged_attention_decode(*largs),
+                        pa.paged_read_plain(*largs), PAGED_RTOL)
+    lbound, lby = _paged_bound(largs[-1], ps, KV, R, HD, largs[-2])
+    long_ctx = {"shape": f"B={B} KV={KV} n_rep={R} HD={HD} ps={ps} "
+                         f"pos={LONG_POS}",
+                "kv_bytes": 2 * (LONG_POS // ps) * ps * HD * KV * B,
+                "max_abs_err": lerr,
+                "ms": _cuda_ms(lambda: pa._launch_kernel(*largs), reps=50),
+                "plain_ms": _cuda_ms(lambda: pa.paged_read_plain(*largs),
+                                     reps=2, warmup=1),
+                "bound_ms": lbound, "bound_by": lby}
+    long_ctx["share_of_bound"] = lbound / long_ctx["ms"]
+    _log(f"paged_attention long context {long_ctx['shape']}: err "
+         f"{lerr:.3e}, {long_ctx['ms']:.4f} ms (plain "
+         f"{long_ctx['plain_ms']:.3f} ms, bound {lbound:.5f} ms {lby}, "
+         f"{100 * long_ctx['share_of_bound']:.1f} % of it)")
     return {
         "name": "paged_attention_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:95",
         "launches": launches["paged_attention_decode"],
-        "max_abs_err": max(errs), "ms": out["ms"],
-        "plain_ms": out["plain_ms"], "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": out["library_ms"],
+        "max_abs_err": max(errs + [lerr]), "ms": out["ms"],
+        "plain_ms": out["plain_ms"], "bound_ms": bound, "bound_by": by,
+        "library_ms": out["library_ms"], "long_context": long_ctx,
         "per": f"one call: B={B} KV={KV} n_rep={R} HD={HD} ps={ps} "
                f"pos={pos.tolist()} (the main run's last decode step)",
         "library": "F.scaled_dot_product_attention over pre-gathered, "
-                   "dequantized K/V; excludes the gather",
+                   "dequantized K/V; excludes the gather and dequant, so "
+                   "not the same function",
         "tolerance": f"max abs err <= {PAGED_RTOL:g} x max(1, max|plain|)"}
+
+
+def _paged_bound(pos, ps, KV, R, HD, table):
+    """(bound_ms, bound_by) of one paged decode call: the int8 pages below
+    each slot's tail and their scales, the bf16 tails, q, the output, the
+    table and pos, each moved once; f32 dot products and P.V."""
+    B = pos.shape[0]
+    npages = int((pos // ps).sum())              # full pages read
+    nbytes = (npages * ps * HD * 2 * KV + 2 * 4 * npages * KV
+              + 2 * 2 * B * ps * KV * HD + 4 * B * KV * R * HD * 2
+              + 4 * table.numel() + 4 * B)
+    flops = 4.0 * float((pos + 1).sum()) * KV * R * HD
+    return _bound(nbytes, flops, F32_FLOPS_PER_S)
+
+
+def _count_ops(M, N, nw, g, cfg):
+    """Bit operations of the DS-CIM OR counts of an (M, nw*g) x (nw*g, N)
+    product: an AND and an add for every point of every (row, column,
+    K-row), K-row r holding the points of block r % G (the pad slots of
+    the point tables excluded)."""
+    from repro_torch.kernels.dscim_mvm_blocked import block_point_tables
+    tu = block_point_tables(cfg)[0]
+    pts = (tu < cfg.sbits).sum(1)                   # points of each block
+    per_window = int(sum(int(pts[r % cfg.group]) for r in range(g)))
+    return 2.0 * M * N * nw * per_window
 
 
 def _bound(nbytes, ops, ops_per_s):
@@ -661,8 +747,8 @@ def check_counts(torch, inp, out, launches):
             t5 = blocked.count_tables(cfg, x.device)
             W = t5[0].shape[-1]
             nbytes = M * K + K * N + 4 * M * N + 2 * 4 * t5[0].numel()
-            bound, by = _bound(nbytes, 2.0 * M * N * K * pmax,
-                               INT8_OPS_PER_S)
+            bound, by = _bound(nbytes, _count_ops(M, N, 1, K, cfg),
+                               B1_OPS_PER_S)
             reps = 20 if M > 16 else 50
             common = {"shape": name, "pmax": pmax, "words": W,
                       "bound_ms": bound, "bound_by": by,
@@ -896,7 +982,8 @@ def main() -> int:
     if phase("build", build.build) is None:
         return 1
     _log(f"built {list(build.SOURCES)} in {time.time() - t0:.1f} s")
-    ptxas = phase("ptxas", ptxas_summary, ("flash_attention", "int8_matmul"))
+    ptxas = phase("ptxas", ptxas_summary, ("flash_attention", "int8_matmul",
+                                           "dscim_fused", "paged_attention"))
 
     cfg = get_arch("qwen3-0.6b")
     params = lm.init_params(cfg, 0)

@@ -11,7 +11,7 @@ __all__ = ["QuantizedTensor", "quantize_int8"]
 # costs no host-to-device copy (a device tensor made per call would, and
 # that copy synchronizes the stream), and the multiply still sees the
 # constant in x's dtype, as XLA's weakly typed ``* (1.0 / 127.0)`` does
-_RECIP_127 = {dt: float(torch.tensor(1.0 / 127.0, dtype=dt))
+RECIP_127 = {dt: float(torch.tensor(1.0 / 127.0, dtype=dt))
               for dt in (torch.float32, torch.bfloat16, torch.float16)}
 
 
@@ -31,6 +31,6 @@ def quantize_int8(x: torch.Tensor, axis=-1, eps: float = 1e-8
     ``jnp.round``."""
     dims = axis if isinstance(axis, tuple) else (axis,)
     amax = torch.amax(torch.abs(x), dim=dims, keepdim=True)
-    scale = torch.clamp_min(amax, eps) * _RECIP_127[x.dtype]
+    scale = torch.clamp_min(amax, eps) * RECIP_127[x.dtype]
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return QuantizedTensor(q, scale.to(torch.float32), axis)

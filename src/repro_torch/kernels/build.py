@@ -18,7 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["LaunchCounter", "bind", "build", "load", "SOURCES"]
+__all__ = ["LaunchCounter", "bind", "build", "load", "tile_counters",
+           "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -30,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 _bound: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+_counters: dict = {}
 
 
 @dataclasses.dataclass
@@ -111,3 +113,18 @@ def bind(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
         fn.argtypes = list(argtypes)
         _bound[(name, symbol)] = fn
     return fn
+
+
+def tile_counters(device, stream: int, n: int):
+    """Completion counters of the kernels that split a reduction over
+    blocks (the last block of a tile adds the staged partials): at least n
+    int32 zeros on ``device`` for launches on ``stream``.  Each launch
+    leaves them zero, so one buffer serves every such launch in stream
+    order; it is made (one fill) at first use and when it must grow."""
+    import torch
+    key = (device, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf

@@ -1,22 +1,27 @@
 """Fused DS-CIM MVM: float activations + prepared int8 weights -> f32
-output in one kernel launch (port of ``repro/kernels/dscim_fused.py``).
+output from one C call (port of ``repro/kernels/dscim_fused.py``).
 
     out[m,n] = Σ_u s_x[m,u] * s_w[u,n] * psum_u[m,n]
     psum_u   = scale*C_u - 128*Σx_u - 128*Σ(w_u+128)  (+ center-trunc terms)
 
-``dscim_fused_mvm_prepared`` quantizes the activations per (row, window)
-in torch, as the reference does, and then
+``dscim_fused_mvm_prepared``
 
-* on a CUDA tensor launches ``csrc/dscim_fused.cu`` (the hand-written
-  Hopper kernel; see its header for the design and what bounds it);
-* on a CPU tensor runs ``dscim_fused_mvm_plain``, the plain PyTorch
-  version of the same estimator.
+* on a CUDA tensor calls ``csrc/dscim_fused.cu`` once: the hand-written
+  Hopper MVM (see the source's header for the design and what bounds it),
+  whose quantize kernel quantizes the activations per (row, window)
+  bitwise as ``quantize_activations_windowed`` before the MVM kernel reads
+  them (two device launches);
+* on a CPU tensor quantizes with ``quantize_activations_windowed``, as
+  the reference does, and runs ``dscim_fused_mvm_plain``, the plain
+  PyTorch version of the same estimator.
 
 There is no fallback between the two: any other device raises.
 
 The counts are exact integers on both routes.  The kernel reads them as
 popcounts of (G, S) bit-mask tables built here from the blocked point
-tables; the plain version as the reference's {0,1} bit-expansion matmul,
+tables, one 32-bit mask per (row, K-row) on each side of a binary
+tensor-core product (``tests/test_torch_bitmma.py`` spells that layout
+out in plain PyTorch); the plain version as the reference's {0,1} bit-expansion matmul,
 window by window and in N chunks (a one-shot expansion at the head's
 shape, K=1024, N=152064, pmax=18, would need about 11 GB).  Float outputs
 agree with the reference to f32 summation-order rounding.
@@ -35,7 +40,7 @@ import torch
 
 from ..core.macro import DSCIMConfig
 from ..core.qweights import QuantizedLinearWeight, prepare_linear_weight
-from ..core.quant import QuantizedTensor, quantize_int8
+from ..core.quant import RECIP_127, QuantizedTensor, quantize_int8
 from . import build
 from .dscim_mvm import count_mask_tables
 from .dscim_mvm_blocked import block_point_tables, dscim_counts_blocked
@@ -136,39 +141,90 @@ def dscim_fused_mvm_plain(xq: torch.Tensor, sx: torch.Tensor,
     return out
 
 
-def _launch_kernel(xq, sx, wq, sw, cfg: DSCIMConfig) -> torch.Tensor:
-    M, nw, g = xq.shape
-    N = wq.shape[-1]
-    for t, dt in ((xq, torch.int8), (sx, torch.float32), (wq, torch.int8),
-                  (sw, torch.float32)):
-        if t.dtype != dt or not t.is_contiguous() or t.device != xq.device:
-            raise ValueError("dscim_fused kernel takes contiguous int8 xq/wq "
-                             "and f32 sx/sw on one CUDA device")
+# dscim_fused_launch(x, x_dtype, wq, sw, ta, tb, out, scratch, counters, M,
+#                    N, K, nw, g, k, G, S, vec, scale, c1, wconst, eps, recip,
+#                    stream)
+ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+            + [ctypes.c_int] * 9 + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+X_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# quantize_int8's eps as ``clamp_min`` sees it in each dtype (0 in f16)
+_CLAMP_EPS = {dt: float(torch.tensor(1e-8).to(dt)) for dt in X_DTYPES}
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_sizes(M: int, N: int, nw: int, g: int) -> tuple[int, int]:
+    """(scratch bytes, tile counters) the C call needs for this shape: the
+    quantized activations and, where it splits the windows over blocks,
+    the staged partials and a counter per output tile."""
+    n = build.bind("dscim_fused", "dscim_fused_scratch_bytes",
+                   [ctypes.c_int] * 4)(M, N, nw, g)
+    if n < 0:
+        raise ValueError(f"dscim_fused kernel: shape M={M} N={N} nw={nw} "
+                         f"g={g} too large for its scratch")
+    tiles = build.bind("dscim_fused", "dscim_fused_counters",
+                       [ctypes.c_int] * 3)(M, N, nw)
+    return n, tiles
+
+
+def _copy_width(wq: torch.Tensor) -> int:
+    """The widest copy (16, 4 or 1 bytes) that wq's base and row pitch
+    allow the kernel's cp.async ring."""
+    N, ptr = wq.shape[-1], wq.data_ptr()
+    for v in (16, 4):
+        if N % v == 0 and ptr % v == 0:
+            return v
+    return 1
+
+
+def _launch_kernel(x: torch.Tensor, qw: QuantizedLinearWeight,
+                   cfg: DSCIMConfig):
+    """``csrc/dscim_fused.cu`` from one C call: x (M, K) f32/bf16/f16 on
+    the card + prepared weight -> (out (M, N) f32, xq (M, nw, g) int8,
+    sx (M, nw) f32).  Its quantize kernel quantizes the activations per
+    (row, window) bitwise as ``quantize_activations_windowed`` into xq and
+    sx, which the MVM kernel then reads."""
+    M, K = x.shape
+    nw, g, N = qw.nw, qw.g, qw.n
+    if x.dtype not in X_DTYPES or not x.is_contiguous():
+        raise ValueError("dscim_fused kernel takes contiguous f32/bf16/f16 x")
+    for t, dt in ((qw.q, torch.int8), (qw.scale, torch.float32)):
+        if t.dtype != dt or not t.is_contiguous() or t.device != x.device:
+            raise ValueError("dscim_fused kernel takes a contiguous prepared "
+                             "weight on x's CUDA device")
+    if K != qw.k_orig:
+        raise ValueError(f"x K={K} vs prepared weight K={qw.k_orig}")
     if cfg.group * cfg.sbits > 2048:
         raise ValueError(f"k={cfg.k}: count tables larger than the kernel's")
-    ta, tb = _device_mask_tables(cfg, xq.device)
-    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+    ta, tb = _device_mask_tables(cfg, x.device)
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    nbytes, tiles = _launch_sizes(M, N, nw, g)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     scale, c1, wconst = _estimator_constants(cfg, g)
-    lib = build.load("dscim_fused")
-    fn = lib.dscim_fused_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
-        + [ctypes.c_float] * 3 + [ctypes.c_void_p]
-    stream = torch.cuda.current_stream(xq.device).cuda_stream
-    rc = fn(xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(),
-            ta.data_ptr(), tb.data_ptr(), out.data_ptr(), M, N, nw, g,
-            cfg.k, cfg.group, cfg.sbits, scale, c1, wconst, stream)
+    fn = build.bind("dscim_fused", "dscim_fused_launch", ARGTYPES)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    counters = build.tile_counters(x.device, stream, tiles)
+    rc = fn(x.data_ptr(), X_DTYPES[x.dtype], qw.q.data_ptr(),
+            qw.scale.data_ptr(), ta.data_ptr(), tb.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), counters.data_ptr(), M, N, K, nw, g, cfg.k,
+            cfg.group, cfg.sbits, _copy_width(qw.q), scale, c1, wconst,
+            _CLAMP_EPS[x.dtype], RECIP_127[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"dscim_fused kernel launch failed: error {rc}")
     LAUNCHES.count += 1
-    return out
+    # the C side's scratch layout: xq, padded to 16 bytes, then sx
+    xq_bytes = -(-M * nw * g // 16) * 16
+    xq = scratch[:M * nw * g].view(torch.int8).reshape(M, nw, g)
+    sx = scratch[xq_bytes:xq_bytes + 4 * M * nw].view(torch.float32)
+    return out, xq, sx.reshape(M, nw)
 
 
 def dscim_fused_mvm_prepared(x: torch.Tensor, qw: QuantizedLinearWeight,
                              cfg: DSCIMConfig) -> torch.Tensor:
     """Fused DS-CIM linear: x (..., K) float + prepared weight ->
-    (..., N) f32.  Leading dims fold into the kernel's M rows (one launch
-    per call).  Only the activations are quantized per call."""
+    (..., N) f32.  Leading dims fold into the kernel's M rows.  Only the
+    activations are quantized per call: on the card by the kernel's own
+    quantize kernel (two device launches from one C call), on the
+    CPU by ``quantize_activations_windowed`` before the plain version."""
     lead = x.shape[:-1]
     K = x.shape[-1]
     if K != qw.k_orig:
@@ -176,13 +232,14 @@ def dscim_fused_mvm_prepared(x: torch.Tensor, qw: QuantizedLinearWeight,
     if qw.q.ndim != 3:
         raise ValueError("pass one layer's prepared weight, not a stack")
     nw, g, N = qw.nw, qw.g, qw.n
-    xq = quantize_activations_windowed(x.reshape(-1, K), nw, g)
-    q = xq.q.contiguous()                                 # (M, nw, g)
-    sx = xq.scale.reshape(q.shape[0], nw).contiguous()
+    x2 = x.reshape(-1, K)
     if x.device.type == "cpu":
+        xq = quantize_activations_windowed(x2, nw, g)
+        q = xq.q.contiguous()                             # (M, nw, g)
+        sx = xq.scale.reshape(q.shape[0], nw).contiguous()
         out = dscim_fused_mvm_plain(q, sx, qw.q, qw.scale, cfg)
     elif x.device.type == "cuda":
-        out = _launch_kernel(q, sx, qw.q, qw.scale, cfg)
+        out = _launch_kernel(x2.contiguous(), qw, cfg)[0]
     else:
         raise ValueError(f"no dscim_fused route for device {x.device}")
     return out.reshape(*lead, N)

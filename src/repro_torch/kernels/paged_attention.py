@@ -6,8 +6,10 @@ logical page ``pos // ps``, the ragged mask past ``pos`` and an f32 online
 softmax fused into one page walk.
 
 ``paged_attention_decode`` launches ``csrc/paged_attention.cu`` (the
-hand-written Hopper kernel; its header gives the design and what bounds
-it) on CUDA tensors, and runs ``paged_read_plain`` on CPU tensors.  The
+hand-written Hopper kernel, split-KV in runs of whole pages, 32 or 64
+tokens by the slot's own context, whose partial softmax states its last
+block combines in run order; its header gives the
+design and what bounds it) on CUDA tensors, and runs ``paged_read_plain`` on CPU tensors.  The
 plain version is the port of the reference's jnp read path
 (``repro/layers/attention.py _paged_read_jnp``).
 """
@@ -63,6 +65,11 @@ def paged_read_plain(q, k_pages, v_pages, k_scale, v_scale, k_tail, v_tail,
     return acc / torch.clamp_min(l, 1e-30)[..., None]
 
 
+# paged_attention_launch(q, k_pages, v_pages, k_scale, v_scale, k_tail,
+#                        v_tail, page_table, pos, out, part, counters, B, KV,
+#                        R, HD, ps, MP, vec16, scale, stream)
+ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.c_void_p])
 def _launch_kernel(q, k_pages, v_pages, k_scale, v_scale, k_tail, v_tail,
                    page_table, pos) -> torch.Tensor:
     B, KV, R, HD = q.shape
@@ -83,17 +90,21 @@ def _launch_kernel(q, k_pages, v_pages, k_scale, v_scale, k_tail, v_tail,
             raise ValueError(
                 f"paged attention kernel: got {t.dtype} {tuple(t.shape)} "
                 f"on {t.device}, wants contiguous {dt} {shape} on {q.device}")
+    fn = build.bind("paged_attention", "paged_attention_launch", ARGTYPES)
+    runs = build.bind("paged_attention", "paged_attention_max_runs",
+                      [ctypes.c_int] * 2)(ps, MP)
     out = torch.empty((B, KV, R, HD), dtype=torch.float32, device=q.device)
-    lib = build.load("paged_attention")
-    fn = lib.paged_attention_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
-        + [ctypes.c_float, ctypes.c_void_p]
+    part = torch.empty((B * KV * runs * R * (HD + 2),) if runs > 1 else (1,),
+                       dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = build.tile_counters(q.device, stream, B * KV)
+    vec16 = int(HD % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in (
+        k_pages, v_pages, k_tail, v_tail)))
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), k_tail.data_ptr(),
             v_tail.data_ptr(), page_table.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), B, KV, R, HD, ps, MP, HD ** -0.5, stream)
+            out.data_ptr(), part.data_ptr(), counters.data_ptr(), B, KV, R,
+            HD, ps, MP, vec16, HD ** -0.5, stream)
     if rc != 0:
         raise RuntimeError(f"paged attention kernel launch failed: error {rc}")
     LAUNCHES.count += 1

@@ -86,6 +86,161 @@ def test_paged_kernel_vs_plain(cuda, ps, KV, R, HD):
 
 
 
+# (K, N, group_k) per regime-edge row count: ragged N, K not a multiple of
+# the window, every window granularity
+_FUSED_SHAPES = {1: (300, 65, 128), 4: (1024, 96, None), 8: (200, 131, 64),
+                 16: (1000, 17, 128), 17: (130, 200, 64), 64: (513, 64, None),
+                 256: (1024, 160, 128), 300: (257, 33, 64)}
+_FUSED_PRESETS = [("dscim1", 256, "paper"), ("dscim2", 64, "paper"),
+                  ("dscim1", 256, "opt")]
+
+
+def _fused_pair(cuda, seed, M, K, N, group_k, dtype=torch.float32):
+    from repro_torch.core.qweights import prepare_linear_weight
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0, 1, (M, K)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 1, (K, N)).astype(np.float32))
+    return x.to(cuda).to(dtype), prepare_linear_weight(w.to(cuda), group_k)
+
+
+@pytest.mark.parametrize("key", _FUSED_PRESETS,
+                         ids=lambda k: f"{k[0]}-L{k[1]}-{k[2]}")
+@pytest.mark.parametrize("M", sorted(_FUSED_SHAPES))
+def test_fused_kernel_regimes_vs_plain(cuda, key, M):
+    """Both sides of every regime switch (decode M <= 8, <= 16; prefill),
+    against the plain version on the same quantized activations."""
+    from repro_torch.core.seed_search import calibrated_config
+    from repro_torch.kernels import dscim_fused
+
+    cfg = calibrated_config(*key)
+    K, N, group_k = _FUSED_SHAPES[M]
+    x, qw = _fused_pair(cuda, M + K, M, K, N, group_k)
+    got = dscim_fused.dscim_fused_mvm_prepared(x, qw, cfg)
+    xq = dscim_fused.quantize_activations_windowed(x, qw.nw, qw.g)
+    want = dscim_fused.dscim_fused_mvm_plain(
+        xq.q.contiguous(), xq.scale.reshape(M, qw.nw).contiguous(), qw.q,
+        qw.scale, cfg)
+    torch.cuda.synchronize()
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("key,group_k", [(("dscim1", 256, "paper"), 128),
+                                         (("dscim2", 64, "paper"), None),
+                                         (("dscim1", 256, "opt"), 64)])
+def test_fused_rows_independent_of_batch(cuda, key, group_k):
+    """Row i alone (M = 1), in a decode batch and in a prefill batch gives
+    the same bits: every output is summed in one fixed order."""
+    from repro_torch.core.seed_search import calibrated_config
+    from repro_torch.kernels import dscim_fused
+
+    cfg = calibrated_config(*key)
+    x, qw = _fused_pair(cuda, 3, 256, 1000, 200, group_k, torch.bfloat16)
+    full = {M: dscim_fused.dscim_fused_mvm_prepared(x[:M], qw, cfg)
+            for M in (4, 17, 256)}
+    for i in (0, 1, 3):
+        alone = dscim_fused.dscim_fused_mvm_prepared(x[i:i + 1], qw, cfg)
+        for M, out in full.items():
+            assert torch.equal(alone[0], out[i]), (i, M)
+
+
+@pytest.mark.parametrize("M", [5, 20])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
+def test_fused_kernel_quantization_bitwise(cuda, dtype, M):
+    """The kernel's own quantization (its quantize kernel, at decode and at
+    prefill) equals
+    quantize_activations_windowed bitwise: random rows, an all-zero row and
+    a window, exact half-way points (x / s = k + 1/2 where s = 1) and
+    values past K."""
+    from repro_torch.core.seed_search import calibrated_config
+    from repro_torch.kernels import dscim_fused
+
+    dt = getattr(torch, dtype)
+    cfg = calibrated_config("dscim1", 256)
+    x, qw = _fused_pair(cuda, 5, M, 300, 40, 128, dt)
+    x[1] = 0
+    x[2, 128:256] = 0
+    half = torch.arange(-63, 64, dtype=torch.float32, device=cuda) + 0.5
+    x[3, :127] = half.to(dt)
+    x[3, 127] = 127
+    x[4] *= 1e-6
+    out, xq, sx = dscim_fused._launch_kernel(x, qw, cfg)
+    want = dscim_fused.quantize_activations_windowed(x, qw.nw, qw.g)
+    torch.cuda.synchronize()
+    assert torch.equal(xq, want.q)
+    assert torch.equal(sx.view(torch.int32),
+                       want.scale.reshape(M, qw.nw).view(torch.int32))
+    assert torch.equal(out, dscim_fused.dscim_fused_mvm_prepared(x, qw, cfg))
+
+
+@pytest.mark.parametrize("M", [4, 256])
+def test_fused_one_call_device_launches(cuda, M):
+    """One wrapper call on the card is at most two device kernels, at
+    decode and at prefill (the quantize kernel and the MVM), with no torch
+    kernels around them."""
+    from repro_torch.core.seed_search import calibrated_config
+    from repro_torch.kernels import dscim_fused
+
+    cfg = calibrated_config("dscim1", 256)
+    x, qw = _fused_pair(cuda, 6, M, 1024, 3072, 128, torch.bfloat16)
+    dscim_fused.dscim_fused_mvm_prepared(x, qw, cfg)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        dscim_fused.dscim_fused_mvm_prepared(x, qw, cfg)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 1 <= len(names) <= 2, names
+
+
+def _paged_args(cuda, seed, B, KV, R, HD, ps, MP, pos):
+    rng = np.random.default_rng(seed)
+    P = B * MP + 2
+    args = [
+        rng.normal(0, 1, (B, KV, R, HD)).astype(np.float32),
+        rng.integers(-127, 128, (P, ps, KV, HD)).astype(np.int8),
+        rng.integers(-127, 128, (P, ps, KV, HD)).astype(np.int8),
+        rng.uniform(0.005, 0.02, (P, KV)).astype(np.float32),
+        rng.uniform(0.005, 0.02, (P, KV)).astype(np.float32),
+        rng.normal(0, 1, (B, ps, KV, HD)).astype(np.float32),
+        rng.normal(0, 1, (B, ps, KV, HD)).astype(np.float32),
+        rng.permutation(P)[:B * MP].reshape(B, MP).astype(np.int32),
+        np.asarray(pos, np.int32)]
+    out = [torch.from_numpy(a).to(cuda) for a in args]
+    out[5], out[6] = out[5].to(torch.bfloat16), out[6].to(torch.bfloat16)
+    return out
+
+
+@pytest.mark.parametrize("ps", [4, 8, 16])
+def test_paged_kernel_split_edges(cuda, ps):
+    """Positions on page and split-run edges: the tail page alone, a run's
+    last and first token (runs are 32 tokens up to 512 tokens of context,
+    then 64), several runs, and 2048 tokens of context."""
+    from repro_torch.kernels import paged_attention as pa
+
+    pos = [0, ps - 1, ps, 31, 32, 33, 63, 64, 65, 511, 512, 513, 2047]
+    args = _paged_args(cuda, ps, len(pos), 2, 2, 128, ps, 2048 // ps, pos)
+    got = pa.paged_attention_decode(*args)
+    want = pa.paged_read_plain(*args)
+    torch.cuda.synchronize()
+    _close(got, want, 1e-5)
+
+
+def test_paged_slot_independent_of_batch(cuda):
+    """A slot's output is bitwise the same alone and in a batch of 4."""
+    from repro_torch.kernels import paged_attention as pa
+
+    args = _paged_args(cuda, 9, 4, 8, 2, 128, 8, 40, [79, 5, 300, 64])
+    full = pa.paged_attention_decode(*args)
+    for i in range(4):
+        one = [a[i:i + 1] if j in (0, 5, 6, 7, 8) else a
+               for j, a in enumerate(args)]
+        alone = pa.paged_attention_decode(*[a.contiguous() for a in one])
+        assert torch.equal(alone[0], full[i]), i
+
+
 def _int8_pair(cuda, seed, M, K, N):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8))
