@@ -9,8 +9,9 @@ In order it
 1. builds every CUDA kernel of the serving path from ``src/repro_torch/
    kernels/csrc`` (one ``nvcc`` per source, in parallel) and prints the
    registers, spills and static shared memory ``ptxas`` reports for each
-   entry of the flash-attention, int8 GEMM, fused DS-CIM MVM and paged
-   attention kernels, and the tensor-core instructions in their SASS;
+   entry of the flash-attention, int8 GEMM, fused DS-CIM MVM, paged
+   attention and DS-CIM count kernels, and the tensor-core instructions in
+   their SASS;
 2. drives the main path once: ``repro_torch.launch.serve.serve_batch`` on
    qwen3-0.6b at its published width (random weights from seed 0) with
    ``dscim="kernel:dscim1:256"``, ``kv="int8"``, page size 8, batch 4,
@@ -104,7 +105,8 @@ FLASH_SHAPES = ((64, 1024, 128, "bfloat16"), (64, 1024, 128, "float32"),
 # cp.async (LDGSTS)
 SASS_NEEDS = {"flash_attention": ("HMMA", "LDGSTS"),
               "int8_matmul": ("IMMA", "LDGSTS"),
-              "dscim_fused": ("BMMA", "LDGSTS")}
+              "dscim_fused": ("BMMA", "LDGSTS"),
+              "dscim_counts": ("BMMA", "LDGSTS")}
 # Table I RMSE (unsigned full scale, %) of the JAX reference on the CPU:
 # benchmarks/t1_rmse.py run(), n_cols=256, n_vec=48, seed 0, uniform
 TABLE1_JAX = {
@@ -171,8 +173,8 @@ def ptxas_summary(names) -> dict:
     has ``cuobjdump``, how many tensor-core (HMMA, IMMA, BMMA), async-copy
     (LDGSTS) and ldmatrix (LDSM) instructions its SASS holds; there it
     raises unless flash attention holds HMMA, the int8 GEMM IMMA and the
-    fused DS-CIM MVM BMMA (its b1 counts), each with LDGSTS (the kernels
-    run on the tensor cores, fed by cp.async)."""
+    fused DS-CIM MVM and the count kernel BMMA (their b1 counts), each
+    with LDGSTS (the kernels run on the tensor cores, fed by cp.async)."""
     import re
     import shutil
 
@@ -983,7 +985,8 @@ def main() -> int:
         return 1
     _log(f"built {list(build.SOURCES)} in {time.time() - t0:.1f} s")
     ptxas = phase("ptxas", ptxas_summary, ("flash_attention", "int8_matmul",
-                                           "dscim_fused", "paged_attention"))
+                                           "dscim_fused", "paged_attention",
+                                           "dscim_counts"))
 
     cfg = get_arch("qwen3-0.6b")
     params = lm.init_params(cfg, 0)

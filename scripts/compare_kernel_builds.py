@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Time builds of the port's flash-attention, int8 GEMM, fused DS-CIM MVM
-and paged-attention kernels side by side on one card, in turns, and check
-each against its plain version.
+"""Time builds of the port's flash-attention, int8 GEMM, fused DS-CIM MVM,
+paged-attention and DS-CIM count kernels side by side on one card, in
+turns, and check each against its plain version.
 
     python3 scripts/compare_kernel_builds.py --old DIR [--only NAME ...]
 
 ``DIR`` holds other versions of ``flash_attention.cu``, ``int8_matmul.cu``,
-``dscim_fused.cu`` and ``paged_attention.cu``, for instance an earlier
-commit's, unpacked with
+``dscim_fused.cu``, ``paged_attention.cu`` and ``dscim_counts.cu``, for
+instance an earlier commit's, unpacked with
 
     git archive <commit> src/repro_torch/kernels/csrc | tar -x -C DIR \\
         --strip-components=4
@@ -18,10 +18,11 @@ own argument types, or, for the fused MVM and paged attention, with the
 C interface of the source (the one before the redesign took quantized
 activations; the one before split-KV had no scratch arguments); the
 current ones are the wrappers' own libraries (``build.bind``).  At each of
-``chip_smoke.py``'s flash and int8 shapes, the main path's fused-MVM
-shapes (28 distinct layers' random weights, as the main path meets them)
-and paged-attention shapes (the main run's, and 2048 tokens of context),
-the two are timed in the order old, current, current, old with
+``chip_smoke.py``'s flash, int8 and count shapes (the counts for both of
+its presets, on the blocked tables), the main path's fused-MVM shapes (28
+distinct layers' random weights, as the main path meets them) and
+paged-attention shapes (the main run's, and 2048 tokens of context), the
+two are timed in the order old, current, current, old with
 ``chip_smoke._cuda_ms`` (device time; the host queues every call before
 the device starts), and each one's error against the plain version is
 taken at those shapes and at the flash shapes of
@@ -47,7 +48,8 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
-NAMES = ("flash_attention", "int8_matmul", "dscim_fused", "paged_attention")
+NAMES = ("flash_attention", "int8_matmul", "dscim_fused", "paged_attention",
+         "dscim_counts")
 # C interfaces of the fused MVM and paged attention before this redesign
 OLD_FUSED_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
@@ -69,6 +71,7 @@ def old_build(csrc: Path, out: Path, names) -> dict:
     the source's older interface)."""
     from repro_torch.kernels import build
     from repro_torch.kernels import dscim_fused as df
+    from repro_torch.kernels import dscim_mvm as dm
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import paged_attention as pa
@@ -92,7 +95,8 @@ def old_build(csrc: Path, out: Path, names) -> dict:
         "dscim_fused": df.ARGTYPES if "int x_dtype" in text.get(
             "dscim_fused", "") else OLD_FUSED_ARGTYPES,
         "paged_attention": pa.ARGTYPES if "counters" in text.get(
-            "paged_attention", "") else OLD_PAGED_ARGTYPES}
+            "paged_attention", "") else OLD_PAGED_ARGTYPES,
+        "dscim_counts": dm.ARGTYPES}
     fns = {}
     for name in names:
         fn = getattr(ctypes.CDLL(str(sos[name])), f"{name}_launch")
@@ -185,6 +189,43 @@ def call_paged(torch, fn, new, args):
     if rc != 0:
         raise RuntimeError(f"paged launch failed: {rc}")
     return out
+
+
+def call_counts(torch, fn, x, w, ta, tb, k):
+    """One launch of a count-kernel build (the C interface is the same
+    before and after the b1 redesign)."""
+    M, K = x.shape
+    N = w.shape[1]
+    G, S, W = ta.shape
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    rc = fn(x.data_ptr(), w.data_ptr(), ta.data_ptr(), tb.data_ptr(),
+            out.data_ptr(), M, K, N, k, G, S, W,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"counts launch failed: {rc}")
+    return out
+
+
+def compare_counts(torch, builds, order, record):
+    """The count kernel at chip_smoke.py's operator shapes, both presets,
+    on the blocked tables (the all-L tables give the same calls)."""
+    from repro_torch.core.seed_search import calibrated_config
+    from repro_torch.kernels import dscim_mvm_blocked as blocked
+    for (M, K, N), (x, w) in cs._operands(torch).items():
+        for key in cs.OPS_PRESETS:
+            cfg = calibrated_config(*key)
+            ta, tb = blocked.count_tables(cfg, x.device)
+            want = blocked.dscim_counts_blocked_plain(x, w, cfg)
+            times = {b: [] for b in builds}
+            for b in order:
+                fn = builds[b]["dscim_counts"]
+                times[b].append(cs._cuda_ms(lambda: call_counts(
+                    torch, fn, x, w, ta, tb, cfg.k), 20 if M > 16 else 50))
+            for b in builds:
+                got = call_counts(torch, builds[b]["dscim_counts"], x, w, ta,
+                                  tb, cfg.k)
+                record("dscim_counts", f"{key[0]}/L{key[1]} M={M} K={K} "
+                       f"N={N}", b, float((got - want).abs().max()), times[b])
 
 
 def compare_fused(torch, builds, order, record, is_new):
@@ -289,6 +330,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels import build
     from repro_torch.kernels import dscim_fused as df
+    from repro_torch.kernels import dscim_mvm as dm
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import paged_attention as pa
@@ -296,7 +338,8 @@ def main() -> int:
     names = tuple(args.only)
     old = old_build(args.old, build.BUILD_DIR / "compare", names)
     argtypes = {"flash_attention": fa.ARGTYPES, "int8_matmul": im.ARGTYPES,
-                "dscim_fused": df.ARGTYPES, "paged_attention": pa.ARGTYPES}
+                "dscim_fused": df.ARGTYPES, "paged_attention": pa.ARGTYPES,
+                "dscim_counts": dm.ARGTYPES}
     builds = {"old": old,
               "current": {n: build.bind(n, f"{n}_launch", argtypes[n])
                           for n in names}}
@@ -329,6 +372,8 @@ def main() -> int:
     if "paged_attention" in names:
         compare_paged(torch, builds, order, record,
                       {b: is_new[b]["paged_attention"] for b in builds})
+    if "dscim_counts" in names:
+        compare_counts(torch, builds, order, record)
     if "flash_attention" in names:
         compare_flash(torch, np, rng, builds, order, record)
     if "int8_matmul" in names:

@@ -13,7 +13,8 @@ folded point coordinates (cu, lu, cv, lv) (L,):
 * on a CUDA tensor launches ``csrc/dscim_counts.cu``, which sums
   ``popc(ta & tb)`` over per-block bit-mask tables built here from the
   points (an exact rewrite of the all-L bit expansion for any point set
-  with at most 256 points in one block; see the source's header);
+  with at most 256 points in one block) as a binary matrix product on the
+  b1 tensor cores (see the source's header);
 * on a CPU tensor runs ``dscim_counts_plain``, the reference's {0,1}
   bit expansion over all L points (``ref.py dscim_counts_ref``), chunked
   over N.
@@ -37,9 +38,8 @@ __all__ = ["dscim_counts", "dscim_counts_plain", "points_by_block",
 
 LAUNCHES = build.LaunchCounter("dscim_counts")
 BIT_BUDGET = 1 << 26      # plain versions: bit-expansion elements per chunk
-_WARPS, _MT, _SMEM_MAX = 8, 16, 232448   # as in csrc/dscim_counts.cu
 # dscim_counts_launch(x, w, ta, tb, out, M, K, N, k, G, S, W, stream)
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def check_exact_matmuls(t: torch.Tensor, name: str) -> None:
@@ -165,13 +165,17 @@ def launch_counts(x, w, ta, tb, k: int, counter: build.LaunchCounter
         raise ValueError(f"dscim_counts kernel: x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}, tables {tuple(ta.shape)} for "
                          f"k={k}")
-    if (2 * G * S * W + _WARPS * _MT * 32) * 4 > _SMEM_MAX:
-        raise ValueError(f"k={k}, W={W}: count tables exceed shared memory")
+    if K * 32 * W >= 1 << 24:
+        raise ValueError(f"dscim_counts kernel: K={K} with {W}-word masks "
+                         "can count past 2^24, where f32 is not exact")
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    fn = build.bind("dscim_counts", "dscim_counts_launch", _ARGTYPES)
+    fn = build.bind("dscim_counts", "dscim_counts_launch", ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), w.data_ptr(), ta.data_ptr(), tb.data_ptr(),
             out.data_ptr(), M, K, N, k, G, S, W, stream)
+    if rc == -1:
+        raise ValueError(f"dscim_counts kernel does not take k={k}, W={W} "
+                         "(its tables past shared memory)")
     if rc != 0:
         raise RuntimeError(f"dscim_counts kernel launch failed: error {rc}")
     counter.count += 1

@@ -291,6 +291,142 @@ def test_count_kernel_all_points_in_one_block(cuda):
     assert torch.equal(got, dscim_mvm.dscim_counts_plain(x, w, *pts, k))
 
 
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 64, 256, 300])
+def test_count_kernel_rows_and_ragged_edges(cuda, M):
+    """Both row-count regimes of the count kernel (8 and 128 rows a
+    block) with K = 777 (not a multiple of the 8 K-rows of a k256 step,
+    nor of a 32-row slab) and N = 200 (a whole and a ragged 128-column
+    tile): both wrappers bitwise equal to their plain versions."""
+    from repro_torch.core.seed_search import calibrated_config
+    from repro_torch.kernels import dscim_mvm, dscim_mvm_blocked, ops
+
+    cfg = calibrated_config("dscim1", 256)
+    x, w = _int8_pair(cuda, M, M, 777, 200)
+    pts = ops.fold_constants(cfg)
+    c6 = dscim_mvm.dscim_counts(x, w, *pts, k=cfg.k, length=cfg.length)
+    c5 = dscim_mvm_blocked.dscim_counts_blocked(x, w, cfg)
+    assert torch.equal(c5, dscim_mvm_blocked.dscim_counts_blocked_plain(
+        x, w, cfg))
+    assert torch.equal(c6, dscim_mvm.dscim_counts_plain(x, w, *pts, cfg.k))
+
+
+def _block_points(seed, P, k, L=256):
+    """L points at k: P of them in one block (cu = 1, cv = 2), the others
+    spread over the blocks; as int32 tensors (cu, lu, cv, lv)."""
+    rng = np.random.default_rng(seed)
+    n, S = 1 << k, 256 >> k
+    cu = np.where(np.arange(L) < P, 1, rng.integers(0, n, L))
+    cv = np.where(np.arange(L) < P, 2 % n, rng.integers(0, n, L))
+    return [torch.from_numpy(a.astype(np.int32)) for a in
+            (cu, rng.integers(0, S, L), cv, rng.integers(0, S, L))]
+
+
+@pytest.mark.parametrize("M", [9, 64, 300])
+def test_count_kernel_wide_tables_past_8_rows(cuda, M):
+    """k = 3 with 8-word masks (128 KB of tables, more than the 256 x 128
+    block's shared memory leaves them) past M = 8: the kernel takes them
+    on its 8-row tile, equal to the all-L plain version."""
+    from repro_torch.kernels import dscim_mvm
+
+    pts = _block_points(M, 200, 3)
+    x, w = _int8_pair(cuda, 30 + M, M, 300, 260)
+    assert dscim_mvm.point_tables(*pts, 3, cuda)[0].shape == (64, 32, 8)
+    got = dscim_mvm.dscim_counts(x, w, *pts, k=3, length=256)
+    assert torch.equal(got, dscim_mvm.dscim_counts_plain(x, w, *pts, 3))
+
+
+@pytest.mark.parametrize("M,K,N", [(5, 261, 130), (64, 1030, 300)])
+@pytest.mark.parametrize("P,W", [(50, 2), (100, 4)])
+def test_count_kernel_multiword_masks(cuda, P, W, M, K, N):
+    """W = 2 and 4 words a K-row (33-64 and 65-128 points in one block of
+    k = 3; 4 and 2 K-rows a k256 step, K a multiple of neither): the
+    all-L wrapper bitwise equal to its plain version."""
+    from repro_torch.kernels import dscim_mvm
+
+    k = 3
+    pts = _block_points(P, P, k)
+    assert dscim_mvm.point_tables(*pts, k, cuda)[0].shape == (64, 32, W)
+    x, w = _int8_pair(cuda, P + M, M, K, N)
+    got = dscim_mvm.dscim_counts(x, w, *pts, k=k, length=256)
+    assert torch.equal(got, dscim_mvm.dscim_counts_plain(x, w, *pts, k))
+    assert float(got.max()) > 32
+
+
+@pytest.mark.parametrize("P", [0, 40])
+def test_count_kernel_k1_point_set(cuda, P):
+    """A synthetic k = 1 set (4 blocks of 128 local levels, L = 128
+    points spread, or 40 of them in one block: 2-word masks)."""
+    from repro_torch.kernels import dscim_mvm
+
+    pts = _block_points(11 + P, P, 1, L=128)
+    x, w = _int8_pair(cuda, 12 + P, 37, 300, 150)
+    got = dscim_mvm.dscim_counts(x, w, *pts, k=1, length=128)
+    assert torch.equal(got, dscim_mvm.dscim_counts_plain(x, w, *pts, 1))
+
+
+def _device_kernels(fn):
+    """The names of the device kernels ``fn()`` launches (profiler)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_count_kernel_split_and_unsplit_plans(cuda):
+    """A row's counts are the same bits whether K is split over blocks
+    (4 rows: 128 tiles leave block slots idle; the slices add into the
+    output that a zero kernel cleared first) or not (300 rows: 192 tiles,
+    no zero kernel), equal to the plain version, and the same on repeated
+    calls."""
+    from repro_torch.core.seed_search import calibrated_config
+    from repro_torch.kernels import dscim_mvm_blocked
+
+    cfg = calibrated_config("dscim1", 256)
+    x, w = _int8_pair(cuda, 21, 300, 1024, 16384)
+    x4 = x[:4].contiguous()
+    dscim_mvm_blocked.dscim_counts_blocked(x4, w, cfg)
+    full, unsplit = _device_kernels(
+        lambda: dscim_mvm_blocked.dscim_counts_blocked(x, w, cfg))
+    _, split = _device_kernels(
+        lambda: dscim_mvm_blocked.dscim_counts_blocked(x4, w, cfg))
+    assert not any("zero_kernel" in n for n in unsplit), unsplit
+    assert any("zero_kernel" in n for n in split), split
+    few = [dscim_mvm_blocked.dscim_counts_blocked(x4, w, cfg)
+           for _ in range(3)]
+    assert torch.equal(full, dscim_mvm_blocked.dscim_counts_blocked_plain(
+        x, w, cfg))
+    for f in few:
+        assert torch.equal(f, full[:4])
+
+
+def test_count_kernel_refuses_what_it_cannot_take(cuda):
+    """Tables past shared memory (k = 4, 8 words: 256 KB) and K*32*W >=
+    2^24 (counts where the f32 adds of K-slices are no longer exact) raise
+    without a launch, in the wrapper and in the C entry."""
+    from repro_torch.kernels import build, dscim_mvm
+
+    counter = build.LaunchCounter("refused")
+    x, w = _int8_pair(cuda, 5, 2, 40, 16)
+    big = torch.zeros((256, 16, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        dscim_mvm.launch_counts(x, w, big, big, 4, counter)
+    K = (1 << 24) // (32 * 8)
+    x, w = _int8_pair(cuda, 6, 1, K, 1)
+    tab = torch.zeros((64, 32, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        dscim_mvm.launch_counts(x, w, tab, tab, 3, counter)
+    out = torch.empty((1, 1), dtype=torch.float32, device=cuda)
+    entry = build.bind("dscim_counts", "dscim_counts_launch",
+                       dscim_mvm.ARGTYPES)
+    assert entry(x.data_ptr(), w.data_ptr(), tab.data_ptr(), tab.data_ptr(),
+                 out.data_ptr(), 1, K, 1, 3, 64, 32, 8,
+                 torch.cuda.current_stream(cuda).cuda_stream) == -1
+    assert counter.count == 0
+
+
 @pytest.mark.parametrize("M,K,N", [(1, 1, 1), (7, 33, 5), (37, 300, 65),
                                    (65, 129, 130), (4, 1024, 3072)])
 def test_int8_matmul_kernel_vs_plain(cuda, M, K, N):
