@@ -12,16 +12,32 @@ In order it
    entry of the flash-attention, int8 GEMM, fused DS-CIM MVM, paged
    attention and DS-CIM count kernels, and the tensor-core instructions in
    their SASS;
-2. drives the main path once: ``repro_torch.launch.serve.serve_batch`` on
+2. drives the main path: ``repro_torch.launch.serve.serve_batch`` on
    qwen3-0.6b at its published width (random weights from seed 0) with
    ``dscim="kernel:dscim1:256"``, ``kv="int8"``, page size 8, batch 4,
-   prompt 64, 16 tokens; the kernels' launch counters are zeroed just
-   before and read just after, and must show 85 fused-MVM launches per
-   forward (1360) and 28 paged-attention launches per decode step (420);
-3. checks the output (shape, range, finite logits) and prints tok/s and
-   the prefill logit RMSE against the port's own ``dscim="off"`` run, then
-   serves one more such request under ``torch.profiler`` and prints the
-   device's busy time, its idle share and the costliest kernels;
+   prompt 64, 16 tokens, through the decode step captured as a CUDA graph
+   (``scan=True``; the warm-up request at the same shape captures it, and
+   its capture time is printed).  The kernels' launch counters are zeroed
+   just before the timed request and read just after, and must show 85
+   fused-MVM launches per forward (1360) and 28 paged-attention launches
+   per decode step (420), counted over the graph's replays; the eager
+   host loop (``scan=False``) must launch as many and give the same
+   tokens and logit trace bitwise.  Both loops then serve 5 requests in
+   turns: the median and range of tok/s and of one decode step's device
+   time (CUDA events) are printed for each;
+3. checks the output (shape, range, finite logits) and prints the
+   prefill logit RMSE against the port's own ``dscim="off"`` run; serves
+   one graph request and one eager request under ``torch.profiler`` and
+   prints each one's wall time, device busy time, idle share, kernel
+   count and costliest kernels, and checks that the fused-MVM and
+   paged-attention kernel calls the device ran equal the counters'
+   launches (``profile``); then serves 8 requests (prompt 64, budgets
+   ``CB_BUDGETS``) through 4 slots in segments of 4 captured steps
+   (``continuous``, ``serve_continuous``) twice, a warm-up and the run
+   reported, checks each request's tokens bitwise against a one-shot
+   ``serve_batch`` of its prompt tiled to 4 rows with the same budget,
+   and prints tok/s with and without the segment step's capture time,
+   occupancy, segments and the page allocator's stats;
 4. holds each kernel's wrapper, as the main path calls it, against its
    plain PyTorch version on the same inputs at the main path's shapes,
    and times kernel, wrapper, plain version, the least
@@ -85,6 +101,8 @@ B1_OPS_PER_S = 15532e12
 
 BATCH, PROMPT, TOKENS, PAGE = 4, 64, 16, 8
 DSCIM = "kernel:dscim1:256"
+CB_BUDGETS = (16, 5, 12, 3, 16, 8, 10, 2)   # continuous phase, per request
+CB_SEG = 4                                  # its decode steps per segment
 FUSED_RTOL = 2e-5            # f32 summation order; counts are exact
 PAGED_RTOL = 1e-5            # f32 summation order of dot products / sums
 LONG_POS = 2047              # paged attention's long-context position
@@ -247,40 +265,133 @@ def _check_close(name, got, want, rtol):
     return err
 
 
-def main_path(torch, cfg, params, prompts):
-    """Phase 2 + 3: the main path once, with launch counts."""
+def _decode_step_ms(torch, fn, reset, reps=5):
+    """Median device time (CUDA events around it) of one decode step
+    ``fn`` of the main path's runner, after ``reset()`` puts the cache
+    position and the output row back (the step's writes land on state the
+    next request overwrites).  For the eager loop this is the step as the
+    device's clock sees it, host-paced gaps between its kernels
+    included."""
+    import statistics
+    times = []
+    for _ in range(reps):
+        reset()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main_path(torch, cfg, params, served, prompts):
+    """Phase 2 + 3: the main path through the captured decode step
+    (``serve_batch(scan=True)`` on ``served``, the params prepared once),
+    with launch counts over the replays, tokens and logit trace bitwise
+    against the eager host loop (``scan=False``), and both loops timed in
+    turns."""
+    import numpy as np
+
     from repro_torch.kernels import dscim_fused, paged_attention
     from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import _generate_runner
 
     cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
-    # warm-up on a short run (CUDA context, cuBLAS, library loads)
-    serve_batch(cfg_ds, params, prompts, 2, kv="int8", page_size=PAGE)
+    kw = dict(kv="int8", page_size=PAGE)
+    # warm-up at the timed request's shape: the capture happens here
+    warm = {}
+    serve_batch(cfg_ds, served, prompts, TOKENS, timings=warm, **kw)
+    serve_batch(cfg_ds, served, prompts, TOKENS, scan=False, **kw)
     torch.cuda.synchronize()
+    if "capture_s" not in warm:
+        raise AssertionError("the warm-up request captured no graph")
+    capture_s = warm["capture_s"]
     dscim_fused.LAUNCHES.reset()
     paged_attention.LAUNCHES.reset()
     t = {}
-    toks, logits, cache = serve_batch(cfg_ds, params, prompts, TOKENS,
-                                      kv="int8", page_size=PAGE, timings=t,
-                                      return_cache=True)
+    toks, logits, cache = serve_batch(cfg_ds, served, prompts, TOKENS,
+                                      timings=t, return_cache=True, **kw)
     launches = {"dscim_fused_mvm": dscim_fused.LAUNCHES.count,
                 "paged_attention_decode": paged_attention.LAUNCHES.count}
     want = {"dscim_fused_mvm": (3 * cfg.n_layers + 1) * TOKENS,
             "paged_attention_decode": cfg.n_layers * (TOKENS - 1)}
-    _log(f"launches on the main path: {launches} (expected {want})")
+    _log(f"launches on the main path (graph replays): {launches} "
+         f"(expected {want})")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
+    if "capture_s" in t:
+        raise AssertionError("the timed request captured again")
     if toks.shape != (BATCH, TOKENS) or toks.min() < 0 \
             or toks.max() >= cfg.vocab_padded:
         raise AssertionError(f"bad tokens {toks.shape} {toks.min()} "
                              f"{toks.max()}")
-    import numpy as np
     if not np.isfinite(logits[0]).all():
         raise AssertionError("non-finite prefill logits")
+    # the eager loop on the same prompts: same launches, same bits
+    dscim_fused.LAUNCHES.reset()
+    paged_attention.LAUNCHES.reset()
+    serve_batch(cfg_ds, served, prompts, TOKENS, scan=False, **kw)
+    eager_launches = {"dscim_fused_mvm": dscim_fused.LAUNCHES.count,
+                      "paged_attention_decode":
+                      paged_attention.LAUNCHES.count}
+    if eager_launches != want:
+        raise AssertionError(f"eager launch counts {eager_launches}")
+    traced = {scan: serve_batch(cfg_ds, served, prompts, TOKENS, scan=scan,
+                                trace_logits=True, **kw)
+              for scan in (True, False)}
+    (tg, lg), (te, le) = traced[True], traced[False]
+    if not (np.array_equal(tg, te) and np.array_equal(tg, toks)
+            and np.array_equal(np.stack(lg), np.stack(le))):
+        raise AssertionError("graph and eager loop disagree (tokens or "
+                             "logit trace)")
+    _log(f"graph vs eager loop: tokens and the ({TOKENS}, {BATCH}, "
+         f"{cfg.vocab_padded}) logit trace bitwise equal")
+    # both loops in turns, with the device time of one decode step
+    runner = _generate_runner(cfg_ds, BATCH, PROMPT, TOKENS, "int8", PAGE,
+                              None, "greedy", False,
+                              torch.device("cuda", 0))
+    st = runner.st
+
+    def reset():
+        # the runner holds the params only inside a request; the eager
+        # step reads them
+        st["params"] = served
+        st["cache"]["pos"].fill_(PROMPT + TOKENS // 2)
+        st["i"].fill_(TOKENS // 2)
+    step_fn = {True: runner.step.graph.replay, False: runner.step.step}
+    runs = {True: [], False: []}
+    for scan in (True, False, False, True) * 2 + (True, False):
+        tt = {}
+        serve_batch(cfg_ds, served, prompts, TOKENS, scan=scan, timings=tt,
+                    **kw)
+        ms = _decode_step_ms(torch, step_fn[scan], reset)
+        runs[scan].append((BATCH * TOKENS / tt["generate_s"], ms))
+    loops = {}
+    for scan, name in ((True, "graph"), (False, "eager")):
+        tok_s = [r[0] for r in runs[scan]]
+        step_ms = [r[1] for r in runs[scan]]
+        loops[name] = {
+            "runs": len(tok_s), "tok_s": tok_s,
+            "tok_s_median": float(np.median(tok_s)),
+            "tok_s_range": [min(tok_s), max(tok_s)],
+            "decode_step_ms": step_ms,
+            "decode_step_ms_median": float(np.median(step_ms)),
+            "decode_step_ms_range": [min(step_ms), max(step_ms)]}
+        lp = loops[name]
+        _log(f"{name} loop, {lp['runs']} runs: {lp['tok_s_median']:.1f} "
+             f"tok/s median (range {lp['tok_s_range'][0]:.1f}-"
+             f"{lp['tok_s_range'][1]:.1f}); decode step "
+             f"{lp['decode_step_ms_median']:.4f} ms device time median "
+             f"(range {lp['decode_step_ms_range'][0]:.4f}-"
+             f"{lp['decode_step_ms_range'][1]:.4f})")
     tok_s = BATCH * TOKENS / t["generate_s"]
     _log(f"main path: {BATCH * TOKENS} tokens in {t['generate_s']:.4f} s "
-         f"= {tok_s:.1f} tok/s (prepare {t['prepare_s']:.2f} s)")
-    off_toks, off_logits = serve_batch(cfg, params, prompts, TOKENS,
-                                       kv="int8", page_size=PAGE)
+         f"= {tok_s:.1f} tok/s (prepare {t['prepare_s']:.2f} s, capture "
+         f"{capture_s:.3f} s in the warm-up)")
+    off_toks, off_logits = serve_batch(cfg, params, prompts, TOKENS, **kw)
     rmse = float(np.sqrt(np.mean((logits[0] - off_logits[0]) ** 2)))
     agree = float((toks == off_toks).mean())
     _log(f"dscim={DSCIM} vs dscim=off: prefill logit RMSE {rmse:.6f}, "
@@ -288,26 +399,28 @@ def main_path(torch, cfg, params, prompts):
     if not math.isfinite(rmse):
         raise AssertionError("non-finite logit RMSE")
     return launches, cache, {"tok_s": tok_s, "logit_rmse": rmse,
-                             "generate_s": t["generate_s"]}
+                             "generate_s": t["generate_s"],
+                             "capture_s": capture_s, "loops": loops}
 
 
-def profile_main_path(torch, cfg, params, prompts):
-    """Phase 3b: one more main-path request under ``torch.profiler``: wall
-    time, the time the device spent running kernels (the sum of kernel
-    durations on the one stream the port uses), the idle share, and the
-    device time of the costliest kernel names."""
+# the port's kernels of the main path, as the profiler names them
+PROFILED_KERNELS = {"fused_mvm": "::fused_kernel<",
+                    "fused_quantize": "::quantize_kernel<",
+                    "paged_attention": "::paged_split_kernel"}
+
+
+def _profile_request(torch, serve):
+    """Wall time, device busy time (kernel durations summed), idle share,
+    kernel count, the costliest kernel names of one ``serve()``, and the
+    calls of each of ``PROFILED_KERNELS`` the device ran."""
     import collections
 
-    from repro_torch.launch.serve import serve_batch
-
-    cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        serve_batch(cfg_ds, params, prompts, TOKENS, kv="int8",
-                    page_size=PAGE)
+        serve()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = collections.defaultdict(lambda: [0, 0.0])
@@ -317,17 +430,116 @@ def profile_main_path(torch, cfg, params, prompts):
             by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
     busy_ms = sum(ms for _, ms in by_name.values())
     top = sorted(by_name.items(), key=lambda it: -it[1][1])[:8]
-    out = {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
-           "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-           "kernel_launches": sum(c for c, _ in by_name.values()),
-           "top_kernels": [{"name": n[:80], "calls": c, "device_ms": ms}
-                           for n, (c, ms) in top]}
-    _log(f"profile: wall {wall_ms:.1f} ms (profiler on), device busy "
-         f"{busy_ms:.1f} ms, idle {out['device_idle_share']:.3f}, "
-         f"{out['kernel_launches']} kernels")
-    if busy_ms <= 0.0:
-        raise AssertionError("the profiler saw no device time")
+    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "kernel_launches": sum(c for c, _ in by_name.values()),
+            "port_kernel_calls": {
+                k: sum(c for n, (c, _) in by_name.items() if pat in n)
+                for k, pat in PROFILED_KERNELS.items()},
+            "top_kernels": [{"name": n[:80], "calls": c, "device_ms": ms}
+                            for n, (c, ms) in top]}
+
+
+def profile_main_path(torch, cfg, served, prompts):
+    """Phase 3b: one graph request and one eager request of the main path
+    under ``torch.profiler``: wall time, the time the device spent running
+    kernels, the idle share, the kernel count and the costliest kernels.
+    The device's own calls of the fused MVM (one quantize kernel and one
+    MVM kernel a wrapper call) and of paged attention must equal what the
+    wrappers' counters read for the same request: for the graph request
+    the counters add the captured launches once a replay, and this shows
+    the replays really ran them."""
+    from repro_torch.kernels import dscim_fused, paged_attention
+    from repro_torch.launch.serve import serve_batch
+
+    cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
+    out = {}
+    for scan, name in ((True, "graph"), (False, "eager")):
+        dscim_fused.LAUNCHES.reset()
+        paged_attention.LAUNCHES.reset()
+        out[name] = p = _profile_request(torch, lambda: serve_batch(
+            cfg_ds, served, prompts, TOKENS, kv="int8", page_size=PAGE,
+            scan=scan))
+        seen = p["port_kernel_calls"]
+        counted = {"fused_mvm": dscim_fused.LAUNCHES.count,
+                   "fused_quantize": dscim_fused.LAUNCHES.count,
+                   "paged_attention": paged_attention.LAUNCHES.count}
+        p["counted_launches"] = counted
+        _log(f"profile, {name} loop: kernel calls the device ran {seen}, "
+             f"the counters' {counted}")
+        if seen != counted:
+            raise AssertionError(f"{name} loop: the profiler saw {seen} "
+                                 f"kernel calls, the counters read "
+                                 f"{counted}")
+        _log(f"profile, {name} loop: wall {p['wall_ms_profiled']:.1f} ms "
+             f"(profiler on), device busy {p['device_busy_ms']:.1f} ms, "
+             f"idle {p['device_idle_share']:.3f}, "
+             f"{p['kernel_launches']} kernels")
+        for k in p["top_kernels"][:5]:
+            _log(f"  {k['device_ms']:.2f} ms in {k['calls']} x "
+                 f"{k['name']}")
+        if p["device_busy_ms"] <= 0.0:
+            raise AssertionError(f"the profiler saw no device time "
+                                 f"({name} loop)")
     return out
+
+
+def continuous(torch, cfg, served):
+    """Phase 3c: continuous batching at full width: 8 requests (prompt 64,
+    budgets CB_BUDGETS) through 4 slots in segments of 4 captured steps,
+    ``kernel:dscim1:256``, int8 paged KV, page size 8.  The queue is
+    served twice, a warm-up and the run reported (each run makes its
+    serve state and captures its segment step, whose time is printed
+    apart).  Each request's tokens must equal a one-shot ``serve_batch``
+    of its prompt tiled to 4 rows with the same budget, bitwise."""
+    import numpy as np
+
+    from repro_torch.launch.serve import serve_batch, serve_continuous
+
+    cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
+    budgets = np.asarray(CB_BUDGETS, np.int32)
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab, (len(budgets), PROMPT))
+    n = int(budgets.max())
+    kw = dict(kv="int8", page_size=PAGE, eos_id=-1)
+    warm, _ = serve_continuous(cfg_ds, served, prompts, n, slots=BATCH,
+                               seg_len=CB_SEG, max_new=budgets, **kw)
+    outs, stats = serve_continuous(cfg_ds, served, prompts, n, slots=BATCH,
+                                   seg_len=CB_SEG, max_new=budgets, **kw)
+    capture_s = stats["capture_s"]
+    for r, budget in enumerate(budgets):
+        if not np.array_equal(warm[r], outs[r]):
+            raise AssertionError(f"continuous request {r}: the two runs "
+                                 f"differ: {warm[r]} vs {outs[r]}")
+        ref, _ = serve_batch(cfg_ds, served,
+                             np.tile(prompts[r:r + 1], (BATCH, 1)), n,
+                             max_new=[int(budget)] * BATCH, **kw)
+        if len(outs[r]) != budget or not np.array_equal(outs[r],
+                                                        ref[0, :budget]):
+            raise AssertionError(f"continuous request {r}: {outs[r]} vs "
+                                 f"one-shot {ref[0, :budget]}")
+    if stats["useful_tokens"] != int(budgets.sum()) \
+            or stats["live_slot_steps"] != int(budgets.sum()) - len(budgets) \
+            or stats["pages"]["live_pages"] != 0:
+        raise AssertionError(f"continuous accounting: {stats}")
+    pages = stats["pages"]
+    tok_s_uncaptured = stats["useful_tokens"] / (stats["wall_s"] - capture_s)
+    _log(f"continuous: {len(budgets)} requests through {BATCH} slots, "
+         f"{stats['useful_tokens']} tokens, each equal to its one-shot "
+         f"request bitwise (and to the warm-up run's); second run "
+         f"{stats['tok_s']:.1f} tok/s over {stats['wall_s']:.3f} s, of "
+         f"which {capture_s:.3f} s capture the segment step; "
+         f"{tok_s_uncaptured:.1f} tok/s without it; occupancy "
+         f"{stats['occupancy']:.3f} "
+         f"({stats['live_slot_steps']}/{stats['slot_steps']} slot-steps), "
+         f"{stats['segments']} segments of {CB_SEG}; pages: high water "
+         f"{pages['high_water']}/{pages['n_pages']}, refusals "
+         f"{pages['refusals']}, live after {pages['live_pages']}")
+    return {k: stats[k] for k in ("wall_s", "tok_s", "capture_s",
+                                  "occupancy", "live_slot_steps",
+                                  "slot_steps", "segments", "useful_tokens",
+                                  "pages")} \
+        | {"tok_s_without_capture": tok_s_uncaptured}
 
 
 def check_fused(torch, cfg, params, launches):
@@ -988,12 +1200,19 @@ def main() -> int:
                                            "dscim_fused", "paged_attention",
                                            "dscim_counts"))
 
+    from repro_torch.launch.serve import prepare_params
     cfg = get_arch("qwen3-0.6b")
     params = lm.init_params(cfg, 0)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (BATCH, PROMPT))
+    # prepared once, as a serving caller does: every request of the main
+    # path hands the same tensors, so the captured graph stays bound
+    served = phase("prepare", prepare_params,
+                   dataclasses.replace(cfg, dscim=DSCIM), params)
     launches, cache, e2e = phase("main_path", main_path, torch, cfg, params,
-                                 prompts) or (None, None, {})
-    prof = phase("profile", profile_main_path, torch, cfg, params, prompts)
+                                 served, prompts) or (None, None, {})
+    prof = phase("profile", profile_main_path, torch, cfg, served, prompts)
+    cb = phase("continuous", continuous, torch, cfg, served)
+    del served
     counts = launches or {"dscim_fused_mvm": None,
                           "paged_attention_decode": None}
     kernels = [phase("dscim_fused", check_fused, torch, cfg, params, counts),
@@ -1014,7 +1233,10 @@ def main() -> int:
     del ops_in, ops_out
     t1 = phase("table1", table1, torch)
     drift = phase("reduced_gpu_vs_cpu", check_reduced, torch)
-    print(json.dumps({"kernels": kernels, "tok_s": e2e.get("tok_s"),
+    print(json.dumps({"kernels": kernels, "card": smi[0] if smi else None,
+                      "tok_s": e2e.get("tok_s"),
+                      "capture_s": e2e.get("capture_s"),
+                      "loops": e2e.get("loops"), "continuous": cb,
                       "prefill_logit_rmse_vs_off": e2e.get("logit_rmse"),
                       "reduced_gpu_vs_cpu_drift": drift,
                       "table1_rmse_pct": t1,

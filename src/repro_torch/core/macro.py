@@ -114,6 +114,24 @@ class DSCIMMacro:
         cv, lv = fold(self.v.astype(np.int32), cfg.k)
         self.folded = tuple(torch.as_tensor(t, dtype=torch.int32)
                             for t in (cu, lu, cv, lv))
+        self._luts: dict = {}
+
+    def lut_table(self, device) -> torch.Tensor:
+        """The count LUT on ``device``, copied there once.  The copy is
+        from pageable host memory, which a CUDA graph capture forbids: the
+        capture preparation (``launch/steps.py _prepare_fn``) makes it
+        first, and a first copy during capture raises."""
+        device = torch.device(device)
+        lut = self._luts.get(device)
+        if lut is None:
+            if device.type == "cuda" and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"{self.cfg.name}: count LUT copied to "
+                                   f"{device} during a CUDA graph capture; "
+                                   "make it before capture")
+            lut = torch.as_tensor(self.lut_np, device=device)
+            self._luts[device] = lut
+        return lut
 
     def _shift(self, x_i8, w_i8):
         k = self.cfg.k
@@ -125,7 +143,7 @@ class DSCIMMacro:
         """(M, K) int8, (K, N) int8 -> (M, N) int32 OR-accumulated counts."""
         a, b = self._shift(x_i8, w_i8)
         K = a.shape[-1]
-        lut = torch.as_tensor(self.lut_np, device=a.device)
+        lut = self.lut_table(a.device)
         blk = torch.arange(K, device=a.device) % self.cfg.group
         g = lut[blk[None, :, None], a[:, :, None].long(),
                 b[None, :, :].long()]                   # (M, K, N)

@@ -18,8 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["LaunchCounter", "bind", "build", "load", "tile_counters",
-           "SOURCES"]
+__all__ = ["LaunchCounter", "COUNTERS", "bind", "build", "load",
+           "tile_counters", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -32,14 +32,21 @@ _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 _bound: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _counters: dict = {}
+COUNTERS: list = []       # every LaunchCounter made, for graph replays
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)          # hashed by identity
 class LaunchCounter:
     """Kernel launches made by one wrapper (incremented where it launches,
-    nowhere else), so a run can show that its path went through it."""
+    nowhere else), so a run can show that its path went through it.  A
+    CUDA graph's capture runs the wrappers without launching anything, so
+    the graph runner (launch/graph.py) takes back what they counted there
+    and adds it once per replay."""
     name: str
     count: int = 0
+
+    def __post_init__(self):
+        COUNTERS.append(self)
 
     def reset(self) -> None:
         self.count = 0
@@ -120,11 +127,21 @@ def tile_counters(device, stream: int, n: int):
     blocks (the last block of a tile adds the staged partials): at least n
     int32 zeros on ``device`` for launches on ``stream``.  Each launch
     leaves them zero, so one buffer serves every such launch in stream
-    order; it is made (one fill) at first use and when it must grow."""
+    order; it is made (one fill) at first use and when it must grow.
+
+    A CUDA graph replays the buffer of the stream it was captured on, so
+    that stream's buffer must exist, large enough, before capture starts
+    (the wrappers' ``prepare_capture``): making it during capture would
+    put it in the graph's pool, and this raises instead."""
     import torch
     key = (device, stream)
     buf = _counters.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"tile counters for {n} tiles on stream {stream:#x} made "
+                "during a CUDA graph capture; prepare the kernels for "
+                "capture on that stream first")
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _counters[key] = buf
     return buf

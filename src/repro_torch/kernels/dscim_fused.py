@@ -47,7 +47,8 @@ from .dscim_mvm_blocked import block_point_tables, dscim_counts_blocked
 
 __all__ = ["dscim_fused_mvm", "dscim_fused_mvm_prepared",
            "dscim_fused_mvm_plain", "quantize_activations_windowed",
-           "mask_tables", "dscim_windowed_vmap_mvm", "LAUNCHES"]
+           "mask_tables", "dscim_windowed_vmap_mvm", "prepare_capture",
+           "LAUNCHES"]
 
 LAUNCHES = build.LaunchCounter("dscim_fused_mvm")
 _N_CHUNK = 16384          # plain version: output columns per bit expansion
@@ -89,10 +90,25 @@ def mask_tables(cfg: DSCIMConfig):
     return ta[..., 0], tb[..., 0]
 
 
-@functools.lru_cache(maxsize=32)
+_DEVICE_TABLES: dict = {}
+
+
 def _device_mask_tables(cfg: DSCIMConfig, device: torch.device):
-    """``mask_tables`` copied to ``device`` once (not per launch)."""
-    return tuple(torch.as_tensor(t, device=device) for t in mask_tables(cfg))
+    """``mask_tables`` copied to ``device`` once (not per launch).  The
+    copy is from pageable host memory, which a CUDA graph capture
+    forbids: ``prepare_capture`` makes it first, and a first copy during
+    capture raises."""
+    key = (cfg, device)
+    tabs = _DEVICE_TABLES.get(key)
+    if tabs is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{cfg.name}: count tables copied to {device} "
+                               "during a CUDA graph capture; call "
+                               "prepare_capture first")
+        tabs = tuple(torch.as_tensor(t, device=device)
+                     for t in mask_tables(cfg))
+        _DEVICE_TABLES[key] = tabs
+    return tabs
 
 
 def dscim_fused_mvm_plain(xq: torch.Tensor, sx: torch.Tensor,
@@ -216,6 +232,33 @@ def _launch_kernel(x: torch.Tensor, qw: QuantizedLinearWeight,
     xq = scratch[:M * nw * g].view(torch.int8).reshape(M, nw, g)
     sx = scratch[xq_bytes:xq_bytes + 4 * M * nw].view(torch.float32)
     return out, xq, sx.reshape(M, nw)
+
+
+def prepare_capture(weights, M: int, cfg: DSCIMConfig, stream) -> None:
+    """Everything the wrapper makes at first use, made before a CUDA graph
+    capture on ``stream`` that calls it with M rows on each prepared
+    weight in ``weights`` (one layer's weight per shape suffices): the
+    library built and bound, the count tables on the device, the
+    stream's tile counters sized for the largest call, and one launch per
+    weight shape on zero activations (the kernels' first-launch path:
+    module load, shared-memory attributes, the SM count)."""
+    build.load("dscim_fused")
+    seen = set()
+    tiles = 0
+    for qw in weights:
+        tiles = max(tiles, _launch_sizes(M, qw.n, qw.nw, qw.g)[1])
+    dev = weights[0].q.device
+    _device_mask_tables(cfg, dev)
+    build.tile_counters(dev, stream.cuda_stream, tiles)
+    with torch.cuda.stream(stream):
+        for qw in weights:
+            shape = (qw.k_orig, qw.n, qw.nw, qw.g)
+            if shape in seen:
+                continue
+            seen.add(shape)
+            for dt in (torch.float32, torch.bfloat16):
+                _launch_kernel(torch.zeros((M, qw.k_orig), dtype=dt,
+                                           device=dev), qw, cfg)
 
 
 def dscim_fused_mvm_prepared(x: torch.Tensor, qw: QuantizedLinearWeight,

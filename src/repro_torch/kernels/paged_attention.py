@@ -21,8 +21,8 @@ import torch
 
 from . import build
 
-__all__ = ["paged_attention_decode", "paged_read_plain", "LAUNCHES",
-           "NEG_INF"]
+__all__ = ["paged_attention_decode", "paged_read_plain", "prepare_capture",
+           "LAUNCHES", "NEG_INF"]
 
 NEG_INF = -1e30
 LAUNCHES = build.LaunchCounter("paged_attention_decode")
@@ -109,6 +109,27 @@ def _launch_kernel(q, k_pages, v_pages, k_scale, v_scale, k_tail, v_tail,
         raise RuntimeError(f"paged attention kernel launch failed: error {rc}")
     LAUNCHES.count += 1
     return out
+
+
+def prepare_capture(B: int, KV: int, R: int, HD: int, ps: int, MP: int,
+                    device, stream) -> None:
+    """Everything the wrapper makes at first use, made before a CUDA graph
+    capture on ``stream`` of calls at these shapes: the library built and
+    bound, the stream's tile counters, and one launch on a zero pool of
+    the same layout (module load, the shared-memory attribute)."""
+    build.tile_counters(device, stream.cuda_stream, B * KV)
+    with torch.cuda.stream(stream):
+        z = dict(dtype=torch.float32, device=device)
+        pages = torch.zeros((B * MP, ps, KV, HD), dtype=torch.int8,
+                            device=device)
+        scale = torch.ones((B * MP, KV), **z)
+        tail = torch.zeros((B, ps, KV, HD), dtype=torch.bfloat16,
+                           device=device)
+        table = torch.arange(B * MP, dtype=torch.int32,
+                             device=device).reshape(B, MP)
+        pos = torch.zeros((B,), dtype=torch.int32, device=device)
+        _launch_kernel(torch.zeros((B, KV, R, HD), **z), pages, pages,
+                       scale, scale, tail, tail, table, pos)
 
 
 def paged_attention_decode(q, k_pages, v_pages, k_scale, v_scale,

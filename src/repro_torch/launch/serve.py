@@ -1,6 +1,6 @@
 """Batched serving with the DS-CIM approximate-MVM path as a serving
-option (port of ``serve_batch``, ``logit_drift_rmse`` and the one-shot CLI
-of ``repro/launch/serve.py``).
+option (port of ``serve_batch``, ``serve_continuous``, ``logit_drift_rmse``
+and the CLI of ``repro/launch/serve.py``).
 
     python -m repro_torch.launch.serve --dscim kernel:dscim1:256 --kv int8
 
@@ -8,6 +8,14 @@ serves qwen3-0.6b at its published width on the GPU (``--reduced`` cuts
 it to the smoke-test size, ``--device cpu`` runs the plain PyTorch
 versions on the CPU) and prints tok/s for the float path and the DS-CIM
 path, their token agreement and the prefill logit RMSE between them.
+
+Generation replays one captured decode step as a CUDA graph (launch/
+steps.py, launch/graph.py): one host call per token instead of one per
+kernel.  ``--host-loop`` runs the eager loop instead (the A/B baseline).
+``--temp``/``--top-k``/``--top-p`` sample instead of taking the argmax.
+``--continuous`` serves ``--requests`` prompts through ``--batch``
+persistent slots, admitting between segments of ``--segment-len`` steps
+(runtime/serving.py).
 """
 from __future__ import annotations
 
@@ -21,9 +29,10 @@ import torch
 from ..configs import get_arch
 from ..device import resolve_device
 from ..models import lm
-from .steps import make_generate_fn, prepare_serving_params
+from .steps import clear_graphs, make_generate_fn, prepare_serving_params
 
-__all__ = ["serve_batch", "logit_drift_rmse", "main"]
+__all__ = ["serve_batch", "serve_continuous", "prepare_params",
+           "clear_graphs", "logit_drift_rmse", "main"]
 
 
 def _to(params, device):
@@ -32,23 +41,43 @@ def _to(params, device):
                       if isinstance(a, torch.Tensor) else a, params)
 
 
+def prepare_params(cfg, params, device=None):
+    """``params`` as the serving entry points use them: on ``device`` (CUDA
+    unless 'cpu' is asked for), DS-CIM-eligible weights quantized once
+    into int8 planes (no-op when cfg.dscim is 'off') and the layers cast
+    to the compute dtype.  Prepared params pass through unchanged, the
+    same tensors: a caller that serves many requests prepares once and
+    hands these to ``serve_batch``, whose captured decode graph then stays
+    bound to them (other tensors capture it again)."""
+    dev = resolve_device(device)
+    out = prepare_serving_params(cfg, _to(params, dev))
+    return lm.cast_layers(out, lm.DTYPES[cfg.compute_dtype])
+
+
 def serve_batch(cfg, params, prompts, n_tokens: int, *,
                 trace_logits: bool = False, eos_id: int | None = None,
                 kv: str = "float", page_size: int = 8, max_new=None,
+                scan: bool = True, sample: str = "greedy", rng_seed: int = 0,
                 device=None, timings: dict | None = None,
                 return_cache: bool = False):
     """prompts (B, S) int -> generated (B, n_tokens) int32 numpy, logits
     list (the per-step trace under ``trace_logits``, else [prefill
     logits]), as numpy f32.
 
-    DS-CIM-eligible weights are quantized once first (no-op when
-    cfg.dscim is 'off').  ``kv``: 'float' dense cache or 'int8' paged cache
-    with ``page_size`` tokens per page.  ``eos_id`` / ``max_new``: early
-    exit with per-slot budgets.  ``device``: CUDA unless 'cpu' is asked
-    for; params are moved there if they are elsewhere.  ``timings``: a dict
-    filled with 'prepare_s' and 'generate_s' (synchronized wall times).
-    ``return_cache``: also return the final KV cache (tensors on device).
-    """
+    ``params`` go through ``prepare_params`` (a no-op for prepared
+    params; pass prepared params to keep the captured decode graph across
+    requests).  ``kv``: 'float' dense cache or 'int8' paged cache with ``page_size``
+    tokens per page.  ``eos_id`` / ``max_new``: early exit with per-slot
+    budgets.  ``scan``: replay the captured decode step (the default; a
+    CUDA graph on the card, the same step eagerly on the CPU) or, False,
+    run the eager host loop; the two agree bitwise.  ``sample``: 'greedy'
+    | 'temp:<t>' | 'topk:<k>[:<t>]' | 'topp:<p>[:<t>]', drawn from a
+    generator seeded with ``rng_seed``.  ``device``: CUDA unless 'cpu' is
+    asked for; params are moved there if they are elsewhere.
+    ``timings``: a dict filled with 'prepare_s', 'generate_s'
+    (synchronized wall times) and, where this call captured the decode
+    graph, 'capture_s' (inside 'generate_s').  ``return_cache``: also
+    return a copy of the final KV cache (tensors on device)."""
     dev = resolve_device(device)
 
     def sync():
@@ -56,8 +85,7 @@ def serve_batch(cfg, params, prompts, n_tokens: int, *,
             torch.cuda.synchronize(dev)
 
     t0 = time.perf_counter()
-    params = prepare_serving_params(cfg, _to(params, dev))
-    params = lm.cast_layers(params, lm.DTYPES[cfg.compute_dtype])
+    params = prepare_params(cfg, params, dev)
     tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                              device=dev)
     budgets = None
@@ -70,16 +98,87 @@ def serve_batch(cfg, params, prompts, n_tokens: int, *,
     sync()
     t1 = time.perf_counter()
     generate = make_generate_fn(cfg, n_tokens, trace_logits=trace_logits,
-                                eos_id=eos_id, kv=kv, page_size=page_size)
-    out, logits, cache = generate(params, tokens, budgets)
+                                eos_id=eos_id, kv=kv, page_size=page_size,
+                                sample=sample, scan=scan)
+    out, logits, cache = generate(params, tokens, budgets, rng_seed)
     sync()
     t2 = time.perf_counter()
     if timings is not None:
         timings.update(prepare_s=t1 - t0, generate_s=t2 - t1)
+        if generate.last_capture_s is not None:
+            timings["capture_s"] = generate.last_capture_s
     logits = logits.cpu().numpy()
     trace = list(logits) if trace_logits else [logits]
     result = (out.cpu().numpy(), trace)
-    return result + (cache,) if return_cache else result
+    if return_cache:
+        return result + ({k: v.clone() for k, v in cache.items()},)
+    return result
+
+
+def serve_continuous(cfg, params, prompts, n_tokens: int, *,
+                     slots: int = 4, seg_len: int = 4, max_new=None,
+                     eos_id: int | None = None, sample: str = "greedy",
+                     kv: str = "float", page_size: int = 8,
+                     n_pages: int | None = None, rng_seed: int = 0, spec: str | None = None,
+                     deadline_steps=None, deadline_s=None, priority=None,
+                     monitor=None, injector=None, snapshot_every: int = 0,
+                     watchdog=None, integrity: str = "off",
+                     prefix_cache=False, device=None):
+    """Continuous-batching scheduler: serve a queue of R requests through
+    ``slots`` persistent decode slots.
+
+    prompts (R, S) int: the request queue (one prompt length per
+    scheduler).  Between segments of ``seg_len`` done-masked decode steps
+    (launch/steps.py ``make_segment_fn``: replays of the captured step on
+    the card) the host admits waiting requests into freed slots with one
+    prefill each (``make_admit_fn``); the KV cache, per-slot positions,
+    done mask and generator persist across segments.  A request completes
+    on EOS (``eos_id``) or its budget (``max_new`` (R,), default
+    ``n_tokens``, counted including the prefill token), releasing its slot
+    and, for ``kv='int8'``, its physical pages (``n_pages`` sizes the pool
+    independently of slots x max_len; an admission waits while the pool
+    is full, and a pool too small for any one request raises).
+
+    Returns (outputs, stats) as ``runtime/serving.py serve_continuous_ft``
+    documents: ``outputs[r]`` is request r's np.int32 tokens (<= its
+    budget, ending at EOS if hit); ``stats`` has wall time, tok/s over
+    useful tokens, occupancy = live slot-steps / slot-steps, segments,
+    statuses, the segment step's capture time (``capture_s``, inside
+    ``wall_s``) and the allocator's page stats.
+
+    ``params`` go through ``prepare_params``.  ``device``: CUDA unless 'cpu' is asked for.  The
+    fault-tolerance knobs (``deadline_steps``, ``deadline_s``,
+    ``priority``, ``monitor``, ``injector``, ``snapshot_every``,
+    ``watchdog``, ``integrity``), ``prefix_cache`` and ``spec`` raise
+    ``NotImplementedError`` when set: their ROADMAP items (A9-A11) are not
+    ported yet."""
+    from ..runtime.serving import serve_continuous_ft
+    dev = resolve_device(device)
+    params = prepare_params(cfg, params, dev)
+    return serve_continuous_ft(
+        cfg, params, prompts, n_tokens, slots=slots, seg_len=seg_len,
+        max_new=max_new, eos_id=eos_id, sample=sample, kv=kv,
+        page_size=page_size, n_pages=n_pages, rng_seed=rng_seed,
+        deadline_steps=deadline_steps, deadline_s=deadline_s,
+        priority=priority, monitor=monitor, injector=injector,
+        snapshot_every=snapshot_every, watchdog=watchdog, spec=spec,
+        integrity=integrity, prefix_cache=prefix_cache, device=dev)
+
+
+def _sample_spec(args) -> str:
+    # `is not None` so --temp 0 reaches the sampler's t > 0 validation
+    # instead of silently degrading to greedy / t=1
+    if args.top_k is not None and args.top_p is not None:
+        raise SystemExit("--top-k and --top-p are mutually exclusive")
+    if args.top_k is not None:
+        return f"topk:{args.top_k}:" \
+               f"{args.temp if args.temp is not None else 1.0}"
+    if args.top_p is not None:
+        return f"topp:{args.top_p}:" \
+               f"{args.temp if args.temp is not None else 1.0}"
+    if args.temp is not None:
+        return f"temp:{args.temp}"
+    return "greedy"
 
 
 def logit_drift_rmse(tokens_ref, tokens_alt, logits_ref, logits_alt) -> float:
@@ -109,6 +208,12 @@ def _useful_lengths(tokens: np.ndarray, eos_id: int | None) -> np.ndarray:
     return np.asarray(out)
 
 
+def _useful_tokens(tokens: np.ndarray, eos_id: int | None) -> int:
+    """Tokens up to and including each row's first EOS: the early-exit
+    report must not credit the pad tokens past it."""
+    return int(_useful_lengths(tokens, eos_id).sum())
+
+
 def _agreement(a: np.ndarray, b: np.ndarray, eos_id: int | None) -> float:
     """Token agreement over the reference rows' useful prefixes."""
     lens = _useful_lengths(b, eos_id)
@@ -135,6 +240,26 @@ def main(argv=None):
                     help="tokens per KV page for --kv int8")
     ap.add_argument("--eos", type=int, default=None, metavar="ID",
                     help="EOS token id: stop once every row has finished")
+    ap.add_argument("--host-loop", action="store_true",
+                    help="eager host loop (one decode step of kernel "
+                         "launches per token) instead of replaying the "
+                         "captured decode step (A/B)")
+    ap.add_argument("--temp", type=float, default=None,
+                    help="temperature sampling (default greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=None,
+                    help="top-k sampling (combines with --temp)")
+    ap.add_argument("--top-p", type=float, default=None,
+                    help="top-p (nucleus) sampling: keep the smallest "
+                         "probability mass >= p (combines with --temp; "
+                         "exclusive with --top-k)")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching: serve --requests prompts "
+                         "through --batch persistent slots, admitting "
+                         "between segments of --segment-len steps")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="queue length for --continuous")
+    ap.add_argument("--segment-len", type=int, default=4,
+                    help="decode steps per segment for --continuous")
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, which must exist)")
     ap.add_argument("--seed", type=int, default=0,
@@ -145,26 +270,58 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    sample = _sample_spec(args)
     params = lm.init_params(cfg, args.seed, device=dev)
     rng = np.random.default_rng(args.seed)
-    prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
-                           dtype=np.int64)
     runs = [("off", cfg)]
     if args.dscim != "off":
         runs.append((args.dscim, dataclasses.replace(cfg, dscim=args.dscim)))
+    name = f"{cfg.name}{' (reduced)' if args.reduced else ''} on {dev}"
+
+    if args.continuous:
+        prompts = rng.integers(0, cfg.vocab, (args.requests, args.prompt_len),
+                               dtype=np.int64)
+        # skewed per-request budgets exercise slot recycling
+        budgets = rng.integers(max(2, args.tokens // 4), args.tokens + 1,
+                               (args.requests,), dtype=np.int32)
+        for tag, c in runs:
+            _, stats = serve_continuous(
+                c, params, prompts, args.tokens, slots=args.batch,
+                seg_len=args.segment_len, max_new=budgets,
+                eos_id=args.eos if args.eos is not None else -1,
+                sample=sample, kv=args.kv, page_size=args.page_size,
+                device=dev)
+            pages = stats["pages"]
+            print(f"[serve-cb] dscim={tag} kv={args.kv} {name}: "
+                  f"{stats['tok_s']:.1f} tok/s over "
+                  f"{stats['useful_tokens']} useful tokens, occupancy "
+                  f"{stats['occupancy']:.2f} "
+                  f"({stats['live_slot_steps']}/{stats['slot_steps']} "
+                  f"slot-steps live, {stats['segments']} segments of "
+                  f"{args.segment_len})"
+                  + (f", pages high water {pages['high_water']}/"
+                     f"{pages['n_pages']}" if pages else ""))
+        return 0
+
+    mode = "host loop" if args.host_loop else (
+        "graph" if dev.type == "cuda" else "step loop")
+    prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
+                           dtype=np.int64)
     results = {}
     for tag, c in runs:
         t = {}
         toks, logits = serve_batch(c, params, prompts, args.tokens,
                                    eos_id=args.eos, kv=args.kv,
-                                   page_size=args.page_size, device=dev,
-                                   timings=t)
-        useful = int(_useful_lengths(toks, args.eos).sum())
+                                   page_size=args.page_size,
+                                   scan=not args.host_loop, sample=sample,
+                                   device=dev, timings=t)
+        useful = _useful_tokens(toks, args.eos)
         results[tag] = (toks, logits)
-        line = (f"[serve] dscim={tag} kv={args.kv} {cfg.name}"
-                f"{' (reduced)' if args.reduced else ''} on {dev}: "
+        line = (f"[serve] dscim={tag} kv={args.kv} {name} ({mode}): "
                 f"{useful / t['generate_s']:.1f} tok/s ({useful} tokens, "
-                f"batch={args.batch}, prepare {t['prepare_s']:.2f} s)")
+                f"batch={args.batch}, prepare {t['prepare_s']:.2f} s"
+                + (f", capture {t['capture_s']:.2f} s" if "capture_s" in t
+                   else "") + ")")
         if tag != "off":
             base_toks, base_logits = results["off"]
             rmse = float(np.sqrt(np.mean((logits[0] - base_logits[0]) ** 2)))

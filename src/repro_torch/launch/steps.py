@@ -1,25 +1,48 @@
-"""Serving steps (port of ``prepare_serving_params`` and
-``make_generate_fn`` from ``repro/launch/steps.py``).
+"""Serving steps (port of ``prepare_serving_params``, the sampler,
+``make_generate_fn`` and the continuous-batching halves
+``init_serve_state`` / ``make_admit_fn`` / ``make_segment_fn`` from
+``repro/launch/steps.py``).
 
 ``prepare_serving_params`` converts every DS-CIM-eligible weight once into
-resident int8 ``QuantizedLinearWeight`` planes.  ``make_generate_fn``
-builds the generation loop: prefill, then up to ``n_tokens - 1`` greedy
-decode steps, either fixed-length or with an EOS early exit.  The
-reference runs the loop inside one jitted ``lax.scan``/``while_loop``;
-here it is a Python loop of eager steps (capturing it in a CUDA graph is
-later work).
+resident int8 ``QuantizedLinearWeight`` planes.
+
+The reference runs its generation loop inside one jitted ``lax.scan`` /
+``while_loop``, with the cache in the loop carry.  Here one done-masked
+decode step (``_make_step``: decode, draw, done/budget update, the token
+written to column ``i`` of a static output, ``i`` a device counter) reads
+and writes only static tensors in place, and ``launch/graph.py
+CapturedStep`` captures it once as a CUDA graph and replays it.  The
+same step serves:
+
+* ``make_generate_fn`` (one-shot requests): prefill eagerly, copy the cache
+  into the runner's static buffers, then replay the step ``n_tokens - 1``
+  times; the EOS loop looks at ``done`` on the host once every
+  ``SEG_LEN`` replays only (done-masked steps are inert, so the tokens are those of a
+  loop that stops at once).  ``scan=False`` is the eager host loop, one
+  step and one ``done`` check per token: the A/B baseline.
+* ``make_segment_fn`` (continuous batching): ``seg_len`` replays over the
+  persistent serve state, between which ``make_admit_fn`` prefills new
+  requests into freed slots.
+
+On the CPU there are no graphs: the same step runs eagerly.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..configs.base import ArchConfig
-from ..core.qweights import prepare_dscim_params, split_dscim_mode
+from ..core.qweights import (QuantizedLinearWeight, map_params,
+                             prepare_dscim_params, split_dscim_mode)
 from ..models import lm
+from .graph import CapturedStep
 
-__all__ = ["prepare_serving_params", "make_generate_fn"]
+__all__ = ["prepare_serving_params", "make_generate_fn", "init_serve_state",
+           "make_admit_fn", "make_segment_fn", "clear_graphs", "PAD_ID"]
 
 PAD_ID = 0          # token written for finished slots
+SEG_LEN = 4         # replays between two host looks at ``done``
 
 
 def prepare_serving_params(cfg: ArchConfig, params):
@@ -40,71 +63,476 @@ def _check_kv(cfg: ArchConfig, kv: str):
         raise ValueError(f"{cfg.family!r} models are not ported yet")
 
 
+def _make_sampler(sample: str):
+    """Decode-rule factory: 'greedy' -> None (argmax, no generator);
+    'temp:<t>' -> temperature sampling; 'topk:<k>[:<t>]' -> top-k with
+    optional temperature; 'topp:<p>[:<t>]' -> nucleus sampling (keep the
+    smallest prefix of the temperature-scaled distribution with cumulative
+    probability >= p; 'topp:1.0:<t>' is 'temp:<t>').  The returned
+    ``draw(gen, logits)`` -> (B,) int32 is a Gumbel argmax over the masked
+    logits with one uniform per logit from ``gen``."""
+    if sample == "greedy":
+        return None
+    parts = sample.split(":")
+    k = p = None
+    if parts[0] == "temp" and len(parts) == 2:
+        t = float(parts[1])
+    elif parts[0] == "topk" and len(parts) in (2, 3):
+        k = int(parts[1])
+        t = float(parts[2]) if len(parts) == 3 else 1.0
+    elif parts[0] == "topp" and len(parts) in (2, 3):
+        p = float(parts[1])
+        t = float(parts[2]) if len(parts) == 3 else 1.0
+        if not 0.0 < p <= 1.0:
+            raise ValueError(f"top-p must be in (0, 1], got {p}")
+    else:
+        raise ValueError(f"bad sample spec {sample!r}; want 'greedy', "
+                         "'temp:<t>', 'topk:<k>[:<t>]' or 'topp:<p>[:<t>]'")
+    if t <= 0:
+        raise ValueError(f"temperature must be > 0, got {t}")
+    return functools.partial(_draw, t=t, k=k, p=p)
+
+
+def _mask_logits(logits, t: float, k=None, p=None):
+    """Temperature-scaled f32 logits with the tokens outside the top-k
+    (kept: >= the k-th value) or the nucleus (kept: the sorted tokens
+    whose *exclusive* cumulative probability is < p, the top token always)
+    set to -inf, as the reference masks them."""
+    lg = logits.to(torch.float32) / t
+    ninf = float("-inf")          # a scalar: no host-to-device copy
+    if k is not None:
+        kth = torch.topk(lg, k, dim=-1).values[..., -1:]
+        lg = torch.where(lg >= kth, lg, ninf)
+    if p is not None:
+        srt = torch.sort(lg, dim=-1, descending=True).values
+        probs = torch.softmax(srt, dim=-1)
+        excl = torch.cumsum(probs, dim=-1) - probs
+        # >= 1 on every healthy row; the clamp only keeps a NaN row's
+        # gather in range (the degenerate-row guard replaces its draw)
+        nkeep = (excl < p).sum(-1, keepdim=True).clamp_min(1)
+        kth = torch.gather(srt, -1, nkeep - 1)
+        lg = torch.where(lg >= kth, lg, ninf)
+    return lg
+
+
+def _draw(gen, logits, *, t: float, k=None, p=None):
+    lg = _mask_logits(logits, t, k, p)
+    # degenerate-row guard: a row whose masked logits hold a NaN, a +inf
+    # or no finite entry falls back to greedy argmax over the NaN-cleaned
+    # original logits; healthy rows draw from their untouched lg
+    bad = torch.isnan(lg).any(-1) | torch.isposinf(lg).any(-1) \
+        | ~torch.isfinite(lg).any(-1)
+    lf = logits.to(torch.float32)
+    clean = torch.where(torch.isnan(lf), float("-inf"), lf)
+    greedy = torch.argmax(clean, dim=-1)
+    safe = torch.where(bad[:, None], 0.0, lg)
+    u = torch.rand(safe.shape, generator=gen, dtype=torch.float32,
+                   device=safe.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    drawn = torch.argmax(safe + gumbel, dim=-1)
+    return torch.where(bad, greedy, drawn).to(torch.int32)
+
+
+def _next_fn(sampler):
+    """(logits, gen) -> (B,) int32 token: greedy argmax, or one draw from
+    ``gen`` per step (the same sequence in every loop, so the graph and
+    the eager loop draw identically)."""
+    if sampler is None:
+        return lambda logits, gen: torch.argmax(logits, dim=-1).to(
+            torch.int32)
+    return lambda logits, gen: sampler(gen, logits)
+
+
+def _make_step(cfg: ArchConfig, st: dict, nxt, *, masked: bool, eos: int):
+    """One decode step over the static state ``st``, in place: decode
+    ``st["tok"]``, draw, write the token (and the logits / live / bad
+    planes ``st`` carries) at row ``st["i"]``, advance ``i``.  ``masked``:
+    done slots stay put, emit ``PAD_ID`` and their n_out stops; a slot
+    finishes on ``eos`` or when n_out reaches max_new (tokens counted
+    including the prefill token).  Unmasked is the fixed-length loop.
+    Nothing reads back to the host."""
+
+    def step():
+        params = st["params"]
+        tok, done, i = st["tok"], st["done"], st["i"]
+        logits, _ = lm.decode(params, cfg, tok, st["cache"],
+                              done=done if masked else None)
+        if "logits0" in st:                 # the segment's first logits
+            st["logits0"].copy_(torch.where(i == 0, logits,
+                                            st["logits0"]))
+        if "live" in st:
+            live = ~done
+            st["live"].index_copy_(0, i, live[None])
+            st["bad"].index_copy_(
+                0, i, (live & ~torch.isfinite(logits).all(-1))[None])
+        if "trace" in st:
+            st["trace"].index_copy_(0, i, logits[None])
+        new = nxt(logits, st["rng"])
+        if masked:
+            new = torch.where(done, PAD_ID, new)
+            st["n_out"].add_((~done).to(torch.int32))
+            done.copy_(done | (new == eos) | (st["n_out"] >= st["max_new"]))
+        tok.copy_(new)
+        st["toks"].index_copy_(0, i, new[None])
+        i.add_(1)
+
+    return step
+
+
+def _leaves(params):
+    """Every tensor of a parameter tree (prepared weights' planes too)."""
+    out = []
+
+    def visit(_, a):
+        if isinstance(a, QuantizedLinearWeight):
+            out.extend((a.q, a.scale))
+        elif isinstance(a, torch.Tensor):
+            out.append(a)
+        return a
+    map_params(visit, params)
+    return out
+
+
+def _binding(*trees) -> tuple:
+    """What a captured graph has baked in: every tensor's address, shape,
+    strides and type.  A graph replays only for tensors with the same
+    binding, which then hold what the graph reads."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                 for tree in trees for t in _leaves(tree))
+
+
+def _prepare_fn(cfg: ArchConfig, st: dict, B: int):
+    """The kernels' capture preparation for a step over ``st`` at B rows:
+    the fused MVM for every prepared weight shape (mode ``kernel``), the
+    count LUT on the device (mode ``lut``), paged attention for an int8
+    cache."""
+    from ..kernels import dscim_fused, paged_attention
+
+    def prepare(stream):
+        lin = lm._linear_for(cfg.dscim)
+        if lin is not None and lin.mode == "lut":
+            lin.macro.lut_table(st["tok"].device)
+        qws = []
+        map_params(lambda _, a: qws.append(a) if isinstance(
+            a, QuantizedLinearWeight) else None, st["params"])
+        if qws and lin is not None and lin.mode == "kernel":
+            dscim_fused.prepare_capture(
+                [w[(0,) * len(w.stack)] if w.stack else w for w in qws], B,
+                lin.cfg, stream)
+        cache = st["cache"]
+        if "k_pages" in cache:
+            ps, KV, HD = cache["k_pages"].shape[2:]
+            paged_attention.prepare_capture(
+                B, KV, cfg.n_heads // KV, HD, ps,
+                cache["page_table"].shape[1], cache["pos"].device, stream)
+
+    return prepare
+
+
+def _static_cache(cfg: ArchConfig, B: int, capacity: int, kv: str,
+                  page_size: int, n_pages: int | None, device):
+    """An empty cache of the requested layout (the runners' and the serve
+    state's static buffers)."""
+    from ..core.kvcache import init_paged_cache, n_pages_for
+    if kv == "float":
+        shape = (cfg.n_layers, B, capacity, cfg.n_kv, cfg.head_dim)
+        cdt = lm.DTYPES[cfg.cache_dtype]
+        return {"k": torch.zeros(shape, dtype=cdt, device=device),
+                "v": torch.zeros(shape, dtype=cdt, device=device),
+                "pos": torch.zeros((B,), dtype=torch.int32, device=device)}
+    mp = n_pages_for(capacity, page_size)
+    return init_paged_cache(cfg.n_layers, B,
+                            B * mp if n_pages is None else n_pages,
+                            page_size, mp, cfg.n_kv, cfg.head_dim,
+                            device=device)
+
+
+class _GenerateRunner:
+    """The static state of one-shot generation at one option set, and its
+    captured step.  Prefill (eager) copies into the static buffers; the
+    graph binds the addresses of the params it was captured with
+    (``_binding``) and is captured again when handed other tensors.  The
+    runner holds the params only during a call."""
+
+    def __init__(self, cfg, B, S, n_tokens, kv, page_size, eos_id, sample,
+                 trace_logits, device):
+        self.cfg, self.n_tokens, self.kv = cfg, n_tokens, kv
+        self.page_size, self.eos_id = page_size, eos_id
+        dev = torch.device(device)
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.nxt = _next_fn(_make_sampler(sample))
+        gen = None
+        if sample != "greedy":
+            gen = torch.Generator(device=dev)
+        self.st = st = {
+            "params": None,
+            "tok": torch.zeros((B,), **i32),
+            "done": torch.zeros((B,), dtype=torch.bool, device=dev),
+            "n_out": torch.zeros((B,), **i32),
+            "max_new": torch.zeros((B,), **i32),
+            "i": torch.zeros((1,), dtype=torch.int64, device=dev),
+            "toks": torch.zeros((n_tokens, B), **i32),
+            "cache": _static_cache(cfg, B, S + n_tokens, kv, page_size,
+                                   None, dev),
+            "rng": gen}
+        if trace_logits:
+            st["trace"] = torch.zeros((n_tokens, B, cfg.vocab_padded),
+                                      dtype=torch.float32, device=dev)
+        self.step = CapturedStep(
+            _make_step(cfg, st, self.nxt, masked=eos_id is not None,
+                       eos=-1 if eos_id is None else eos_id),
+            dev, _prepare_fn(cfg, st, B), () if gen is None else (gen,))
+        self.bound = None
+
+    def __call__(self, params, tokens, max_new, rng_seed: int,
+                 graph: bool):
+        key = _binding(params)
+        if key != self.bound:               # other tensors: capture again
+            self.step.graph = None
+            self.bound = key
+        self.st["params"] = params
+        try:
+            return self._generate(params, tokens, max_new, rng_seed, graph)
+        finally:
+            self.st["params"] = None
+
+    def _generate(self, params, tokens, max_new, rng_seed, graph):
+        st, cfg, n = self.st, self.cfg, self.n_tokens
+        logits0, cache = self._prefill(params, tokens)
+        for name, t in cache.items():
+            st["cache"][name].copy_(t)
+        del cache
+        if st["rng"] is not None:
+            st["rng"].manual_seed(rng_seed)
+        tok0 = self.nxt(logits0, st["rng"])
+        st["tok"].copy_(tok0)
+        st["toks"].fill_(PAD_ID)
+        st["toks"][0] = tok0
+        if "trace" in st:
+            st["trace"][0] = logits0
+        st["n_out"].fill_(1)
+        if max_new is None:
+            st["max_new"].fill_(n)
+        else:
+            st["max_new"].copy_(max_new)
+        st["i"].fill_(1)
+        run = self.step.run if graph else self.step.step
+        if self.eos_id is None:
+            st["done"].zero_()
+            for _ in range(n - 1):
+                run()
+        else:
+            st["done"].copy_((tok0 == self.eos_id) | (st["max_new"] <= 1))
+            every = SEG_LEN if graph else 1
+            for r in range(n - 1):
+                if r % every == 0 and bool(st["done"].all()):
+                    break
+                run()
+        out = st["toks"].T.contiguous()
+        logits = st["trace"].clone() if "trace" in st else logits0
+        return out, logits, st["cache"]
+
+    def _prefill(self, params, tokens):
+        B, S = tokens.shape
+        cfg, n = self.cfg, self.n_tokens
+        if self.kv == "float":
+            return lm.prefill(params, cfg, tokens, capacity=S + n)
+        from ..core.kvcache import n_pages_for, paged_from_dense
+        logits0, dense = lm.prefill(params, cfg, tokens)
+        mp = n_pages_for(S + n, self.page_size)
+        return logits0, paged_from_dense(dense["k"], dense["v"],
+                                         self.page_size, n_pages=B * mp,
+                                         max_pages=mp)
+
+
+@functools.lru_cache(maxsize=8)
+def _generate_runner(cfg, B, S, n_tokens, kv, page_size, eos_id, sample,
+                     trace_logits, device):
+    return _GenerateRunner(cfg, B, S, n_tokens, kv, page_size, eos_id,
+                           sample, trace_logits, device)
+
+
 def make_generate_fn(cfg: ArchConfig, n_tokens: int = 16, *,
                      trace_logits: bool = False, eos_id: int | None = None,
-                     kv: str = "float", page_size: int = 8):
-    """Greedy generation: ``generate(params, tokens, max_new=None)`` with
-    tokens (B, S) int -> ``(out (B, n_tokens) int32, logits, cache)``.
+                     kv: str = "float", page_size: int = 8,
+                     sample: str = "greedy", scan: bool = True):
+    """Generation: ``generate(params, tokens, max_new=None, rng_seed=0)``
+    with tokens (B, S) int -> ``(out (B, n_tokens) int32, logits, cache)``.
 
     ``logits`` is the prefill last-token logits (B, Vp), or under
     ``trace_logits`` the stacked per-step trace (n_tokens, B, Vp)
-    (fixed-length loop only).  ``cache`` is the final KV cache.
+    (fixed-length loop only).  ``cache`` is the final KV cache (the
+    runner's static buffers: the next request at these options overwrites
+    them).
 
-    ``eos_id``: stop as soon as every slot has emitted ``eos_id`` (or hit
-    its optional ``max_new`` (B,) budget, counted including the prefill
+    ``eos_id``: stop once every slot has emitted ``eos_id`` (or hit its
+    optional ``max_new`` (B,) budget, counted including the prefill
     token); finished slots stop advancing and their remaining tokens are
-    ``PAD_ID``.  ``kv``: 'float' dense cache or 'int8' block-paged cache
-    (``page_size`` tokens per page, pool sized for prompt + generation).
-    """
+    ``PAD_ID``.  ``sample``: 'greedy' or a ``_make_sampler`` spec, drawn
+    from a generator seeded with ``rng_seed``.  ``kv``: 'float' dense
+    cache or 'int8' block-paged cache (``page_size`` tokens per page,
+    pool sized for prompt + generation).
+
+    ``scan=True`` (default) replays the captured decode step on CUDA
+    (looking at ``done`` every ``SEG_LEN`` replays under ``eos_id``) and
+    runs it eagerly on the CPU; ``scan=False`` is the eager host loop.
+    Both give the same tokens and logits, bitwise.  The graph stays bound
+    to the addresses of ``params``: handing the same prepared tensors
+    again replays it, other tensors capture it again (``clear_graphs``
+    frees the runners)."""
     _check_kv(cfg, kv)
+    _make_sampler(sample)                   # reject a bad spec up front
     if trace_logits and eos_id is not None:
         raise ValueError("trace_logits is a fixed-length-loop feature")
 
-    def _prefill(params, tokens):
+    @torch.no_grad()
+    def generate(params, tokens: torch.Tensor, max_new=None,
+                 rng_seed: int = 0):
         B, S = tokens.shape
-        if kv == "float":
-            return lm.prefill(params, cfg, tokens, capacity=S + n_tokens)
-        from ..core.kvcache import n_pages_for, paged_from_dense
-        logits0, dense = lm.prefill(params, cfg, tokens)
-        mp = n_pages_for(S + n_tokens, page_size)
-        return logits0, paged_from_dense(dense["k"], dense["v"], page_size,
-                                         n_pages=B * mp, max_pages=mp)
+        runner = _generate_runner(cfg, B, S, n_tokens, kv, page_size,
+                                  eos_id, sample, trace_logits,
+                                  tokens.device)
+        captures = runner.step.captures
+        out = runner(params, tokens, max_new, rng_seed,
+                     scan and tokens.device.type == "cuda")
+        generate.last_capture_s = runner.step.capture_s \
+            if runner.step.captures != captures else None
+        return out
 
-    def nxt(logits):
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+    generate.last_capture_s = None   # capture time of the last call, if any
+    return generate
+
+
+def clear_graphs() -> None:
+    """Drop every one-shot runner: its captured graph, graph memory pool
+    and static buffers.  The next request at any option set captures
+    again."""
+    _generate_runner.cache_clear()
+
+
+# ---------------------------------------------------------------------------
+# continuous batching: admit / segment halves of the scheduler
+# ---------------------------------------------------------------------------
+
+def init_serve_state(cfg: ArchConfig, slots: int, capacity: int, *,
+                     kv: str = "float", page_size: int = 8,
+                     n_pages: int | None = None, seed: int = 0,
+                     integrity: bool = False, device=None):
+    """Idle scheduler state: every slot free (done), an empty KV cache of
+    the requested layout and the sampler's generator seeded with
+    ``seed``.  ``capacity`` is the per-slot token budget (prompt +
+    generated); for ``kv='int8'`` the page pool defaults to slots x
+    pages-per-sequence and can be sized independently (``n_pages``).
+    Admissions and segments update these tensors in place, so a captured
+    segment step keeps its addresses."""
+    _check_kv(cfg, kv)
+    if integrity:
+        raise NotImplementedError("the page checksum plane is not ported "
+                                  "yet (ROADMAP A11)")
+    from ..device import resolve_device
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return {"tok": torch.zeros((slots,), **i32),
+            "done": torch.ones((slots,), dtype=torch.bool, device=dev),
+            "n_out": torch.zeros((slots,), **i32),
+            "max_new": torch.ones((slots,), **i32),
+            "cache": _static_cache(cfg, slots, capacity, kv, page_size,
+                                   n_pages, dev),
+            "rng": gen}
+
+
+@functools.lru_cache(maxsize=16)
+def make_admit_fn(cfg: ArchConfig, *, eos_id: int | None = None,
+                  sample: str = "greedy"):
+    """One request admission: prefill a (1, S) prompt (eagerly), write its
+    KV into free slot ``slot`` of the live cache (dense row overwrite, or
+    the host-granted physical pages ``page_ids`` of the paged layout),
+    seed the slot's first token (drawn from the state's generator),
+    budget and done flag.  Runs between segments; writes in place."""
+    nxt = _next_fn(_make_sampler(sample))
+    eos = -1 if eos_id is None else eos_id
 
     @torch.no_grad()
-    def generate(params, tokens: torch.Tensor, max_new=None):
-        B = tokens.shape[0]
-        logits0, cache = _prefill(params, tokens)
-        tok = nxt(logits0)
-        out = torch.full((B, n_tokens), PAD_ID, dtype=torch.int32,
-                         device=tokens.device)
-        out[:, 0] = tok
-        if eos_id is None:
-            trace = [logits0]
-            for i in range(1, n_tokens):
-                logits, cache = lm.decode(params, cfg, tok, cache)
-                tok = nxt(logits)
-                out[:, i] = tok
-                if trace_logits:
-                    trace.append(logits)
-            return out, (torch.stack(trace) if trace_logits
-                         else logits0), cache
-        done = tok == eos_id
-        if max_new is not None:
-            done = done | (max_new <= 1)
-        i = 1
-        while i < n_tokens and not bool(done.all()):
-            logits, cache = lm.decode(params, cfg, tok, cache, done=done)
-            new = torch.where(done, torch.full_like(tok, PAD_ID),
-                              nxt(logits))
-            ndone = done | (new == eos_id)
-            if max_new is not None:
-                ndone = ndone | (i + 1 >= max_new)
-            out[:, i] = new
-            tok, done = new, ndone
-            i += 1
-        return out, logits0, cache
+    def admit(params, state, prompt, slot: int, page_ids, max_new: int):
+        from ..core import kvcache
+        logits0, dense = lm.prefill(params, cfg, prompt)
+        tok0 = nxt(logits0, state["rng"])[0]
+        cache = state["cache"]
+        if "k_pages" in cache:
+            kvcache.admit_request(cache, dense["k"], dense["v"], slot,
+                                  page_ids)
+        else:
+            kvcache.admit_dense(cache, dense["k"], dense["v"], slot)
+        state["tok"][slot] = tok0
+        state["done"][slot] = (tok0 == eos) | (max_new <= 1)
+        state["n_out"][slot] = 1
+        state["max_new"][slot] = max_new
+        return state, tok0
 
-    return generate
+    return admit
+
+
+class _SegmentRun:
+    """A segment's static outputs and captured step, bound to one serve
+    state and one set of params."""
+
+    def __init__(self, cfg, state, params, seg_len, nxt, eos, sampled):
+        dev = state["tok"].device
+        B = state["tok"].shape[0]
+        self.st = st = dict(state, params=params)
+        st.update(
+            i=torch.zeros((1,), dtype=torch.int64, device=dev),
+            toks=torch.zeros((seg_len, B), dtype=torch.int32, device=dev),
+            live=torch.zeros((seg_len, B), dtype=torch.bool, device=dev),
+            bad=torch.zeros((seg_len, B), dtype=torch.bool, device=dev),
+            logits0=torch.zeros((B, cfg.vocab_padded), dtype=torch.float32,
+                                device=dev))
+        self.step = CapturedStep(_make_step(cfg, st, nxt, masked=True,
+                                            eos=eos),
+                                 dev, _prepare_fn(cfg, st, B),
+                                 (state["rng"],) if sampled else ())
+
+
+def make_segment_fn(cfg: ArchConfig, seg_len: int = SEG_LEN, *,
+                    eos_id: int | None = None, sample: str = "greedy",
+                    graph: bool = True):
+    """One continuous-batching segment: ``seg_len`` done-masked decode
+    steps over the whole slot batch, as replays of the captured step on
+    CUDA (eager steps on the CPU).  Slots finish on EOS or their budget
+    and stop advancing; the scheduler admits new requests into freed
+    slots *between* segments.  ``segment(params, state)`` returns (state,
+    toks (seg_len, B) int32, live (seg_len, B) bool, aux) where
+    ``live[s, b]`` marks that slot b did useful work at step s;
+    ``aux["bad"]`` (seg_len, B) flags live steps whose logits went
+    NaN/Inf and ``aux["logits0"]`` (B, Vp) f32 is the first step's
+    logits, as in the reference.  The captured graph binds the state and
+    the params it last ran on, and is captured again for others; the
+    function holds them (and the graph) until it is dropped, so it is
+    made per serving run and not cached.  ``graph=False`` runs the same
+    step eagerly on CUDA too (the A/B baseline)."""
+    sampler = _make_sampler(sample)
+    nxt = _next_fn(sampler)
+    eos = -1 if eos_id is None else eos_id
+    box = {}
+
+    @torch.no_grad()
+    def segment(params, state):
+        key = _binding(params, {k: v for k, v in state.items()
+                                if k != "rng"}) + (id(state["rng"]),)
+        run = box.get("run")
+        if run is None or box["key"] != key:
+            run = _SegmentRun(cfg, state, params, seg_len, nxt, eos,
+                              sampler is not None)
+            box.update(run=run, key=key)
+        st = run.st
+        st["i"].zero_()
+        step = run.step.run if graph else run.step.step
+        for _ in range(seg_len):
+            step()
+        return state, st["toks"].clone(), st["live"].clone(), \
+            {"bad": st["bad"].clone(), "logits0": st["logits0"].clone()}
+
+    segment.runs = box          # the current binding (tests, capture time)
+    return segment

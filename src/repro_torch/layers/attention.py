@@ -16,7 +16,8 @@ from ..kernels.paged_attention import NEG_INF, paged_attention_decode
 from .norms import qk_norm
 from .rope import apply_rope, rope_angles
 
-__all__ = ["attention", "decode_attention", "decode_attention_paged"]
+__all__ = ["attention", "decode_attention", "decode_attention_paged",
+           "flush_plan"]
 
 
 def _mm(x, w, linear):
@@ -134,18 +135,42 @@ def decode_attention(params, x, cache_k, cache_v, pos, cfg, linear=None):
     return _mm(out.reshape(B, 1, -1).to(x.dtype), params["wo"], linear)
 
 
+def flush_plan(page_table, pos, ps: int, done=None):
+    """Where one decode step's tail flush writes, the same for every layer:
+    (phys (B,) the physical page of each slot's tail, hit (B,) whether a
+    live slot flushes into that page this step, frm (B,) which slot).
+
+    Live slots whose tail just filled flush their quantized tail.  The
+    scatter has a row per slot (no host sync, so it can be captured in a
+    CUDA graph), and each row carries the value its page must end with:
+    the page a live slot flushes into it, else the page's own contents.
+    A done slot's stale table row can name a page that was re-granted to
+    a live slot (continuous batching); its row then carries that slot's
+    flush too, so rows that share an index write one value and no
+    duplicate can win over the flush."""
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    full = (pos + 1) % ps == 0
+    if done is not None:
+        full = full & ~done
+    phys = page_table[rows, (pos // ps).long()].long()
+    src = (phys[:, None] == phys[None, :]) & full[None, :]  # b's page <- c
+    return phys, src.any(1), src.to(torch.int32).argmax(1)
+
+
 def decode_attention_paged(params, x, view, cfg, linear=None, done=None):
     """Single-token decode against one layer of the int8 paged KV cache.
 
     ``view`` holds one layer's k/v_pages (P, ps, KV, HD) int8, k/v_scale
     (P, KV) f32, k/v_tail (B, ps, KV, HD) bf16 and the shared page_table
-    (B, MP) int32 and pos (B,) int32.  In order:
+    (B, MP) int32 and pos (B,) int32, and optionally the step's
+    ``flush_plan`` under "flush" (computed here when absent).  In order:
 
     1. the new token is written to the slot's tail at ``pos % ps``;
     2. the page walk reads pages + tail (``paged_attention_decode``: the
        CUDA kernel on the card, its plain version on the CPU);
     3. a tail that just filled is quantized once and flushed to its
-       physical page (done slots neither write nor flush).
+       physical page (done slots neither write nor flush, and a done
+       slot's stale table row never overwrites a live slot's flush).
 
     The view's tensors are updated in place; pos advances at the model
     level.  Returns out (B,1,D)."""
@@ -172,15 +197,13 @@ def decode_attention_paged(params, x, view, cfg, linear=None, done=None):
                                  k_tail, v_tail, page_table, pos)
     out = out.reshape(B, 1, -1).to(x.dtype)
 
-    # flush: slots whose tail just filled write the quantized page; the
-    # others rewrite their tail page's current contents (no host sync)
-    full = (pos + 1) % ps == 0
-    if done is not None:
-        full = full & ~done
-    phys = page_table[rows, (pos // ps).long()].long()
+    # flush (see flush_plan)
+    phys, hit, frm = view["flush"] if "flush" in view \
+        else flush_plan(page_table, pos, ps, done)
     for tail, pages, scales in ((k_tail, k_pages, k_scale),
                                 (v_tail, v_pages, v_scale)):
         qt, st = quantize_page(tail)
-        pages[phys] = torch.where(full[:, None, None, None], qt, pages[phys])
-        scales[phys] = torch.where(full[:, None], st, scales[phys])
+        pages[phys] = torch.where(hit[:, None, None, None], qt[frm],
+                                  pages[phys])
+        scales[phys] = torch.where(hit[:, None], st[frm], scales[phys])
     return _mm(out, params["wo"], linear)

@@ -18,7 +18,7 @@ from ..configs.base import ArchConfig
 from ..core.qweights import QuantizedLinearWeight, map_params
 from ..device import resolve_device
 from ..layers.attention import (attention, decode_attention,
-                                decode_attention_paged)
+                                decode_attention_paged, flush_plan)
 from ..layers.mlp import mlp
 from ..layers.norms import rmsnorm
 
@@ -173,18 +173,22 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
 
 
 def _advance(pos, done):
-    """Per-slot position advance: finished rows stop moving."""
+    """Per-slot position advance, in place (a captured decode step keeps
+    its addresses): finished rows stop moving."""
     if done is None:
-        return pos + 1
-    return pos + (~done).to(pos.dtype)
+        pos.add_(1)
+    else:
+        pos.add_((~done).to(pos.dtype))
+    return pos
 
 
 @torch.no_grad()
 def decode(params, cfg: ArchConfig, token: torch.Tensor, cache,
            done: torch.Tensor | None = None):
     """One-token decode.  token (B,) -> (logits (B, Vp) f32, cache).  The
-    cache's tensors are updated in place and ``pos`` advances (finished
-    ``done`` slots stay put).  A cache carrying ``k_pages`` is the int8
+    cache's tensors, ``pos`` included, are updated in place: ``pos``
+    advances (finished ``done`` slots stay put), so every address stays
+    what it was and the step can be captured in a CUDA graph.  A cache carrying ``k_pages`` is the int8
     paged layout (core/kvcache.py)."""
     if "k_pages" in cache:
         return _decode_paged(params, cfg, token, cache, done)
@@ -206,13 +210,15 @@ def decode(params, cfg: ArchConfig, token: torch.Tensor, cache,
 def _decode_paged(params, cfg: ArchConfig, token, cache, done=None):
     dt = DTYPES[cfg.compute_dtype]
     x = params["embed"][token][:, None].to(dt)
+    plan = flush_plan(cache["page_table"], cache["pos"],
+                      cache["k_pages"].shape[2], done)
     for li in range(cfg.n_layers):
         lp = _cast(_layer(params["layers"], li), dt)
         view = {name: cache[name][li] for name in
                 ("k_pages", "v_pages", "k_scale", "v_scale", "k_tail",
                  "v_tail")}
-        view["page_table"] = cache["page_table"]
-        view["pos"] = cache["pos"]
+        view.update(page_table=cache["page_table"], pos=cache["pos"],
+                    flush=plan)
         h = decode_attention_paged(lp["attn"], rmsnorm(x, lp["ln1"]), view,
                                    cfg, linear=_attn_linear_for(cfg.dscim),
                                    done=done)

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at odd and test-sized shapes (the full-width serving shapes, and the
 reduced config served on the GPU against the CPU, are held by
-``chip_smoke.py``).  Marked ``cuda``: without a GPU every test here skips
+``chip_smoke.py``); the captured decode step (CUDA graph replays against
+the eager loop, bitwise; a capture from a cold process; a failed capture
+raising) and the paged flush's C1 case on the card.  Marked ``cuda``: without a GPU every test here skips
 (decided inside the fixture, never at import).  On a GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -563,3 +565,231 @@ def test_staged_path_vs_fused_on_card(cuda):
     torch.cuda.synchronize()
     assert dscim_mvm_blocked.LAUNCHES.count == before + 3
     _close(got.cpu(), dscim_fused.dscim_fused_mvm(x, w, cfg), 2e-5)
+
+
+# -- the captured decode step (launch/graph.py, launch/steps.py) ------------
+
+def _reduced(spec="kernel:dscim1:256"):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b").reduced(), dscim=spec)
+    params = lm.init_params(cfg, 0, device="cuda")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (4, 16))
+    return cfg, params, prompts
+
+
+@pytest.mark.parametrize("spec,kv", [("kernel:dscim1:256", "int8"),
+                                     ("off", "float"),
+                                     ("lut:dscim1:256", "float"),
+                                     ("exact:dscim1:256", "int8")])
+@pytest.mark.parametrize("loop", ["fixed", "eos", "sampled"])
+def test_graph_replay_matches_eager_loop_bitwise(cuda, spec, kv, loop):
+    """Replays of the captured step give the eager loop's tokens and logit
+    trace bit for bit: the fixed-length loop, the EOS loop with per-slot
+    budgets (checked on the host every few replays), and a sampled run
+    under one seed, for every DSCIMLinear mode served (``lut`` keeps its
+    count table on the device, made before capture).  The fixed loop's
+    launches count over the replays exactly as the eager loop's do."""
+    from repro_torch.kernels import dscim_fused, paged_attention
+    from repro_torch.launch.serve import prepare_params, serve_batch
+
+    cfg, params, prompts = _reduced(spec)
+    params = prepare_params(cfg, params, cuda)
+    kw = dict(kv=kv, page_size=4, device="cuda")
+    if loop == "eos":
+        eos = int(serve_batch(cfg, params, prompts, 4, **kw)[0][1, 2])
+        kw.update(eos_id=eos, max_new=[9, 3, 9, 6])
+    else:
+        kw.update(trace_logits=True)
+    if loop == "sampled":
+        kw.update(sample="topk:20:0.9", rng_seed=7)
+    counters = (dscim_fused.LAUNCHES, paged_attention.LAUNCHES)
+    runs = {}
+    for scan in (True, False, True):       # the second graph call replays
+        for c in counters:
+            c.reset()
+        t = {}
+        toks, logits = serve_batch(cfg, params, prompts, 9, scan=scan,
+                                   timings=t, **kw)
+        torch.cuda.synchronize()
+        runs.setdefault(scan, []).append(
+            (toks, np.stack(logits), [c.count for c in counters], t))
+    (g1, g2), (e,) = runs[True], runs[False]
+    assert "capture_s" in g1[3] and "capture_s" not in g2[3]
+    for g in (g1, g2):
+        np.testing.assert_array_equal(g[0], e[0])
+        np.testing.assert_array_equal(g[1], e[1])
+    if loop != "eos":
+        assert g2[2] == e[2]
+
+
+def test_graph_recaptures_for_other_params(cuda):
+    """The graph binds the prepared params it was captured with: the same
+    params replay it, other params (same shapes) capture it again and
+    serve their own tokens, as the eager loop does; after
+    ``clear_graphs`` the same params capture again.  The runner keeps no
+    reference to the params between requests."""
+    import weakref
+
+    from repro_torch.launch.serve import (clear_graphs, prepare_params,
+                                          serve_batch)
+    from repro_torch.models import lm
+
+    cfg, params, prompts = _reduced()
+    params = prepare_params(cfg, params, cuda)
+    other = prepare_params(cfg, lm.init_params(cfg, 1, device="cuda"), cuda)
+    kw = dict(kv="int8", page_size=4, device="cuda")
+
+    def captured(p):
+        t = {}
+        toks, _ = serve_batch(cfg, p, prompts, 6, timings=t, **kw)
+        eager, _ = serve_batch(cfg, p, prompts, 6, scan=False, **kw)
+        np.testing.assert_array_equal(toks, eager)
+        return "capture_s" in t
+
+    captured(params)
+    assert [captured(params), captured(other)] == [False, True]
+    clear_graphs()
+    assert captured(other)
+    ref = weakref.ref(other["embed"])
+    del other
+    assert ref() is None
+
+
+def test_segment_graph_matches_eager(cuda):
+    """The captured segment step and the same step run eagerly, from two
+    copies of one admitted serve state: tokens, live and bad planes, the
+    first logits and the final state agree bitwise."""
+    from repro_torch.launch.serve import prepare_params
+    from repro_torch.launch.steps import (init_serve_state, make_admit_fn,
+                                          make_segment_fn)
+
+    cfg, params, prompts = _reduced()
+    params = prepare_params(cfg, params, cuda)
+    admit = make_admit_fn(cfg, eos_id=-1, sample="temp:0.9")
+    states = []
+    for _ in range(2):
+        st = init_serve_state(cfg, 3, 16 + 8, kv="int8", page_size=4,
+                              seed=5, device="cuda")
+        for b, (r, budget) in enumerate(((0, 8), (1, 3), (2, 6))):
+            admit(params, st, torch.as_tensor(prompts[r:r + 1],
+                                              device="cuda"), b,
+                  list(range(6 * b, 6 * b + 6)), budget)
+        states.append(st)
+    outs = []
+    for st, graph in zip(states, (True, False)):
+        seg = make_segment_fn(cfg, 4, eos_id=-1, sample="temp:0.9",
+                              graph=graph)
+        got = [seg(params, st)[1:] for _ in range(2)]
+        torch.cuda.synchronize()
+        outs.append(got)
+    for (ta, la, aa), (tb, lb, ab) in zip(*outs):
+        assert torch.equal(ta, tb) and torch.equal(la, lb)
+        assert torch.equal(aa["bad"], ab["bad"])
+        assert torch.equal(aa["logits0"], ab["logits0"])
+    for name in ("tok", "done", "n_out"):
+        assert torch.equal(states[0][name], states[1][name])
+    for name, t in states[0]["cache"].items():
+        assert torch.equal(t, states[1]["cache"][name]), name
+
+
+def test_capture_from_a_cold_process(cuda, tmp_path):
+    """A fresh process captures the decode step on its first request: the
+    kernels' buffers are made by their capture preparation (a buffer made
+    lazily during capture would raise), and the graph serves the eager
+    loop's tokens."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    code = (
+        "import dataclasses, numpy as np, torch\n"
+        "from repro_torch.configs import get_arch\n"
+        "from repro_torch.models import lm\n"
+        "from repro_torch.launch.serve import serve_batch\n"
+        "cfg = dataclasses.replace(get_arch('qwen3-0.6b').reduced(),"
+        " dscim='kernel:dscim1:256')\n"
+        "p = lm.init_params(cfg, 0)\n"
+        "x = np.random.default_rng(0).integers(0, cfg.vocab, (4, 16))\n"
+        "t = {}\n"
+        "a = serve_batch(cfg, p, x, 6, kv='int8', page_size=4, timings=t)[0]\n"
+        "b = serve_batch(cfg, p, x, 6, kv='int8', page_size=4, scan=False)[0]\n"
+        "assert 'capture_s' in t and (a == b).all()\n"
+        "print('captured', t['capture_s'])\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600,
+                       env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    assert r.returncode == 0 and "captured" in r.stdout, r.stdout + r.stderr
+
+
+def test_failed_capture_raises(cuda):
+    """A step that reads back to the host cannot be captured: the runner
+    raises (no eager fallback) and leaves the launch counts as they were."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.graph import CapturedStep
+
+    x = torch.ones(4, device=cuda)
+    c = build.LaunchCounter("test")
+
+    def step():
+        c.count += 1
+        if bool(x.sum() > 0):               # a host sync
+            x.add_(1)
+
+    runner = CapturedStep(step, cuda)
+    with pytest.raises(RuntimeError, match="capture"):
+        runner.run()
+    assert c.count == 0 and runner.graph is None
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("done_pos", [5, 7])
+def test_live_flush_wins_over_stale_done_row_on_card(cuda, done_pos):
+    """Fault C1 through the CUDA route (paged attention kernel, the flush
+    on CUDA tensors): live slot 0 flushes into page 1 while done slot 1's
+    stale row, after it, names page 1 too; page 1 must hold slot 0's
+    flush, as where no stale row aliases it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.kvcache import quantize_page
+    from repro_torch.kernels import paged_attention
+    from repro_torch.layers.attention import decode_attention_paged
+    from repro_torch.models import lm
+
+    cfg = get_arch("qwen3-0.6b").reduced()
+    attn = lm._layer(lm.init_params(cfg, 0, device="cuda")["layers"],
+                     0)["attn"]
+    ps, KV, HD = 4, cfg.n_kv, cfg.head_dim
+    rng = np.random.default_rng(0)
+    base = {"k_pages": rng.integers(-127, 128, (4, ps, KV, HD), np.int8),
+            "v_pages": rng.integers(-127, 128, (4, ps, KV, HD), np.int8),
+            "k_scale": np.ones((4, KV), np.float32),
+            "v_scale": np.ones((4, KV), np.float32),
+            "k_tail": rng.normal(0, 1, (2, ps, KV, HD)).astype(np.float32),
+            "v_tail": rng.normal(0, 1, (2, ps, KV, HD)).astype(np.float32)}
+    x = torch.from_numpy(rng.normal(0, 1, (2, 1, cfg.d_model)).astype(
+        np.float32)).to(cuda)
+    done = torch.tensor([False, True], device=cuda)
+    views = []
+    for table in ([[0, 1], [2, 1]], [[0, 1], [2, 3]]):
+        view = {k: torch.from_numpy(v).to(cuda) for k, v in base.items()}
+        for k in ("k_tail", "v_tail"):
+            view[k] = view[k].to(torch.bfloat16)
+        view["page_table"] = torch.tensor(table, dtype=torch.int32,
+                                          device=cuda)
+        view["pos"] = torch.tensor([2 * ps - 1, done_pos],
+                                   dtype=torch.int32, device=cuda)
+        before = paged_attention.LAUNCHES.count
+        decode_attention_paged(attn, x, view, cfg, done=done)
+        assert paged_attention.LAUNCHES.count == before + 1
+        views.append(view)
+    torch.cuda.synchronize()
+    alias, alone = views
+    for name in ("k_pages", "v_pages", "k_scale", "v_scale"):
+        assert torch.equal(alias[name][1], alone[name][1]), name
+    want_q, want_s = quantize_page(alone["k_tail"][0])
+    assert torch.equal(alias["k_pages"][1], want_q)
+    assert torch.equal(alias["k_scale"][1], want_s)

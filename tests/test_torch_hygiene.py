@@ -70,6 +70,29 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     assert toks.shape == (1, 2)
 
 
+def test_continuous_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    """``serve_continuous`` and the CLI's ``--continuous`` refuse to run
+    without CUDA, as ``serve_batch`` does, unless the CPU is asked for."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import main, serve_continuous
+    from repro_torch.models import lm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_arch("qwen3-0.6b").reduced()
+    params = lm.init_params(cfg, 0, device="cpu")
+    prompts = [[1, 2, 3, 4, 5, 6, 7, 8]] * 2
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_continuous(cfg, params, prompts, 2, slots=2)
+    outs, stats = serve_continuous(cfg, params, prompts, 2, slots=2,
+                                   device="cpu")
+    assert [len(o) for o in outs] == [2, 2] and stats["requests"] == 2
+    argv = ["--reduced", "--continuous", "--requests", "2", "--batch", "2",
+            "--prompt-len", "4", "--tokens", "2"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv)
+    assert main(argv + ["--device", "cpu"]) == 0
+
+
 def test_kernel_wrappers_refuse_other_devices():
     """A wrapper takes the plain version only for CPU tensors; anything
     else that is not CUDA raises instead of falling back."""
