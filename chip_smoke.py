@@ -37,7 +37,22 @@ In order it
    reported, checks each request's tokens bitwise against a one-shot
    ``serve_batch`` of its prompt tiled to 4 rows with the same budget,
    and prints tok/s with and without the segment step's capture time,
-   occupancy, segments and the page allocator's stats;
+   occupancy, segments and the page allocator's stats; serves the main
+   path's request with ``spec=SPEC`` (``spec``: dscim2 drafts a window of
+   4, the dscim1 verifier checks them in one batched forward, one captured
+   graph a window): its tokens must be bitwise the plain graph path's,
+   the window graph's tokens and spec stats the eager window's, and its
+   fused-MVM launches (draft and verify apart) and paged-attention
+   launches those of the windows replayed, as the profiler sees them; the
+   self-draft probe ``SELF_DSCIM`` must accept every draft; it prints
+   tok/s of 5 requests in turns with the plain graph path, one window's
+   device time, the capture time, accepted tokens per verify, and whether
+   the verify forward's ops give a row the same bits at B*(k+1) rows as
+   at B (and each way's time); then serves ``bitmatmul``, ``statistical``
+   and ``paper_inject`` (``modes``, full depth), each graph bitwise its
+   eager loop, ``bitmatmul`` bitwise ``lut`` with its count-kernel
+   launches counted, the noise modes' logit RMSE against ``exact``
+   printed;
 4. holds each kernel's wrapper, as the main path calls it, against its
    plain PyTorch version on the same inputs at the main path's shapes,
    and times kernel, wrapper, plain version, the least
@@ -103,6 +118,12 @@ BATCH, PROMPT, TOKENS, PAGE = 4, 64, 16, 8
 DSCIM = "kernel:dscim1:256"
 CB_BUDGETS = (16, 5, 12, 3, 16, 8, 10, 2)   # continuous phase, per request
 CB_SEG = 4                                  # its decode steps per segment
+SPEC = "dscim2:4"            # spec phase: dscim2 drafts, k = 4
+SELF_DSCIM = "kernel:dscim2:64"   # its self-draft probe: draft = verifier
+# tokens of the profiled spec request: 2 windows, about 64,000 kernels (a
+# 16-token request runs about 456,000, and the profiler then drops calls)
+SPEC_PROFILE_TOKENS = 3
+MODES = ("bitmatmul", "statistical", "paper_inject")   # modes phase
 FUSED_RTOL = 2e-5            # f32 summation order; counts are exact
 PAGED_RTOL = 1e-5            # f32 summation order of dot products / sums
 LONG_POS = 2047              # paged attention's long-context position
@@ -352,7 +373,7 @@ def main_path(torch, cfg, params, served, prompts):
     # both loops in turns, with the device time of one decode step
     runner = _generate_runner(cfg_ds, BATCH, PROMPT, TOKENS, "int8", PAGE,
                               None, "greedy", False,
-                              torch.device("cuda", 0))
+                              torch.device("cuda", 0), None)
     st = runner.st
 
     def reset():
@@ -400,7 +421,8 @@ def main_path(torch, cfg, params, served, prompts):
         raise AssertionError("non-finite logit RMSE")
     return launches, cache, {"tok_s": tok_s, "logit_rmse": rmse,
                              "generate_s": t["generate_s"],
-                             "capture_s": capture_s, "loops": loops}
+                             "capture_s": capture_s, "loops": loops,
+                             "tokens": toks}
 
 
 # the port's kernels of the main path, as the profiler names them
@@ -540,6 +562,279 @@ def continuous(torch, cfg, served):
                                   "slot_steps", "segments", "useful_tokens",
                                   "pages")} \
         | {"tok_s_without_capture": tok_s_uncaptured}
+
+
+def _batch_invariance(torch, cfg, served, k):
+    """For the ops of one verify layer at the main path's shapes: whether
+    B*(k+1) rows in one call give each row the bits of the decode's call
+    at B rows (position t alone, contiguous), and both calls' device
+    time.  The fused MVM must be invariant (decode_multi batches it);
+    the others run per position in decode_multi, and this records what
+    that buys and costs."""
+    from repro_torch.layers.norms import rmsnorm
+    from repro_torch.models.lm import _linear_for
+
+    dev = served["embed"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    T = k + 1
+    D = cfg.d_model
+    attn = served["layers"]["attn"]
+    mlp = served["layers"]["mlp"]
+    ln = {"scale": served["layers"]["ln1"]["scale"][0]}
+    lin = _linear_for(DSCIM)
+    wq = attn["wq"][0]
+    x = torch.randn((BATCH, T, D), generator=gen, device=dev).to(wq.dtype)
+    ops = {"cublas_projection_wq": lambda v: v @ wq,
+           "rmsnorm": lambda v: rmsnorm(v, ln),
+           "fused_mvm_w_gate": lambda v: lin(v, mlp["w_gate"][0])}
+    out = {}
+    for name, fn in ops.items():
+        whole = fn(x)
+        parts = [fn(x[:, t:t + 1].contiguous()) for t in range(T)]
+        per = torch.cat(parts, dim=1)
+        out[name] = {
+            "equal": bool(torch.equal(whole, per)),
+            "max_abs_diff": float((whole.float() - per.float()).abs().max()),
+            "batched_ms": _cuda_ms(lambda: fn(x), 20),
+            "per_position_ms": _cuda_ms(
+                lambda: [fn(x[:, t:t + 1].contiguous()) for t in range(T)],
+                20)}
+        _log(f"batch invariance {name}: {BATCH * T} rows in one call vs "
+             f"{T} calls of {BATCH}: bitwise {out[name]['equal']} (max "
+             f"diff {out[name]['max_abs_diff']:.3e}); "
+             f"{out[name]['batched_ms']:.4f} ms vs "
+             f"{out[name]['per_position_ms']:.4f} ms")
+    if not out["fused_mvm_w_gate"]["equal"]:
+        raise AssertionError("the fused MVM's rows depend on the batch")
+    return out
+
+
+def spec_phase(torch, cfg, served, prompts, plain_toks):
+    """Phase 3d: self-speculative decoding on the main path's model and
+    options, ``spec=SPEC`` (dscim2 drafts, the dscim1 verifier), each
+    window one replay of a captured graph.  Checks: the tokens are
+    bitwise the plain graph path's; the window graph gives the eager
+    window's tokens, windows and emitted counts; the fused-MVM launches
+    (split into draft and verify) and paged-attention launches over the
+    replays are those of a whole number R >= max(windows) of windows, and
+    the profiler sees as many kernel calls; the self-draft probe
+    (``SELF_DSCIM`` verified by itself) accepts every draft.  Prints
+    tok/s of 5 requests in turns with the plain graph path, one window's
+    device time, the capture time and accepted tokens per verify, and
+    the batch-invariance probe of ``_batch_invariance``."""
+    import numpy as np
+
+    from repro_torch.kernels import dscim_fused, paged_attention
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import (_draft_cfg, _generate_runner,
+                                          _parse_spec)
+    from repro_torch.models.lm import _linear_for
+
+    cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
+    k = _parse_spec(SPEC)[1]
+    L = cfg.n_layers
+    kw = dict(kv="int8", page_size=PAGE)
+    warm = {}
+    serve_batch(cfg_ds, served, prompts, TOKENS, spec=SPEC, timings=warm,
+                **kw)
+    if "capture_s" not in warm:
+        raise AssertionError("the warm-up spec request captured no graph")
+    if plain_toks is None:
+        plain_toks = serve_batch(cfg_ds, served, prompts, TOKENS, **kw)[0]
+    ver = dscim_fused.launches_for(_linear_for(DSCIM).cfg)
+    dra = dscim_fused.launches_for(_linear_for(
+        _draft_cfg(cfg_ds, SPEC.split(":")[0]).dscim).cfg)
+    counters = {"fused_verify": ver, "fused_draft": dra,
+                "fused_all": dscim_fused.LAUNCHES,
+                "paged_attention": paged_attention.LAUNCHES}
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    toks, _, ss = serve_batch(cfg_ds, served, prompts, TOKENS, spec=SPEC,
+                              spec_stats=True, **kw)
+    launches = {n: c.count for n, c in counters.items()}
+    if not np.array_equal(toks, plain_toks):
+        raise AssertionError(f"spec tokens {toks} != plain {plain_toks}")
+    per_fwd = 3 * L + 1
+    R, rem = divmod(launches["fused_draft"], k * per_fwd)
+    want = {"fused_verify": per_fwd * (1 + R), "fused_draft": per_fwd * k * R,
+            "fused_all": per_fwd * (1 + R * (k + 1)),
+            "paged_attention": L * (2 * k + 1) * R}
+    _log(f"spec launches: {launches}; {R} windows replayed (rows took part "
+         f"in {ss['windows'].tolist()}, emitted {ss['emitted'].tolist()}); "
+         f"expected {want}")
+    if rem or launches != want or R < int(ss["windows"].max()):
+        raise AssertionError(f"spec launches {launches} vs {want}")
+    eager = serve_batch(cfg_ds, served, prompts, TOKENS, spec=SPEC,
+                        spec_stats=True, scan=False, **kw)
+    if not (np.array_equal(eager[0], toks)
+            and all(np.array_equal(eager[2][n], ss[n]) for n in ss)):
+        raise AssertionError(f"window graph {toks} {ss} vs eager window "
+                             f"{eager[0]} {eager[2]}")
+    _log("spec: tokens bitwise the plain graph path's; window graph == "
+         "eager window (tokens, windows, emitted)")
+    # the profiler sees the counters' kernel calls (a short request: see
+    # SPEC_PROFILE_TOKENS; the warm-up captures its window)
+    serve_batch(cfg_ds, served, prompts, SPEC_PROFILE_TOKENS, spec=SPEC,
+                **kw)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    prof = _profile_request(torch, lambda: serve_batch(
+        cfg_ds, served, prompts, SPEC_PROFILE_TOKENS, spec=SPEC, **kw))
+    seen = prof["port_kernel_calls"]
+    counted = {"fused_mvm": dscim_fused.LAUNCHES.count,
+               "fused_quantize": dscim_fused.LAUNCHES.count,
+               "paged_attention": paged_attention.LAUNCHES.count}
+    _log(f"spec profile ({SPEC_PROFILE_TOKENS} tokens): kernel calls the "
+         f"device ran {seen}, the counters' "
+         f"{counted}; wall {prof['wall_ms_profiled']:.1f} ms, device busy "
+         f"{prof['device_busy_ms']:.1f} ms, idle "
+         f"{prof['device_idle_share']:.3f}, {prof['kernel_launches']} "
+         "kernels")
+    for kk in prof["top_kernels"][:5]:
+        _log(f"  {kk['device_ms']:.2f} ms in {kk['calls']} x {kk['name']}")
+    if seen != counted:
+        raise AssertionError(f"spec profile {seen} vs counters {counted}")
+    # the self-draft probe: every greedy draft accepted
+    cfg2 = dataclasses.replace(cfg, dscim=SELF_DSCIM)
+    p2 = serve_batch(cfg2, served, prompts, TOKENS, **kw)[0]
+    t2, _, s2 = serve_batch(cfg2, served, prompts, TOKENS, spec=SPEC,
+                            spec_stats=True, **kw)
+    full = -(-(TOKENS - 1) // (k + 1))
+    _log(f"spec self-draft ({SELF_DSCIM} verified by itself): windows "
+         f"{s2['windows'].tolist()} (all accepted: {full}), emitted "
+         f"{s2['emitted'].tolist()}")
+    if not (np.array_equal(t2, p2) and (s2["windows"] == full).all()
+            and (s2["emitted"] == TOKENS).all()):
+        raise AssertionError("self-draft: a draft was rejected or the "
+                             "tokens differ from the plain path")
+    # tok/s in turns with the plain graph path, one window's device time
+    runner = _generate_runner(cfg_ds, BATCH, PROMPT, TOKENS, "int8", PAGE,
+                              None, "greedy", False, served["embed"].device,
+                              SPEC)
+    st = runner.st
+    runs = {"plain": [], "spec": []}
+    for name in ("plain", "spec", "spec", "plain") * 2 + ("plain", "spec"):
+        tt = {}
+        serve_batch(cfg_ds, served, prompts, TOKENS, timings=tt,
+                    spec=SPEC if name == "spec" else None, **kw)
+        runs[name].append(BATCH * TOKENS / tt["generate_s"])
+
+    def reset():
+        # back to mid-request (pos, emitted counts, budget, done), so the
+        # timed replay writes inside the static buffers
+        st["params"] = served
+        st["cache"]["pos"].fill_(PROMPT + TOKENS // 2)
+        st["n_out"].fill_(TOKENS // 2)
+        st["max_new"].fill_(TOKENS)
+        st["done"].zero_()
+    window_ms = _decode_step_ms(torch, runner.step.graph.replay, reset)
+    st["params"] = None
+    # a draft step alone: the self-draft probe's plain dscim2 step graph
+    drunner = _generate_runner(cfg2, BATCH, PROMPT, TOKENS, "int8", PAGE,
+                               None, "greedy", False, served["embed"].device,
+                               None)
+    dst = drunner.st
+
+    def dreset():
+        dst["params"] = served
+        dst["cache"]["pos"].fill_(PROMPT + TOKENS // 2)
+        dst["i"].fill_(TOKENS // 2)
+    draft_ms = _decode_step_ms(torch, drunner.step.graph.replay, dreset)
+    dst["params"] = None
+    res = {n: {"tok_s": v, "tok_s_median": float(np.median(v)),
+               "tok_s_range": [min(v), max(v)]} for n, v in runs.items()}
+    acc = float((ss["emitted"] - 1).sum() / max(int(ss["windows"].sum()), 1))
+    _log(f"spec vs plain graph, 5 requests each in turns: spec "
+         f"{res['spec']['tok_s_median']:.1f} tok/s (range "
+         f"{res['spec']['tok_s_range'][0]:.1f}-"
+         f"{res['spec']['tok_s_range'][1]:.1f}), plain "
+         f"{res['plain']['tok_s_median']:.1f} ("
+         f"{res['plain']['tok_s_range'][0]:.1f}-"
+         f"{res['plain']['tok_s_range'][1]:.1f}); one window "
+         f"{window_ms:.4f} ms device time, of which {k} draft steps of "
+         f"{draft_ms:.4f} ms each (a {SELF_DSCIM} step) and the verify "
+         f"forward, rollback and accept fold the rest; capture "
+         f"{warm['capture_s']:.3f} s; {acc:.3f} tokens emitted per verify")
+    inv = _batch_invariance(torch, cfg, served, k)
+    return {"spec": SPEC, "launches": launches, "windows_replayed": R,
+            "windows": ss["windows"].tolist(),
+            "emitted": ss["emitted"].tolist(),
+            "emitted_per_verify": acc, "window_ms": window_ms,
+            "draft_step_ms": draft_ms,
+            "capture_s": warm["capture_s"], "loops": res, "profile": prof,
+            "self_draft": {"windows": s2["windows"].tolist(),
+                           "emitted": s2["emitted"].tolist()},
+            "batch_invariance": inv}
+
+
+def modes_phase(torch, cfg, served, prompts):
+    """Phase 3e: the DS-CIM linear's other modes (``MODES``) on the main
+    path's model (published width and depth) and options, each decode
+    step captured.  Checks: graph == eager loop bitwise
+    (tokens and logit trace) for each; ``bitmatmul``'s tokens and logits
+    bitwise ``lut``'s; the count kernel's launches over the bitmatmul
+    request (one a window: prefill plus the replays).  Prints each mode's
+    capture time and the noise modes' logit RMSE against ``exact``."""
+    import numpy as np
+
+    from repro_torch.kernels import dscim_mvm
+    from repro_torch.launch.serve import logit_drift_rmse, serve_batch
+    from repro_torch.launch.steps import clear_graphs
+
+    kw = dict(kv="int8", page_size=PAGE, trace_logits=True)
+    runs, out = {}, {}
+    for mode in ("exact", "lut") + MODES:
+        c = dataclasses.replace(cfg, dscim=f"{mode}:dscim1:256")
+        t = {}
+        if mode == "bitmatmul":
+            torch.cuda.synchronize()
+            dscim_mvm.LAUNCHES.reset()
+        runs[mode] = serve_batch(c, served, prompts, TOKENS, timings=t, **kw)
+        if mode == "bitmatmul":
+            launches = dscim_mvm.LAUNCHES.count
+        entry = {"capture_s": t.get("capture_s"),
+                 "generate_s": t["generate_s"]}
+        if mode in MODES:
+            eager = serve_batch(c, served, prompts, TOKENS, scan=False, **kw)
+            if not (np.array_equal(eager[0], runs[mode][0]) and
+                    np.array_equal(np.stack(eager[1]),
+                                   np.stack(runs[mode][1]))):
+                raise AssertionError(f"modes {mode}: graph != eager loop")
+            entry["graph_equals_eager"] = True
+        out[mode] = entry
+        clear_graphs()
+        _log(f"modes {mode}: {TOKENS} tokens in {t['generate_s']:.3f} s "
+             f"(capture {t.get('capture_s', 0.0):.3f} s)"
+             + (", graph == eager loop bitwise" if mode in MODES else ""))
+    nw = {n: -(-n // 128) for n in (cfg.d_model, cfg.d_ff)}
+    per_fwd = cfg.n_layers * (2 * nw[cfg.d_model] + nw[cfg.d_ff]) \
+        + nw[cfg.d_model]
+    want = per_fwd * TOKENS
+    _log(f"modes bitmatmul: {launches} count-kernel launches (expected "
+         f"{want}: {per_fwd} windows a forward x {TOKENS} forwards)")
+    if launches != want:
+        raise AssertionError(f"bitmatmul launches {launches} != {want}")
+    if not (np.array_equal(runs["bitmatmul"][0], runs["lut"][0]) and
+            np.array_equal(np.stack(runs["bitmatmul"][1]),
+                           np.stack(runs["lut"][1]))):
+        raise AssertionError("bitmatmul != lut (tokens or logits)")
+    _log("modes: bitmatmul tokens and logit trace bitwise lut's")
+    ex_t, ex_l = runs["exact"]
+    for mode in ("statistical", "paper_inject", "bitmatmul"):
+        tk, lg = runs[mode]
+        rmse = float(np.sqrt(np.mean((lg[0] - ex_l[0]) ** 2)))
+        drift = logit_drift_rmse(ex_t, tk, ex_l, lg)
+        if not (math.isfinite(rmse) and np.isfinite(np.stack(lg)).all()):
+            raise AssertionError(f"modes {mode}: non-finite logits")
+        out[mode].update(prefill_logit_rmse_vs_exact=rmse,
+                         logit_drift_rmse_vs_exact=drift)
+        _log(f"modes {mode} vs exact: prefill logit RMSE {rmse:.4f}, "
+             f"teacher-matched drift RMSE {drift:.4f}")
+    return {"layers": cfg.n_layers, "bitmatmul_count_launches": launches,
+            "modes": out}
 
 
 def check_fused(torch, cfg, params, launches):
@@ -1212,6 +1507,9 @@ def main() -> int:
                                  served, prompts) or (None, None, {})
     prof = phase("profile", profile_main_path, torch, cfg, served, prompts)
     cb = phase("continuous", continuous, torch, cfg, served)
+    spec = phase("spec", spec_phase, torch, cfg, served, prompts,
+                 e2e.get("tokens"))
+    modes = phase("modes", modes_phase, torch, cfg, served, prompts)
     del served
     counts = launches or {"dscim_fused_mvm": None,
                           "paged_attention_decode": None}
@@ -1219,6 +1517,12 @@ def main() -> int:
                phase("paged_attention", check_paged, torch, cfg, cache,
                      counts)]
     del cache
+    if spec is not None:
+        for entry, key in ((kernels[0], "fused"), (kernels[1], "paged")):
+            if entry is not None:
+                entry["launches_spec"] = {
+                    n: v for n, v in spec["launches"].items()
+                    if n.startswith(key)}
     ops_in, ops_out, ops_launches = phase(
         "operators", drive_operators, torch) or (None, None, None)
     if ops_in is None:
@@ -1231,12 +1535,16 @@ def main() -> int:
         kernels.append(phase("flash_attention", check_flash, torch, ops_in,
                              ops_out, ops_launches))
     del ops_in, ops_out
+    if modes is not None and kernels[3] is not None:
+        kernels[3]["launches_modes_bitmatmul"] = \
+            modes["bitmatmul_count_launches"]
     t1 = phase("table1", table1, torch)
     drift = phase("reduced_gpu_vs_cpu", check_reduced, torch)
     print(json.dumps({"kernels": kernels, "card": smi[0] if smi else None,
                       "tok_s": e2e.get("tok_s"),
                       "capture_s": e2e.get("capture_s"),
                       "loops": e2e.get("loops"), "continuous": cb,
+                      "spec": spec, "modes": modes,
                       "prefill_logit_rmse_vs_off": e2e.get("logit_rmse"),
                       "reduced_gpu_vs_cpu_drift": drift,
                       "table1_rmse_pct": t1,

@@ -28,7 +28,8 @@ import torch
 
 __all__ = ["quantize_page", "n_pages_for", "admission_pages",
            "default_page_table", "init_paged_cache", "paged_from_dense",
-           "admit_request", "admit_dense", "PageAllocator", "TAIL_DTYPE"]
+           "admit_request", "admit_dense", "spec_rollback", "PageAllocator",
+           "TAIL_DTYPE"]
 
 TAIL_DTYPE = torch.bfloat16
 
@@ -176,6 +177,47 @@ def admit_dense(cache, ks1, vs1, slot: int):
         row.zero_()
         row[:, :S] = src[:, 0].to(row.dtype)
     cache["pos"][slot] = S
+    return cache
+
+
+def spec_rollback(cache, pos0, new_pos, tails0=None, win_kv=None):
+    """Truncate a speculative draft/verify window back to its committed
+    length (launch/steps.py), in place: the write-then-rollback
+    discipline of the reference's ``spec_rollback``.
+
+    ``pos0`` (B,) is the position the window started from, ``new_pos``
+    (B,) the committed position after accept/reject (pos0 <= new_pos <=
+    pos0 + T).  Both layouts are append-only with read masks on ``pos``,
+    so rejected positions never need erasing:
+
+    * dense: truncating ``pos`` is the whole rollback;
+    * paged: the same, except that a window which crossed a page boundary
+      flushed the committed tail page's low offsets out of the tail.  The
+      tail is rebuilt here by a gather from the window's K/V (``win_kv``
+      (L, B, T, KV, HD), the verifier's writes in the tail dtype:
+      positions >= pos0) and the pre-window tails (``tails0`` (L, B, ps,
+      KV, HD): positions < pos0).  Pages are never allocated or freed:
+      every slot's grant has headroom for the window's k draft
+      positions.
+
+    Entries past ``new_pos % ps`` are don't-care (rewritten before they
+    are read); they are filled from the same gather.  Returns ``cache``
+    (its tensors updated in place)."""
+    if "k_pages" in cache:
+        k_tail0, v_tail0 = tails0
+        win_k, win_v = win_kv
+        L, B, T = win_k.shape[:3]
+        ps = cache["k_tail"].shape[2]
+        o = torch.arange(ps, dtype=new_pos.dtype, device=new_pos.device)
+        i = (new_pos // ps * ps)[:, None] + o[None, :]          # (B, ps)
+        t = torch.clamp(i - pos0[:, None], 0, T - 1).long()
+        use_w = (i >= pos0[:, None])[None, :, :, None, None]
+        idx = t[None, :, :, None, None].expand(L, B, ps, *win_k.shape[3:])
+        for name, win, tail0 in (("k_tail", win_k, k_tail0),
+                                 ("v_tail", win_v, v_tail0)):
+            cache[name].copy_(torch.where(use_w, torch.gather(win, 2, idx),
+                                          tail0))
+    cache["pos"].copy_(new_pos)
     return cache
 
 

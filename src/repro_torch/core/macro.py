@@ -156,6 +156,14 @@ class DSCIMMacro:
         counts = dscim_counts_plain(x_i8, w_i8, *self.folded, self.cfg.k)
         return counts.to(torch.int32)
 
+    def counts_kernel(self, x_i8: torch.Tensor, w_i8: torch.Tensor
+                      ) -> torch.Tensor:
+        """The count kernel's counts (M, N) f32 on the macro's points
+        (``kernels/dscim_mvm.py dscim_counts``: the CUDA kernel on the
+        card, its plain version on the CPU)."""
+        return dscim_counts(x_i8, w_i8, *self.folded, k=self.cfg.k,
+                            length=self.cfg.length)
+
     def mvm_from_counts(self, x_i8, w_i8, counts) -> torch.Tensor:
         """psum estimate (M, N) f32 from a count matrix, with the exact
         correction terms (and the center-truncation terms when set)."""
@@ -183,8 +191,7 @@ class DSCIMMacro:
         elif backend == "bitmatmul":
             counts = self.counts_bitmatmul(x_i8, w_i8)
         elif backend == "kernel":
-            counts = dscim_counts(x_i8, w_i8, *self.folded, k=self.cfg.k,
-                                  length=self.cfg.length)
+            counts = self.counts_kernel(x_i8, w_i8)
         elif backend == "cycle":
             raise NotImplementedError(
                 "the cycle backend needs core/ormac.py, not ported yet")

@@ -33,6 +33,7 @@ _loaded: dict[str, ctypes.CDLL] = {}
 _bound: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _counters: dict = {}
 COUNTERS: list = []       # every LaunchCounter made, for graph replays
+_retired: list = []       # outgrown tile-counter buffers, kept alive
 
 
 @dataclasses.dataclass(eq=False)          # hashed by identity
@@ -142,6 +143,9 @@ def tile_counters(device, stream: int, n: int):
                 f"tile counters for {n} tiles on stream {stream:#x} made "
                 "during a CUDA graph capture; prepare the kernels for "
                 "capture on that stream first")
+        if buf is not None:
+            # a graph captured earlier may still launch on the old buffer
+            _retired.append(buf)
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _counters[key] = buf
     return buf

@@ -48,9 +48,19 @@ from .dscim_mvm_blocked import block_point_tables, dscim_counts_blocked
 __all__ = ["dscim_fused_mvm", "dscim_fused_mvm_prepared",
            "dscim_fused_mvm_plain", "quantize_activations_windowed",
            "mask_tables", "dscim_windowed_vmap_mvm", "prepare_capture",
-           "LAUNCHES"]
+           "LAUNCHES", "launches_for"]
 
 LAUNCHES = build.LaunchCounter("dscim_fused_mvm")
+_BY_CFG: dict = {}
+
+
+def launches_for(cfg: DSCIMConfig) -> build.LaunchCounter:
+    """The launches of the kernel with ``cfg``'s estimator (a share of
+    ``LAUNCHES``: a speculative window runs two estimators)."""
+    c = _BY_CFG.get(cfg)
+    if c is None:
+        c = _BY_CFG[cfg] = build.LaunchCounter(f"dscim_fused_mvm {cfg.name}")
+    return c
 _N_CHUNK = 16384          # plain version: output columns per bit expansion
 
 
@@ -227,6 +237,7 @@ def _launch_kernel(x: torch.Tensor, qw: QuantizedLinearWeight,
     if rc != 0:
         raise RuntimeError(f"dscim_fused kernel launch failed: error {rc}")
     LAUNCHES.count += 1
+    launches_for(cfg).count += 1
     # the C side's scratch layout: xq, padded to 16 bytes, then sx
     xq_bytes = -(-M * nw * g // 16) * 16
     xq = scratch[:M * nw * g].view(torch.int8).reshape(M, nw, g)

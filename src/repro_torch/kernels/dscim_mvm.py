@@ -34,9 +34,10 @@ from . import build
 
 __all__ = ["dscim_counts", "dscim_counts_plain", "points_by_block",
            "count_mask_tables", "point_tables", "launch_counts",
-           "check_exact_matmuls", "LAUNCHES"]
+           "prepare_capture", "check_exact_matmuls", "LAUNCHES"]
 
 LAUNCHES = build.LaunchCounter("dscim_counts")
+_PREPARE = build.LaunchCounter("dscim_counts capture preparation")
 BIT_BUDGET = 1 << 26      # plain versions: bit-expansion elements per chunk
 # dscim_counts_launch(x, w, ta, tb, out, M, K, N, k, G, S, W, stream)
 ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -103,19 +104,45 @@ def _tables_for_points(points: bytes, L: int, k: int):
     return count_mask_tables(*points_by_block(cu, lu, cv, lv, k), 256 >> k)
 
 
-@functools.lru_cache(maxsize=64)
-def _device_tables(points: bytes, L: int, k: int, device: torch.device):
-    return tuple(torch.as_tensor(t, device=device)
-                 for t in _tables_for_points(points, L, k))
+_DEVICE_TABLES: dict = {}
 
 
 def point_tables(cu, lu, cv, lv, k: int, device):
     """The count kernel's (G, S, W) mask tables for the folded points
-    (cu, lu, cv, lv), on ``device``; cached by the points' values."""
+    (cu, lu, cv, lv), on ``device``; cached by the points' values.  The
+    first copy to a CUDA device is from pageable host memory, which a
+    CUDA graph capture forbids: ``prepare_capture`` makes the tables
+    first, and a first copy during capture raises."""
     pts = np.stack([torch.as_tensor(t).detach().cpu().numpy().astype(
         np.int32) for t in (cu, lu, cv, lv)])
-    return _device_tables(pts.tobytes(), pts.shape[1], k,
-                          torch.device(device))
+    points, L = pts.tobytes(), pts.shape[1]
+    device = torch.device(device)
+    key = (points, L, k, device)
+    tabs = _DEVICE_TABLES.get(key)
+    if tabs is None:
+        if device.type == "cuda" and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("count tables copied to the device during a "
+                               "CUDA graph capture; call prepare_capture "
+                               "first")
+        tabs = tuple(torch.as_tensor(t, device=device)
+                     for t in _tables_for_points(points, L, k))
+        _DEVICE_TABLES[key] = tabs
+    return tabs
+
+
+def prepare_capture(points, k: int, M: int, device, stream) -> None:
+    """Everything ``dscim_counts`` makes at first use, made before a CUDA
+    graph capture on ``stream`` that counts M rows with the folded
+    ``points`` (cu, lu, cv, lv): the library built and bound, the mask
+    tables on the device, and one launch on zero operands of one window
+    (module load, the shared-memory attribute)."""
+    build.load("dscim_counts")
+    ta, tb = point_tables(*points, k, device)
+    with torch.cuda.stream(stream):
+        x = torch.zeros((M, 128), dtype=torch.int8, device=device)
+        w = torch.zeros((128, 128), dtype=torch.int8, device=device)
+        launch_counts(x, w, ta, tb, k, _PREPARE)
 
 
 def dscim_counts_plain(x_i8, w_i8, cu, lu, cv, lv, k: int) -> torch.Tensor:

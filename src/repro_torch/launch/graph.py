@@ -1,5 +1,6 @@
-"""One decode step captured as a CUDA graph and replayed (the port's
-counterpart of the reference's jitted ``lax.scan``/``while_loop`` carry).
+"""One decode step (or one speculative draft/verify window) captured as a
+CUDA graph and replayed (the port's counterpart of the reference's jitted
+``lax.scan``/``while_loop`` carry).
 
 ``CapturedStep`` wraps a step function that reads and writes only static
 tensors (the serve state, the KV cache, the output buffers, the
@@ -20,8 +21,10 @@ What capture needs, and where it is met:
   capture, and ``decode`` advances ``pos`` in place; the runners replay a
   graph only for params at the addresses it was captured with
   (``steps._binding``);
-* random draws: the sampler's ``torch.Generator`` is registered with the
-  graph, so each replay advances its Philox offset as an eager call would;
+* random draws: the sampler's uniforms and the noise modes' normals are
+  hashed on the device from integer keys held in static tensors
+  (``core/counter_rng``), so a replay draws what an eager call would,
+  with no generator state;
 * launch counts: the kernel wrappers count in Python, which a replay does
   not run, so the counts the capture made are taken back and added once
   per replay (``chip_smoke.py``'s profile phase holds the counts so made
@@ -64,16 +67,13 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
 class CapturedStep:
     """``step()`` replayed as a CUDA graph on CUDA, called directly on the
     CPU.  ``prepare(stream)`` makes what the step's kernels need before
-    capture; ``generators`` are the ``torch.Generator``s the step draws
-    from.  ``capture_s`` is the time the last capture took, ``captures``
-    how many were made."""
+    capture.  ``capture_s`` is the time the last capture took,
+    ``captures`` how many were made."""
 
-    def __init__(self, step, device: torch.device, prepare=None,
-                 generators=()):
+    def __init__(self, step, device: torch.device, prepare=None):
         self.step = step
         self.device = torch.device(device)
         self.prepare = prepare
-        self.generators = tuple(generators)
         self.graph = None
         self.launches: dict = {}
         self.capture_s = 0.0
@@ -91,13 +91,6 @@ class CapturedStep:
             self.prepare(stream)
         torch.cuda.current_stream(self.device).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        for gen in self.generators:
-            if not hasattr(graph, "register_generator_state"):
-                raise RuntimeError(
-                    f"torch {torch.__version__} cannot register a "
-                    "torch.Generator with a CUDA graph; a sampled step "
-                    "cannot be captured")
-            graph.register_generator_state(gen)
         before = {c: c.count for c in build.COUNTERS}
         try:
             with torch.cuda.graph(graph, stream=stream):

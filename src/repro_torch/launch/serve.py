@@ -15,7 +15,10 @@ kernel.  ``--host-loop`` runs the eager loop instead (the A/B baseline).
 ``--temp``/``--top-k``/``--top-p`` sample instead of taking the argmax.
 ``--continuous`` serves ``--requests`` prompts through ``--batch``
 persistent slots, admitting between segments of ``--segment-len`` steps
-(runtime/serving.py).
+(runtime/serving.py).  ``--spec dscim2:<k>`` turns on self-speculative
+decoding: each window drafts k tokens through the cheaper estimator on
+the same prepared weights and verifies them with one batched forward
+through ``--dscim`` (greedy output bitwise the plain output).
 """
 from __future__ import annotations
 
@@ -59,7 +62,8 @@ def serve_batch(cfg, params, prompts, n_tokens: int, *,
                 kv: str = "float", page_size: int = 8, max_new=None,
                 scan: bool = True, sample: str = "greedy", rng_seed: int = 0,
                 device=None, timings: dict | None = None,
-                return_cache: bool = False):
+                return_cache: bool = False, spec: str | None = None,
+                spec_stats: bool = False):
     """prompts (B, S) int -> generated (B, n_tokens) int32 numpy, logits
     list (the per-step trace under ``trace_logits``, else [prefill
     logits]), as numpy f32.
@@ -76,8 +80,15 @@ def serve_batch(cfg, params, prompts, n_tokens: int, *,
     asked for; params are moved there if they are elsewhere.
     ``timings``: a dict filled with 'prepare_s', 'generate_s'
     (synchronized wall times) and, where this call captured the decode
-    graph, 'capture_s' (inside 'generate_s').  ``return_cache``: also
-    return a copy of the final KV cache (tensors on device)."""
+    graph, 'capture_s' (inside 'generate_s').  ``spec``: '<variant>:<k>'
+    self-speculative decoding (launch/steps.py ``make_generate_fn``):
+    each replay drafts k tokens with the cheaper estimator and verifies
+    the window in one batched forward; greedy output is bitwise the plain
+    output.  ``spec_stats=True`` adds an element ``{"windows": (B,),
+    "emitted": (B,)}`` np.int32 (None without spec): per-row verify
+    windows and emitted tokens, whose ratio is accepted tokens per
+    verify.  ``return_cache``: also return a copy of the final KV cache
+    (tensors on device), last."""
     dev = resolve_device(device)
 
     def sync():
@@ -99,7 +110,7 @@ def serve_batch(cfg, params, prompts, n_tokens: int, *,
     t1 = time.perf_counter()
     generate = make_generate_fn(cfg, n_tokens, trace_logits=trace_logits,
                                 eos_id=eos_id, kv=kv, page_size=page_size,
-                                sample=sample, scan=scan)
+                                sample=sample, scan=scan, spec=spec)
     out, logits, cache = generate(params, tokens, budgets, rng_seed)
     sync()
     t2 = time.perf_counter()
@@ -110,6 +121,10 @@ def serve_batch(cfg, params, prompts, n_tokens: int, *,
     logits = logits.cpu().numpy()
     trace = list(logits) if trace_logits else [logits]
     result = (out.cpu().numpy(), trace)
+    if spec_stats:
+        stats = generate.last_spec_stats
+        result += (None if stats is None else
+                   {k: v.cpu().numpy() for k, v in stats.items()},)
     if return_cache:
         return result + ({k: v.clone() for k, v in cache.items()},)
     return result
@@ -149,9 +164,13 @@ def serve_continuous(cfg, params, prompts, n_tokens: int, *,
     ``params`` go through ``prepare_params``.  ``device``: CUDA unless 'cpu' is asked for.  The
     fault-tolerance knobs (``deadline_steps``, ``deadline_s``,
     ``priority``, ``monitor``, ``injector``, ``snapshot_every``,
-    ``watchdog``, ``integrity``), ``prefix_cache`` and ``spec`` raise
-    ``NotImplementedError`` when set: their ROADMAP items (A9-A11) are not
-    ported yet."""
+    ``watchdog``, ``integrity``) and ``prefix_cache`` raise
+    ``NotImplementedError`` when set: their ROADMAP items (A10, A11) are
+    not ported yet.  ``spec`` ('<variant>:<k>'): each segment step is a
+    draft/verify window (launch/steps.py ``make_segment_fn``), and every
+    slot's capacity and page grant gain k positions of headroom; each
+    request's tokens are bitwise those without spec under greedy
+    decoding."""
     from ..runtime.serving import serve_continuous_ft
     dev = resolve_device(device)
     params = prepare_params(cfg, params, dev)
@@ -260,6 +279,12 @@ def main(argv=None):
                     help="queue length for --continuous")
     ap.add_argument("--segment-len", type=int, default=4,
                     help="decode steps per segment for --continuous")
+    ap.add_argument("--spec", default=None, metavar="VARIANT:K",
+                    help="self-speculative decoding, e.g. 'dscim2:4': "
+                         "draft K tokens a window with the cheaper "
+                         "estimator on the same prepared weights, verify "
+                         "with one batched forward through --dscim; "
+                         "greedy output is bitwise the plain output")
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, which must exist)")
     ap.add_argument("--seed", type=int, default=0,
@@ -290,7 +315,7 @@ def main(argv=None):
                 seg_len=args.segment_len, max_new=budgets,
                 eos_id=args.eos if args.eos is not None else -1,
                 sample=sample, kv=args.kv, page_size=args.page_size,
-                device=dev)
+                device=dev, spec=args.spec if tag != "off" else None)
             pages = stats["pages"]
             print(f"[serve-cb] dscim={tag} kv={args.kv} {name}: "
                   f"{stats['tok_s']:.1f} tok/s over "
@@ -310,11 +335,12 @@ def main(argv=None):
     results = {}
     for tag, c in runs:
         t = {}
-        toks, logits = serve_batch(c, params, prompts, args.tokens,
-                                   eos_id=args.eos, kv=args.kv,
-                                   page_size=args.page_size,
-                                   scan=not args.host_loop, sample=sample,
-                                   device=dev, timings=t)
+        spec = args.spec if tag != "off" else None
+        toks, logits, sstats = serve_batch(
+            c, params, prompts, args.tokens, eos_id=args.eos, kv=args.kv,
+            page_size=args.page_size, scan=not args.host_loop,
+            sample=sample, device=dev, timings=t, spec=spec,
+            spec_stats=True)
         useful = _useful_tokens(toks, args.eos)
         results[tag] = (toks, logits)
         line = (f"[serve] dscim={tag} kv={args.kv} {name} ({mode}): "
@@ -328,6 +354,10 @@ def main(argv=None):
             line += (f", token agreement "
                      f"{_agreement(toks, base_toks, args.eos):.3f}, "
                      f"prefill logit RMSE {rmse:.4f}")
+        if sstats is not None:
+            tpv = (sstats["emitted"] - 1).sum() / max(
+                int(sstats["windows"].sum()), 1)
+            line += f", {tpv:.2f} accepted tok/verify (--spec {spec})"
         print(line)
     return 0
 

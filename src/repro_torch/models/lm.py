@@ -6,7 +6,13 @@ per-layer leaf is stacked on axis 0 (``params["layers"]["mlp"]["w_up"]`` is
 (L, D, F)), so ``convert.params_from_jax`` is a plain tree copy.  Prepared
 DS-CIM weights (``QuantizedLinearWeight``) slice per layer the same way.
 The layer loop is a Python loop; prefill builds the dense KV cache, and
-decode reads either the dense cache or the int8 paged one.
+decode reads either the dense cache or the int8 paged one.  ``decode_multi``
+scores a window of T tokens per row in one forward (the verifier of
+self-speculative decoding).
+
+Salts: layer ``li`` owns the salt space ``8*li`` (MLP sites 0..2,
+attention 4..7) and the head takes ``8*n_layers``, as in the reference,
+so the DS-CIM noise modes draw distinct noise at every call site.
 """
 from __future__ import annotations
 
@@ -18,11 +24,15 @@ from ..configs.base import ArchConfig
 from ..core.qweights import QuantizedLinearWeight, map_params
 from ..device import resolve_device
 from ..layers.attention import (attention, decode_attention,
-                                decode_attention_paged, flush_plan)
+                                decode_attention_multi,
+                                decode_attention_paged,
+                                decode_attention_paged_multi, flush_plan,
+                                per_position, window_positions)
 from ..layers.mlp import mlp
 from ..layers.norms import rmsnorm
 
-__all__ = ["init_params", "prefill", "decode", "cast_layers", "DTYPES"]
+__all__ = ["init_params", "prefill", "decode", "decode_multi",
+           "cast_layers", "DTYPES"]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -123,21 +133,24 @@ def _layer(layers, i: int):
 
 def _head(params, cfg: ArchConfig, x):
     lin = _linear_for(cfg.dscim)
+    salt = 8 * cfg.n_layers
     head = params.get("lm_head")
     if isinstance(head, QuantizedLinearWeight):
-        return lin(x.to(torch.float32), head).to(torch.float32)
+        return lin(x.to(torch.float32), head, salt=salt).to(torch.float32)
     if cfg.tie_embeddings:
         w = params["embed"].to(x.dtype).T
     else:
         w = head.to(x.dtype)
     if lin is not None:
-        return lin(x.to(torch.float32), w.to(torch.float32)).to(torch.float32)
+        return lin(x.to(torch.float32), w.to(torch.float32),
+                   salt=salt).to(torch.float32)
     return (x @ w).to(torch.float32)
 
 
-def _ff(cfg: ArchConfig, lp, x):
+def _ff(cfg: ArchConfig, lp, x, salt):
     return mlp(lp["mlp"], rmsnorm(x, lp["ln2"]), cfg.mlp_kind,
-               linear=_linear_for(cfg.dscim))
+               linear=_linear_for(cfg.dscim), salt=salt)
+
 
 
 @torch.no_grad()
@@ -156,9 +169,10 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
         lp = _cast(_layer(params["layers"], li), dt)
         h, (k, v) = attention(lp["attn"], rmsnorm(x, lp["ln1"]), cfg,
                               positions, cfg.q_chunk, return_kv=True,
-                              linear=_attn_linear_for(cfg.dscim))
+                              linear=_attn_linear_for(cfg.dscim),
+                              salt=8 * li)
         x = x + h
-        x = x + _ff(cfg, lp, x)
+        x = x + _ff(cfg, lp, x, 8 * li)
         ks.append(k.to(cdt))
         vs.append(v.to(cdt))
     ks, vs = torch.stack(ks), torch.stack(vs)
@@ -199,9 +213,9 @@ def decode(params, cfg: ArchConfig, token: torch.Tensor, cache,
         lp = _cast(_layer(params["layers"], li), dt)
         h = decode_attention(lp["attn"], rmsnorm(x, lp["ln1"]),
                              cache["k"][li], cache["v"][li], pos, cfg,
-                             linear=_attn_linear_for(cfg.dscim))
+                             linear=_attn_linear_for(cfg.dscim), salt=8 * li)
         x = x + h
-        x = x + _ff(cfg, lp, x)
+        x = x + _ff(cfg, lp, x, 8 * li)
     x = rmsnorm(x, params["final_norm"])
     logits = _head(params, cfg, x)[:, 0]
     return logits, dict(cache, pos=_advance(pos, done))
@@ -221,9 +235,79 @@ def _decode_paged(params, cfg: ArchConfig, token, cache, done=None):
                     flush=plan)
         h = decode_attention_paged(lp["attn"], rmsnorm(x, lp["ln1"]), view,
                                    cfg, linear=_attn_linear_for(cfg.dscim),
-                                   done=done)
+                                   salt=8 * li, done=done)
         x = x + h
-        x = x + _ff(cfg, lp, x)
+        x = x + _ff(cfg, lp, x, 8 * li)
     x = rmsnorm(x, params["final_norm"])
     logits = _head(params, cfg, x)[:, 0]
     return logits, dict(cache, pos=_advance(cache["pos"], done))
+
+
+def _window(fn, lin, x):
+    """``fn`` over a (B, T, ...) window: batched where the DS-CIM operator
+    ``lin`` it ends in has batch-invariant rows, else per position at the
+    decode's shape."""
+    if getattr(lin, "batch_invariant", False):
+        return fn(x)
+    return per_position(fn, x)
+
+
+@torch.no_grad()
+def decode_multi(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
+                 done: torch.Tensor | None = None):
+    """Speculative-verify decode: score T consecutive tokens per row in one
+    forward.  tokens (B, T); ``cache["pos"]`` (B,).  Position t of the
+    logits is bitwise what ``decode`` gives for token t after decoding
+    tokens 0..t-1 (same weights, same salts, same ops at the same
+    shapes): the DS-CIM
+    matmuls whose rows are batch invariant (``DSCIMLinear.batch_invariant``:
+    exact, lut, bitmatmul, kernel) run once over the B*T rows; every other
+    op that mixes elements of a row (the norms, float matmuls, attention,
+    the noise modes' per-element draws) runs per position at the decode's
+    shape (B, 1, ...), and elementwise ops batch.  The cache is updated in
+    place; ``pos`` advances by T (done rows stay put).
+
+    Returns (logits (B, T, Vp) f32, cache, win_kv) where win_kv is
+    (win_k, win_v) (n_layers, B, T, KV, HD) in the tail dtype for the
+    paged layout (``core/kvcache.py spec_rollback`` consumes them) and
+    None for the dense layout."""
+    dt = DTYPES[cfg.compute_dtype]
+    B, T = tokens.shape
+    x = params["embed"][tokens].to(dt)                       # (B, T, D)
+    pos = cache["pos"]
+    lin = _linear_for(cfg.dscim)
+    alin = _attn_linear_for(cfg.dscim)
+    paged = "k_pages" in cache
+    if paged:
+        ps = cache["k_pages"].shape[2]
+        window = [(pt, flush_plan(cache["page_table"], pt, ps, done))
+                  for pt in window_positions(pos, T, done)]
+    wks, wvs = [], []
+    for li in range(cfg.n_layers):
+        lp = _cast(_layer(params["layers"], li), dt)
+        hn = per_position(lambda v: rmsnorm(v, lp["ln1"]), x)
+        if paged:
+            view = {name: cache[name][li] for name in
+                    ("k_pages", "v_pages", "k_scale", "v_scale", "k_tail",
+                     "v_tail")}
+            view.update(page_table=cache["page_table"], pos=pos,
+                        window=window)
+            h, (wk, wv) = decode_attention_paged_multi(
+                lp["attn"], hn, view, cfg, linear=alin, salt=8 * li,
+                done=done)
+            wks.append(wk)
+            wvs.append(wv)
+        else:
+            h = decode_attention_multi(lp["attn"], hn, cache["k"][li],
+                                       cache["v"][li], pos, cfg, linear=alin,
+                                       salt=8 * li, done=done)
+        x = x + h
+        hn = per_position(lambda v: rmsnorm(v, lp["ln2"]), x)
+        x = x + _window(lambda v: mlp(lp["mlp"], v, cfg.mlp_kind, linear=lin,
+                                      salt=8 * li), lin, hn)
+    x = per_position(lambda v: rmsnorm(v, params["final_norm"]), x)
+    logits = _window(lambda v: _head(params, cfg, v), lin, x)
+    step = T if done is None else (~done).to(pos.dtype) * T
+    pos.add_(step)
+    win_kv = (torch.stack(wks), torch.stack(wvs)) if paged else None
+    return logits, cache, win_kv

@@ -7,10 +7,13 @@ replays of the captured done-masked decode step over the persistent
 serve state) the host harvests finished slots, returns their pages to
 the ``PageAllocator``, and admits waiting requests into the freed slots
 (``make_admit_fn``: one eager prefill each), granting each its pages or
-leaving it queued while the pool is full (backpressure).  The knobs of
-later ROADMAP items (deadlines, priority eviction, snapshots, the
-watchdog, integrity checks, the prefix cache, speculative decoding) raise
-``NotImplementedError`` until they are ported.
+leaving it queued while the pool is full (backpressure).  Under ``spec``
+each segment step is a self-speculative draft/verify window, so a segment
+emits up to ``seg_len * (k+1)`` tokens per slot, and every slot's
+capacity and page grant carry k positions of headroom for the draft's
+in-flight writes.  The knobs of later ROADMAP items (deadlines, priority
+eviction, snapshots, the watchdog, integrity checks, the prefix cache)
+raise ``NotImplementedError`` until they are ported.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ def _not_ported(**knobs):
     items = {"deadline_steps": "A11", "deadline_s": "A11",
              "priority": "A11", "monitor": "A11", "injector": "A11",
              "snapshot_every": "A11", "watchdog": "A11",
-             "integrity": "A11", "prefix_cache": "A10", "spec": "A9"}
+             "integrity": "A11", "prefix_cache": "A10"}
     for name, value in knobs.items():
         if value not in (None, 0, False, "", "off"):
             raise NotImplementedError(
@@ -68,20 +71,24 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
     import torch
 
     from ..core.kvcache import PageAllocator, admission_pages, n_pages_for
-    from ..launch.steps import (init_serve_state, make_admit_fn,
-                                make_segment_fn)
+    from ..launch.steps import (_parse_spec, init_serve_state,
+                                make_admit_fn, make_segment_fn)
 
     _not_ported(deadline_steps=deadline_steps, deadline_s=deadline_s,
                 priority=priority, monitor=monitor, injector=injector,
                 snapshot_every=snapshot_every, watchdog=watchdog,
-                integrity=integrity, prefix_cache=prefix_cache, spec=spec)
+                integrity=integrity, prefix_cache=prefix_cache)
     prompts = np.asarray(prompts)
     R, S = prompts.shape
     budgets = np.full((R,), n_tokens, np.int32) if max_new is None \
         else _req_array(max_new, R, np.int32, "max_new")
     if not (budgets >= 1).all():
         raise ValueError(f"budgets must be >= 1, got {budgets.tolist()}")
-    capacity = S + int(budgets.max())
+    # +k headroom past prompt + budget: a speculative window may write k
+    # draft positions past the committed pos before its rollback
+    sp = _parse_spec(spec)
+    headroom = sp[1] if sp else 0
+    capacity = S + int(budgets.max()) + headroom
     mp = n_pages_for(capacity, page_size)
     state = init_serve_state(cfg, slots, capacity, kv=kv,
                              page_size=page_size, n_pages=n_pages,
@@ -90,7 +97,8 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
     alloc = PageAllocator(state["cache"]["k_pages"].shape[1]) \
         if kv == "int8" else None
     admit = make_admit_fn(cfg, eos_id=eos_id, sample=sample)
-    segment = make_segment_fn(cfg, seg_len, eos_id=eos_id, sample=sample)
+    segment = make_segment_fn(cfg, seg_len, eos_id=eos_id, sample=sample,
+                              spec=spec)
     slot_req = [-1] * slots
     slot_pages = [None] * slots
     out = [[] for _ in range(R)]
@@ -117,13 +125,14 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
             rq = next_req
             pages = [0] * mp
             if alloc is not None:
-                need = admission_pages(S, int(budgets[rq]), page_size)
+                need = admission_pages(S, int(budgets[rq]), page_size,
+                                       headroom)
                 ids = alloc.alloc(need)
                 if ids is None:                    # pool exhausted: wait
                     continue
                 slot_pages[b] = ids
                 # pad to mp with a self-owned id (never read unmasked,
-                # never flushed: pos stays under the budget's pages)
+                # never flushed: pos stays under the granted pages)
                 pages = ids + [ids[-1]] * (mp - need)
             next_req = rq + 1
             prompt = torch.as_tensor(prompts[rq:rq + 1], dtype=torch.long,
@@ -135,7 +144,8 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
         if all(r < 0 for r in slot_req):
             if next_req >= R:
                 break
-            need = admission_pages(S, int(budgets[next_req]), page_size)
+            need = admission_pages(S, int(budgets[next_req]), page_size,
+                                   headroom)
             raise RuntimeError(
                 f"page pool too small for request {next_req} ({need} pages "
                 f"needed, {alloc.free_pages} free)")

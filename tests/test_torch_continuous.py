@@ -327,8 +327,7 @@ def test_later_items_raise_not_implemented(setup):
                      ({"priority": [0, 1]}, "A11"),
                      ({"snapshot_every": 2}, "A11"),
                      ({"integrity": "verify"}, "A11"),
-                     ({"prefix_cache": True}, "A10"),
-                     ({"spec": "dscim2:4"}, "A9")):
+                     ({"prefix_cache": True}, "A10")):
         with pytest.raises(NotImplementedError, match=item):
             serve_continuous(cfg, params, prompts, 4, device="cpu", **kw)
 

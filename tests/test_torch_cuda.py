@@ -583,16 +583,21 @@ def _reduced(spec="kernel:dscim1:256"):
 @pytest.mark.parametrize("spec,kv", [("kernel:dscim1:256", "int8"),
                                      ("off", "float"),
                                      ("lut:dscim1:256", "float"),
-                                     ("exact:dscim1:256", "int8")])
+                                     ("exact:dscim1:256", "int8"),
+                                     ("bitmatmul:dscim1:256", "int8"),
+                                     ("statistical:dscim1:256", "float"),
+                                     ("paper_inject:dscim2:64", "int8")])
 @pytest.mark.parametrize("loop", ["fixed", "eos", "sampled"])
 def test_graph_replay_matches_eager_loop_bitwise(cuda, spec, kv, loop):
     """Replays of the captured step give the eager loop's tokens and logit
     trace bit for bit: the fixed-length loop, the EOS loop with per-slot
     budgets (checked on the host every few replays), and a sampled run
     under one seed, for every DSCIMLinear mode served (``lut`` keeps its
-    count table on the device, made before capture).  The fixed loop's
-    launches count over the replays exactly as the eager loop's do."""
-    from repro_torch.kernels import dscim_fused, paged_attention
+    count table on the device and ``bitmatmul`` the count kernel's
+    tables, made before capture; the noise modes hash their noise on the
+    device).  The fixed loop's launches count over the replays exactly as
+    the eager loop's do."""
+    from repro_torch.kernels import dscim_fused, dscim_mvm, paged_attention
     from repro_torch.launch.serve import prepare_params, serve_batch
 
     cfg, params, prompts = _reduced(spec)
@@ -605,7 +610,8 @@ def test_graph_replay_matches_eager_loop_bitwise(cuda, spec, kv, loop):
         kw.update(trace_logits=True)
     if loop == "sampled":
         kw.update(sample="topk:20:0.9", rng_seed=7)
-    counters = (dscim_fused.LAUNCHES, paged_attention.LAUNCHES)
+    counters = (dscim_fused.LAUNCHES, paged_attention.LAUNCHES,
+                dscim_mvm.LAUNCHES)
     runs = {}
     for scan in (True, False, True):       # the second graph call replays
         for c in counters:
@@ -793,3 +799,93 @@ def test_live_flush_wins_over_stale_done_row_on_card(cuda, done_pos):
     want_q, want_s = quantize_page(alone["k_tail"][0])
     assert torch.equal(alias["k_pages"][1], want_q)
     assert torch.equal(alias["k_scale"][1], want_s)
+
+
+# -- self-speculative decoding (launch/steps.py _make_window) ---------------
+
+def test_fused_rows_invariant_between_decode_and_verify(cuda):
+    """The verify forward runs the fused MVM once over B*(k+1) rows where
+    the decodes ran it at B: a (B, T, K) window gives position t the bits
+    of the decode's (B, 1, K) call, for both estimators and both the
+    decode and the larger-M regime."""
+    from repro_torch.core.seed_search import calibrated_config
+    from repro_torch.kernels import dscim_fused
+
+    for key in (("dscim1", 256, "paper"), ("dscim2", 64, "paper")):
+        cfg = calibrated_config(*key)
+        for B, T in ((4, 5), (8, 9)):
+            x, qw = _fused_pair(cuda, B * T, B * T, 1024, 3072, 128,
+                                torch.bfloat16)
+            x = x.reshape(B, T, 1024)
+            whole = dscim_fused.dscim_fused_mvm_prepared(x, qw, cfg)
+            for t in range(T):
+                alone = dscim_fused.dscim_fused_mvm_prepared(
+                    x[:, t:t + 1].contiguous(), qw, cfg)
+                assert torch.equal(alone, whole[:, t:t + 1]), (key, B, t)
+
+
+@pytest.mark.parametrize("spec,kv,sample", [
+    ("kernel:dscim1:256", "int8", "greedy"),
+    ("kernel:dscim1:256", "float", "temp:0.9"),
+    ("bitmatmul:dscim1:256", "int8", "greedy")])
+def test_spec_window_graph_matches_eager_window(cuda, spec, kv, sample):
+    """One draft/verify window is one replay of a captured graph: the
+    graph's tokens and spec stats equal the eager windows' and, under
+    greedy decoding, the plain loop's tokens; its launches over the
+    replays are those of the windows it replayed."""
+    from repro_torch.kernels import dscim_fused
+    from repro_torch.launch.serve import prepare_params, serve_batch
+
+    cfg, params, prompts = _reduced(spec)
+    params = prepare_params(cfg, params, cuda)
+    kw = dict(kv=kv, page_size=4, device="cuda", sample=sample, rng_seed=3,
+              spec="dscim2:3", spec_stats=True)
+    runs = {}
+    for scan in (True, False, True):
+        t = {}
+        dscim_fused.LAUNCHES.reset()
+        toks, _, ss = serve_batch(cfg, params, prompts, 9, scan=scan,
+                                  timings=t, **kw)
+        runs.setdefault(scan, []).append((toks, ss, t))
+    (g1, g2), (e,) = runs[True], runs[False]
+    assert "capture_s" in g1[2] and "capture_s" not in g2[2]
+    for g in (g1, g2):
+        np.testing.assert_array_equal(g[0], e[0])
+        for n in ("windows", "emitted"):
+            np.testing.assert_array_equal(g[1][n], e[1][n])
+    kw.pop("spec"), kw.pop("spec_stats")
+    plain, _ = serve_batch(cfg, params, prompts, 9, **kw)
+    np.testing.assert_array_equal(g1[0], plain)
+
+
+def test_spec_self_draft_accepts_every_draft_on_card(cuda):
+    """kernel:dscim2:64 verified by its own estimator: every greedy draft
+    is accepted (the fused MVM gives the verify rows the drafts' bits)."""
+    from repro_torch.launch.serve import prepare_params, serve_batch
+
+    cfg, params, prompts = _reduced("kernel:dscim2:64")
+    params = prepare_params(cfg, params, cuda)
+    kw = dict(kv="int8", page_size=4, device="cuda")
+    plain, _ = serve_batch(cfg, params, prompts, 16, **kw)
+    toks, _, ss = serve_batch(cfg, params, prompts, 16, spec="dscim2:4",
+                              spec_stats=True, **kw)
+    np.testing.assert_array_equal(toks, plain)
+    assert (ss["windows"] == 3).all() and (ss["emitted"] == 16).all(), ss
+
+
+def test_spec_continuous_matches_plain_on_card(cuda):
+    """Continuous serving under spec: the captured window segments serve
+    every request the tokens of the plain captured segments, and return
+    every page."""
+    from repro_torch.launch.serve import prepare_params, serve_continuous
+
+    cfg, params, prompts = _reduced()
+    params = prepare_params(cfg, params, cuda)
+    kw = dict(slots=3, seg_len=2, kv="int8", page_size=4, eos_id=-1,
+              max_new=[8, 3, 6, 5], device="cuda")
+    ref, _ = serve_continuous(cfg, params, prompts, 8, **kw)
+    got, st = serve_continuous(cfg, params, prompts, 8, spec="dscim2:3",
+                               **kw)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+    assert st["capture_s"] > 0 and st["pages"]["live_pages"] == 0

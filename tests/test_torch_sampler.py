@@ -1,8 +1,9 @@
 """The port's sampler (``repro_torch.launch.steps._make_sampler``) against
 the reference's (``repro.launch.steps._make_sampler``).
 
-``jax.random`` and ``torch.Generator`` draw different numbers, so draws
-have no cross-framework contract.  The masks do: the reference's masked
+``jax.random`` and the port's counter-based draws (``core/counter_rng``,
+keyed by seed, row stream and emitted count) give different numbers, so
+draws have no cross-framework contract.  The masks do: the reference's masked
 logits are read off the one call it makes to ``jax.random.categorical``
 (patched here to record its argument), and the port's top-k and top-p
 kept sets must equal them on the same numpy logits.  The rest holds the
@@ -67,11 +68,13 @@ def test_masks_equal_reference(spec, monkeypatch):
 
 
 def _draws(spec, logits, seed, steps_n=1):
-    """``steps_n`` draws of ``spec`` from one generator seeded ``seed``."""
+    """``steps_n`` draws of ``spec`` under seed ``seed``: row b's stream is
+    b and draw s its count, as a serving loop keys them."""
     draw = steps._make_sampler(spec)
-    gen = torch.Generator().manual_seed(seed)
     lg = torch.from_numpy(logits)
-    return np.stack([draw(gen, lg).numpy() for _ in range(steps_n)])
+    stream = torch.arange(lg.shape[0])
+    return np.stack([draw((seed, stream, torch.full_like(stream, s)),
+                          lg).numpy() for s in range(steps_n)])
 
 
 def test_top1_and_tiny_p_equal_greedy():
