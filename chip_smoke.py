@@ -52,14 +52,28 @@ In order it
    and ``paper_inject`` (``modes``, full depth), each graph bitwise its
    eager loop, ``bitmatmul`` bitwise ``lut`` with its count-kernel
    launches counted, the noise modes' logit RMSE against ``exact``
-   printed;
+   printed; serves the continuous queue with requests 1-6 sharing
+   request 0's first 48 tokens through the prefix cache, ``'cold'`` and
+   ``'on'`` (``prefix``): warm tokens bitwise cold, the hit counters, 224
+   of 512 prefill positions computed, the extend steps' fused-MVM and
+   paged-attention launches those of the chunks fed, the extend graph
+   bitwise the eager extend, and the kernel calls the profiler sees in a
+   hit admission the counters'; it prints both legs' tok/s, the hit and
+   miss admission latency, one extend replay's device time and the
+   extend capture time; then the scheduler's fault handling on the
+   continuous queue (``faults``): a device loss with a snapshot every
+   segment (one replay, no second capture, snapshot and restore times),
+   priority eviction in a 20-page pool and a step deadline, each
+   bitwise the ``continuous`` phase's outputs (the deadline request's a
+   prefix of its own);
 4. holds each kernel's wrapper, as the main path calls it, against its
    plain PyTorch version on the same inputs at the main path's shapes,
    and times kernel, wrapper, plain version, the least
    time the card could take (``bound_ms``) and, for paged attention, one
    ``scaled_dot_product_attention`` call over pre-gathered K/V, and again
    at 2048 tokens of context on a synthetic pool of the same head layout;
-   for the fused MVM it checks that the kernel's own activation
+   for the fused MVM (decode M = 4, the prefix extend chunk's M = 32,
+   prefill M = 256) it checks that the kernel's own activation
    quantization is bitwise the torch one, prints kernel and wrapper time
    per shape and regime, and the estimator's RMSE against the exact f32
    product ``x @ w`` at each shape (the accuracy DS-CIM costs);
@@ -124,6 +138,10 @@ SELF_DSCIM = "kernel:dscim2:64"   # its self-draft probe: draft = verifier
 # 16-token request runs about 456,000, and the profiler then drops calls)
 SPEC_PROFILE_TOKENS = 3
 MODES = ("bitmatmul", "statistical", "paper_inject")   # modes phase
+# prefix phase: requests 1-6 take request 0's first 48 tokens (6 pages)
+PREFIX_SHARED, PREFIX_SHARERS = 48, range(1, 7)
+EVICT_PAGES, EVICT_PRIO_REQ = 20, 2     # faults phase: pool, priority 5
+DEADLINE_STEPS = 8                      # faults phase: request 0's budget
 FUSED_RTOL = 2e-5            # f32 summation order; counts are exact
 PAGED_RTOL = 1e-5            # f32 summation order of dot products / sums
 LONG_POS = 2047              # paged attention's long-context position
@@ -519,9 +537,7 @@ def continuous(torch, cfg, served):
     from repro_torch.launch.serve import serve_batch, serve_continuous
 
     cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
-    budgets = np.asarray(CB_BUDGETS, np.int32)
-    prompts = np.random.default_rng(1).integers(
-        0, cfg.vocab, (len(budgets), PROMPT))
+    prompts, budgets = _cb_queue(cfg)
     n = int(budgets.max())
     kw = dict(kv="int8", page_size=PAGE, eos_id=-1)
     warm, _ = serve_continuous(cfg_ds, served, prompts, n, slots=BATCH,
@@ -561,7 +577,284 @@ def continuous(torch, cfg, served):
                                   "occupancy", "live_slot_steps",
                                   "slot_steps", "segments", "useful_tokens",
                                   "pages")} \
-        | {"tok_s_without_capture": tok_s_uncaptured}
+        | {"tok_s_without_capture": tok_s_uncaptured}, outs
+
+
+def _cb_queue(cfg):
+    """The continuous phase's queue: 8 prompts of PROMPT tokens (seed 1)
+    and their budgets."""
+    import numpy as np
+    budgets = np.asarray(CB_BUDGETS, np.int32)
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab, (len(budgets), PROMPT))
+    return prompts, budgets
+
+
+def _extend_admission(torch, cfg_ds, served, prompt, graph, start=0,
+                      ext=None, state=None):
+    """One chunked admission of ``prompt`` into slot 1 of a fresh serve
+    state (or ``state``, again) through ``make_extend_fn`` (``ext``, made
+    here if None) with the logit trace on, fed from position ``start``
+    (a hit's first divergent page) onto pages granted from 0.  Returns
+    (ext, state, tok0, traces)."""
+    from repro_torch.core.kvcache import admission_pages, n_pages_for
+    from repro_torch.launch.steps import init_serve_state, make_extend_fn
+
+    S, dev = len(prompt), served["embed"].device
+    cap = S + max(CB_BUDGETS) + PAGE - 1
+    need = admission_pages(S, max(CB_BUDGETS), PAGE, PAGE - 1)
+    if state is None:
+        state = init_serve_state(cfg_ds, BATCH, cap, kv="int8",
+                                 page_size=PAGE, device=dev)
+        mp = n_pages_for(cap, PAGE)
+        state["cache"]["page_table"][1] = torch.as_tensor(
+            list(range(need)) + [need - 1] * (mp - need), dtype=torch.int32,
+            device=dev)
+    if ext is None:
+        ext = make_extend_fn(cfg_ds, PAGE, eos_id=-1, trace_logits=True,
+                             graph=graph)
+    state["cache"]["pos"][1] = start
+    state["done"][1] = True
+    traces = []
+    for fed in range(start, S, PAGE):
+        _, tok0, tr = ext(served, state, prompt[None, fed:fed + PAGE], 1,
+                          PAGE, fed + PAGE >= S, max(CB_BUDGETS))
+        traces.append(tr)
+    return ext, state, int(tok0), torch.stack(traces).cpu()
+
+
+def prefix_phase(torch, cfg, served):
+    """Phase 3f: the prefix cache at full width: the continuous phase's
+    queue, requests 1-6 taking request 0's first PREFIX_SHARED tokens,
+    served ``prefix_cache='cold'`` and then ``'on'`` (each admission
+    page-aligned chunks of one captured extend graph).  Checks: each
+    request's warm tokens bitwise its cold tokens; warm hits 6, 36 pages
+    deduped, 288 hit tokens; 224 of 512 prefill positions computed; a
+    drained pool with the shared prefix retained; one binding of the
+    segment and of the extend step a leg; the fused-MVM and
+    paged-attention launches of the extends those of the chunks fed (85
+    and 224 a chunk); one admission's extend graph equal to the eager
+    extend (first token, logit trace of every chunk, the slot's pages),
+    and the kernel calls the profiler sees in a hit admission equal to
+    the counters'.  Prints both legs' wall time and useful tok/s, the
+    hit and miss admission latency (medians, device-synced), one extend
+    replay's device time and the extend capture time."""
+    import numpy as np
+
+    from repro_torch.kernels import dscim_fused, paged_attention
+    from repro_torch.launch.serve import serve_continuous
+
+    cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
+    prompts, budgets = _cb_queue(cfg)
+    prompts[list(PREFIX_SHARERS), :PREFIX_SHARED] = prompts[0, :PREFIX_SHARED]
+    n = int(budgets.max())
+    L = cfg.n_layers
+    per_chunk = {"dscim_fused_mvm": 3 * L + 1,
+                 "paged_attention_decode": L * PAGE}
+    legs = {}
+    for mode in ("cold", "on"):
+        outs, st = serve_continuous(cfg_ds, served, prompts, n, slots=BATCH,
+                                    seg_len=CB_SEG, max_new=budgets,
+                                    kv="int8", page_size=PAGE, eos_id=-1,
+                                    prefix_cache=mode)
+        pf = st["prefix"]
+        chunks = pf["prefill_positions_computed"] // PAGE
+        got = {k: st["extend_launches"].get(k) for k in per_chunk}
+        want = {k: v * chunks for k, v in per_chunk.items()}
+        lat = {k: float(np.median(pf[k])) * 1e3 if pf[k] else None
+               for k in ("admit_lat_hit", "admit_lat_miss")}
+        capt = st["capture_s"] + st["extend_capture_s"]
+        legs[mode] = {
+            "wall_s": st["wall_s"], "tok_s": st["tok_s"],
+            "tok_s_without_captures": st["useful_tokens"]
+            / (st["wall_s"] - capt),
+            "segment_capture_s": st["capture_s"],
+            "extend_capture_s": st["extend_capture_s"],
+            "admit_ms_median": lat, "chunks": chunks,
+            "admit_ms": {k: [1e3 * t for t in pf[k]]
+                         for k in ("admit_lat_hit", "admit_lat_miss")},
+            "extend_launches": got, "bindings": st["bindings"],
+            "prefix": {k: v for k, v in pf.items()
+                       if not k.startswith("admit_lat")},
+            "pages": st["pages"]}
+        _log(f"prefix {mode}: {st['useful_tokens']} tokens in "
+             f"{st['wall_s']:.3f} s = {st['tok_s']:.1f} tok/s "
+             f"({legs[mode]['tok_s_without_captures']:.1f} without the "
+             f"segment capture {st['capture_s']:.3f} s and the extend "
+             f"capture {st['extend_capture_s']:.3f} s); admission median "
+             f"hit {lat['admit_lat_hit']} ms, miss {lat['admit_lat_miss']} "
+             f"ms; {pf['hits']} hits, {pf['pages_deduped']} pages deduped, "
+             f"{pf['prefill_positions_computed']}/"
+             f"{pf['prefill_positions_total']} prefill positions; extend "
+             f"launches {got} ({chunks} chunks; expected {want}); "
+             f"bindings {st['bindings']}; pages {st['pages']}")
+        if got != want:
+            raise AssertionError(f"prefix {mode}: extend launches {got} "
+                                 f"!= {want}")
+        if st["bindings"] != {"segment": 1, "extend": 1}:
+            raise AssertionError(f"prefix {mode}: bindings {st['bindings']}")
+        if st["pages"]["live_pages"] != 0 \
+                or st["status"] != ["ok"] * len(budgets):
+            raise AssertionError(f"prefix {mode}: {st['pages']} "
+                                 f"{st['status']}")
+        legs[mode]["outputs"] = outs
+    for r in range(len(budgets)):
+        if not np.array_equal(legs["on"]["outputs"][r],
+                              legs["cold"]["outputs"][r]):
+            raise AssertionError(f"prefix request {r}: warm "
+                                 f"{legs['on']['outputs'][r]} != cold "
+                                 f"{legs['cold']['outputs'][r]}")
+    pw = legs["on"]["prefix"]
+    hits = len(PREFIX_SHARERS)
+    want = {"hits": hits, "pages_deduped": hits * PREFIX_SHARED // PAGE,
+            "hit_tokens": hits * PREFIX_SHARED,
+            "prefill_positions_computed": len(budgets) * PROMPT
+            - hits * PREFIX_SHARED,                  # 224 at full width
+            "prefill_positions_total": len(budgets) * PROMPT}
+    if {k: pw[k] for k in want} != want \
+            or legs["cold"]["prefix"]["hits"] != 0 \
+            or legs["on"]["pages"]["retained_pages"] <= 0:
+        raise AssertionError(f"prefix counters {pw} (want {want}), cold "
+                             f"{legs['cold']['prefix']}, pages "
+                             f"{legs['on']['pages']}")
+    _log(f"prefix: warm tokens bitwise cold for all {len(budgets)} "
+         f"requests; counters {want}; retained pages "
+         f"{legs['on']['pages']['retained_pages']}")
+    # the extend graph against the eager extend on one cold admission
+    prompt = prompts[1]
+    ext, state, tok_g, tr_g = _extend_admission(torch, cfg_ds, served,
+                                                prompt, True)
+    _, estate, tok_e, tr_e = _extend_admission(torch, cfg_ds, served,
+                                               prompt, False)
+    same_pages = all(torch.equal(state["cache"][k], estate["cache"][k])
+                     for k in ("k_pages", "v_pages", "k_scale", "v_scale",
+                               "k_tail", "v_tail", "pos"))
+    if not (tok_g == tok_e and torch.equal(tr_g, tr_e) and same_pages):
+        raise AssertionError(f"extend graph vs eager: tok {tok_g} vs "
+                             f"{tok_e}, traces equal "
+                             f"{torch.equal(tr_g, tr_e)}, cache equal "
+                             f"{same_pages}")
+    del estate
+    _log(f"prefix: the extend graph equals the eager extend over a "
+         f"{PROMPT}-token admission ({PROMPT // PAGE} chunks): first token "
+         f"{tok_g}, the ({PROMPT // PAGE}, {PAGE}, {cfg.vocab_padded}) "
+         "logit trace and the cache bitwise")
+    # a hit admission (the last two chunks) under the profiler
+    torch.cuda.synchronize()
+    dscim_fused.LAUNCHES.reset()
+    paged_attention.LAUNCHES.reset()
+    prof = _profile_request(torch, lambda: _extend_admission(
+        torch, cfg_ds, served, prompt, True, start=PREFIX_SHARED, ext=ext,
+        state=state))
+    seen = prof["port_kernel_calls"]
+    counted = {"fused_mvm": dscim_fused.LAUNCHES.count,
+               "fused_quantize": dscim_fused.LAUNCHES.count,
+               "paged_attention": paged_attention.LAUNCHES.count}
+    hit_chunks = (PROMPT - PREFIX_SHARED) // PAGE
+    _log(f"prefix profile (a hit admission, {hit_chunks} extend replays): "
+         f"kernel calls the device ran {seen}, the counters' {counted}; "
+         f"wall {prof['wall_ms_profiled']:.1f} ms, device busy "
+         f"{prof['device_busy_ms']:.1f} ms, idle "
+         f"{prof['device_idle_share']:.3f}, {prof['kernel_launches']} "
+         "kernels")
+    for kk in prof["top_kernels"][:5]:
+        _log(f"  {kk['device_ms']:.2f} ms in {kk['calls']} x {kk['name']}")
+    if seen != counted or counted["fused_mvm"] != hit_chunks \
+            * per_chunk["dscim_fused_mvm"]:
+        raise AssertionError(f"prefix profile {seen} vs counters {counted}")
+    def reset():
+        state["cache"]["pos"][1] = PROMPT - PAGE
+    replay_ms = _decode_step_ms(torch, ext.runs["run"].step.graph.replay,
+                                reset)
+    _log(f"prefix: one extend replay ({PAGE} positions of one slot, "
+         f"{BATCH} slots, the fused MVM at M = {BATCH * PAGE}) "
+         f"{replay_ms:.4f} ms device time")
+    for leg in legs.values():
+        del leg["outputs"]
+    return {"legs": legs, "extend_replay_ms": replay_ms,
+            "profile_hit_admission": prof,
+            "launches": {"fused_" + m: legs[m]["extend_launches"][
+                "dscim_fused_mvm"] for m in legs}
+            | {"paged_" + m: legs[m]["extend_launches"][
+                "paged_attention_decode"] for m in legs}}
+
+
+def faults_phase(torch, cfg, served, cb_outs):
+    """Phase 3g: the scheduler's fault handling at full width on the
+    continuous phase's queue, each run's tokens held bitwise against that
+    phase's outputs ``cb_outs``: a device loss injected at segment 2 with
+    a snapshot every boundary (one replay, the segment step bound once:
+    the restore copies back in place; snapshot and restore times
+    printed); a pool of EVICT_PAGES pages with request EVICT_PRIO_REQ at
+    priority 5 (at least one eviction and one readmission); and a
+    DEADLINE_STEPS-step deadline on request 0 (cancelled, its tokens a
+    prefix of its continuous output, the others unchanged)."""
+    import numpy as np
+
+    from repro_torch.launch.serve import serve_continuous
+    from repro_torch.runtime.failover import FailureInjector
+
+    cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
+    prompts, budgets = _cb_queue(cfg)
+    R = len(budgets)
+    kw = dict(slots=BATCH, seg_len=CB_SEG, max_new=budgets, kv="int8",
+              page_size=PAGE, eos_id=-1, log=_log)
+    prio = np.zeros(R, np.int64)
+    prio[EVICT_PRIO_REQ] = 5
+    deadlines = np.full(R, -1, np.int64)
+    deadlines[0] = DEADLINE_STEPS
+    runs = {
+        "failover": dict(snapshot_every=1,
+                         injector=FailureInjector(fail_at=(2,))),
+        "eviction": dict(n_pages=EVICT_PAGES, priority=prio),
+        "deadline": dict(deadline_steps=deadlines)}
+    out = {}
+    for name, knobs in runs.items():
+        outs, st = serve_continuous(cfg_ds, served, prompts, int(
+            budgets.max()), **kw, **knobs)
+        keep = {k: st[k] for k in ("wall_s", "tok_s", "segments", "status",
+                                   "replays", "evictions", "readmissions",
+                                   "evicted_requests", "deadline_cancelled",
+                                   "bindings", "snapshots", "capture_s")}
+        keep["pages"] = st["pages"]
+        keep["tok_s_without_capture"] = st["useful_tokens"] / (
+            st["wall_s"] - st["capture_s"])
+        out[name] = keep
+        sn = st["snapshots"]
+        _log(f"faults {name}: {keep['status']}, replays {st['replays']}, "
+             f"evictions {st['evictions']} ({st['evicted_requests']}), "
+             f"readmissions {st['readmissions']}, deadline_cancelled "
+             f"{st['deadline_cancelled']}, bindings {st['bindings']}, "
+             f"{st['tok_s']:.1f} tok/s over {st['wall_s']:.3f} s "
+             f"({keep['tok_s_without_capture']:.1f} without the capture "
+             f"{st['capture_s']:.3f} s); "
+             f"{sn['count']} snapshots, "
+             f"{1e3 * sn['snapshot_s'] / max(sn['count'], 1):.2f} ms each, "
+             f"{sn['restores']} restores, "
+             f"{1e3 * sn['restore_s'] / max(sn['restores'], 1):.2f} ms each")
+        if st["bindings"]["segment"] != 1:
+            raise AssertionError(f"faults {name}: the segment step bound "
+                                 f"{st['bindings']['segment']} times")
+        same = [r for r in range(R) if np.array_equal(outs[r], cb_outs[r])]
+        if name == "deadline":
+            n0 = len(outs[0])
+            ok = st["status"][0] == "deadline" and 0 < n0 < budgets[0] \
+                and np.array_equal(outs[0], cb_outs[0][:n0]) \
+                and same == list(range(1, R)) \
+                and st["status"][1:] == ["ok"] * (R - 1)
+        elif name == "failover":
+            ok = same == list(range(R)) and st["status"] == ["ok"] * R \
+                and st["replays"] == 1
+        else:
+            ok = same == list(range(R)) and st["status"] == ["ok"] * R \
+                and st["evictions"] >= 1 and st["readmissions"] >= 1
+        if not ok:
+            raise AssertionError(f"faults {name}: {keep}; requests equal to "
+                                 f"the continuous phase: {same}")
+    _log("faults: failover and eviction outputs bitwise the continuous "
+         "phase's; the deadline request a prefix of its output, the others "
+         "bitwise")
+    return out
 
 
 def _batch_invariance(torch, cfg, served, k):
@@ -860,7 +1153,12 @@ def check_fused(torch, cfg, params, launches):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     calls = []
-    for m in (BATCH, BATCH * PROMPT):
+    # decode (M = slots), an extend chunk of the prefix path (M = slots x
+    # page: every MLP site and the f32 head, a partial prefill tile) and
+    # prefill (M = slots x prompt)
+    phases = {BATCH: "decode", BATCH * PAGE: "prefix extend",
+              BATCH * PROMPT: "prefill"}
+    for m in (BATCH, BATCH * PAGE, BATCH * PROMPT):
         for site, ws, wf, xdt, per_fwd in sites:
             K, N = ws[0].k_orig, ws[0].n
             x = torch.randn((m, K), generator=gen, device="cuda").to(xdt)
@@ -906,11 +1204,11 @@ def check_fused(torch, cfg, params, launches):
                 / B1_OPS_PER_S * 1e3
             # prefill runs the head on the last token only (M = batch): the
             # M=256 head call is a check at a larger shape, off the path
-            on_path = not (site == "lm_head" and m > BATCH)
+            on_path = not (site == "lm_head" and m == BATCH * PROMPT)
             calls.append({
                 "shape": f"{site} M={m} K={K} N={N}",
                 "per_forward": per_fwd if on_path else 0,
-                "phase": ("decode" if m == BATCH else "prefill") if on_path
+                "phase": phases[m] if on_path
                 else "check only, not on the main path",
                 "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper_ms,
                 "plain_ms": plain_ms,
@@ -938,7 +1236,11 @@ def check_fused(torch, cfg, params, launches):
                                  for k in ("ms", "wrapper_ms", "bound_ms")},
         "head_decode_per_call": {k: c[k] for c in dec
                                  if c["shape"].startswith("lm_head")
-                                 for k in ("ms", "wrapper_ms", "bound_ms")}}
+                                 for k in ("ms", "wrapper_ms", "bound_ms")},
+        "extend_chunk": {k: sum(c[k] * c["per_forward"] for c in calls
+                                if c["phase"] == "prefix extend")
+                         for k in ("ms", "wrapper_ms", "plain_ms",
+                                   "bound_ms")}}
     for name, r in regimes.items():
         _log(f"dscim_fused {name}: kernel {r['ms']:.4f} ms, wrapper "
              f"{r['wrapper_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
@@ -1506,7 +1808,13 @@ def main() -> int:
     launches, cache, e2e = phase("main_path", main_path, torch, cfg, params,
                                  served, prompts) or (None, None, {})
     prof = phase("profile", profile_main_path, torch, cfg, served, prompts)
-    cb = phase("continuous", continuous, torch, cfg, served)
+    cb, cb_outs = phase("continuous", continuous, torch, cfg, served) \
+        or (None, None)
+    pfx = phase("prefix", prefix_phase, torch, cfg, served)
+    faults = phase("faults", faults_phase, torch, cfg, served, cb_outs) \
+        if cb_outs is not None else None
+    if cb_outs is None:
+        failures.append("faults (no continuous outputs to compare)")
     spec = phase("spec", spec_phase, torch, cfg, served, prompts,
                  e2e.get("tokens"))
     modes = phase("modes", modes_phase, torch, cfg, served, prompts)
@@ -1517,12 +1825,13 @@ def main() -> int:
                phase("paged_attention", check_paged, torch, cfg, cache,
                      counts)]
     del cache
-    if spec is not None:
+    for extra, name in ((spec, "launches_spec"), (pfx, "launches_prefix")):
+        if extra is None:
+            continue
         for entry, key in ((kernels[0], "fused"), (kernels[1], "paged")):
             if entry is not None:
-                entry["launches_spec"] = {
-                    n: v for n, v in spec["launches"].items()
-                    if n.startswith(key)}
+                entry[name] = {n: v for n, v in extra["launches"].items()
+                               if n.startswith(key)}
     ops_in, ops_out, ops_launches = phase(
         "operators", drive_operators, torch) or (None, None, None)
     if ops_in is None:
@@ -1544,7 +1853,8 @@ def main() -> int:
                       "tok_s": e2e.get("tok_s"),
                       "capture_s": e2e.get("capture_s"),
                       "loops": e2e.get("loops"), "continuous": cb,
-                      "spec": spec, "modes": modes,
+                      "spec": spec, "modes": modes, "prefix": pfx,
+                      "faults": faults,
                       "prefill_logit_rmse_vs_off": e2e.get("logit_rmse"),
                       "reduced_gpu_vs_cpu_drift": drift,
                       "table1_rmse_pct": t1,

@@ -19,17 +19,35 @@ captured decode step keeps its addresses.
 Page allocation is host-side (``PageAllocator``): the continuous-batching
 scheduler (runtime/serving.py) grants a request its pages at admission and
 returns them at completion, so the decode step never allocates.
+
+Prefix cache (``PrefixCache``, ``prefix_chunk_keys``, ``cow_fork``): a
+rolling hash over page-aligned token chunks keys full flushed pages, and
+an admission whose prompt shares a page-aligned prefix with a live or
+retained entry maps its leading page-table entries at the same physical
+pages (``PageAllocator.share``) and prefills from the first divergent
+page.  Sharing covers only full flushed pages strictly below a slot's
+write frontier (``pos // ps``): decode flushes land at logical index
+>= pos // ps and the chunked prefill feeds from the first divergent page,
+so the write paths never touch a shared page.  ``cow_fork`` is the
+enforcement point a host-side write into a grant goes through.
+``extract_slot_pages`` / ``insert_slot_pages`` (priority eviction) copy
+bytes by physical id and always restore onto freshly granted private
+pages, so an eviction round trip never re-enters the shared set.  The
+allocator's and the index's snapshots carry refcounts, the retained LRU
+and the hash index, so a failover restore replays bit for bit.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 
+import numpy as np
 import torch
 
 __all__ = ["quantize_page", "n_pages_for", "admission_pages",
            "default_page_table", "init_paged_cache", "paged_from_dense",
            "admit_request", "admit_dense", "spec_rollback", "PageAllocator",
-           "TAIL_DTYPE"]
+           "prefix_chunk_keys", "PrefixCache", "cow_fork",
+           "extract_slot_pages", "insert_slot_pages", "TAIL_DTYPE"]
 
 TAIL_DTYPE = torch.bfloat16
 
@@ -407,3 +425,206 @@ class PageAllocator:
         a._shares = int(snap.get("shares", 0))
         a._reclaimed = int(snap.get("reclaimed", 0))
         return a
+
+
+_PREFIX_MULT = 1099511628211          # FNV-1a prime, odd -> invertible
+_PREFIX_SEED = 14695981039346656037   # FNV-1a offset basis
+_U64 = (1 << 64) - 1
+
+
+def prefix_chunk_keys(tokens, page_size: int) -> list:
+    """Rolling hash over page-aligned chunks of a token sequence: one
+    uint64 key (a Python int) per *full* page, key j digesting the whole
+    prefix ``tokens[:(j+1) * page_size]`` (the hash rolls, it does not
+    reset per page), so equal keys at chunk j mean equal prefixes up to
+    that page boundary.  ``tok + 1`` keeps a zero token from being
+    absorbed (h * m + 0 == h * m would make [0] and [] collide)."""
+    h = _PREFIX_SEED
+    keys = []
+    toks = np.asarray(tokens).reshape(-1)
+    for j in range(len(toks) // page_size):
+        for t in toks[j * page_size:(j + 1) * page_size]:
+            h = (h * _PREFIX_MULT + int(t) + 1) & _U64
+        keys.append(h)
+    return keys
+
+
+class PrefixCache:
+    """Prefix-hash index over full flushed physical pages: rolling
+    prefix-chunk keys (``prefix_chunk_keys``) -> physical page ids, so an
+    admission sharing a page-aligned prompt prefix with a live or
+    retained request reuses those pages instead of prefilling and
+    quantizing them again.
+
+    * ``acquire(tokens, max_chunks)``: the longest indexed prefix of the
+      prompt, at most ``max_chunks`` pages; takes a reference on each
+      matched page (``PageAllocator.share``) and returns
+      ``(n_shared_tokens, page_ids)``.
+    * ``register(tokens, page_ids)``: index a served request's full
+      flushed prefix pages and mark them retainable.  First writer wins:
+      a key already indexed keeps its page.
+    * reclaim: the index registers an ``on_reclaim`` hook, so a retained
+      page the allocator recycles leaves the index before its bytes can
+      be rewritten, and ``share`` never aliases a reallocated page."""
+
+    def __init__(self, alloc: PageAllocator, page_size: int):
+        self.alloc = alloc
+        self.page_size = int(page_size)
+        self._index: dict = {}       # chunk key -> physical page id
+        self._by_pid: dict = {}      # physical page id -> chunk key
+        self.lookups = 0
+        self.hits = 0
+        self.hit_tokens = 0
+        self.pages_deduped = 0
+        alloc.on_reclaim(self._on_reclaim)
+
+    def __len__(self) -> int:
+        return len(self._index)
+
+    def _on_reclaim(self, pid: int) -> None:
+        key = self._by_pid.pop(int(pid), None)
+        if key is not None:
+            self._index.pop(key, None)
+
+    def acquire(self, tokens, max_chunks: int):
+        """Match the longest indexed page-aligned prefix of ``tokens`` (at
+        most ``max_chunks`` pages), take a reference on each matched page
+        and return ``(n_shared_tokens, page_ids)``; a miss is ``(0, [])``.
+        Callers cap ``max_chunks`` at ``(len(tokens) - 1) // page_size``
+        so at least one prompt token is left to feed: the first sampled
+        token needs the last prompt position's logits."""
+        self.lookups += 1
+        keys = prefix_chunk_keys(tokens, self.page_size)[:max(max_chunks, 0)]
+        pids = []
+        for key in keys:
+            pid = self._index.get(key)
+            if pid is None:
+                break
+            pids.append(pid)
+        if not pids:
+            return 0, []
+        self.alloc.share(pids)
+        self.hits += 1
+        self.hit_tokens += len(pids) * self.page_size
+        self.pages_deduped += len(pids)
+        return len(pids) * self.page_size, list(pids)
+
+    def register(self, tokens, page_ids) -> int:
+        """Index a request's full flushed prefix pages: chunk j's key ->
+        ``page_ids[j]`` for each of its ``len(tokens) // page_size`` full
+        pages (clipped to the grant), each marked retainable so its bytes
+        outlive the request.  Returns the number of new index entries."""
+        n_flushed = min(len(np.asarray(tokens).reshape(-1))
+                        // self.page_size, len(page_ids))
+        keys = prefix_chunk_keys(tokens, self.page_size)[:n_flushed]
+        added = 0
+        for key, pid in zip(keys, page_ids):
+            pid = int(pid)
+            if key in self._index or pid in self._by_pid:
+                continue                     # first writer wins
+            self._index[key] = pid
+            self._by_pid[pid] = key
+            self.alloc.set_retainable(pid, True)
+            added += 1
+        return added
+
+    def stats(self) -> dict:
+        return {"entries": len(self._index),
+                "lookups": self.lookups,
+                "hits": self.hits,
+                "hit_tokens": self.hit_tokens,
+                "pages_deduped": self.pages_deduped}
+
+    def snapshot(self) -> dict:
+        """Plain-data copy of the index and its counters (a failover
+        restore must find the index it had)."""
+        return {"page_size": self.page_size,
+                "index": [[int(k), int(p)] for k, p in self._index.items()],
+                "lookups": self.lookups, "hits": self.hits,
+                "hit_tokens": self.hit_tokens,
+                "pages_deduped": self.pages_deduped}
+
+    @classmethod
+    def from_snapshot(cls, snap: dict, alloc: PageAllocator) -> "PrefixCache":
+        pc = cls(alloc, int(snap["page_size"]))
+        for k, p in snap["index"]:
+            pc._index[int(k)] = int(p)
+            pc._by_pid[int(p)] = int(k)
+        pc.lookups = int(snap.get("lookups", 0))
+        pc.hits = int(snap.get("hits", 0))
+        pc.hit_tokens = int(snap.get("hit_tokens", 0))
+        pc.pages_deduped = int(snap.get("pages_deduped", 0))
+        return pc
+
+
+_PAGE_PLANES = ("k_pages", "v_pages", "k_scale", "v_scale")
+
+
+def cow_fork(cache, alloc: PageAllocator, page_ids, start_idx: int = 0):
+    """Copy-on-write fork: make every page of a slot's grant from logical
+    index ``start_idx`` on private before a write can land there.  A
+    page in that range with refcount > 1 is copied (int8 planes and f32
+    scales) onto a fresh page of the pool, in place, and the slot drops
+    its reference on the original (the other sharers keep it).  In the
+    aligned admission flow this is a checked no-op: sharing stops
+    strictly below the write frontier.  Returns ``(cache, new_page_ids,
+    n_forked)``; raises RuntimeError if the pool has no page to fork
+    onto."""
+    ids = [int(i) for i in page_ids]
+    forked = 0
+    for j in range(max(start_idx, 0), len(ids)):
+        old = ids[j]
+        if alloc.refcount(old) <= 1:
+            continue
+        got = alloc.alloc(1)
+        if got is None:
+            raise RuntimeError(
+                "cow_fork: page pool exhausted while forking a shared "
+                f"page (id {old}): the grant was undersized")
+        new = got[0]
+        for name in _PAGE_PLANES:
+            cache[name][:, new].copy_(cache[name][:, old])
+        alloc.free([old])
+        ids[j] = new
+        forked += 1
+    return cache, ids, forked
+
+
+def extract_slot_pages(cache, slot: int, page_ids) -> dict:
+    """Bit-exact host copy of one slot's share of a paged cache: its
+    granted physical pages (int8 planes, f32 scales), its tail and its
+    position, as CPU tensors (the eviction path parks it so the request
+    is never prefilled again: requantizing, or another float reduction
+    order, would change its bits)."""
+    ids = torch.as_tensor([int(i) for i in page_ids], dtype=torch.long,
+                          device=cache["pos"].device)
+    blob = {"page_count": len(page_ids), "pos": int(cache["pos"][slot])}
+    for name in _PAGE_PLANES:
+        blob[name] = cache[name][:, ids].cpu()
+    for name in ("k_tail", "v_tail"):
+        blob[name] = cache[name][:, slot].to("cpu", copy=True)
+    return blob
+
+
+def insert_slot_pages(cache, slot: int, page_ids, blob: dict):
+    """Inverse of ``extract_slot_pages`` onto freshly granted physical
+    pages, in place: the parked planes and scales go to ``page_ids``, the
+    slot's tail and position are restored and its page-table row
+    rewritten (padded to MP with the last id, as admission pads it).
+    Only the physical ids differ from the slot that was extracted, and
+    reads go through the page table, so the slot decodes the same bits."""
+    ids = [int(i) for i in page_ids]
+    if len(ids) != blob["page_count"]:
+        raise ValueError(f"insert_slot_pages: {blob['page_count']} pages "
+                         f"parked but {len(ids)} granted")
+    dev = cache["pos"].device
+    mp = cache["page_table"].shape[1]
+    idx = torch.as_tensor(ids, dtype=torch.long, device=dev)
+    for name in _PAGE_PLANES:
+        cache[name][:, idx] = blob[name].to(dev)
+    for name in ("k_tail", "v_tail"):
+        cache[name][:, slot].copy_(blob[name])
+    cache["page_table"][slot] = torch.as_tensor(
+        ids + [ids[-1]] * (mp - len(ids)), dtype=torch.int32, device=dev)
+    cache["pos"][slot] = blob["pos"]
+    return cache

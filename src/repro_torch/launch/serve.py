@@ -19,6 +19,9 @@ persistent slots, admitting between segments of ``--segment-len`` steps
 decoding: each window drafts k tokens through the cheaper estimator on
 the same prepared weights and verifies them with one batched forward
 through ``--dscim`` (greedy output bitwise the plain output).
+``--prefix-cache`` admits the ``--continuous`` queue through the prefix
+cache (a shared system prompt over 3/4 of it); ``--prefix-drill`` runs
+the prefix cache's self-verifying drill (runtime/serving.py).
 """
 from __future__ import annotations
 
@@ -134,11 +137,13 @@ def serve_continuous(cfg, params, prompts, n_tokens: int, *,
                      slots: int = 4, seg_len: int = 4, max_new=None,
                      eos_id: int | None = None, sample: str = "greedy",
                      kv: str = "float", page_size: int = 8,
-                     n_pages: int | None = None, rng_seed: int = 0, spec: str | None = None,
-                     deadline_steps=None, deadline_s=None, priority=None,
-                     monitor=None, injector=None, snapshot_every: int = 0,
-                     watchdog=None, integrity: str = "off",
-                     prefix_cache=False, device=None):
+                     n_pages: int | None = None, rng_seed: int = 0,
+                     spec: str | None = None, deadline_steps=None,
+                     deadline_s=None, priority=None, monitor=None,
+                     injector=None, snapshot_every: int = 0,
+                     max_replays: int = 3, watchdog=None,
+                     integrity: str = "off", prefix_cache=False,
+                     device=None, log=print):
     """Continuous-batching scheduler: serve a queue of R requests through
     ``slots`` persistent decode slots.
 
@@ -147,8 +152,8 @@ def serve_continuous(cfg, params, prompts, n_tokens: int, *,
     (launch/steps.py ``make_segment_fn``: replays of the captured step on
     the card) the host admits waiting requests into freed slots with one
     prefill each (``make_admit_fn``); the KV cache, per-slot positions,
-    done mask and generator persist across segments.  A request completes
-    on EOS (``eos_id``) or its budget (``max_new`` (R,), default
+    done mask and sampler keys persist across segments.  A request
+    completes on EOS (``eos_id``) or its budget (``max_new`` (R,), default
     ``n_tokens``, counted including the prefill token), releasing its slot
     and, for ``kv='int8'``, its physical pages (``n_pages`` sizes the pool
     independently of slots x max_len; an admission waits while the pool
@@ -158,19 +163,53 @@ def serve_continuous(cfg, params, prompts, n_tokens: int, *,
     documents: ``outputs[r]`` is request r's np.int32 tokens (<= its
     budget, ending at EOS if hit); ``stats`` has wall time, tok/s over
     useful tokens, occupancy = live slot-steps / slot-steps, segments,
-    statuses, the segment step's capture time (``capture_s``, inside
-    ``wall_s``) and the allocator's page stats.
+    statuses, the fault and prefix counters below, the captures' times
+    and the allocator's page stats.
 
-    ``params`` go through ``prepare_params``.  ``device``: CUDA unless 'cpu' is asked for.  The
-    fault-tolerance knobs (``deadline_steps``, ``deadline_s``,
-    ``priority``, ``monitor``, ``injector``, ``snapshot_every``,
-    ``watchdog``, ``integrity``) and ``prefix_cache`` raise
-    ``NotImplementedError`` when set: their ROADMAP items (A10, A11) are
-    not ported yet.  ``spec`` ('<variant>:<k>'): each segment step is a
-    draft/verify window (launch/steps.py ``make_segment_fn``), and every
-    slot's capacity and page grant gain k positions of headroom; each
-    request's tokens are bitwise those without spec under greedy
-    decoding."""
+    Failure semantics (checked between segments only, so a request can
+    overrun by at most one segment):
+
+    * **Statuses.**  ``stats['status'][r]`` is ``'ok'`` (ran to EOS or
+      its budget, possibly through a failover replay or an eviction round
+      trip) or ``'deadline'`` (cancelled at a segment boundary;
+      ``outputs[r]`` holds its partial tokens, a valid prefix, possibly
+      none if it never left the queue).
+    * **Deadlines.**  ``deadline_steps`` (R,): a budget of decode steps on
+      the global ledger (a segment counts ``seg_len * (k+1)``; negative =
+      none).  ``deadline_s`` (R,): wall seconds from the request's
+      admission (<= 0 = none).
+    * **Eviction** (``priority`` (R,), int8 KV only): when the pool
+      blocks an admission, live requests of *strictly* lower priority are
+      preempted, lowest first and youngest on ties; their pages are
+      parked on the host bit for bit and the request resumes mid-stream
+      once pages free, its tokens unchanged
+      (``stats['evictions'/'readmissions'/'evicted_requests']``).
+    * **Snapshots and failover** (``snapshot_every`` > 0, ``injector``
+      a runtime/failover.py ``FailureInjector(fail_at=...)``): the serve
+      state, the scheduler's books, the allocator and the prefix index
+      are copied to the host every N boundaries; an injected device loss
+      restores the latest copy and replays from it, bitwise, up to
+      ``max_replays`` times (``stats['replays']``; ``log`` gets one line
+      a restart).
+    * **Prefix caching** (``prefix_cache``, int8 KV only): True/'on'
+      admits every request as page-aligned chunks of one captured extend
+      graph (launch/steps.py ``make_extend_fn``, ``chunk_len =
+      page_size``) and shares physical pages across page-aligned prompt
+      prefixes (core/kvcache.py ``PrefixCache``): a hit maps its leading
+      page-table entries at the donor's pages and prefills from the
+      first divergent page, and its tokens are bitwise those of a cold
+      admission.  'cold' runs the same chunked admissions with sharing
+      off.  ``stats['prefix']`` has the index's hits, hit tokens, pages
+      deduped, prefill positions computed and in total, and the hit and
+      miss admission latencies.
+
+    ``monitor``, ``watchdog``, ``integrity`` and the injector's bit flips
+    and macro fault raise ``NotImplementedError``: ROADMAP A11's second
+    half ports them.  ``spec`` ('<variant>:<k>'): each segment step is a
+    draft/verify window, and every slot's capacity and page grant gain k
+    positions of headroom; each request's tokens are bitwise those
+    without spec under greedy decoding.  ``params`` go through
+    ``prepare_params``; ``device``: CUDA unless 'cpu' is asked for."""
     from ..runtime.serving import serve_continuous_ft
     dev = resolve_device(device)
     params = prepare_params(cfg, params, dev)
@@ -180,8 +219,9 @@ def serve_continuous(cfg, params, prompts, n_tokens: int, *,
         page_size=page_size, n_pages=n_pages, rng_seed=rng_seed,
         deadline_steps=deadline_steps, deadline_s=deadline_s,
         priority=priority, monitor=monitor, injector=injector,
-        snapshot_every=snapshot_every, watchdog=watchdog, spec=spec,
-        integrity=integrity, prefix_cache=prefix_cache, device=dev)
+        snapshot_every=snapshot_every, max_replays=max_replays,
+        watchdog=watchdog, spec=spec, integrity=integrity,
+        prefix_cache=prefix_cache, device=dev, log=log)
 
 
 def _sample_spec(args) -> str:
@@ -285,6 +325,19 @@ def main(argv=None):
                          "estimator on the same prepared weights, verify "
                          "with one batched forward through --dscim; "
                          "greedy output is bitwise the plain output")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share int8 KV pages across page-aligned prompt "
+                         "prefixes on the --continuous run (refcounted "
+                         "pages + prefix-hash index, core/kvcache.py): "
+                         "hits skip prefill for the shared pages, "
+                         "bitwise; requires --kv int8")
+    ap.add_argument("--prefix-drill", action="store_true",
+                    help="run the self-verifying prefix-cache drill "
+                         "(runtime/serving.py prefix_drill): staggered "
+                         "admissions with a shared system prompt, warm "
+                         "vs cold legs; asserts bitwise parity, page "
+                         "dedup, >40%% prefill positions skipped and a "
+                         "drained pool")
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, which must exist)")
     ap.add_argument("--seed", type=int, default=0,
@@ -292,6 +345,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    if args.prefix_drill:
+        from ..runtime.serving import prefix_drill
+        prefix_drill(args.arch, seed=args.seed, device=dev)
+        return 0
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -306,6 +363,11 @@ def main(argv=None):
     if args.continuous:
         prompts = rng.integers(0, cfg.vocab, (args.requests, args.prompt_len),
                                dtype=np.int64)
+        if args.prefix_cache:
+            # a shared page-aligned "system prompt" over 3/4 of the queue,
+            # so the prefix index has something to hit
+            shared = max(args.prompt_len // 2, args.page_size)
+            prompts[:args.requests * 3 // 4, :shared] = prompts[0, :shared]
         # skewed per-request budgets exercise slot recycling
         budgets = rng.integers(max(2, args.tokens // 4), args.tokens + 1,
                                (args.requests,), dtype=np.int32)
@@ -315,8 +377,10 @@ def main(argv=None):
                 seg_len=args.segment_len, max_new=budgets,
                 eos_id=args.eos if args.eos is not None else -1,
                 sample=sample, kv=args.kv, page_size=args.page_size,
-                device=dev, spec=args.spec if tag != "off" else None)
+                device=dev, spec=args.spec if tag != "off" else None,
+                prefix_cache=args.prefix_cache)
             pages = stats["pages"]
+            pf = stats["prefix"]
             print(f"[serve-cb] dscim={tag} kv={args.kv} {name}: "
                   f"{stats['tok_s']:.1f} tok/s over "
                   f"{stats['useful_tokens']} useful tokens, occupancy "
@@ -325,7 +389,12 @@ def main(argv=None):
                   f"slot-steps live, {stats['segments']} segments of "
                   f"{args.segment_len})"
                   + (f", pages high water {pages['high_water']}/"
-                     f"{pages['n_pages']}" if pages else ""))
+                     f"{pages['n_pages']}" if pages else "")
+                  + (f", prefix: {pf['hits']}/{pf['lookups']} hits, "
+                     f"{pf['pages_deduped']} pages deduped, "
+                     f"{pf['prefill_positions_computed']}/"
+                     f"{pf['prefill_positions_total']} prefill positions "
+                     "computed" if pf else ""))
         return 0
 
     mode = "host loop" if args.host_loop else (

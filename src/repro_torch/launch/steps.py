@@ -1,7 +1,7 @@
 """Serving steps (port of ``prepare_serving_params``, the sampler,
-``make_generate_fn`` and the continuous-batching halves
-``init_serve_state`` / ``make_admit_fn`` / ``make_segment_fn`` from
-``repro/launch/steps.py``).
+``make_generate_fn`` and the continuous-batching pieces
+``init_serve_state`` / ``make_admit_fn`` / ``make_segment_fn`` /
+``make_extend_fn`` from ``repro/launch/steps.py``).
 
 ``prepare_serving_params`` converts every DS-CIM-eligible weight once into
 resident int8 ``QuantizedLinearWeight`` planes.
@@ -22,7 +22,8 @@ same step serves:
   step and one ``done`` check per token: the A/B baseline.
 * ``make_segment_fn`` (continuous batching): ``seg_len`` replays over the
   persistent serve state, between which ``make_admit_fn`` prefills new
-  requests into freed slots.
+  requests into freed slots, or ``make_extend_fn`` (the prefix cache's
+  chunked prefill, one captured graph a chunk) feeds them page by page.
 
 Under ``spec='<variant>:<k>'`` (self-speculative decoding, the port of
 ``_parse_spec``, ``_draft_cfg`` and ``_make_spec_window``) the captured
@@ -55,7 +56,8 @@ from ..models import lm
 from .graph import CapturedStep
 
 __all__ = ["prepare_serving_params", "make_generate_fn", "init_serve_state",
-           "make_admit_fn", "make_segment_fn", "clear_graphs", "PAD_ID"]
+           "make_admit_fn", "make_segment_fn", "make_extend_fn",
+           "clear_graphs", "PAD_ID"]
 
 PAD_ID = 0          # token written for finished slots
 SEG_LEN = 4         # replays between two host looks at ``done``
@@ -772,16 +774,12 @@ def make_segment_fn(cfg: ArchConfig, seg_len: int = SEG_LEN, *,
     sp = _parse_spec(spec)
     if sp:
         _check_spec(cfg)
-    box = {}
+    box = {"bindings": 0}
 
     @torch.no_grad()
     def segment(params, state):
-        key = _binding(params, {k: v for k, v in state.items()
-                                if isinstance(v, (torch.Tensor, dict))})
-        run = box.get("run")
-        if run is None or box["key"] != key:
-            run = _SegmentRun(cfg, state, params, seg_len, nxt, eos, sp)
-            box.update(run=run, key=key)
+        run = _bound_run(box, params, state, lambda: _SegmentRun(
+            cfg, state, params, seg_len, nxt, eos, sp))
         st = run.st
         st["i"].zero_()
         step = run.step.run if graph else run.step.step
@@ -790,5 +788,151 @@ def make_segment_fn(cfg: ArchConfig, seg_len: int = SEG_LEN, *,
         return state, st["toks"].clone(), st["live"].clone(), \
             {"bad": st["bad"].clone(), "logits0": st["logits0"].clone()}
 
-    segment.runs = box          # the current binding (tests, capture time)
+    segment.runs = box      # the current binding and the count of bindings
     return segment
+
+
+def _bound_run(box: dict, params, state, make):
+    """The runner in ``box`` if it is bound to ``params`` and the state's
+    tensors, else a new one from ``make()`` (its graph is captured at its
+    first replay); ``box["bindings"]`` counts the runners made."""
+    key = _binding(params, {k: v for k, v in state.items()
+                            if isinstance(v, (torch.Tensor, dict))})
+    run = box.get("run")
+    if run is None or box["key"] != key:
+        run = make()
+        box.update(run=run, key=key, bindings=box["bindings"] + 1)
+    return run
+
+
+class _ExtendRun:
+    """One chunk of one slot's prompt over the serve state, as a captured
+    step.  Its inputs (the chunk's tokens, the slot, the real length, the
+    emit flag, the budget and the admission number) and outputs (the
+    first token, the chunk's logits) are static tensors of the runner,
+    not of the state, so the segment step's binding never sees them."""
+
+    def __init__(self, cfg, state, params, chunk_len, nxt, eos,
+                 trace_logits):
+        dev = state["tok"].device
+        B = state["tok"].shape[0]
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.st = st = dict(state, params=params)
+        st.update(
+            x_toks=torch.zeros((1, chunk_len), dtype=torch.long, device=dev),
+            x_slot=torch.zeros((1,), dtype=torch.long, device=dev),
+            x_n_real=torch.ones((1,), **i32),
+            x_emit=torch.zeros((1,), dtype=torch.bool, device=dev),
+            x_max_new=torch.ones((1,), **i32),
+            x_admitted=torch.zeros((1,), dtype=torch.int64, device=dev),
+            x_tok0=torch.zeros((1,), **i32))
+        if trace_logits:
+            st["x_trace"] = torch.zeros((chunk_len, cfg.vocab_padded),
+                                        dtype=torch.float32, device=dev)
+        rows = torch.arange(B, device=dev)
+
+        def step():
+            cache, slot = st["cache"], st["x_slot"]
+            is_t = rows == slot
+            tokens = torch.where(is_t[:, None], st["x_toks"], 0)
+            pos0 = cache["pos"].clone()
+            tails0 = (cache["k_tail"].clone(), cache["v_tail"].clone()) \
+                if "k_pages" in cache else None
+            logits, _, win_kv = lm.decode_multi(st["params"], cfg, tokens,
+                                                cache, done=~is_t)
+            new_pos = pos0 + torch.where(is_t, st["x_n_real"], 0)
+            kvcache.spec_rollback(cache, pos0, new_pos, tails0, win_kv)
+            lg_t = logits.index_select(0, slot)[0]             # (T, Vp)
+            if "x_trace" in st:
+                st["x_trace"].copy_(lg_t)
+            lg = lg_t.index_select(0, (st["x_n_real"] - 1).long())
+            emit = st["x_emit"]
+            stream = torch.where(emit, st["x_admitted"],
+                                 st["stream"].index_select(0, slot))
+            st["stream"].index_copy_(0, slot, stream)
+            tok0 = nxt(lg, (st["seed"], stream, torch.zeros_like(stream)))
+            st["x_tok0"].copy_(tok0)
+            max_new = st["x_max_new"]
+            for name, val in (
+                    ("tok", tok0), ("n_out", 1), ("max_new", max_new),
+                    ("done", (tok0 == eos) | (max_new <= 1))):
+                old = True if name == "done" \
+                    else st[name].index_select(0, slot)
+                st[name].index_copy_(0, slot, torch.where(emit, val, old))
+        uses = [(cfg, B), (cfg, B * chunk_len)]
+        self.step = CapturedStep(step, dev, _prepare_fn(st, uses))
+
+
+def make_extend_fn(cfg: ArchConfig, chunk_len: int, *,
+                   eos_id: int | None = None, sample: str = "greedy",
+                   trace_logits: bool = False, graph: bool = True):
+    """One chunked-prefill step (the port of the reference's
+    ``make_extend_fn``): feed ``chunk_len`` prompt tokens of ONE slot
+    through the batched verify forward (``models/lm.py decode_multi``)
+    with every other slot done-masked (frozen position, no writes), then
+    roll the window back to the chunk's real length
+    (``core/kvcache.py spec_rollback``).  A prompt of length S is
+    admitted as ceil(S / chunk_len) calls of one captured graph (on the
+    card; eager steps on the CPU or with ``graph=False``).  The slot's KV
+    at ``pos .. pos+n_real-1`` is then what ``n_real`` teacher-forced
+    single-token decodes would write.  A padded last chunk's pad
+    positions sit causally after every real one; their writes are rolled
+    back, and the page a padded flush may fill with garbage sits at
+    logical index >= the committed position, where the tail overlay hides
+    it until a later whole-page flush rewrites it.
+
+    ``extend(params, state, toks (1, chunk_len) int, slot, n_real, emit,
+    max_new) -> (state, tok0)``, the scalars as ints: writes the chunk's
+    KV for ``slot`` in place; under ``emit`` (the last chunk) also gives
+    the slot the admission number ``state["admitted"]`` as its stream,
+    draws the first output token from the last real position's logits
+    keyed (seed, stream, 0) as ``make_admit_fn`` draws it, and arms the
+    slot (tok, done, n_out = 1, max_new).  A non-emitting call leaves the
+    slot done-masked, so segments between chunks skip it.  The slot's
+    page-table row must already hold its granted pages.  Inside the call
+    nothing reads back to the host: the slot's logits row is picked by
+    device indexing.  ``trace_logits=True`` also returns the slot's
+    chunk logits (chunk_len, Vp) f32, pad positions included.
+
+    The graph binds the state and the params it last ran on, like
+    ``make_segment_fn``'s; ``extend.runs["bindings"]`` counts its
+    bindings and ``extend.launches`` the kernel launches its calls made
+    (counter name -> launches)."""
+    from ..kernels import build
+    _check_spec(cfg)
+    nxt = _next_fn(_make_sampler(sample))
+    eos = -1 if eos_id is None else eos_id
+    box = {"bindings": 0}
+    launches: dict = {}
+
+    @torch.no_grad()
+    def extend(params, state, toks, slot: int, n_real: int, emit: bool,
+               max_new: int):
+        run = _bound_run(box, params, state, lambda: _ExtendRun(
+            cfg, state, params, chunk_len, nxt, eos, trace_logits))
+        st = run.st
+        st["x_toks"].copy_(torch.as_tensor(toks).reshape(1, -1))
+        st["x_slot"].fill_(int(slot))
+        st["x_n_real"].fill_(int(n_real))
+        st["x_emit"].fill_(bool(emit))
+        st["x_max_new"].fill_(int(max_new))
+        st["x_admitted"].fill_(state["admitted"])
+        step = run.step
+        if graph and step.device.type == "cuda" and step.graph is None:
+            step.capture()     # its preparation launches are not the step's
+        before = {c: c.count for c in build.COUNTERS}
+        (step.run if graph else step.step)()
+        for c in build.COUNTERS:
+            if c.count != before.get(c, 0):
+                launches[c.name] = launches.get(c.name, 0) \
+                    + c.count - before.get(c, 0)
+        if emit:
+            state["admitted"] += 1
+        tok0 = st["x_tok0"][0].clone()
+        if trace_logits:
+            return state, tok0, st["x_trace"].clone()
+        return state, tok0
+
+    extend.runs = box
+    extend.launches = launches
+    return extend

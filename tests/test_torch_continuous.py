@@ -321,15 +321,16 @@ def test_continuous_small_page_pool_backpressure(setup):
 
 
 def test_later_items_raise_not_implemented(setup):
+    from repro_torch.runtime.failover import FailureInjector
+
     _, cfg, _, params = setup
     prompts = np.zeros((2, 8), np.int64)
-    for kw, item in (({"deadline_steps": [4, 4]}, "A11"),
-                     ({"priority": [0, 1]}, "A11"),
-                     ({"snapshot_every": 2}, "A11"),
-                     ({"integrity": "verify"}, "A11"),
-                     ({"prefix_cache": True}, "A10")):
-        with pytest.raises(NotImplementedError, match=item):
-            serve_continuous(cfg, params, prompts, 4, device="cpu", **kw)
+    flip = {1: ((0, "k_pages", (0, 0, 0, 0, 0), 1),)}
+    for make_kw in (lambda: {"integrity": "verify"},
+                    lambda: {"injector": FailureInjector(page_flips=flip)}):
+        with pytest.raises(NotImplementedError, match="A11"):
+            serve_continuous(cfg, params, prompts, 4, device="cpu",
+                             **make_kw())
 
 
 # -- across frameworks ----------------------------------------------------

@@ -3,7 +3,8 @@ at odd and test-sized shapes (the full-width serving shapes, and the
 reduced config served on the GPU against the CPU, are held by
 ``chip_smoke.py``); the captured decode step (CUDA graph replays against
 the eager loop, bitwise; a capture from a cold process; a failed capture
-raising) and the paged flush's C1 case on the card.  Marked ``cuda``: without a GPU every test here skips
+raising), the paged flush's C1 case, the prefix cache's extend graph
+and the scheduler's restores on the card.  Marked ``cuda``: without a GPU every test here skips
 (decided inside the fixture, never at import).  On a GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -889,3 +890,106 @@ def test_spec_continuous_matches_plain_on_card(cuda):
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a, b)
     assert st["capture_s"] > 0 and st["pages"]["live_pages"] == 0
+
+
+# -- the prefix cache's extend graph and the scheduler's faults -------------
+
+def _chunked(cfg, params, prompt, graph, ps=4):
+    """Admit ``prompt`` into slot 1 of a fresh 2-slot serve state as
+    chunks of the extend step (logit trace on)."""
+    from repro_torch.launch.steps import init_serve_state, make_extend_fn
+
+    st = init_serve_state(cfg, 2, 32, kv="int8", page_size=ps, seed=3,
+                          device="cuda")
+    st["cache"]["page_table"][1] = torch.arange(8, 16, dtype=torch.int32)
+    st["done"][1] = True
+    ext = make_extend_fn(cfg, ps, eos_id=-1, sample="temp:0.9",
+                         trace_logits=True, graph=graph)
+    traces = []
+    for fed in range(0, len(prompt), ps):
+        part = np.pad(prompt[fed:fed + ps], (0, ps - len(prompt[fed:fed + ps])))
+        _, tok0, tr = ext(params, st, part[None], 1,
+                          min(ps, len(prompt) - fed),
+                          fed + ps >= len(prompt), 6)
+        traces.append(tr)
+    torch.cuda.synchronize()
+    return st, int(tok0), torch.stack(traces), ext
+
+
+def test_extend_graph_matches_eager_extend(cuda):
+    """One admission of 14 tokens (a padded last chunk) through the
+    captured extend step and through the same step run eagerly: first
+    token, every chunk's logit trace and the whole serve state agree
+    bitwise; the graph binds once."""
+    from repro_torch.launch.serve import prepare_params
+
+    cfg, params, prompts = _reduced()
+    params = prepare_params(cfg, params, cuda)
+    got = [_chunked(cfg, params, prompts[0, :14], graph)
+           for graph in (True, False)]
+    (sg, tg, lg, ext), (se, te, le, _) = got
+    assert tg == te and torch.equal(lg, le)
+    assert ext.runs["bindings"] == 1 and ext.runs["run"].step.captures == 1
+    for name in ("tok", "done", "n_out", "max_new", "stream"):
+        assert torch.equal(sg[name], se[name]), name
+    for name, t in sg["cache"].items():
+        assert torch.equal(t, se["cache"][name]), name
+
+
+def test_prefix_warm_equals_cold_on_card(cuda):
+    """Prefix-cache serving on the card: warm bitwise cold, each leg
+    binding its segment and extend steps once, and the extends' fused-MVM
+    and paged-attention launches those of the chunks fed."""
+    from repro_torch.launch.serve import prepare_params, serve_continuous
+
+    cfg, params, prompts = _reduced()
+    params = prepare_params(cfg, params, cuda)
+    prompts = np.concatenate([prompts, prompts[:2]])
+    prompts[1:5, :8] = prompts[0, :8]
+    kw = dict(slots=3, seg_len=2, kv="int8", page_size=4, eos_id=-1,
+              max_new=[6, 3, 5, 4, 6, 2], device="cuda")
+    legs = {m: serve_continuous(cfg, params, prompts, 6, prefix_cache=m,
+                                **kw) for m in ("cold", "on")}
+    for a, b in zip(legs["on"][0], legs["cold"][0]):
+        np.testing.assert_array_equal(a, b)
+    L = cfg.n_layers
+    for outs, st in legs.values():
+        chunks = st["prefix"]["prefill_positions_computed"] // 4
+        assert st["bindings"] == {"segment": 1, "extend": 1}
+        assert st["extend_launches"]["dscim_fused_mvm"] == chunks * (3 * L + 1)
+        assert st["extend_launches"]["paged_attention_decode"] \
+            == chunks * L * 4
+        assert st["pages"]["live_pages"] == 0
+    assert legs["on"][1]["prefix"]["hits"] == 4
+
+
+@pytest.mark.parametrize("fault", ["failover", "eviction"])
+def test_restores_keep_the_segment_graph(cuda, fault):
+    """A failover restore and an eviction's ``insert_slot_pages`` copy
+    into the serve state in place: the segment step is bound (and
+    captured) once, and every request's tokens are those of the
+    undisturbed run (sampled, so the stream must survive too)."""
+    from repro_torch.core.kvcache import n_pages_for
+    from repro_torch.launch.serve import prepare_params, serve_continuous
+    from repro_torch.runtime.failover import FailureInjector
+
+    cfg, params, prompts = _reduced()
+    params = prepare_params(cfg, params, cuda)
+    prompts = np.concatenate([prompts, prompts[:2, ::-1]])
+    kw = dict(slots=3, seg_len=2, kv="int8", page_size=4, eos_id=-1,
+              max_new=[6, 8, 8, 6, 6, 6], sample="topk:20:0.9", rng_seed=4,
+              device="cuda")
+    ref, _ = serve_continuous(cfg, params, prompts, 8, **kw)
+    knobs = {"failover": dict(snapshot_every=1,
+                              injector=FailureInjector(fail_at=(2,)),
+                              log=lambda *_: None),
+             "eviction": dict(n_pages=2 * n_pages_for(16 + 8, 4),
+                              priority=[0, 0, 5, 0, 0, 0])}[fault]
+    outs, st = serve_continuous(cfg, params, prompts, 8, **kw, **knobs)
+    for a, b in zip(outs, ref):
+        np.testing.assert_array_equal(a, b)
+    assert st["bindings"]["segment"] == 1 and st["capture_s"] > 0
+    if fault == "failover":
+        assert st["replays"] == 1 and st["snapshots"]["restores"] == 1
+    else:
+        assert st["evictions"] >= 1 and st["readmissions"] >= 1
