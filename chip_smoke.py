@@ -65,7 +65,20 @@ In order it
    segment (one replay, no second capture, snapshot and restore times),
    priority eviction in a 20-page pool and a step deadline, each
    bitwise the ``continuous`` phase's outputs (the deadline request's a
-   prefix of its own);
+   prefix of its own); then the accuracy watchdog on the same queue at
+   ``kernel:dscim2:64`` (``watchdog``): a healthy monitored run bitwise
+   the unmonitored one with no trip, a stuck-at macro fault from segment
+   1 that trips and escalates dscim2 -> dscim1 (every request ``ok``),
+   an inf scale quarantined as ``nonfinite`` in its segment, the probe's
+   device ms and launches, rels, threshold, escalation time, captures,
+   bindings and kernel launches by leg; then the integrity layer at
+   ``kernel:dscim1:256`` (``integrity``): ``integrity='verify'`` bitwise
+   the ``continuous`` phase with zero mismatches and unchanged launches,
+   the page and weight sweeps' device ms, the golden copy's bytes and
+   time, a plane repair's wall ms, and the integrity drill's two legs
+   (page and weight flips found at their exact coordinates and repaired,
+   one replay where decodes read a corrupted plane, every request bitwise
+   the fault-free run, one binding a leg);
 4. holds each kernel's wrapper, as the main path calls it, against its
    plain PyTorch version on the same inputs at the main path's shapes,
    and times kernel, wrapper, plain version, the least
@@ -142,6 +155,11 @@ MODES = ("bitmatmul", "statistical", "paper_inject")   # modes phase
 PREFIX_SHARED, PREFIX_SHARERS = 48, range(1, 7)
 EVICT_PAGES, EVICT_PRIO_REQ = 20, 2     # faults phase: pool, priority 5
 DEADLINE_STEPS = 8                      # faults phase: request 0's budget
+# watchdog phase: served at the ladder's top, a stuck-at macro fault from
+# segment 1 (every third output column of every DS-CIM linear reads 40)
+WD_DSCIM, WD_FAULT, WD_FAULT_AT = "kernel:dscim2:64", "stuck:3:40.0", 1
+# its faulted run's ladder: serve_batch of the six quarantined requests
+LADDER_B = 6
 FUSED_RTOL = 2e-5            # f32 summation order; counts are exact
 PAGED_RTOL = 1e-5            # f32 summation order of dot products / sums
 LONG_POS = 2047              # paged attention's long-context position
@@ -857,6 +875,341 @@ def faults_phase(torch, cfg, served, cb_outs):
     return out
 
 
+def _counts():
+    """The fused-MVM and paged-attention launch counters, as a dict."""
+    from repro_torch.kernels import dscim_fused, paged_attention
+    return {"fused": dscim_fused.LAUNCHES.count,
+            "paged": paged_attention.LAUNCHES.count}
+
+
+def _leg(run):
+    """``run()``, a ``serve_continuous`` call, with the two kernels'
+    launches counted and the graphs it captured (each segment and extend
+    binding, the probe's, and the ladder's serve_batch runners), as its
+    stats report them."""
+    c0 = _counts()
+    out = run()
+    c1 = _counts()
+    st = out[1]
+    captures = st["bindings"]["segment"] + st["bindings"]["extend"] \
+        + st["probe_bindings"] + st["escalation_captures"]
+    return out, {k: c1[k] - c0[k] for k in c1}, captures
+
+
+def _admitted_state(torch, cfg_x, served, integrity=False):
+    """A serve state of BATCH slots holding the continuous queue's first
+    BATCH prompts, admitted (the probe's and the sweeps' timed input)."""
+    from repro_torch.core.kvcache import admission_pages, n_pages_for
+    from repro_torch.launch.steps import init_serve_state, make_admit_fn
+
+    prompts, budgets = _cb_queue(cfg_x)
+    cap = PROMPT + int(budgets.max())
+    mp = n_pages_for(cap, PAGE)
+    need = admission_pages(PROMPT, int(budgets.max()), PAGE)
+    dev = served["embed"].device
+    state = init_serve_state(cfg_x, BATCH, cap, kv="int8", page_size=PAGE,
+                             integrity=integrity, device=dev)
+    admit = make_admit_fn(cfg_x, eos_id=-1)
+    for b in range(BATCH):
+        ids = list(range(b * mp, b * mp + need))
+        admit(served, state, torch.as_tensor(prompts[b:b + 1], device=dev),
+              b, ids + [ids[-1]] * (mp - need), int(budgets.max()))
+    return state
+
+
+def watchdog_phase(torch, cfg, params):
+    """Phase 3h: the accuracy watchdog and its ladder at full width on the
+    continuous queue, served at WD_DSCIM (``kernel:dscim2:64``, the
+    ladder's top; its params prepared once): a run without a monitor; a
+    healthy run with ``watchdog_for_spec(WD_DSCIM, probe_every=1)``,
+    bitwise the first with no trip (or, where the margin does not carry
+    to full width, the calibration finding stated); a stuck-at macro
+    fault from segment WD_FAULT_AT (a second segment runner) that trips
+    and escalates dscim2 -> dscim1 with every request ``ok`` and the
+    faulted run's lowest live rel above the healthy run's highest; an
+    inf scale in slot 0's first page at segment 1, quarantined as
+    ``nonfinite`` in that segment.  Prints the probe's device ms, the
+    rels, the threshold, the escalation time, captures, bindings and
+    kernel 1's and 2's launches by leg."""
+    import numpy as np
+
+    from repro_torch.launch.serve import prepare_params, serve_continuous
+    from repro_torch.launch.steps import make_probe_fn
+    from repro_torch.runtime.failover import FailureInjector
+    from repro_torch.runtime.serving import (exact_probe_spec,
+                                             watchdog_for_spec)
+    from repro_torch.runtime.watchdog import AccuracyWatchdog
+
+    class InfScale(FailureInjector):
+        def corrupt_cache(self, segment, cache, slot_pages):
+            if segment != 1 or ("inf", 1) in self.fired \
+                    or slot_pages[0] is None:
+                return cache, []
+            self.fired.add(("inf", 1))
+            cache["v_scale"][0, int(slot_pages[0][0]), 0] = float("inf")
+            return cache, [0]
+
+    cfg_w = dataclasses.replace(cfg, dscim=WD_DSCIM)
+    served = prepare_params(cfg_w, params)
+    prompts, budgets = _cb_queue(cfg)
+    R, n = len(budgets), int(budgets.max())
+    kw = dict(slots=BATCH, seg_len=CB_SEG, max_new=budgets, kv="int8",
+              page_size=PAGE, eos_id=-1, log=_log)
+    (plain, st_p), launch_p, cap_p = _leg(
+        lambda: serve_continuous(cfg_w, served, prompts, n, **kw))
+    healthy = watchdog_for_spec(WD_DSCIM, probe_every=1)
+    (outs_h, st_h), launch_h, cap_h = _leg(
+        lambda: serve_continuous(cfg_w, served, prompts, n,
+                                 monitor=healthy, **kw))
+    faulted = watchdog_for_spec(WD_DSCIM, probe_every=1)
+    inj = FailureInjector(macro_fault_at=WD_FAULT_AT,
+                          macro_fault=WD_FAULT)
+    (outs_f, st_f), launch_f, cap_f = _leg(
+        lambda: serve_continuous(cfg_w, served, prompts, n,
+                                 monitor=faulted, injector=inj, **kw))
+    (outs_n, st_n), launch_n, cap_n = _leg(
+        lambda: serve_continuous(cfg_w, served, prompts, n,
+                                 monitor=AccuracyWatchdog(None),
+                                 injector=InfScale(), snapshot_every=1,
+                                 **kw))
+    thresh = healthy.rel_threshold
+    h_rels, f_rels = healthy.live_rels(), faulted.live_rels(WD_FAULT_AT)
+    hops = {(e["frm"], e["to"]) for e in st_f["escalations"]}
+    # the probe alone, on the queue's first four admissions
+    state = _admitted_state(torch, cfg_w, served)
+    probe = make_probe_fn(dataclasses.replace(
+        cfg_w, dscim=exact_probe_spec(WD_DSCIM)))
+    probe(served, state)                 # captures its graph
+    c0 = _counts()
+    probe(served, state)
+    torch.cuda.synchronize()
+    c1 = _counts()
+    probe_launch = {k: c1[k] - c0[k] for k in c1}
+    probe_ms = _cuda_ms(lambda: probe(served, state), 5)
+    probe_prof = _profile_request(torch, lambda: probe(served, state))
+    del state
+
+    out = {
+        "threshold": thresh, "healthy_max_rel": float(h_rels.max()),
+        "healthy_trips": st_h["probe_trips"],
+        "faulted_min_rel": float(f_rels.min()),
+        "faulted_trips": st_f["probe_trips"],
+        "probes": {"healthy": st_h["probes"], "faulted": st_f["probes"]},
+        "probe_ms": probe_ms, "probe_launches": probe_launch,
+        "probe_profile": probe_prof,
+        "probe_bindings": {"healthy": st_h["probe_bindings"],
+                           "faulted": st_f["probe_bindings"]},
+        "probe_s_healthy_run": st_h["probe_s"],
+        "escalation_s": st_f["escalation_s"],
+        "escalations": [(e["request"], e["frm"], e["to"], e["reason"],
+                         e["accepted"], e["rel"])
+                        for e in st_f["escalations"]],
+        "quarantined": {"faulted": st_f["quarantined"],
+                        "nonfinite": st_n["quarantine_log"]},
+        "bindings": {"plain": st_p["bindings"], "healthy": st_h["bindings"],
+                     "faulted": st_f["bindings"],
+                     "nonfinite": st_n["bindings"]},
+        "captures": {"plain": cap_p, "healthy": cap_h, "faulted": cap_f,
+                     "nonfinite": cap_n},
+        "launches": {"plain": launch_p, "healthy": launch_h,
+                     "faulted": launch_f, "nonfinite": launch_n},
+        "wall_s": {"plain": st_p["wall_s"], "healthy": st_h["wall_s"],
+                   "faulted": st_f["wall_s"], "nonfinite": st_n["wall_s"]},
+    }
+    _log(f"watchdog ({WD_DSCIM}): threshold {thresh:.4f}; healthy: "
+         f"{st_h['probes']} probes, max rel {out['healthy_max_rel']:.4f}, "
+         f"{st_h['probe_trips']} trips; faulted ({WD_FAULT} from segment "
+         f"{WD_FAULT_AT}): min rel {out['faulted_min_rel']:.4f}, "
+         f"{st_f['probe_trips']} trips, quarantined {st_f['quarantined']}, "
+         f"hops {sorted(hops)}, escalation {st_f['escalation_s']:.3f} s; "
+         f"nonfinite: quarantined {st_n['quarantined']}; probe (one graph "
+         f"replay) {probe_ms:.3f} ms device, profiled "
+         f"{probe_prof['device_busy_ms']:.3f} ms busy in "
+         f"{probe_prof['wall_ms_profiled']:.3f} ms wall, "
+         f"{probe_prof['kernel_launches']} kernels, launches "
+         f"{probe_launch}")
+    _log(f"watchdog captures {out['captures']}, bindings {out['bindings']}, "
+         f"launches by leg {out['launches']}, wall s {out['wall_s']}")
+
+    failed = []
+    if st_h["probe_trips"] == 0:
+        if any(not np.array_equal(a, b) for a, b in zip(outs_h, plain)):
+            failed.append("the healthy monitored run is not bitwise the "
+                          "plain run")
+    else:
+        _log(f"CALIBRATION: the healthy full-width run tripped "
+             f"{st_h['probe_trips']} times at margin 3 (max rel "
+             f"{out['healthy_max_rel']:.4f} > threshold {thresh:.4f}); "
+             "held instead: faulted min rel > healthy max rel")
+    if not out["faulted_min_rel"] > out["healthy_max_rel"]:
+        failed.append("the faulted run's lowest rel is not above the "
+                      "healthy run's highest")
+    if st_f["probe_trips"] < 1 or not st_f["quarantined"]:
+        failed.append("the macro fault never tripped")
+    if ("kernel:dscim2:64", "kernel:dscim1:256") not in hops:
+        failed.append(f"no dscim2 -> dscim1 escalation: {hops}")
+    rung = sum(e["to"] == DSCIM for e in st_f["escalations"])
+    if rung != LADDER_B:
+        failed.append(f"the ladder's dscim1 batch is {rung}, not the "
+                      f"LADDER_B={LADDER_B} rows check_fused holds")
+    for name, st, outs in (("faulted", st_f, outs_f),
+                           ("nonfinite", st_n, outs_n)):
+        if st["status"] != ["ok"] * R \
+                or [len(o) for o in outs] != budgets.tolist():
+            failed.append(f"{name}: statuses {st['status']}, lengths "
+                          f"{[len(o) for o in outs]}")
+    if st_f["bindings"]["segment"] != 2 or st_p["bindings"]["segment"] != 1 \
+            or st_h["probe_bindings"] != 1 or st_f["probe_bindings"] != 1:
+        failed.append(f"bindings {out['bindings']}, probe "
+                      f"{out['probe_bindings']}")
+    qlog = [(q["request"], q["segment"], q["reason"])
+            for q in st_n["quarantine_log"]]
+    if qlog != [(0, 1, "nonfinite")] or st_n["probes"] != 0:
+        failed.append(f"nonfinite quarantine: {qlog}")
+    elif any(not np.array_equal(outs_n[r], plain[r])
+             for r in range(1, R)):
+        failed.append("nonfinite: an unaffected request changed")
+    if probe_launch != {"fused": 0, "paged": cfg.n_layers}:
+        failed.append(f"probe launches {probe_launch}")
+    if failed:
+        raise AssertionError(f"watchdog: {failed}")
+    return out
+
+
+def integrity_phase(torch, cfg, served, cb_outs):
+    """Phase 3i: the integrity layer at full width on the continuous
+    queue at DSCIM: ``integrity='verify'`` with no fault is bitwise the
+    ``continuous`` phase's outputs with zero mismatches and the same
+    kernel launches as ``'off'``; the page sweep (the whole pool) and the
+    weight sweep (every prepared plane) are timed on the device, the
+    golden copy's bytes and time and a one-plane repair measured; then
+    the integrity drill's two legs (``integrity_scenario``: a q-plane
+    flip caught before use, a scale flip on slot 0 rewound, a page flip
+    on slot 2 served again, then a scale-plane flip that costs one
+    replay), each found at its exact coordinate, every request bitwise
+    the fault-free run, one binding a leg.  Leg 1 arms the watchdog at
+    DSCIM unless a monitored fault-free run trips (then NaN-only, the
+    trips reported).  ``served`` is checked against its golden digests
+    at the end (and restored if it were not clean)."""
+    import numpy as np
+
+    from repro_torch.core.kvcache import page_checksums
+    from repro_torch.core.qweights import (golden_weight_copy,
+                                           iter_qweight_planes,
+                                           restore_weight_plane,
+                                           weight_plane_digests)
+    from repro_torch.launch.serve import serve_continuous
+    from repro_torch.runtime.serving import (integrity_scenario,
+                                             watchdog_for_spec)
+    from repro_torch.runtime.watchdog import AccuracyWatchdog
+
+    cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
+    prompts, budgets = _cb_queue(cfg)
+    R, n = len(budgets), int(budgets.max())
+    kw = dict(slots=BATCH, seg_len=CB_SEG, max_new=budgets, kv="int8",
+              page_size=PAGE, eos_id=-1, log=_log)
+    t = time.perf_counter()
+    golden = golden_weight_copy(served)
+    torch.cuda.synchronize()
+    golden_s = time.perf_counter() - t
+    golden_bytes = sum(x.numel() * x.element_size()
+                       for x in golden["planes"].values())
+    try:
+        (outs_o, st_o), launch_o, _ = _leg(
+            lambda: serve_continuous(cfg_ds, served, prompts, n, **kw))
+        (outs_v, st_v), launch_v, cap_v = _leg(
+            lambda: serve_continuous(cfg_ds, served, prompts, n,
+                                     integrity="verify", **kw))
+        cal = watchdog_for_spec(DSCIM, probe_every=1)
+        (outs_c, st_c), _, _ = _leg(
+            lambda: serve_continuous(cfg_ds, served, prompts, n,
+                                     monitor=cal, **kw))
+        monitor = watchdog_for_spec(DSCIM, probe_every=1) \
+            if st_c["probe_trips"] == 0 else AccuracyWatchdog(None)
+        report = integrity_scenario(
+            cfg_ds, served, prompts, budgets, slots=BATCH, seg_len=CB_SEG,
+            page_size=PAGE, rewind_slot=0, reserve_slot=2, layer=1,
+            monitor=monitor, outs_ref=cb_outs,
+            device=served["embed"].device, log=_log)
+        # the sweeps and a repair, timed on the device
+        state = _admitted_state(torch, cfg_ds, served, integrity=True)
+        cache = state["cache"]
+        page_ms = _cuda_ms(lambda: page_checksums(
+            cache["k_pages"], cache["v_pages"], cache["k_scale"],
+            cache["v_scale"]), 5)
+        pool_bytes = sum(cache[k].numel() * cache[k].element_size()
+                         for k in ("k_pages", "v_pages", "k_scale",
+                                   "v_scale"))
+        del state, cache
+        weight_ms = _cuda_ms(lambda: weight_plane_digests(served), 3)
+        # a repair copies host bytes in: wall time, median of 5
+        big = max(iter_qweight_planes(served), key=lambda p: p[2].numel())
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            restore_weight_plane(served, big[0], big[1], golden)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t))
+        repair_ms = sorted(walls)[2]
+    finally:
+        cur = weight_plane_digests(served).cpu().numpy()
+        dirty = np.nonzero(cur != golden["digests"])[0].tolist()
+        for i in dirty:
+            restore_weight_plane(served, *golden["index"][i], golden)
+    ig = st_v["integrity"]
+    out = {
+        "verify": {"checks": ig["checks"],
+                   "pages_verified": ig["pages_verified"],
+                   "weight_planes_verified": ig["weight_planes_verified"],
+                   "mismatches": ig["page_mismatches"]
+                   + ig["weight_mismatches"],
+                   "scrub_time_s": ig["scrub_time_s"],
+                   "wall_s": st_v["wall_s"], "off_wall_s": st_o["wall_s"],
+                   "launches": launch_v, "off_launches": launch_o,
+                   "captures": cap_v, "bindings": st_v["bindings"]},
+        "calibration_dscim1": {"max_rel": float(cal.live_rels().max()),
+                               "threshold": cal.rel_threshold,
+                               "trips": st_c["probe_trips"]},
+        "drill": report,
+        "page_sweep_ms": page_ms, "pool_bytes": pool_bytes,
+        "weight_sweep_ms": weight_ms,
+        "weight_planes": len(golden["index"]),
+        "golden_bytes": golden_bytes, "golden_s": golden_s,
+        "repair_plane": list(big[:2]), "repair_plane_bytes":
+        big[2].numel() * big[2].element_size(), "repair_wall_ms": repair_ms,
+    }
+    _log(f"integrity: verify {ig['checks']} checks, "
+         f"{ig['pages_verified']} page digests and "
+         f"{ig['weight_planes_verified']} plane digests verified, "
+         f"{out['verify']['mismatches']} mismatches, scrub "
+         f"{ig['scrub_time_s']:.3f} s of {st_v['wall_s']:.3f} s wall (off "
+         f"{st_o['wall_s']:.3f} s); page sweep {page_ms:.4f} ms over "
+         f"{pool_bytes} B, weight sweep {weight_ms:.3f} ms over "
+         f"{len(golden['index'])} planes; golden copy {golden_bytes} B in "
+         f"{golden_s:.3f} s; repair of {big[0]}/{big[1]} "
+         f"({out['repair_plane_bytes']} B) {repair_ms:.3f} ms wall; dscim1 "
+         f"calibration: max rel {out['calibration_dscim1']['max_rel']:.4f} "
+         f"vs threshold {cal.rel_threshold:.4f}, {st_c['probe_trips']} "
+         f"trips; drill: leg 1 {report['leg1']}, leg 2 {report['leg2']}")
+    failed = []
+    if any(not np.array_equal(a, b) for a, b in zip(outs_v, cb_outs)):
+        failed.append("verify is not bitwise the continuous phase")
+    if out["verify"]["mismatches"] or launch_v != launch_o:
+        failed.append(f"verify: {out['verify']}")
+    if report["leg1"]["corrupted_requests"] != [0, 6]:
+        failed.append(f"corrupted {report['leg1']['corrupted_requests']}")
+    if dirty:
+        failed.append(f"planes left corrupted: {dirty}")
+    if st_c["probe_trips"]:
+        _log(f"CALIBRATION: the fault-free {DSCIM} run tripped "
+             f"{st_c['probe_trips']} times at margin 3; the drill's leg 1 "
+             "monitored NaN only")
+    if failed:
+        raise AssertionError(f"integrity: {failed}")
+    return out
+
+
 def _batch_invariance(torch, cfg, served, k):
     """For the ops of one verify layer at the main path's shapes: whether
     B*(k+1) rows in one call give each row the bits of the decode's call
@@ -1131,99 +1484,128 @@ def modes_phase(torch, cfg, served, prompts):
 
 
 def check_fused(torch, cfg, params, launches):
-    """Fused DS-CIM MVM vs its plain version at the serving shapes."""
+    """Fused DS-CIM MVM vs its plain version at the serving shapes: the
+    main path's (DSCIM: decode, prefix extend, prefill), the watchdog
+    phase's segments and admissions at WD_DSCIM (other count tables), and
+    the ladder's ``serve_batch`` of the quarantined requests at DSCIM."""
     from repro_torch.kernels import dscim_fused
     from repro_torch.launch.steps import prepare_serving_params
-
-    cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
-    prep = prepare_serving_params(cfg_ds, params)
     from repro_torch.models.lm import _linear_for
-    dcfg = _linear_for(DSCIM).cfg
+
     L = cfg.n_layers
-    mlp = prep["layers"]["mlp"]
     fmlp = params["layers"]["mlp"]
-    # (site, prepared weights of every layer, layer 0's float weight,
-    #  activation dtype, calls per forward)
-    sites = [("w_gate", [mlp["w_gate"][i] for i in range(L)],
-              fmlp["w_gate"][0], torch.bfloat16, 2 * L),
-             ("w_down", [mlp["w_down"][i] for i in range(L)],
-              fmlp["w_down"][0], torch.bfloat16, L),
-             ("lm_head", [prep["lm_head"]], params["embed"].T,
-              torch.float32, 1)]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    calls = []
-    # decode (M = slots), an extend chunk of the prefix path (M = slots x
-    # page: every MLP site and the f32 head, a partial prefill tile) and
-    # prefill (M = slots x prompt)
-    phases = {BATCH: "decode", BATCH * PAGE: "prefix extend",
-              BATCH * PROMPT: "prefill"}
-    for m in (BATCH, BATCH * PAGE, BATCH * PROMPT):
-        for site, ws, wf, xdt, per_fwd in sites:
-            K, N = ws[0].k_orig, ws[0].n
-            x = torch.randn((m, K), generator=gen, device="cuda").to(xdt)
-            # the wrapper the main path calls (leading-dim fold, dispatch,
-            # one C call: the quantize kernel, then the MVM)
-            # against the plain version on the torch-quantized activations
-            got = dscim_fused.dscim_fused_mvm_prepared(x, ws[0], dcfg)
-            xq = dscim_fused.quantize_activations_windowed(x, ws[0].nw,
-                                                           ws[0].g)
-            q = xq.q.contiguous()
-            sx = xq.scale.reshape(m, ws[0].nw).contiguous()
-            want = dscim_fused.dscim_fused_mvm_plain(q, sx, ws[0].q,
-                                                     ws[0].scale, dcfg)
-            err = _check_close(f"dscim_fused {site} M={m}", got, want,
-                               FUSED_RTOL)
-            # the kernel's quantization is the torch one, bitwise
-            _, kq, ksx = dscim_fused._launch_kernel(x, ws[0], dcfg)
-            if not (torch.equal(kq, q) and torch.equal(
-                    ksx.view(torch.int32), sx.view(torch.int32))):
-                raise AssertionError(f"dscim_fused {site} M={m}: the "
-                                     "kernel's quantized activations differ")
-            # accuracy cost of the estimator itself: against x @ w in f32
-            exact = x.float() @ wf.float()
-            est_rmse = float((got - exact).pow(2).mean().sqrt())
-            exact_rms = float(exact.pow(2).mean().sqrt())
-            # time over distinct layers' weights: the main path meets each
-            # weight once per forward, not hot in L2
-            reps = 5 if m > BATCH else 20
-            ms = _cuda_ms(lambda: [dscim_fused._launch_kernel(x, w, dcfg)
-                                   for w in ws], reps) / len(ws)
-            # the same through the wrapper the main path calls
-            wrapper_ms = _cuda_ms(lambda: [
-                dscim_fused.dscim_fused_mvm_prepared(x, w, dcfg) for w in ws],
-                reps) / len(ws)
-            plain_ms = _cuda_ms(lambda: dscim_fused.dscim_fused_mvm_plain(
-                q, sx, ws[0].q, ws[0].scale, dcfg), reps=2, warmup=1)
-            kp = ws[0].nw * ws[0].g
-            nbytes = (x.numel() * x.element_size() + kp * N
-                      + 4 * ws[0].nw * N + 2 * 4 * dcfg.group * dcfg.sbits
-                      + 4 * m * N)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = _count_ops(m, N, ws[0].nw, ws[0].g, dcfg) \
-                / B1_OPS_PER_S * 1e3
-            # prefill runs the head on the last token only (M = batch): the
-            # M=256 head call is a check at a larger shape, off the path
-            on_path = not (site == "lm_head" and m == BATCH * PROMPT)
-            calls.append({
-                "shape": f"{site} M={m} K={K} N={N}",
-                "per_forward": per_fwd if on_path else 0,
-                "phase": phases[m] if on_path
-                else "check only, not on the main path",
+
+    def sites(spec):
+        """(site, prepared weights of every layer, layer 0's float weight,
+        activation dtype, calls per forward) at ``spec``, and its cfg."""
+        prep = prepare_serving_params(dataclasses.replace(cfg, dscim=spec),
+                                      params)
+        mlp = prep["layers"]["mlp"]
+        return {"w_gate": ([mlp["w_gate"][i] for i in range(L)],
+                           fmlp["w_gate"][0], torch.bfloat16, 2 * L),
+                "w_down": ([mlp["w_down"][i] for i in range(L)],
+                           fmlp["w_down"][0], torch.bfloat16, L),
+                "lm_head": ([prep["lm_head"]], params["embed"].T,
+                            torch.float32, 1)}, _linear_for(spec).cfg
+
+    def one(site, ws, wf, xdt, m, dcfg, tag=""):
+        K, N = ws[0].k_orig, ws[0].n
+        x = torch.randn((m, K), generator=gen, device="cuda").to(xdt)
+        # the wrapper the main path calls (leading-dim fold, dispatch,
+        # one C call: the quantize kernel, then the MVM)
+        # against the plain version on the torch-quantized activations
+        got = dscim_fused.dscim_fused_mvm_prepared(x, ws[0], dcfg)
+        xq = dscim_fused.quantize_activations_windowed(x, ws[0].nw, ws[0].g)
+        q = xq.q.contiguous()
+        sx = xq.scale.reshape(m, ws[0].nw).contiguous()
+        want = dscim_fused.dscim_fused_mvm_plain(q, sx, ws[0].q,
+                                                 ws[0].scale, dcfg)
+        err = _check_close(f"dscim_fused{tag} {site} M={m}", got, want,
+                           FUSED_RTOL)
+        # the kernel's quantization is the torch one, bitwise
+        _, kq, ksx = dscim_fused._launch_kernel(x, ws[0], dcfg)
+        if not (torch.equal(kq, q) and torch.equal(
+                ksx.view(torch.int32), sx.view(torch.int32))):
+            raise AssertionError(f"dscim_fused{tag} {site} M={m}: the "
+                                 "kernel's quantized activations differ")
+        # accuracy cost of the estimator itself: against x @ w in f32
+        exact = x.float() @ wf.float()
+        est_rmse = float((got - exact).pow(2).mean().sqrt())
+        exact_rms = float(exact.pow(2).mean().sqrt())
+        # time over distinct layers' weights: the main path meets each
+        # weight once per forward, not hot in L2
+        reps = 5 if m > BATCH else 20
+        ms = _cuda_ms(lambda: [dscim_fused._launch_kernel(x, w, dcfg)
+                               for w in ws], reps) / len(ws)
+        # the same through the wrapper the main path calls
+        wrapper_ms = _cuda_ms(lambda: [
+            dscim_fused.dscim_fused_mvm_prepared(x, w, dcfg) for w in ws],
+            reps) / len(ws)
+        plain_ms = _cuda_ms(lambda: dscim_fused.dscim_fused_mvm_plain(
+            q, sx, ws[0].q, ws[0].scale, dcfg), reps=2, warmup=1)
+        kp = ws[0].nw * ws[0].g
+        nbytes = (x.numel() * x.element_size() + kp * N
+                  + 4 * ws[0].nw * N + 2 * 4 * dcfg.group * dcfg.sbits
+                  + 4 * m * N)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = _count_ops(m, N, ws[0].nw, ws[0].g, dcfg) \
+            / B1_OPS_PER_S * 1e3
+        return {"shape": f"{tag.strip() + ' ' if tag else ''}{site} M={m} "
+                         f"K={K} N={N}",
                 "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper_ms,
                 "plain_ms": plain_ms,
                 "rmse_vs_float_matmul": est_rmse,
                 "float_matmul_rms": exact_rms,
                 "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
-            _log(f"dscim_fused {calls[-1]['shape']} ({calls[-1]['phase']}, "
-                 f"{'decode' if m <= 16 else 'prefill'} regime): err "
-                 f"{err:.3e}, quantization bitwise; "
-                 f"{ms:.4f} ms (wrapper {wrapper_ms:.4f} ms, plain "
-                 f"{plain_ms:.3f} ms, bound "
-                 f"{calls[-1]['bound_ms']:.4f} ms, {calls[-1]['bound_by']}); "
-                 f"estimate vs f32 x @ w: RMSE {est_rmse:.4f}, "
-                 f"RMS of x @ w {exact_rms:.4f}")
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+    def log(c):
+        _log(f"dscim_fused {c['shape']} ({c['phase']}, "
+             f"{c['per_forward']} a forward): err {c['max_abs_err']:.3e}, "
+             f"quantization bitwise; {c['ms']:.4f} ms (wrapper "
+             f"{c['wrapper_ms']:.4f} ms, plain {c['plain_ms']:.3f} ms, "
+             f"bound {c['bound_ms']:.4f} ms, {c['bound_by']}); estimate vs "
+             f"f32 x @ w: RMSE {c['rmse_vs_float_matmul']:.4f}, RMS of "
+             f"x @ w {c['float_matmul_rms']:.4f}")
+
+    calls = []
+    # the main path: decode (M = slots), an extend chunk of the prefix
+    # path (M = slots x page: every MLP site and the f32 head, a partial
+    # prefill tile) and prefill (M = slots x prompt)
+    main, dcfg = sites(DSCIM)
+    phases = {BATCH: "decode", BATCH * PAGE: "prefix extend",
+              BATCH * PROMPT: "prefill"}
+    for m in (BATCH, BATCH * PAGE, BATCH * PROMPT):
+        for site, (ws, wf, xdt, per_fwd) in main.items():
+            # prefill runs the head on the last token only (M = batch):
+            # the M=256 head call is a check at a larger shape, off the path
+            on_path = not (site == "lm_head" and m == BATCH * PROMPT)
+            calls.append(dict(
+                one(site, ws, wf, xdt, m, dcfg),
+                per_forward=per_fwd if on_path else 0,
+                phase=phases[m] if on_path
+                else "check only, not on the main path"))
+            log(calls[-1])
+    # off the main path, each phase's calls a forward: the watchdog
+    # phase's segments (M = slots) and one-request admissions (M = prompt;
+    # the head on the last token) at WD_DSCIM, and the ladder's dscim1
+    # rung, serve_batch of the quarantined requests (LADDER_B rows)
+    extra = [(WD_DSCIM, "watchdog segment decode", BATCH, BATCH),
+             (WD_DSCIM, "watchdog admission prefill", PROMPT, 1),
+             (DSCIM, "ladder decode", LADDER_B, LADDER_B),
+             (DSCIM, "ladder prefill", LADDER_B * PROMPT, LADDER_B)]
+    configs = {DSCIM: (main, dcfg), WD_DSCIM: sites(WD_DSCIM)}
+    for spec, phase, m, m_head in extra:
+        table, dc = configs[spec]
+        tag = f" {spec}" if spec != DSCIM else ""
+        for site, (ws, wf, xdt, per_fwd) in table.items():
+            calls.append(dict(
+                one(site, ws, wf, xdt, m_head if site == "lm_head" else m,
+                    dc, tag),
+                per_forward=per_fwd, phase=phase))
+            log(calls[-1])
     dec = [c for c in calls if c["phase"] == "decode"]
     step = {k: sum(c[k] * c["per_forward"] for c in dec)
             for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms")}
@@ -1815,6 +2197,11 @@ def main() -> int:
         if cb_outs is not None else None
     if cb_outs is None:
         failures.append("faults (no continuous outputs to compare)")
+    wd = phase("watchdog", watchdog_phase, torch, cfg, params)
+    integ = phase("integrity", integrity_phase, torch, cfg, served,
+                  cb_outs) if cb_outs is not None else None
+    if cb_outs is None:
+        failures.append("integrity (no continuous outputs to compare)")
     spec = phase("spec", spec_phase, torch, cfg, served, prompts,
                  e2e.get("tokens"))
     modes = phase("modes", modes_phase, torch, cfg, served, prompts)
@@ -1854,7 +2241,8 @@ def main() -> int:
                       "capture_s": e2e.get("capture_s"),
                       "loops": e2e.get("loops"), "continuous": cb,
                       "spec": spec, "modes": modes, "prefix": pfx,
-                      "faults": faults,
+                      "faults": faults, "watchdog": wd,
+                      "integrity": integ,
                       "prefill_logit_rmse_vs_off": e2e.get("logit_rmse"),
                       "reduced_gpu_vs_cpu_drift": drift,
                       "table1_rmse_pct": t1,

@@ -48,6 +48,10 @@ class ArchConfig:
     # DS-CIM serving path: "off" or "<mode>:<variant>:<L>[:<calib>]",
     # e.g. "kernel:dscim1:256"
     dscim: str = "off"
+    # stuck-at macro fault of the DS-CIM linears, '' = healthy, else
+    # "stuck:<stride>:<value>" (models/lm.py _parse_fault; armed by
+    # runtime/failover.py FailureInjector.macro_fault_at)
+    dscim_fault: str = ""
 
     @property
     def vocab_padded(self) -> int:

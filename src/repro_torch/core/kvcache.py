@@ -43,13 +43,17 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .digest import M32, fold
+
 __all__ = ["quantize_page", "n_pages_for", "admission_pages",
            "default_page_table", "init_paged_cache", "paged_from_dense",
            "admit_request", "admit_dense", "spec_rollback", "PageAllocator",
            "prefix_chunk_keys", "PrefixCache", "cow_fork",
-           "extract_slot_pages", "insert_slot_pages", "TAIL_DTYPE"]
+           "extract_slot_pages", "insert_slot_pages", "TAIL_DTYPE",
+           "CHECKSUM_KEY", "page_checksums", "refresh_page_checksums"]
 
 TAIL_DTYPE = torch.bfloat16
+CHECKSUM_KEY = "page_sum"
 
 
 def quantize_page(x: torch.Tensor):
@@ -65,6 +69,55 @@ def quantize_page(x: torch.Tensor):
     scale = torch.clamp_min(amax, 1e-8) * (1.0 / 127.0)
     q = torch.clamp(torch.round(x / scale[..., None, :, None]), -127, 127)
     return q.to(torch.int8), scale
+
+
+def page_checksums(k_pages, v_pages, k_scale, v_scale) -> torch.Tensor:
+    """Per-(layer, page) uint32 digest of the quantized pool, as int64: k/v
+    int8 planes (L, P, ps, KV, HD) and bitcast f32 scales (L, P, KV) ->
+    (L, P), each plane folded with its own odd multiplier (1, 3, 5, 7) and
+    the four added mod 2**32, as the reference adds its uint32 sums."""
+    return (fold(k_pages, 2, 1) + fold(v_pages, 2, 3) + fold(k_scale, 2, 5)
+            + fold(v_scale, 2, 7)) & M32
+
+
+def _update_page_sums(cache, phys) -> None:
+    """Re-digest the physical pages ``phys`` (any shape) from the pool's
+    current bits, in place; no-op without the ``page_sum`` plane."""
+    if CHECKSUM_KEY not in cache:
+        return
+    idx = torch.as_tensor(phys, device=cache["pos"].device).reshape(-1) \
+        .long()
+    cache[CHECKSUM_KEY][:, idx] = page_checksums(
+        *(cache[name][:, idx] for name in _PAGE_PLANES))
+
+
+def refresh_page_checksums(cache, pos0, upper, max_span: int) -> None:
+    """Re-digest every physical page a decode segment or an extend chunk
+    may have flushed, in place, with no host read: a logical page whose
+    last token index lies in ``[pos0, upper)`` (B,) was filled during the
+    step, so its digest is recomputed from the live pool bits.
+    ``max_span`` bounds ``upper - pos0`` (sizes the candidate window);
+    empty ranges refresh nothing.  Candidates outside a range write to a
+    scratch column past the pool that is then dropped, and two candidates
+    naming one page carry the same digest (both come from its bits).  No-op
+    without the ``page_sum`` plane."""
+    if CHECKSUM_KEY not in cache:
+        return
+    table = cache["page_table"]
+    mp = table.shape[1]
+    P, ps = cache["k_pages"].shape[1:3]
+    J = max_span // ps + 2
+    js = (pos0 // ps)[:, None].long() + torch.arange(
+        J, dtype=torch.long, device=table.device)[None, :]
+    last_tok = js * ps + (ps - 1)                             # (B, J)
+    hit = (last_tok >= pos0[:, None]) & (last_tok < upper[:, None]) \
+        & (js < mp)
+    phys = torch.gather(table, 1, torch.clamp_max(js, mp - 1)).long()
+    safe = phys.reshape(-1)
+    sums = page_checksums(*(cache[name][:, safe] for name in _PAGE_PLANES))
+    buf = torch.cat([cache[CHECKSUM_KEY], cache[CHECKSUM_KEY][:, :1]], 1)
+    buf[:, torch.where(hit, phys, P).reshape(-1)] = sums
+    cache[CHECKSUM_KEY].copy_(buf[:, :P])
 
 
 def n_pages_for(capacity: int, page_size: int) -> int:
@@ -98,14 +151,16 @@ def default_page_table(batch: int, max_pages: int, device=None):
 
 
 def init_paged_cache(n_layers: int, batch: int, n_pages: int, page_size: int,
-                     max_pages: int, n_kv: int, head_dim: int, device=None):
+                     max_pages: int, n_kv: int, head_dim: int, device=None,
+                     integrity: bool = False):
     """Empty pool + idle slots (pos 0, slot-major default page table
-    clamped into the pool)."""
+    clamped into the pool).  ``integrity=True`` adds the ``page_sum``
+    plane, consistent with the empty pool."""
     table = torch.clamp_max(default_page_table(batch, max_pages, device),
                             n_pages - 1)
     pool = (n_layers, n_pages, page_size, n_kv, head_dim)
     tail = (n_layers, batch, page_size, n_kv, head_dim)
-    return {
+    cache = {
         "k_pages": torch.zeros(pool, dtype=torch.int8, device=device),
         "v_pages": torch.zeros(pool, dtype=torch.int8, device=device),
         "k_scale": torch.ones((n_layers, n_pages, n_kv), dtype=torch.float32,
@@ -117,6 +172,10 @@ def init_paged_cache(n_layers: int, batch: int, n_pages: int, page_size: int,
         "page_table": table,
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+    if integrity:
+        cache[CHECKSUM_KEY] = page_checksums(
+            *(cache[name] for name in _PAGE_PLANES))
+    return cache
 
 
 def paged_from_dense(ks: torch.Tensor, vs: torch.Tensor, page_size: int,
@@ -152,12 +211,14 @@ def paged_from_dense(ks: torch.Tensor, vs: torch.Tensor, page_size: int,
 
 def _scatter_pages(cache, ks, vs, phys):
     """Quantize full pages ks/vs (L, ..., nf, ps, KV, HD) and write them
-    into the pool at physical indices ``phys`` (..., nf), in place."""
+    into the pool at physical indices ``phys`` (..., nf), in place, and
+    re-digest them."""
     for src, pages, scales in ((ks, "k_pages", "k_scale"),
                                (vs, "v_pages", "v_scale")):
         q, s = quantize_page(src)
         cache[pages][:, phys] = q
         cache[scales][:, phys] = s
+    _update_page_sums(cache, phys)
 
 
 def admit_request(cache, ks1, vs1, slot: int, page_ids):
@@ -563,9 +624,9 @@ _PAGE_PLANES = ("k_pages", "v_pages", "k_scale", "v_scale")
 def cow_fork(cache, alloc: PageAllocator, page_ids, start_idx: int = 0):
     """Copy-on-write fork: make every page of a slot's grant from logical
     index ``start_idx`` on private before a write can land there.  A
-    page in that range with refcount > 1 is copied (int8 planes and f32
-    scales) onto a fresh page of the pool, in place, and the slot drops
-    its reference on the original (the other sharers keep it).  In the
+    page in that range with refcount > 1 is copied (int8 planes, f32
+    scales, its digest) onto a fresh page of the pool, in place; the slot
+    drops its reference on the original (the other sharers keep it).  In the
     aligned admission flow this is a checked no-op: sharing stops
     strictly below the write frontier.  Returns ``(cache, new_page_ids,
     n_forked)``; raises RuntimeError if the pool has no page to fork
@@ -582,7 +643,8 @@ def cow_fork(cache, alloc: PageAllocator, page_ids, start_idx: int = 0):
                 "cow_fork: page pool exhausted while forking a shared "
                 f"page (id {old}): the grant was undersized")
         new = got[0]
-        for name in _PAGE_PLANES:
+        for name in _PAGE_PLANES + ((CHECKSUM_KEY,) if CHECKSUM_KEY in cache
+                                    else ()):
             cache[name][:, new].copy_(cache[name][:, old])
         alloc.free([old])
         ids[j] = new
@@ -627,4 +689,5 @@ def insert_slot_pages(cache, slot: int, page_ids, blob: dict):
     cache["page_table"][slot] = torch.as_tensor(
         ids + [ids[-1]] * (mp - len(ids)), dtype=torch.int32, device=dev)
     cache["pos"][slot] = blob["pos"]
+    _update_page_sums(cache, idx)
     return cache

@@ -9,18 +9,31 @@ per-window dequant scales a DS-CIM chip keeps resident:
 * ``scale`` — f32 ``(*stack, nw, N)`` per-window dequant scales;
 * ``k_orig``/``group_k`` — the unpadded contraction length and the
               requested window granularity.
+
+Integrity digests (``plane_digest`` ... ``restore_weight_plane``): a
+prepared model's planes are static for the whole serve, so one digest a
+plane, taken with a host golden copy at ``prepare_serving_params(...,
+golden=True)``, detects any later bit flip in them; a repair copies the
+golden bytes back *into the live tensor*, so a captured graph bound to
+its address keeps reading the repaired plane.  Plane order and path
+strings are the reference's (its pytree flatten sorts dict keys).
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from .digest import fold
 from .quant import quantize_int8
 
 __all__ = ["QuantizedLinearWeight", "prepare_linear_weight",
            "prepare_dscim_params", "split_dscim_mode", "map_params",
-           "ELIGIBLE_PATTERNS", "ATTN_PATTERNS"]
+           "ELIGIBLE_PATTERNS", "ATTN_PATTERNS", "plane_digest",
+           "iter_qweight_planes", "weight_plane_index",
+           "weight_plane_digests", "golden_weight_copy",
+           "restore_weight_plane"]
 
 
 @dataclasses.dataclass
@@ -126,3 +139,69 @@ def prepare_dscim_params(params, cfg, *, group_k: int | None = 128):
     if cfg.tie_embeddings and not cfg.stub_frontend and "lm_head" not in out:
         out["lm_head"] = prepare_linear_weight(params["embed"].T, group_k)
     return out
+
+
+# --- integrity digests -----------------------------------------------------
+
+def plane_digest(x: torch.Tensor) -> torch.Tensor:
+    """The uint32 digest of one plane (core/digest.py, multiplier 1) as an
+    int64 scalar tensor: equal to the reference's ``plane_digest``."""
+    return fold(x, 0, 1)
+
+
+def _sorted_leaves(tree, path: str = ""):
+    """(path, leaf) over a nested dict in the reference's flatten order:
+    dict keys sorted at every level."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _sorted_leaves(tree[k], f"{path}/{k}" if path else k)
+    else:
+        yield path, tree
+
+
+def iter_qweight_planes(params):
+    """(path, 'q'|'scale', tensor) for every prepared weight of
+    ``params``, in the reference's order: the canonical plane order of
+    digest sweeps, golden copies and mismatch attribution."""
+    out = []
+    for p, leaf in _sorted_leaves(params):
+        if isinstance(leaf, QuantizedLinearWeight):
+            out.append((p, "q", leaf.q))
+            out.append((p, "scale", leaf.scale))
+    return out
+
+
+def weight_plane_index(params):
+    """[(path, 'q'|'scale'), ...] in ``iter_qweight_planes`` order."""
+    return [(p, which) for p, which, _ in iter_qweight_planes(params)]
+
+
+def weight_plane_digests(params) -> torch.Tensor:
+    """(n_planes,) int64 digests in ``weight_plane_index`` order, on the
+    planes' device, each digested plane by plane in chunks."""
+    planes = iter_qweight_planes(params)
+    if not planes:
+        return torch.zeros((0,), dtype=torch.int64)
+    return torch.stack([plane_digest(x) for _, _, x in planes])
+
+
+def golden_weight_copy(params) -> dict:
+    """Host golden copy of every prepared plane and its digest vector:
+    ``{"index", "digests" (np.int64), "planes": {(path, which): CPU
+    tensor}}``, the repair's source of truth."""
+    planes = {(p, which): x.to("cpu", copy=True)
+              for p, which, x in iter_qweight_planes(params)}
+    return {"index": weight_plane_index(params),
+            "digests": weight_plane_digests(params).cpu().numpy()
+            .astype(np.int64),
+            "planes": planes}
+
+
+def restore_weight_plane(params, path: str, which: str, golden):
+    """Copy the (path, which) plane's golden bytes back into the live
+    tensor, in place; returns ``params`` (the same tree)."""
+    for p, w, x in iter_qweight_planes(params):
+        if p == path and w == which:
+            x.copy_(golden["planes"][(path, which)])
+            return params
+    raise KeyError(f"no prepared plane {(path, which)}")

@@ -160,6 +160,13 @@ __device__ __forceinline__ float window_term(const Params& p, int cnt,
   return __fmul_rn(__fmul_rn(ps, sxv), swv);
 }
 
+// max that keeps a NaN, as torch.amax does (fmaxf drops it): a NaN
+// activation must give a NaN scale and so a NaN output, as in the plain
+// version, not a finite one from the window's other values
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (b > a || b != b) ? b : a;
+}
+
 // Quantizes row m of x over window u with one warp, in x's dtype as
 // quantize_int8 computes it in torch: the g values go to dst[0..g), the
 // scale is returned and the sums of q and of a = (q+128)>>k land in every
@@ -172,10 +179,10 @@ __device__ __forceinline__ float quantize_window(const Params& p, int m, int u,
   const int valid = min(p.g, p.K - u * p.g);       // rows past K are x = 0
   float mx = 0.f;
   for (int r = lane; r < valid; r += 32)
-    mx = fmaxf(mx, fabsf(XT<T>::ld(p.x, base + r)));
+    mx = nan_max(mx, fabsf(XT<T>::ld(p.x, base + r)));
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    mx = nan_max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
   // clamp_min(amax, eps) * (1/127), rounded to x's dtype
   const float sc = XT<T>::rnd(__fmul_rn(mx < p.eps ? p.eps : mx, p.recip));
   xs = as = 0;

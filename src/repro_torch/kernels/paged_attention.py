@@ -54,6 +54,9 @@ def paged_read_plain(q, k_pages, v_pages, k_scale, v_scale, k_tail, v_tail,
         kj = torch.where(is_tail, kt, kj)
         vj = torch.where(is_tail, vt, vj)
         valid = (j * ps + offs)[None, :] <= pos[:, None]          # (B, ps)
+        # a page past pos is never read, as in the kernel: whatever it
+        # holds (a stale inf scale too) must not reach acc as 0 * inf
+        vj = torch.where(valid[:, :, None, None], vj, 0.0)
         s = torch.einsum("bgrd,bpgd->bgrp", q, kj) * scale_qk
         s = torch.where(valid[:, None, None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))

@@ -22,6 +22,10 @@ through ``--dscim`` (greedy output bitwise the plain output).
 ``--prefix-cache`` admits the ``--continuous`` queue through the prefix
 cache (a shared system prompt over 3/4 of it); ``--prefix-drill`` runs
 the prefix cache's self-verifying drill (runtime/serving.py).
+``--integrity verify|scrub:<n>`` checks the ``--continuous`` run's int8
+pages and weight planes; ``--sampled-chaos`` arms a fault schedule drawn
+from ``--chaos-seed`` on it; ``--chaos`` and ``--integrity-drill`` run
+the watchdog's and the integrity layer's self-verifying drills.
 """
 from __future__ import annotations
 
@@ -202,10 +206,27 @@ def serve_continuous(cfg, params, prompts, n_tokens: int, *,
       off.  ``stats['prefix']`` has the index's hits, hit tokens, pages
       deduped, prefill positions computed and in total, and the hit and
       miss admission latencies.
+    * **Accuracy watchdog** (``monitor``, a runtime/watchdog.py
+      ``AccuracyWatchdog``, usually runtime/serving.py
+      ``watchdog_for_spec(cfg.dscim)``): every ``probe_every`` segments an
+      exact-mode decode of the same (token, cache) is compared with the
+      segment's first serving logits; a slot that drifts past the
+      threshold or goes NaN/Inf is quarantined, its tokens discarded, and
+      its request served again down the ladder dscim2 -> dscim1 -> exact
+      (``stats['quarantined'/'escalations'/'probes'/'probe_trips']``).
+      ``watchdog`` (a ``Watchdog``) counts stragglers and turns a hang
+      into a replay.  The injector's ``macro_fault_at`` arms a stuck-at
+      macro fault (a second, faulted segment runner) and its
+      ``page_flips`` / ``weight_flips`` flip bits in place
+      (``stats['corrupted_requests']``).
+    * **Integrity** (``integrity`` 'verify' | 'scrub:<n>', int8 KV only):
+      checksummed pages and digested weight planes checked every n-th
+      boundary; a corrupted plane is restored from its golden copy in
+      place (with a replay if decodes read it), a corrupted page rewinds
+      its owner slot alone (``stats['integrity']``).  Weight flips stay in
+      prepared params passed in when nothing repairs them.
 
-    ``monitor``, ``watchdog``, ``integrity`` and the injector's bit flips
-    and macro fault raise ``NotImplementedError``: ROADMAP A11's second
-    half ports them.  ``spec`` ('<variant>:<k>'): each segment step is a
+    ``spec`` ('<variant>:<k>'): each segment step is a
     draft/verify window, and every slot's capacity and page grant gain k
     positions of headroom; each request's tokens are bitwise those
     without spec under greedy decoding.  ``params`` go through
@@ -338,6 +359,32 @@ def main(argv=None):
                          "vs cold legs; asserts bitwise parity, page "
                          "dedup, >40%% prefill positions skipped and a "
                          "drained pool")
+    ap.add_argument("--chaos", action="store_true",
+                    help="run the self-verifying chaos drill "
+                         "(runtime/serving.py chaos_drill): a device loss, "
+                         "page-pool bit flips, a stuck-at macro fault and a "
+                         "deadline over the fault-tolerant scheduler")
+    ap.add_argument("--integrity", default="off", metavar="MODE",
+                    help="integrity checks of the --continuous run "
+                         "(runtime/integrity.py): 'off', 'verify' (every "
+                         "segment boundary) or 'scrub:<n>' (every n-th): "
+                         "checksummed int8 KV pages and prepared-weight "
+                         "digests with targeted repair; requires --kv int8")
+    ap.add_argument("--integrity-drill", action="store_true",
+                    help="run the self-verifying integrity drill "
+                         "(runtime/serving.py integrity_drill): page and "
+                         "weight-plane bit flips under scrub:2, found at "
+                         "their coordinates and repaired, outputs bitwise "
+                         "the fault-free run")
+    ap.add_argument("--sampled-chaos", action="store_true",
+                    help="arm a FailureInjector.sampled schedule (seeded by "
+                         "--chaos-seed) on the --continuous run: a device "
+                         "loss and page/weight bit flips; pairs with "
+                         "--integrity")
+    ap.add_argument("--chaos-seed", type=int, default=0, metavar="SEED",
+                    help="seed of the drills' weights and prompts and of "
+                         "--sampled-chaos' schedule, so a failure "
+                         "reproduces from the logged seed")
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, which must exist)")
     ap.add_argument("--seed", type=int, default=0,
@@ -345,6 +392,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    if args.chaos or args.integrity_drill:
+        from ..runtime import serving
+        drill = serving.chaos_drill if args.chaos \
+            else serving.integrity_drill
+        drill(args.arch, seed=args.chaos_seed, device=dev)
+        return 0
     if args.prefix_drill:
         from ..runtime.serving import prefix_drill
         prefix_drill(args.arch, seed=args.seed, device=dev)
@@ -372,15 +425,28 @@ def main(argv=None):
         budgets = rng.integers(max(2, args.tokens // 4), args.tokens + 1,
                                (args.requests,), dtype=np.int32)
         for tag, c in runs:
+            injector = None
+            if args.sampled_chaos:
+                from ..runtime.failover import FailureInjector
+                # a fresh injector a run: its fired-once set is stateful
+                injector = FailureInjector.sampled(
+                    args.chaos_seed, segments=8, slots=args.batch,
+                    n_layers=c.n_layers, page_size=args.page_size,
+                    device_losses=1, flips=2,
+                    weight_paths=("layers/mlp/w_up",) if tag != "off"
+                    else (), weight_flip_count=1 if tag != "off" else 0)
             _, stats = serve_continuous(
                 c, params, prompts, args.tokens, slots=args.batch,
                 seg_len=args.segment_len, max_new=budgets,
                 eos_id=args.eos if args.eos is not None else -1,
                 sample=sample, kv=args.kv, page_size=args.page_size,
                 device=dev, spec=args.spec if tag != "off" else None,
-                prefix_cache=args.prefix_cache)
+                prefix_cache=args.prefix_cache, injector=injector,
+                snapshot_every=1 if injector is not None else 0,
+                integrity=args.integrity)
             pages = stats["pages"]
             pf = stats["prefix"]
+            ig = stats["integrity"]
             print(f"[serve-cb] dscim={tag} kv={args.kv} {name}: "
                   f"{stats['tok_s']:.1f} tok/s over "
                   f"{stats['useful_tokens']} useful tokens, occupancy "
@@ -394,7 +460,15 @@ def main(argv=None):
                      f"{pf['pages_deduped']} pages deduped, "
                      f"{pf['prefill_positions_computed']}/"
                      f"{pf['prefill_positions_total']} prefill positions "
-                     "computed" if pf else ""))
+                     "computed" if pf else "")
+                  + (f", integrity: {ig['checks']} checks, "
+                     f"{ig['page_mismatches']}p/{ig['weight_mismatches']}w "
+                     f"mismatches, {ig['page_repairs'] + ig['weight_repairs']}"
+                     f" repairs" if ig else "")
+                  + (f", {stats['replays']} replays ("
+                     f"{ig['replays'] if ig else 0} for integrity), "
+                     f"corrupted {stats['corrupted_requests']}"
+                     if injector else ""))
         return 0
 
     mode = "host loop" if args.host_loop else (

@@ -50,28 +50,36 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core import counter_rng, kvcache
-from ..core.qweights import (QuantizedLinearWeight, map_params,
-                             prepare_dscim_params, split_dscim_mode)
+from ..core.qweights import (QuantizedLinearWeight, golden_weight_copy,
+                             map_params, prepare_dscim_params,
+                             split_dscim_mode)
 from ..models import lm
 from .graph import CapturedStep
 
 __all__ = ["prepare_serving_params", "make_generate_fn", "init_serve_state",
            "make_admit_fn", "make_segment_fn", "make_extend_fn",
-           "clear_graphs", "PAD_ID"]
+           "make_probe_fn", "clear_graphs", "PAD_ID"]
 
 PAD_ID = 0          # token written for finished slots
 SEG_LEN = 4         # replays between two host looks at ``done``
 
 
-def prepare_serving_params(cfg: ArchConfig, params):
+def prepare_serving_params(cfg: ArchConfig, params, *, golden: bool = False):
     """Quantize-once weight preparation for DS-CIM serving; a no-op for
-    'off'/'float' specs."""
+    'off'/'float' specs.  ``golden=True`` returns ``(prepared, blob)``
+    with the host golden copy and digest vector of every prepared plane
+    (core/qweights.py ``golden_weight_copy``, the integrity layer's
+    repair source), taken here where the planes are good by
+    construction; None for 'off'/'float'."""
     spec = getattr(cfg, "dscim", "off")
     if split_dscim_mode(spec)[0] in ("off", "float"):
-        return params
+        return (params, None) if golden else params
     lin = lm._linear_for(spec)
-    return prepare_dscim_params(params, cfg,
-                                group_k=lin.group_k if lin else 128)
+    prepared = prepare_dscim_params(params, cfg,
+                                    group_k=lin.group_k if lin else 128)
+    if golden:
+        return prepared, golden_weight_copy(prepared)
+    return prepared
 
 
 def _check_kv(cfg: ArchConfig, kv: str):
@@ -379,7 +387,7 @@ def _prepare_fn(st: dict, uses):
             a, QuantizedLinearWeight) else None, st["params"])
         first = [w[(0,) * len(w.stack)] if w.stack else w for w in qws]
         for cfg, M in uses:
-            lin = lm._linear_for(cfg.dscim)
+            lin = lm._lin(cfg)
             if lin is None:
                 continue
             if lin.mode == "lut":
@@ -410,9 +418,11 @@ def _uses(cfg: ArchConfig, B: int, spec):
 
 
 def _static_cache(cfg: ArchConfig, B: int, capacity: int, kv: str,
-                  page_size: int, n_pages: int | None, device):
+                  page_size: int, n_pages: int | None, device,
+                  integrity: bool = False):
     """An empty cache of the requested layout (the runners' and the serve
-    state's static buffers)."""
+    state's static buffers); ``integrity`` adds the int8 pool's digest
+    plane."""
     from ..core.kvcache import init_paged_cache, n_pages_for
     if kv == "float":
         shape = (cfg.n_layers, B, capacity, cfg.n_kv, cfg.head_dim)
@@ -424,7 +434,7 @@ def _static_cache(cfg: ArchConfig, B: int, capacity: int, kv: str,
     return init_paged_cache(cfg.n_layers, B,
                             B * mp if n_pages is None else n_pages,
                             page_size, mp, cfg.n_kv, cfg.head_dim,
-                            device=device)
+                            device=device, integrity=integrity)
 
 
 class _GenerateRunner:
@@ -655,12 +665,15 @@ def init_serve_state(cfg: ArchConfig, slots: int, capacity: int, *,
     ``capacity`` is the per-slot token budget (prompt + generated, + k
     under speculative decoding); for ``kv='int8'`` the page pool defaults
     to slots x pages-per-sequence and can be sized independently
-    (``n_pages``).  Admissions and segments update these tensors in
-    place, so a captured segment step keeps its addresses."""
+    (``n_pages``).  ``integrity=True`` (int8 only) adds the per-page
+    digest plane (core/kvcache.py ``page_sum``), which the admissions,
+    segments and extend chunks keep current.  Admissions and segments
+    update these tensors in place, so a captured segment step keeps its
+    addresses."""
     _check_kv(cfg, kv)
-    if integrity:
-        raise NotImplementedError("the page checksum plane is not ported "
-                                  "yet (ROADMAP A11)")
+    if integrity and kv != "int8":
+        raise ValueError("integrity checksums need the int8 paged cache "
+                         "(kv='int8')")
     from ..device import resolve_device
     dev = resolve_device(device)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -669,7 +682,7 @@ def init_serve_state(cfg: ArchConfig, slots: int, capacity: int, *,
             "n_out": torch.zeros((slots,), **i32),
             "max_new": torch.ones((slots,), **i32),
             "cache": _static_cache(cfg, slots, capacity, kv, page_size,
-                                   n_pages, dev),
+                                   n_pages, dev, integrity),
             "seed": torch.full((1,), seed, dtype=torch.int64, device=dev),
             "stream": torch.zeros((slots,), dtype=torch.int64, device=dev),
             "admitted": 0}
@@ -761,7 +774,10 @@ def make_segment_fn(cfg: ArchConfig, seg_len: int = SEG_LEN, *,
     toks (rows, B) int32, live (rows, B) bool, aux) where ``live[s, b]``
     marks that slot b did useful work at row s; ``aux["bad"]`` (rows, B)
     flags live rows whose logits went NaN/Inf and ``aux["logits0"]`` (B,
-    Vp) f32 is the first step's logits, as in the reference.  rows is
+    Vp) f32 is the first step's logits, as in the reference (the
+    accuracy watchdog's serving side).  With the cache's digest plane
+    the pages the segment flushed are re-digested after the replays.
+    rows is
     ``seg_len``, or under ``spec`` ('<variant>:<k>') ``seg_len * (k+1)``:
     each step is then a draft/verify window, ``aux["logits0"]`` the first
     window's verify logits at position 0.  The captured graph binds the
@@ -776,15 +792,24 @@ def make_segment_fn(cfg: ArchConfig, seg_len: int = SEG_LEN, *,
         _check_spec(cfg)
     box = {"bindings": 0}
 
+    k = sp[1] if sp else 0
+
     @torch.no_grad()
     def segment(params, state):
         run = _bound_run(box, params, state, lambda: _SegmentRun(
             cfg, state, params, seg_len, nxt, eos, sp))
         st = run.st
         st["i"].zero_()
+        cache = state["cache"]
+        sums = kvcache.CHECKSUM_KEY in cache
+        pos0 = cache["pos"].clone() if sums else None
         step = run.step.run if graph else run.step.step
         for _ in range(seg_len):
             step()
+        if sums:
+            # a draft may flush up to k positions past the committed pos
+            kvcache.refresh_page_checksums(cache, pos0, cache["pos"] + k,
+                                           seg_len * (k + 1) + k)
         return state, st["toks"].clone(), st["live"].clone(), \
             {"bad": st["bad"].clone(), "logits0": st["logits0"].clone()}
 
@@ -920,12 +945,22 @@ def make_extend_fn(cfg: ArchConfig, chunk_len: int, *,
         step = run.step
         if graph and step.device.type == "cuda" and step.graph is None:
             step.capture()     # its preparation launches are not the step's
+        cache = state["cache"]
+        pos0 = cache["pos"].clone() \
+            if kvcache.CHECKSUM_KEY in cache else None
         before = {c: c.count for c in build.COUNTERS}
         (step.run if graph else step.step)()
         for c in build.COUNTERS:
             if c.count != before.get(c, 0):
                 launches[c.name] = launches.get(c.name, 0) \
                     + c.count - before.get(c, 0)
+        if pos0 is not None:
+            # the chunk, pad positions included, may have flushed pages up
+            # to chunk_len past the slot's entry position
+            span = torch.zeros_like(pos0)
+            span[int(slot)] = chunk_len
+            kvcache.refresh_page_checksums(cache, pos0, pos0 + span,
+                                           chunk_len)
         if emit:
             state["admitted"] += 1
         tok0 = st["x_tok0"][0].clone()
@@ -936,3 +971,82 @@ def make_extend_fn(cfg: ArchConfig, chunk_len: int, *,
     extend.runs = box
     extend.launches = launches
     return extend
+
+
+class _ProbeRun:
+    """The probe's scratch buffers and captured step, bound to one serve
+    state and one set of params (see ``make_probe_fn``)."""
+
+    def __init__(self, cfg, state, params):
+        cache = state["cache"]
+        dev = state["tok"].device
+        B = state["tok"].shape[0]
+        rows = torch.arange(B, device=dev)
+        scratch = dict(cache, pos=torch.empty_like(cache["pos"]))
+        paged = "k_pages" in cache
+        names = ("k_pages", "v_pages", "k_scale", "v_scale") if paged \
+            else ("k", "v")
+        if paged:
+            ps = cache["k_pages"].shape[2]
+            for name in ("k_tail", "v_tail"):
+                scratch[name] = torch.empty_like(cache[name])
+        saved = {name: torch.empty((cache[name].shape[0], B,
+                                    *cache[name].shape[2 + (not paged):]),
+                                   dtype=cache[name].dtype, device=dev)
+                 for name in names}
+        self.out = out = torch.zeros((B, cfg.vocab_padded),
+                                     dtype=torch.float32, device=dev)
+
+        def step():
+            pos = cache["pos"]
+            scratch["pos"].copy_(pos)
+            if paged:
+                for name in ("k_tail", "v_tail"):
+                    scratch[name].copy_(cache[name])
+                # the one page per slot a decode step can flush into
+                at = (slice(None), cache["page_table"][
+                    rows, (pos // ps).long()].long())
+            else:
+                at = (slice(None), rows,
+                      torch.clamp_max(pos, cache["k"].shape[2] - 1).long())
+            for name in names:
+                saved[name].copy_(cache[name][at])
+            logits, _ = lm.decode(params, cfg, state["tok"], scratch,
+                                  done=state["done"])
+            for name in names:
+                cache[name][at] = saved[name]
+            out.copy_(logits)
+
+        st = {"params": params, "tok": state["tok"], "cache": cache}
+        self.step = CapturedStep(step, dev, _prepare_fn(st, [(cfg, B)]))
+
+
+def make_probe_fn(cfg_ref: ArchConfig, *, graph: bool = True):
+    """The exact half of the accuracy watchdog's probe (the port of the
+    reference's ``make_probe_fn``): one decode of the serve state's
+    (token, cache) under ``cfg_ref``, normally the serving spec's
+    exact-mode, fault-free twin (runtime/serving.py ``exact_probe_spec``,
+    ``dscim_fault=''``), on the same prepared planes: the exact mode takes
+    them too, so only the estimator differs.  ``probe(params, state) ->
+    logits (B, Vp) f32``, compared with the segment's ``aux["logits0"]``.
+
+    The port's decode writes in place, so the probe decodes a scratch
+    cache: its own ``pos`` and tails, and the live pool, whose one page
+    per slot that the step can flush is saved first and written back
+    after (the dense layout: the row at ``pos``).  The serve state is
+    bitwise what it was after a probe.  Like a segment, the probe is one
+    captured graph on the card (eager on the CPU, or with
+    ``graph=False``), bound to the state and params it last ran on;
+    ``probe.runs["bindings"]`` counts its bindings.  Nothing reads back
+    to the host."""
+    box = {"bindings": 0}
+
+    @torch.no_grad()
+    def probe(params, state):
+        run = _bound_run(box, params, state,
+                         lambda: _ProbeRun(cfg_ref, state, params))
+        (run.step.run if graph else run.step.step)()
+        return run.out.clone()
+
+    probe.runs = box
+    return probe

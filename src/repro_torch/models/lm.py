@@ -51,21 +51,70 @@ def _parse_dscim(dscim_spec: str):
     return mode, attn, parts[1], int(parts[2]), calib
 
 
+def _parse_fault(fault: str):
+    """'stuck:<stride>:<value>' -> (stride, value): every <stride>-th
+    output column of a DS-CIM linear reads back the constant <value>, the
+    trace-level model of stuck-at OR-accumulation columns in the CIM
+    array (runtime/failover.py arms it through cfg.dscim_fault)."""
+    parts = fault.split(":")
+    if len(parts) != 3 or parts[0] != "stuck":
+        raise ValueError(f"bad dscim_fault {fault!r}; want "
+                         "'stuck:<stride>:<value>'")
+    stride = int(parts[1])
+    if stride < 1:
+        raise ValueError(f"dscim_fault stride must be >= 1, got {stride}")
+    return stride, float(parts[2])
+
+
+class _Faulted:
+    """A DS-CIM operator whose every ``stride``-th output column reads
+    ``value``.  The weights are never touched, so an exact-mode probe on
+    the same prepared planes stays a clean reference; every other
+    attribute (``group_k``, ``mode``, ``batch_invariant``, ...) is the
+    wrapped operator's."""
+
+    def __init__(self, op, stride: int, value: float):
+        self.op, self.stride, self.value = op, stride, value
+
+    def __getattr__(self, name):
+        return getattr(self.op, name)
+
+    def __call__(self, x, w, *, salt=None):
+        y = self.op(x, w, salt=salt)
+        stuck = torch.arange(y.shape[-1], device=y.device) % self.stride == 0
+        return torch.where(stuck, self.value, y)
+
+
 @functools.lru_cache(maxsize=16)
-def _linear_for(dscim_spec: str):
-    """DS-CIM linear for cfg.dscim (MLP matmuls and LM head), None if off."""
+def _linear_for(dscim_spec: str, fault: str = ""):
+    """DS-CIM linear for cfg.dscim (MLP matmuls and LM head), None if off.
+    ``fault`` (cfg.dscim_fault): 'stuck:<stride>:<value>' wraps it in
+    ``_Faulted``."""
     if dscim_spec == "off":
         return None
     from ..core.dscim_layer import make_linear
     mode, _, variant, length, calib = _parse_dscim(dscim_spec)
-    return make_linear(variant, length, mode, calib)
+    op = make_linear(variant, length, mode, calib)
+    if not fault:
+        return op
+    return _Faulted(op, *_parse_fault(fault))
 
 
-def _attn_linear_for(dscim_spec: str):
+def _attn_linear_for(dscim_spec: str, fault: str = ""):
     """The attention-projection operator: non-None only for '+attn'."""
     if dscim_spec == "off" or not _parse_dscim(dscim_spec)[1]:
         return None
-    return _linear_for(dscim_spec)
+    return _linear_for(dscim_spec, fault)
+
+
+def _lin(cfg: ArchConfig):
+    """cfg's DS-CIM operator for the MLP matmuls and the head."""
+    return _linear_for(cfg.dscim, cfg.dscim_fault)
+
+
+def _alin(cfg: ArchConfig):
+    """cfg's attention-projection operator (None unless '+attn')."""
+    return _attn_linear_for(cfg.dscim, cfg.dscim_fault)
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None):
@@ -132,7 +181,7 @@ def _layer(layers, i: int):
 
 
 def _head(params, cfg: ArchConfig, x):
-    lin = _linear_for(cfg.dscim)
+    lin = _lin(cfg)
     salt = 8 * cfg.n_layers
     head = params.get("lm_head")
     if isinstance(head, QuantizedLinearWeight):
@@ -149,7 +198,7 @@ def _head(params, cfg: ArchConfig, x):
 
 def _ff(cfg: ArchConfig, lp, x, salt):
     return mlp(lp["mlp"], rmsnorm(x, lp["ln2"]), cfg.mlp_kind,
-               linear=_linear_for(cfg.dscim), salt=salt)
+               linear=_lin(cfg), salt=salt)
 
 
 
@@ -169,7 +218,7 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
         lp = _cast(_layer(params["layers"], li), dt)
         h, (k, v) = attention(lp["attn"], rmsnorm(x, lp["ln1"]), cfg,
                               positions, cfg.q_chunk, return_kv=True,
-                              linear=_attn_linear_for(cfg.dscim),
+                              linear=_alin(cfg),
                               salt=8 * li)
         x = x + h
         x = x + _ff(cfg, lp, x, 8 * li)
@@ -213,7 +262,7 @@ def decode(params, cfg: ArchConfig, token: torch.Tensor, cache,
         lp = _cast(_layer(params["layers"], li), dt)
         h = decode_attention(lp["attn"], rmsnorm(x, lp["ln1"]),
                              cache["k"][li], cache["v"][li], pos, cfg,
-                             linear=_attn_linear_for(cfg.dscim), salt=8 * li)
+                             linear=_alin(cfg), salt=8 * li)
         x = x + h
         x = x + _ff(cfg, lp, x, 8 * li)
     x = rmsnorm(x, params["final_norm"])
@@ -234,7 +283,7 @@ def _decode_paged(params, cfg: ArchConfig, token, cache, done=None):
         view.update(page_table=cache["page_table"], pos=cache["pos"],
                     flush=plan)
         h = decode_attention_paged(lp["attn"], rmsnorm(x, lp["ln1"]), view,
-                                   cfg, linear=_attn_linear_for(cfg.dscim),
+                                   cfg, linear=_alin(cfg),
                                    salt=8 * li, done=done)
         x = x + h
         x = x + _ff(cfg, lp, x, 8 * li)
@@ -275,8 +324,8 @@ def decode_multi(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
     B, T = tokens.shape
     x = params["embed"][tokens].to(dt)                       # (B, T, D)
     pos = cache["pos"]
-    lin = _linear_for(cfg.dscim)
-    alin = _attn_linear_for(cfg.dscim)
+    lin = _lin(cfg)
+    alin = _alin(cfg)
     paged = "k_pages" in cache
     if paged:
         ps = cache["k_pages"].shape[2]

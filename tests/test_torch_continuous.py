@@ -320,17 +320,18 @@ def test_continuous_small_page_pool_backpressure(setup):
         serve_continuous(cfg, params, prompts, 4, n_pages=mp - 1, **kw)
 
 
-def test_later_items_raise_not_implemented(setup):
-    from repro_torch.runtime.failover import FailureInjector
-
-    _, cfg, _, params = setup
+def test_integrity_needs_int8_kv(setup):
+    """``integrity='verify'`` over the float cache raises the reference's
+    ValueError."""
+    jcfg, cfg, jp, params = setup
     prompts = np.zeros((2, 8), np.int64)
-    flip = {1: ((0, "k_pages", (0, 0, 0, 0, 0), 1),)}
-    for make_kw in (lambda: {"integrity": "verify"},
-                    lambda: {"injector": FailureInjector(page_flips=flip)}):
-        with pytest.raises(NotImplementedError, match="A11"):
-            serve_continuous(cfg, params, prompts, 4, device="cpu",
-                             **make_kw())
+    with pytest.raises(ValueError, match="int8 paged cache") as ours:
+        serve_continuous(cfg, params, prompts, 4, device="cpu",
+                         integrity="verify")
+    with pytest.raises(ValueError) as ref:
+        jserve_continuous(jcfg, jp, prompts.astype(np.int32), 4,
+                          integrity="verify")
+    assert str(ours.value) == str(ref.value)
 
 
 # -- across frameworks ----------------------------------------------------

@@ -3,8 +3,10 @@ at odd and test-sized shapes (the full-width serving shapes, and the
 reduced config served on the GPU against the CPU, are held by
 ``chip_smoke.py``); the captured decode step (CUDA graph replays against
 the eager loop, bitwise; a capture from a cold process; a failed capture
-raising), the paged flush's C1 case, the prefix cache's extend graph
-and the scheduler's restores on the card.  Marked ``cuda``: without a GPU every test here skips
+raising), the paged flush's C1 case, the prefix cache's extend graph,
+the scheduler's restores, and the watchdog's probe, the digests and the
+integrity drill on the card.  Marked ``cuda``: without a GPU every test
+here skips
 (decided inside the fixture, never at import).  On a GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -993,3 +995,189 @@ def test_restores_keep_the_segment_graph(cuda, fault):
         assert st["replays"] == 1 and st["snapshots"]["restores"] == 1
     else:
         assert st["evictions"] >= 1 and st["readmissions"] >= 1
+
+
+def test_digests_on_card_equal_cpu(cuda, monkeypatch):
+    """Page and weight-plane digests computed on the card are bitwise the
+    CPU's for the same tensors (negative int8, negative f32 scales, bf16,
+    sums across chunk boundaries)."""
+    from repro_torch.core import digest, kvcache, qweights
+    from repro_torch.launch.steps import prepare_serving_params
+
+    monkeypatch.setattr(digest, "CHUNK", 1000)
+    rng = np.random.default_rng(11)
+    L, P, ps, KV, HD = 3, 7, 8, 2, 64
+    pool = [torch.from_numpy(rng.integers(-128, 128, (L, P, ps, KV, HD))
+                             .astype(np.int8)) for _ in range(2)]
+    pool += [torch.from_numpy(rng.normal(0, 1, (L, P, KV))
+                              .astype(np.float32)) for _ in range(2)]
+    cpu = kvcache.page_checksums(*pool)
+    gpu = kvcache.page_checksums(*(t.to(cuda) for t in pool))
+    assert torch.equal(gpu.cpu(), cpu)
+    x = torch.from_numpy(rng.normal(0, 1, (5, 999)).astype(np.float32)) \
+        .to(torch.bfloat16)
+    assert int(qweights.plane_digest(x.to(cuda))) \
+        == int(qweights.plane_digest(x))
+    cfg, params, _ = _reduced()
+    prep = prepare_serving_params(cfg, params)
+    prep_cpu = prepare_serving_params(cfg, _cpu_tree(params))
+    assert torch.equal(qweights.weight_plane_digests(prep).cpu(),
+                       qweights.weight_plane_digests(prep_cpu))
+
+
+def _cpu_tree(tree):
+    return {k: _cpu_tree(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
+def test_probe_leaves_the_captured_state_unchanged(cuda):
+    """A probe between two replayed segments leaves the serve state
+    bitwise as it was (a page flush inside the probe included), and a
+    monitored run serves the tokens of an unmonitored one with the
+    segment step bound once."""
+    import dataclasses
+
+    from repro_torch.launch.serve import prepare_params, serve_continuous
+    from repro_torch.launch.steps import (init_serve_state, make_admit_fn,
+                                          make_probe_fn, make_segment_fn)
+    from repro_torch.runtime.serving import (exact_probe_spec,
+                                             watchdog_for_spec)
+
+    cfg, params, prompts = _reduced("kernel:dscim2:64")
+    params = prepare_params(cfg, params, cuda)
+    state = init_serve_state(cfg, 2, 40, kv="int8", page_size=4,
+                             integrity=True, device=cuda)
+    admit = make_admit_fn(cfg, eos_id=-1)
+    for slot, S in ((0, 16), (1, 8)):
+        admit(params, state, torch.as_tensor(prompts[slot:slot + 1, :S],
+                                             device=cuda),
+              slot, list(range(slot * 10, slot * 10 + 10)), 20)
+    segment = make_segment_fn(cfg, 3, eos_id=-1)
+    probe = make_probe_fn(dataclasses.replace(
+        cfg, dscim=exact_probe_spec(cfg.dscim)))
+    segment(params, state)                       # pos 19 and 11
+    assert int(state["cache"]["pos"][1]) % 4 == 3
+    want = make_probe_fn(dataclasses.replace(
+        cfg, dscim=exact_probe_spec(cfg.dscim)), graph=False)(params, state)
+    before = {k: v.clone() for k, v in state["cache"].items()}
+    scalars = {k: state[k].clone() for k in ("tok", "done", "n_out")}
+    lg = probe(params, state)
+    lg = probe(params, state)                    # a replay
+    torch.cuda.synchronize()
+    assert torch.isfinite(lg).all() and torch.equal(lg, want)
+    assert probe.runs["bindings"] == 1
+    for k, v in before.items():
+        assert torch.equal(state["cache"][k], v), k
+    for k, v in scalars.items():
+        assert torch.equal(state[k], v), k
+    segment(params, state)
+    assert segment.runs["bindings"] == 1
+
+    kw = dict(slots=2, seg_len=2, kv="int8", page_size=4, eos_id=-1,
+              max_new=[6, 8, 5, 7], device="cuda")
+    ref, _ = serve_continuous(cfg, params, prompts, 8, **kw)
+    mon = watchdog_for_spec(cfg.dscim, probe_every=1)
+    outs, st = serve_continuous(cfg, params, prompts, 8, monitor=mon, **kw)
+    for a, b in zip(outs, ref):
+        np.testing.assert_array_equal(a, b)
+    assert st["probes"] > 0 and st["bindings"]["segment"] == 1
+
+
+def test_ladder_reports_its_captures_on_card(cuda):
+    """A stuck-at fault escalates every request; the stats count the
+    decode graphs the ladder's serve_batch runs captured (each rung's
+    and, above the bottom, its exact twin's), and none when the same
+    runs are served again from the cached runners."""
+    from repro_torch.launch.serve import prepare_params, serve_continuous
+    from repro_torch.launch.steps import clear_graphs
+    from repro_torch.runtime.failover import FailureInjector
+    from repro_torch.runtime.serving import (next_ladder_spec,
+                                             watchdog_for_spec)
+
+    cfg, params, prompts = _reduced("kernel:dscim2:64")
+    params = prepare_params(cfg, params, cuda)
+    kw = dict(slots=2, seg_len=2, kv="int8", page_size=4, eos_id=-1,
+              max_new=[6, 8, 5, 7], device="cuda")
+    clear_graphs()
+    got = []
+    for _ in range(2):
+        inj = FailureInjector(macro_fault_at=0, macro_fault="stuck:3:40.0")
+        _, st = serve_continuous(
+            cfg, params, prompts, 8, injector=inj,
+            monitor=watchdog_for_spec(cfg.dscim, probe_every=1), **kw)
+        assert st["quarantined"] and st["status"] == ["ok"] * 4
+        got.append(st["escalation_captures"])
+    rungs = {e["to"] for e in st["escalations"]}
+    assert got == [sum(1 + (next_ladder_spec(s) is not None)
+                       for s in rungs), 0]
+
+
+def test_integrity_drill_on_card_keeps_one_binding(cuda):
+    """The integrity drill on the card: flips XOR into the live tensors
+    and repairs copy the golden bytes back into them, so each leg binds
+    (captures) its segment step once; every request bitwise the
+    fault-free run (asserted inside the drill)."""
+    from repro_torch.runtime.serving import integrity_drill
+
+    report = integrity_drill(device="cuda", log=lambda *_: None)
+    assert report["leg1"]["bindings"]["segment"] == 1
+    assert report["leg2"]["bindings"]["segment"] == 1
+    assert report["leg2"]["replays"] == 1
+
+
+def test_integrity_verify_equals_off_on_card(cuda):
+    """``integrity='verify'`` serves ``'off'``'s tokens with zero
+    mismatches and launches the same counted kernels: the digests are
+    plain PyTorch ops after the replays, and with integrity off the cache
+    has no digest plane at all."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import prepare_params, serve_continuous
+
+    cfg, params, prompts = _reduced()
+    params = prepare_params(cfg, params, cuda)
+    kw = dict(slots=2, seg_len=2, kv="int8", page_size=4, eos_id=-1,
+              max_new=[6, 8, 5, 7], device="cuda")
+    runs = {}
+    for mode in ("off", "verify", "off"):
+        before = {c.name: c.count for c in build.COUNTERS}
+        outs, st = serve_continuous(cfg, params, prompts, 8,
+                                    integrity=mode, **kw)
+        runs.setdefault(mode, []).append(
+            (outs, {c.name: c.count - before.get(c.name, 0)
+                    for c in build.COUNTERS}, st))
+    (off, n_off, _), (off2, n_off2, _) = runs["off"]
+    verify, n_verify, st = runs["verify"][0]
+    for a, b in zip(verify, off):
+        np.testing.assert_array_equal(a, b)
+    assert n_verify == n_off == n_off2
+    assert st["integrity"]["page_mismatches"] == 0
+    assert st["integrity"]["checks"] == st["segments"]
+
+
+def test_chaos_drill_on_card(cuda):
+    from repro_torch.runtime.serving import chaos_drill
+
+    report = chaos_drill(device="cuda", log=lambda *_: None)
+    assert report["replays"] == 1 and report["probe_trips"] >= 1
+
+
+def test_fused_kernel_keeps_nan_like_plain(cuda):
+    """A NaN activation gives the window a NaN scale and the row a NaN
+    output in the kernel, as in the plain version (its max keeps the
+    NaN); the other rows are untouched."""
+    from repro_torch.core.qweights import prepare_linear_weight
+    from repro_torch.core.seed_search import calibrated_config
+    from repro_torch.kernels import dscim_fused
+
+    cfg = calibrated_config("dscim1", 256, "paper")
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(0, 1, (4, 256)).astype(np.float32))
+    x[1, 7] = float("nan")
+    w = torch.from_numpy(rng.normal(0, 1, (256, 32)).astype(np.float32))
+    want = dscim_fused.dscim_fused_mvm_prepared(
+        x, prepare_linear_weight(w, 128), cfg)
+    got = dscim_fused.dscim_fused_mvm_prepared(
+        x.to(cuda), prepare_linear_weight(w.to(cuda), 128), cfg).cpu()
+    assert torch.isnan(want[1]).all() and torch.isnan(got[1]).all()
+    keep = [0, 2, 3]
+    _close(got[keep], want[keep], 2e-5)

@@ -219,12 +219,18 @@ def test_failover_exhausts_replays(setup):
                          snapshot_every=1, max_replays=2, log=_quiet)
 
 
-def test_injector_faults_of_a11_raise():
-    for kw in ({"page_flips": {1: ((0, "k_pages", (0,) * 5, 1),)}},
-               {"weight_flips": {0: (("layers/mlp/w_up", "q", 0, 1),)}},
-               {"macro_fault_at": 0}):
-        with pytest.raises(NotImplementedError, match="A11"):
-            FailureInjector(**kw)
+def test_injector_takes_the_watchdog_and_integrity_faults():
+    """The injector takes page flips, weight flips and the macro fault,
+    and arms the fault spec at and after ``macro_fault_at``, as the
+    reference's does."""
+    inj = FailureInjector(
+        page_flips={1: ((0, "k_pages", (0,) * 5, 1),)},
+        weight_flips={0: (("layers/mlp/w_up", "q", 0, 1),)},
+        macro_fault_at=2, macro_fault="stuck:3:40.0")
+    ref = JFailureInjector(macro_fault_at=2, macro_fault="stuck:3:40.0")
+    assert [inj.serving_fault(s) for s in range(5)] \
+        == [ref.serving_fault(s) for s in range(5)] \
+        == ["", "", "stuck:3:40.0", "stuck:3:40.0", "stuck:3:40.0"]
     assert FailureInjector(fail_at=(1,)).serving_fault(5) == ""
 
 
