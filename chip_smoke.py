@@ -78,7 +78,17 @@ In order it
    time, a plane repair's wall ms, and the integrity drill's two legs
    (page and weight flips found at their exact coordinates and repaired,
    one replay where decodes read a corrupted plane, every request bitwise
-   the fault-free run, one binding a leg);
+   the fault-free run, one binding a leg); then the asyncio router
+   (``router``, ``router_phase``: the load test's own entry point,
+   ``run_loadtest``, on its trace of 32 requests through 4 slots and a
+   68-page pool at ``kernel:dscim1:256``; every
+   request terminal and the pool empty after each drain, bucket requests
+   bitwise ``serve_continuous``, a chaos leg's ``ok`` requests bitwise
+   the plain leg's with a replay, an inf page scale ``degraded`` after a
+   restart, prefix warm bitwise cold with hits, the HTTP shim's stream
+   equal to the router's tokens; latency, tok/s, occupancy, admission
+   latency by path, bindings, and the two kernels' launches, zeroed
+   before the plain leg and read after);
 4. holds each kernel's wrapper, as the main path calls it, against its
    plain PyTorch version on the same inputs at the main path's shapes,
    and times kernel, wrapper, plain version, the least
@@ -86,7 +96,8 @@ In order it
    ``scaled_dot_product_attention`` call over pre-gathered K/V, and again
    at 2048 tokens of context on a synthetic pool of the same head layout;
    for the fused MVM (decode M = 4, the prefix extend chunk's M = 32,
-   prefill M = 256) it checks that the kernel's own activation
+   prefill M = 256, and the watchdog, ladder and router phases' shapes:
+   M = 1, 4, 6, 32, 64, 384 as each calls it) it checks that the kernel's own activation
    quantization is bitwise the torch one, prints kernel and wrapper time
    per shape and regime, and the estimator's RMSE against the exact f32
    product ``x @ w`` at each shape (the accuracy DS-CIM costs);
@@ -160,6 +171,11 @@ DEADLINE_STEPS = 8                      # faults phase: request 0's budget
 WD_DSCIM, WD_FAULT, WD_FAULT_AT = "kernel:dscim2:64", "stuck:3:40.0", 1
 # its faulted run's ladder: serve_batch of the six quarantined requests
 LADDER_B = 6
+# router phase: the load test's trace at the serving shapes, through a
+# pool under-provisioned by the reference's rule (68 pages, 31 MB of KV)
+ROUTER_N, ROUTER_PREFIX_N = 32, 16
+ROUTER_BUCKETS, ROUTER_CHUNK = (32, 64), 16
+ROUTER_MAX_PROMPT, ROUTER_CAP = 96, 16
 FUSED_RTOL = 2e-5            # f32 summation order; counts are exact
 PAGED_RTOL = 1e-5            # f32 summation order of dot products / sums
 LONG_POS = 2047              # paged attention's long-context position
@@ -1210,6 +1226,246 @@ def integrity_phase(torch, cfg, served, cb_outs):
     return out
 
 
+def router_phase(torch, cfg, served):
+    """Phase 3j: the asyncio serving router (runtime/router.py) at full
+    width, ``kernel:dscim1:256``, int8 KV, page 8, BATCH slots, segments
+    of CB_SEG, through the load test's own entry point
+    (launch/loadtest.py ``run_loadtest`` at the ``LoadShape`` below: the
+    trace ``make_trace(0, ROUTER_N, ...)``, about 80 % bucket lengths, the
+    rest odd lengths 2-96 through chunked prefill, geometric budgets, bursty
+    arrivals, a few deadlines and disconnects, through a pool
+    under-provisioned by the reference's rule).  After its warm-up leg:
+    the plain leg (every request terminal, no live page after the drain;
+    the kernels' counters zeroed just before it and read just after); its
+    bucket-length ``ok`` requests bitwise ``serve_continuous``; a chaos
+    leg (a sampled device loss and two page flips over the first half of
+    the plain leg's segments, a snapshot every 4 rounds, the NaN-only
+    monitor) whose ``ok`` requests are bitwise the plain leg's, every one
+    a flip did not hit, with a replay and one binding a step; the prefix
+    legs (ROUTER_PREFIX_N requests, 3/4 sharing an 8-token system prompt,
+    all chunked at the page size) cold and ``prefix_cache=True``,
+    ``ok``-vs-``ok`` bitwise with hits.  Then, of its own: an inf page
+    scale quarantined, its stream restarted and ``degraded``; the HTTP
+    shim on an ephemeral port (one streamed request equal to the router's
+    tokens, 413, /healthz 200 then 503 while draining)."""
+    import asyncio
+    import contextlib
+
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import loadtest as lt
+    from repro_torch.launch.server import HttpFrontend
+    from repro_torch.runtime.failover import FailureInjector
+    from repro_torch.runtime.router import Router
+    from repro_torch.runtime.watchdog import AccuracyWatchdog
+
+    cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
+    shape = lt.LoadShape(
+        requests=ROUTER_N, slots=BATCH, seg_len=CB_SEG, page_size=PAGE,
+        buckets=ROUTER_BUCKETS, chunk_len=ROUTER_CHUNK,
+        max_prompt=ROUTER_MAX_PROMPT, max_new_cap=ROUTER_CAP,
+        mean_gap_s=0.002, device_losses=1, flips=2, min_fault_segments=2,
+        fault_span=0.5, prefix_requests=ROUTER_PREFIX_N, direct=True)
+    kn = shape.router_kw()
+    launches: dict = {}
+    leg_s: dict = {}
+
+    @contextlib.contextmanager
+    def around(name):
+        if name == "plain":
+            for c in build.COUNTERS:
+                c.reset()
+        t = time.perf_counter()
+        yield
+        leg_s[name] = time.perf_counter() - t
+        if name == "plain":
+            launches.update({c.name: c.count for c in build.COUNTERS
+                             if c.count})
+
+    legs: dict = {}
+    lt.run_loadtest(False, cfg=cfg_ds, params=served, shape=shape,
+                    prefix=True, around_leg=around, legs=legs, log=_log)
+    ck = legs["checks"]
+    st_p, m_plain = legs["plain"]["stats"], legs["plain"]["metrics"]
+    st_c, m_chaos = legs["chaos"]["stats"], legs["chaos"]["metrics"]
+    st_pc, st_pw = legs["prefix_cold"]["stats"], legs["prefix_warm"]["stats"]
+    inj = legs["chaos"]["injector"]
+    trace = legs["plain"]["trace"]
+
+    class InfScale(FailureInjector):
+        """slot 0's first page's V scale set to +inf at segment 1."""
+
+        def corrupt_cache(self, segment, cache, slot_pages):
+            if segment != 1 or "inf" in self.fired or slot_pages[0] is None:
+                return cache, []
+            self.fired.add("inf")
+            cache["v_scale"][0, int(slot_pages[0][0]), 0] = float("inf")
+            return cache, [0]
+
+    rng = np.random.default_rng(1)
+
+    async def quarantine():
+        r = Router(cfg_ds, served, **kn, injector=InfScale(),
+                   monitor=AccuracyWatchdog(None), log=_log)
+        await r.start()
+        h = r.submit(rng.integers(1, 1000, ROUTER_BUCKETS[0],
+                                  dtype=np.int32), 8)
+        events = [ev async for ev in h.events()]
+        await r.close()
+        return events, r.stats()
+
+    q_events, st_q = asyncio.run(quarantine())
+    q_kinds = [k for k, _ in q_events]
+
+    async def http():
+        r = Router(cfg_ds, served, **kn, log=_log)
+        front = HttpFrontend(r, "127.0.0.1", 0, log=_log)
+        task = asyncio.create_task(front.serve())
+        _, port = await front.wait_ready()
+        prompt = trace[1]["prompt"]
+        got = {"gen": await _http(port, "POST", "/v1/generate",
+                                  {"prompt": prompt.tolist(), "max_new": 6}),
+               "direct": await r.submit(prompt, 6).result(),
+               "413": await _http(port, "POST", "/v1/generate",
+                                  {"prompt": [1] * (ROUTER_MAX_PROMPT + 1),
+                                   "max_new": 2}),
+               "health": await _http(port, "GET", "/healthz")}
+        long = asyncio.create_task(_http(
+            port, "POST", "/v1/generate",
+            {"prompt": prompt.tolist(), "max_new": ROUTER_CAP}))
+        while not any(b >= 0 for b in r._host["slot_rid"]):
+            await asyncio.sleep(0.001)
+        front.request_drain()
+        got["health_drain"] = await _http(port, "GET", "/healthz")
+        got["long"] = await long
+        await task
+        got["pages"] = r.stats()["pages"]
+        return got
+
+    web = asyncio.run(http())
+    stream = [json.loads(ln) for ln in web["gen"][2].decode().splitlines()
+              if ln]
+    web_tokens = [e["token"] for e in stream if "token" in e]
+
+    lat = st_p["admit_lat"]
+    plat = {k: v for k, v in st_pw["admit_lat"].items() if v}
+    med = (lambda xs: float(np.median(xs)) if xs else None)
+    out = {
+        "requests": ROUTER_N, "pool_pages": kn["n_pages"],
+        "warmup_s": leg_s["warmup"],
+        "plain": dict(m_plain, bindings=st_p["bindings"],
+                      capture_s=st_p["capture_s"],
+                      segments=st_p["segments"],
+                      admit_lat_median_ms={k: 1e3 * med(v) if v else None
+                                           for k, v in lat.items()},
+                      admit_lat_n={k: len(v) for k, v in lat.items()}),
+        "launches": launches,
+        "bitwise_vs_serve_continuous": ck["direct"],
+        "chaos": dict(m_chaos, bindings=st_c["bindings"],
+                      snapshots=st_c["snapshots"],
+                      fail_at=list(inj.fail_at), flips=len(inj.hits),
+                      corrupted=ck["corrupted"],
+                      bitwise_ok=ck["chaos_bitwise"],
+                      corrupted_ok=ck["corrupted_ok"],
+                      corrupted_ok_equal=ck["corrupted_ok_equal"]),
+        "quarantine": {"events": q_kinds[q_kinds.index("restart"):]
+                       .count("token") if "restart" in q_kinds else 0,
+                       "end": q_events[-1][1],
+                       "restart": "restart" in q_kinds,
+                       "ladder": st_q["ladder"],
+                       "counters": st_q["counters"]},
+        "prefix": {"cold_wall_s": legs["prefix_cold"]["wall_s"],
+                   "warm_wall_s": legs["prefix_warm"]["wall_s"],
+                   "bitwise_ok": ck["prefix_bitwise"],
+                   "stats": st_pw["prefix"],
+                   "admit_lat_median_ms": {k: 1e3 * med(v)
+                                           for k, v in plat.items()},
+                   "cold_admit_lat_median_ms": 1e3 * med(
+                       st_pc["admit_lat"]["chunked_miss"]),
+                   "bindings": st_pw["bindings"]},
+        "http": {"status": web["gen"][0], "tokens": len(web_tokens),
+                 "equal": web_tokens == web["direct"].tokens,
+                 "413": web["413"][0], "healthz": web["health"][0],
+                 "healthz_draining": web["health_drain"][0]},
+    }
+    _log(f"router: plain leg {ROUTER_N} requests in "
+         f"{m_plain['wall_s']:.3f} s: p50 {m_plain['p50_ms']:.1f} ms, p99 "
+         f"{m_plain['p99_ms']:.1f} ms (of {m_plain['latencies']} "
+         f"latencies), {m_plain['tok_s']:.1f} useful tok/s, refusal rate "
+         f"{m_plain['refusal_rate']:.3f}, occupancy "
+         f"{m_plain['occupancy']:.3f}, statuses {m_plain['statuses']}, "
+         f"pages {m_plain['pages']}; admission to first token (median ms, "
+         f"count) {out['plain']['admit_lat_median_ms']} "
+         f"{out['plain']['admit_lat_n']}; bindings {st_p['bindings']}, "
+         f"capture s {st_p['capture_s']}; launches {launches}; "
+         f"{ck['direct']} bucket requests bitwise serve_continuous")
+    _log(f"router: chaos leg {m_chaos['wall_s']:.3f} s, replays "
+         f"{m_chaos['replays']}, fail_at {inj.fail_at}, flips applied "
+         f"{inj.hits}, corrupted {ck['corrupted']} "
+         f"({ck['corrupted_ok_equal']} of their {ck['corrupted_ok']} ok in "
+         f"both legs still equal), {ck['chaos_bitwise']} ok requests "
+         f"bitwise the plain leg, bindings {st_c['bindings']}, snapshots "
+         f"{st_c['snapshots']}, statuses {m_chaos['statuses']}")
+    _log(f"router: quarantine {out['quarantine']}; prefix cold "
+         f"{out['prefix']['cold_wall_s']:.3f} s / warm "
+         f"{out['prefix']['warm_wall_s']:.3f} s, {ck['prefix_bitwise']} "
+         f"bitwise, {st_pw['prefix']}, admission ms {out['prefix']}; http "
+         f"{out['http']}")
+    failed = []
+    if not (launches.get("dscim_fused_mvm")
+            and launches.get("paged_attention_decode")):
+        failed.append(f"a serving kernel not launched: {launches}")
+    if ck["direct"] == 0:
+        failed.append("no bucket request held against serve_continuous")
+    if m_chaos["replays"] < 1 or ck["chaos_bitwise"] == 0:
+        failed.append(f"chaos: {m_chaos['replays']} replays, "
+                      f"{ck['chaos_bitwise']} requests compared")
+    for leg, st in (("plain", st_p), ("chaos", st_c), ("prefix", st_pw)):
+        if st["bindings"]["segment"] != 1 or st["bindings"]["extend"] != 1:
+            failed.append(f"{leg} bindings {st['bindings']}")
+    if not out["quarantine"]["restart"] or out["quarantine"]["end"] \
+            != "degraded" or out["quarantine"]["events"] != 8:
+        failed.append(f"quarantine: {q_events}")
+    if ck["prefix_bitwise"] == 0:
+        failed.append(f"prefix: {st_pw['prefix']}, none compared")
+    h = out["http"]
+    if (h["status"], h["413"], h["healthz"], h["healthz_draining"]) \
+            != (200, 413, 200, 503) or not h["equal"] or h["tokens"] != 6 \
+            or web["pages"]["live_pages"]:
+        failed.append(f"http: {h}, pages {web['pages']}")
+    if failed:
+        raise AssertionError(f"router: {failed}")
+    return out
+
+
+async def _http(port, method, path, body=None):
+    """One HTTP/1.1 request to 127.0.0.1:``port``: (status, headers, body
+    with the chunked transfer coding removed)."""
+    import asyncio
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    data = b"" if body is None else json.dumps(body).encode()
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: x\r\n"
+                 f"Content-Length: {len(data)}\r\n\r\n".encode() + data)
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    head, _, rest = raw.partition(b"\r\n\r\n")
+    lines = head.decode().split("\r\n")
+    headers = {k.strip().lower(): v.strip() for k, v in
+               (ln.split(":", 1) for ln in lines[1:])}
+    if headers.get("transfer-encoding") == "chunked":
+        out = b""
+        while True:
+            size, _, rest = rest.partition(b"\r\n")
+            n = int(size, 16)
+            if n == 0:
+                break
+            out, rest = out + rest[:n], rest[n + 2:]
+        rest = out
+    return int(lines[0].split(" ")[1]), headers, rest
+
+
 def _batch_invariance(torch, cfg, served, k):
     """For the ops of one verify layer at the main path's shapes: whether
     B*(k+1) rows in one call give each row the bits of the decode's call
@@ -1486,8 +1742,9 @@ def modes_phase(torch, cfg, served, prompts):
 def check_fused(torch, cfg, params, launches):
     """Fused DS-CIM MVM vs its plain version at the serving shapes: the
     main path's (DSCIM: decode, prefix extend, prefill), the watchdog
-    phase's segments and admissions at WD_DSCIM (other count tables), and
-    the ladder's ``serve_batch`` of the quarantined requests at DSCIM."""
+    phase's segments and admissions at WD_DSCIM (other count tables), the
+    ladder's ``serve_batch`` of the quarantined requests at DSCIM, and
+    the router phase's extend chunks and bucket admissions at DSCIM."""
     from repro_torch.kernels import dscim_fused
     from repro_torch.launch.steps import prepare_serving_params
     from repro_torch.models.lm import _linear_for
@@ -1590,12 +1847,18 @@ def check_fused(torch, cfg, params, launches):
             log(calls[-1])
     # off the main path, each phase's calls a forward: the watchdog
     # phase's segments (M = slots) and one-request admissions (M = prompt;
-    # the head on the last token) at WD_DSCIM, and the ladder's dscim1
-    # rung, serve_batch of the quarantined requests (LADDER_B rows)
+    # the head on the last token) at WD_DSCIM, the ladder's dscim1 rung,
+    # serve_batch of the quarantined requests (LADDER_B rows), and the
+    # router phase's extend chunk (one replay over every slot: M = slots x
+    # chunk, the head on every position) and one-request bucket admission
+    # (M = the longer bucket, the head on the last token)
     extra = [(WD_DSCIM, "watchdog segment decode", BATCH, BATCH),
              (WD_DSCIM, "watchdog admission prefill", PROMPT, 1),
              (DSCIM, "ladder decode", LADDER_B, LADDER_B),
-             (DSCIM, "ladder prefill", LADDER_B * PROMPT, LADDER_B)]
+             (DSCIM, "ladder prefill", LADDER_B * PROMPT, LADDER_B),
+             (DSCIM, "router extend chunk", BATCH * ROUTER_CHUNK,
+              BATCH * ROUTER_CHUNK),
+             (DSCIM, "router bucket admission", max(ROUTER_BUCKETS), 1)]
     configs = {DSCIM: (main, dcfg), WD_DSCIM: sites(WD_DSCIM)}
     for spec, phase, m, m_head in extra:
         table, dc = configs[spec]
@@ -2202,6 +2465,7 @@ def main() -> int:
                   cb_outs) if cb_outs is not None else None
     if cb_outs is None:
         failures.append("integrity (no continuous outputs to compare)")
+    rt = phase("router", router_phase, torch, cfg, served)
     spec = phase("spec", spec_phase, torch, cfg, served, prompts,
                  e2e.get("tokens"))
     modes = phase("modes", modes_phase, torch, cfg, served, prompts)
@@ -2212,6 +2476,10 @@ def main() -> int:
                phase("paged_attention", check_paged, torch, cfg, cache,
                      counts)]
     del cache
+    for entry, name in ((kernels[0], "dscim_fused_mvm"),
+                        (kernels[1], "paged_attention_decode")):
+        if entry is not None and rt is not None:
+            entry["launches_router"] = rt["launches"].get(name, 0)
     for extra, name in ((spec, "launches_spec"), (pfx, "launches_prefix")):
         if extra is None:
             continue
@@ -2242,7 +2510,7 @@ def main() -> int:
                       "loops": e2e.get("loops"), "continuous": cb,
                       "spec": spec, "modes": modes, "prefix": pfx,
                       "faults": faults, "watchdog": wd,
-                      "integrity": integ,
+                      "integrity": integ, "router": rt,
                       "prefill_logit_rmse_vs_off": e2e.get("logit_rmse"),
                       "reduced_gpu_vs_cpu_drift": drift,
                       "table1_rmse_pct": t1,

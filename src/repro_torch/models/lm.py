@@ -201,6 +201,16 @@ def _ff(cfg: ArchConfig, lp, x, salt):
                linear=_lin(cfg), salt=salt)
 
 
+def _embed_prompt(params, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding rows of caller-given ids (a prompt, an extend chunk), as
+    the reference's gather reads them: a negative id wraps once (adds
+    the table's size), then an id still outside the table is clamped
+    into it, where indexing would raise on the CPU and trap on the card.
+    Sampled ids are in range and index the table directly."""
+    emb = params["embed"]
+    V = emb.shape[0]
+    return emb[torch.where(tokens < 0, tokens + V, tokens).clamp(0, V - 1)]
+
 
 @torch.no_grad()
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -210,7 +220,7 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
     (B,) int32}) with T = ``capacity`` (>= S, default S)."""
     dt = DTYPES[cfg.compute_dtype]
     cdt = DTYPES[cfg.cache_dtype]
-    x = params["embed"][tokens].to(dt)
+    x = _embed_prompt(params, tokens).to(dt)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     ks, vs = [], []
@@ -322,7 +332,7 @@ def decode_multi(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
     None for the dense layout."""
     dt = DTYPES[cfg.compute_dtype]
     B, T = tokens.shape
-    x = params["embed"][tokens].to(dt)                       # (B, T, D)
+    x = _embed_prompt(params, tokens).to(dt)                 # (B, T, D)
     pos = cache["pos"]
     lin = _lin(cfg)
     alin = _alin(cfg)

@@ -22,6 +22,10 @@ again from that segment boundary, up to ``max_restarts`` times.
   (a ``cfg.dscim_fault`` spec, models/lm.py ``_parse_fault``) and the
   scheduler serves through a second, faulted segment runner.
 
+``to_host`` / ``restore_into`` take a serve state's host snapshot and copy
+it back into the live tensors (the scheduler's and the router's
+snapshots), so a restore keeps every captured graph bound.
+
 Every flip XORs into the live tensor in place (``flip_bits``: int8
 directly, f32 through ``view(torch.int32)``, bf16 through
 ``view(torch.int16)``): the captured graphs bound those addresses and
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 
 __all__ = ["SimulatedHardwareFailure", "IntegrityReplay", "FailureInjector",
-           "run_with_failover", "flip_bits"]
+           "run_with_failover", "flip_bits", "to_host", "restore_into"]
 
 
 class SimulatedHardwareFailure(RuntimeError):
@@ -207,6 +211,26 @@ class FailureInjector:
             flip_bits(t, np.unravel_index(offset % t.numel(), t.shape), mask)
             hit.append((path, which))
         return params, hit
+
+
+def to_host(tree: dict) -> dict:
+    """A host copy of a serve state: every tensor cloned to the CPU,
+    nested dicts copied, plain values as they are."""
+    return {k: to_host(v) if isinstance(v, dict)
+            else v.to("cpu", copy=True) if isinstance(v, torch.Tensor)
+            else v for k, v in tree.items()}
+
+
+def restore_into(dst: dict, src: dict) -> None:
+    """Copy a host snapshot back into the live state's own tensors (the
+    captured graphs bound their addresses), plain values by assignment."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            restore_into(dst[k], v)
+        elif isinstance(v, torch.Tensor):
+            dst[k].copy_(v)
+        else:
+            dst[k] = v
 
 
 def run_with_failover(train_fn, *, restore_fn, max_restarts: int = 3,

@@ -144,26 +144,6 @@ def _req_array(x, R, dtype, name):
     return arr
 
 
-def _to_host(tree: dict) -> dict:
-    """A host copy of a serve state: every tensor cloned to the CPU,
-    nested dicts copied, plain values as they are."""
-    return {k: _to_host(v) if isinstance(v, dict)
-            else v.to("cpu", copy=True) if isinstance(v, torch.Tensor)
-            else v for k, v in tree.items()}
-
-
-def _restore(dst: dict, src: dict) -> None:
-    """Copy a host snapshot back into the live state's own tensors (the
-    captured graphs bound their addresses), plain values by assignment."""
-    for k, v in src.items():
-        if isinstance(v, dict):
-            _restore(dst[k], v)
-        elif isinstance(v, torch.Tensor):
-            dst[k].copy_(v)
-        else:
-            dst[k] = v
-
-
 def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
                         slots: int = 4, seg_len: int = 4, max_new=None,
                         eos_id: int | None = None, sample: str = "greedy",
@@ -206,7 +186,7 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
                                 make_admit_fn, make_extend_fn,
                                 make_probe_fn, make_segment_fn)
     from .failover import (IntegrityReplay, SimulatedHardwareFailure,
-                           run_with_failover)
+                           restore_into, run_with_failover, to_host)
     from .integrity import IntegrityEngine, parse_integrity
     from .watchdog import StepHang
 
@@ -315,7 +295,7 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
 
     def _snap(host, alloc, pfx):
         t = _clock()
-        snap = {"state": _to_host(state), "host": copy.deepcopy(host),
+        snap = {"state": to_host(state), "host": copy.deepcopy(host),
                 "alloc": alloc.snapshot() if alloc is not None else None,
                 "prefix": pfx.snapshot() if pfx is not None else None}
         snaps["count"] += 1
@@ -333,7 +313,7 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
             host, alloc, pfx = host0, alloc0, pfx0
         else:
             t = _clock()
-            _restore(state, snap["state"])
+            restore_into(state, snap["state"])
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             snaps["restores"] += 1

@@ -4,8 +4,9 @@ reduced config served on the GPU against the CPU, are held by
 ``chip_smoke.py``); the captured decode step (CUDA graph replays against
 the eager loop, bitwise; a capture from a cold process; a failed capture
 raising), the paged flush's C1 case, the prefix cache's extend graph,
-the scheduler's restores, and the watchdog's probe, the digests and the
-integrity drill on the card.  Marked ``cuda``: without a GPU every test
+the scheduler's restores, the watchdog's probe, the digests and the
+integrity drill, and the asyncio router's bucket admissions at full width
+on the card.  Marked ``cuda``: without a GPU every test
 here skips
 (decided inside the fixture, never at import).  On a GPU machine:
 
@@ -1181,3 +1182,48 @@ def test_fused_kernel_keeps_nan_like_plain(cuda):
     assert torch.isnan(want[1]).all() and torch.isnan(got[1]).all()
     keep = [0, 2, 3]
     _close(got[keep], want[keep], 2e-5)
+
+
+def test_router_buckets_equal_serve_continuous_at_full_width(cuda):
+    """The asyncio router at full width (qwen3-0.6b, kernel:dscim1:256,
+    int8 KV, page 8): bucket-length requests submitted before start()
+    are bitwise what serve_continuous gives them, a chunked one is
+    served too, and the router's segment and extend steps are each bound
+    (and captured) once."""
+    import asyncio
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import prepare_params, serve_continuous
+    from repro_torch.models import lm
+    from repro_torch.runtime.router import Router
+
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b"),
+                              dscim="kernel:dscim1:256")
+    params = prepare_params(cfg, lm.init_params(cfg, 0, device=cuda), cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, 16) for _ in range(5)]
+    budgets = [6, 3, 8, 5, 2]
+
+    async def run():
+        r = Router(cfg, params, slots=3, seg_len=4, page_size=8,
+                   buckets=(16,), chunk_len=8, max_prompt=32,
+                   max_new_cap=8, device=cuda, log=lambda *a: None)
+        hs = [r.submit(p, b) for p, b in zip(prompts, budgets)]
+        hs.append(r.submit(rng.integers(0, cfg.vocab, 21), 4))
+        await r.start()
+        res = await asyncio.gather(*[h.result() for h in hs])
+        await r.close()
+        return res, r.stats()
+
+    res, st = asyncio.run(run())
+    assert [x.status for x in res] == ["ok"] * 6 and len(res[5].tokens) == 4
+    outs, _ = serve_continuous(cfg, params, np.stack(prompts), 8, slots=2,
+                               seg_len=4, kv="int8", page_size=8,
+                               max_new=budgets, eos_id=-1, device=cuda,
+                               log=lambda *a: None)
+    for got, want in zip(res, outs):
+        assert got.tokens == want.tolist()
+    assert st["bindings"] == {"segment": 1, "extend": 1, "probe": 0}
+    assert st["capture_s"]["segment"] > 0 and st["capture_s"]["extend"] > 0
+    assert st["pages"]["live_pages"] == 0

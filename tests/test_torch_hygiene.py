@@ -1,7 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch`` (nor
 ``chip_smoke.py``) imports JAX or the JAX package, importing the serving
-entry point pulls no JAX in, and entry points refuse to run on the CPU
-unless asked to."""
+entry points pulls no JAX in, and entry points (serving, the router, the
+HTTP server, the load test) refuse to run on the CPU unless asked to."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -38,7 +38,8 @@ def test_no_jax_or_reference_imports(path):
 def test_serve_import_pulls_no_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = ("import sys, repro_torch.launch.serve, repro_torch.convert, "
-            "repro_torch.kernels.build; "
+            "repro_torch.kernels.build, repro_torch.launch.server, "
+            "repro_torch.launch.loadtest; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -91,6 +92,28 @@ def test_continuous_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         main(argv)
     assert main(argv + ["--device", "cpu"]) == 0
+
+
+def test_router_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    """The router, the HTTP server's ``main`` and the load test's refuse
+    to run without CUDA unless the CPU is asked for."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import loadtest, server
+    from repro_torch.models import lm
+    from repro_torch.runtime.router import Router
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_arch("qwen3-0.6b").reduced()
+    params = lm.init_params(cfg, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Router(cfg, params)
+    assert Router(cfg, params, device="cpu").stats()["submitted"] == 0
+    for main, argv in ((server.main, ["--reduced"]),
+                       (loadtest.main, ["--smoke", "--reduced"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+    assert loadtest.main(["--smoke", "--reduced", "--requests", "6",
+                          "--device", "cpu"]) == 0
 
 
 def test_kernel_wrappers_refuse_other_devices():
