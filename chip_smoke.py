@@ -88,7 +88,14 @@ In order it
    restart, prefix warm bitwise cold with hits, the HTTP shim's stream
    equal to the router's tokens; latency, tok/s, occupancy, admission
    latency by path, bindings, and the two kernels' launches, zeroed
-   before the plain leg and read after);
+   before the plain leg and read after); then the reference's other
+   dense configs (``dense_family``): olmo-1b at its published width and
+   depth and starcoder2-7b at its published widths cut to 2 layers
+   (q heads padded to 48: n_rep 12 under capture), each served like the
+   main path, launches counted, graph bitwise eager, olmo-1b's two loops
+   timed in turns; musicgen-large (2 layers, head_dim 64) at model level
+   from seeded embeddings, its paged decode held against the plain read
+   and against the dense cache;
 4. holds each kernel's wrapper, as the main path calls it, against its
    plain PyTorch version on the same inputs at the main path's shapes,
    and times kernel, wrapper, plain version, the least
@@ -97,10 +104,14 @@ In order it
    at 2048 tokens of context on a synthetic pool of the same head layout;
    for the fused MVM (decode M = 4, the prefix extend chunk's M = 32,
    prefill M = 256, and the watchdog, ladder and router phases' shapes:
-   M = 1, 4, 6, 32, 64, 384 as each calls it) it checks that the kernel's own activation
-   quantization is bitwise the torch one, prints kernel and wrapper time
-   per shape and regime, and the estimator's RMSE against the exact f32
-   product ``x @ w`` at each shape (the accuracy DS-CIM costs);
+   M = 1, 4, 6, 32, 64, 384 as each calls it) it checks that the
+   kernel's own activation quantization is bitwise the torch one, prints
+   kernel and wrapper time per shape and regime, and the estimator's
+   RMSE against the exact f32 product ``x @ w`` at each shape (the
+   accuracy DS-CIM costs); both kernels also at every other dense
+   config's shapes (``dense_family_fused <arch>``: one layer's MLP sites
+   and head at M = 4 and 256; ``dense_family_paged``: each config's (KV,
+   n_rep, HD) at the main path's position and at 2048 tokens);
 5. drives the DS-CIM operator path (``operators``): at qwen3-0.6b's MLP
    shapes (M, K, N) = (256, 1024, 3072), (256, 3072, 1024) and (4, 1024,
    3072), int8 operands from seed 0, it calls ``ops.int8_matmul`` (the
@@ -176,6 +187,19 @@ LADDER_B = 6
 ROUTER_N, ROUTER_PREFIX_N = 32, 16
 ROUTER_BUCKETS, ROUTER_CHUNK = (32, 64), 16
 ROUTER_MAX_PROMPT, ROUTER_CAP = 96, 16
+# dense_family phase: the reference's other dense configs, served like the
+# main path (DSCIM, int8 paged KV, page PAGE, BATCH x PROMPT, TOKENS):
+# (arch, layers kept; None = the published depth, widths always kept)
+DF_SERVED = (("olmo-1b", None), ("starcoder2-7b", 2))
+# a stub frontend at model level from seeded embeddings: layers, steps
+DF_STUB, DF_STUB_LAYERS, DF_STUB_STEPS = "musicgen-large", 2, 8
+DF_ARCHS = ("olmo-1b", "codeqwen1.5-7b", "starcoder2-7b", "musicgen-large",
+            "pixtral-12b")
+DF_COLS = 512    # output columns the prefill-M fused checks hold
+# int8 paged KV against the dense cache on the float path: the
+# reference's own bound on their logit drift (tests/test_generate.py
+# test_paged_int8_kv_close_to_float_kv, dscim off)
+KV_INT8_DRIFT = 1e-2
 FUSED_RTOL = 2e-5            # f32 summation order; counts are exact
 PAGED_RTOL = 1e-5            # f32 summation order of dot products / sums
 LONG_POS = 2047              # paged attention's long-context position
@@ -360,6 +384,59 @@ def _decode_step_ms(torch, fn, reset, reps=5):
     return statistics.median(times)
 
 
+def _loops_in_turns(torch, cfg_ds, served, prompts, tag=""):
+    """The graph loop (``serve_batch(scan=True)``, already captured at
+    these options) and the eager loop, 5 requests each in turns at the
+    main path's shape, each with the median device time of one decode
+    step of its runner; returns the two loops' readings, medians and
+    ranges."""
+    import numpy as np
+
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import _generate_runner
+
+    kw = dict(kv="int8", page_size=PAGE)
+    runner = _generate_runner(cfg_ds, BATCH, PROMPT, TOKENS, "int8", PAGE,
+                              None, "greedy", False,
+                              torch.device("cuda", 0), None)
+    st = runner.st
+
+    def reset():
+        # the runner holds the params only inside a request; the eager
+        # step reads them
+        st["params"] = served
+        st["cache"]["pos"].fill_(PROMPT + TOKENS // 2)
+        st["i"].fill_(TOKENS // 2)
+    step_fn = {True: runner.step.graph.replay, False: runner.step.step}
+    runs = {True: [], False: []}
+    for scan in (True, False, False, True) * 2 + (True, False):
+        tt = {}
+        serve_batch(cfg_ds, served, prompts, TOKENS, scan=scan, timings=tt,
+                    **kw)
+        ms = _decode_step_ms(torch, step_fn[scan], reset)
+        runs[scan].append((BATCH * TOKENS / tt["generate_s"], ms))
+    st["params"] = None
+    loops = {}
+    for scan, name in ((True, "graph"), (False, "eager")):
+        tok_s = [r[0] for r in runs[scan]]
+        step_ms = [r[1] for r in runs[scan]]
+        loops[name] = {
+            "runs": len(tok_s), "tok_s": tok_s,
+            "tok_s_median": float(np.median(tok_s)),
+            "tok_s_range": [min(tok_s), max(tok_s)],
+            "decode_step_ms": step_ms,
+            "decode_step_ms_median": float(np.median(step_ms)),
+            "decode_step_ms_range": [min(step_ms), max(step_ms)]}
+        lp = loops[name]
+        _log(f"{tag}{name} loop, {lp['runs']} runs: "
+             f"{lp['tok_s_median']:.1f} tok/s median (range "
+             f"{lp['tok_s_range'][0]:.1f}-{lp['tok_s_range'][1]:.1f}); "
+             f"decode step {lp['decode_step_ms_median']:.4f} ms device "
+             f"time median (range {lp['decode_step_ms_range'][0]:.4f}-"
+             f"{lp['decode_step_ms_range'][1]:.4f})")
+    return loops
+
+
 def main_path(torch, cfg, params, served, prompts):
     """Phase 2 + 3: the main path through the captured decode step
     (``serve_batch(scan=True)`` on ``served``, the params prepared once),
@@ -370,7 +447,6 @@ def main_path(torch, cfg, params, served, prompts):
 
     from repro_torch.kernels import dscim_fused, paged_attention
     from repro_torch.launch.serve import serve_batch
-    from repro_torch.launch.steps import _generate_runner
 
     cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
     kw = dict(kv="int8", page_size=PAGE)
@@ -389,7 +465,7 @@ def main_path(torch, cfg, params, served, prompts):
                                       timings=t, return_cache=True, **kw)
     launches = {"dscim_fused_mvm": dscim_fused.LAUNCHES.count,
                 "paged_attention_decode": paged_attention.LAUNCHES.count}
-    want = {"dscim_fused_mvm": (3 * cfg.n_layers + 1) * TOKENS,
+    want = {"dscim_fused_mvm": _fused_per_forward(cfg) * TOKENS,
             "paged_attention_decode": cfg.n_layers * (TOKENS - 1)}
     _log(f"launches on the main path (graph replays): {launches} "
          f"(expected {want})")
@@ -422,44 +498,7 @@ def main_path(torch, cfg, params, served, prompts):
                              "logit trace)")
     _log(f"graph vs eager loop: tokens and the ({TOKENS}, {BATCH}, "
          f"{cfg.vocab_padded}) logit trace bitwise equal")
-    # both loops in turns, with the device time of one decode step
-    runner = _generate_runner(cfg_ds, BATCH, PROMPT, TOKENS, "int8", PAGE,
-                              None, "greedy", False,
-                              torch.device("cuda", 0), None)
-    st = runner.st
-
-    def reset():
-        # the runner holds the params only inside a request; the eager
-        # step reads them
-        st["params"] = served
-        st["cache"]["pos"].fill_(PROMPT + TOKENS // 2)
-        st["i"].fill_(TOKENS // 2)
-    step_fn = {True: runner.step.graph.replay, False: runner.step.step}
-    runs = {True: [], False: []}
-    for scan in (True, False, False, True) * 2 + (True, False):
-        tt = {}
-        serve_batch(cfg_ds, served, prompts, TOKENS, scan=scan, timings=tt,
-                    **kw)
-        ms = _decode_step_ms(torch, step_fn[scan], reset)
-        runs[scan].append((BATCH * TOKENS / tt["generate_s"], ms))
-    loops = {}
-    for scan, name in ((True, "graph"), (False, "eager")):
-        tok_s = [r[0] for r in runs[scan]]
-        step_ms = [r[1] for r in runs[scan]]
-        loops[name] = {
-            "runs": len(tok_s), "tok_s": tok_s,
-            "tok_s_median": float(np.median(tok_s)),
-            "tok_s_range": [min(tok_s), max(tok_s)],
-            "decode_step_ms": step_ms,
-            "decode_step_ms_median": float(np.median(step_ms)),
-            "decode_step_ms_range": [min(step_ms), max(step_ms)]}
-        lp = loops[name]
-        _log(f"{name} loop, {lp['runs']} runs: {lp['tok_s_median']:.1f} "
-             f"tok/s median (range {lp['tok_s_range'][0]:.1f}-"
-             f"{lp['tok_s_range'][1]:.1f}); decode step "
-             f"{lp['decode_step_ms_median']:.4f} ms device time median "
-             f"(range {lp['decode_step_ms_range'][0]:.4f}-"
-             f"{lp['decode_step_ms_range'][1]:.4f})")
+    loops = _loops_in_turns(torch, cfg_ds, served, prompts)
     tok_s = BATCH * TOKENS / t["generate_s"]
     _log(f"main path: {BATCH * TOKENS} tokens in {t['generate_s']:.4f} s "
          f"= {tok_s:.1f} tok/s (prepare {t['prepare_s']:.2f} s, capture "
@@ -1739,13 +1778,376 @@ def modes_phase(torch, cfg, served, prompts):
             "modes": out}
 
 
+def _numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_numel(v) for v in tree.values())
+    return tree.numel()
+
+
+def dense_family(torch):
+    """Phase dense_family, the reference's other dense configs on the card.
+    ``DF_SERVED`` go through ``serve_batch`` at the main path's settings
+    and shape (random weights from seed 0, prepared once): the warm-up
+    request captures the decode step; a counted request's fused-MVM and
+    paged-attention launches must be a forward's MLP matmuls and head a
+    token and the layers a decode step; the graph's tokens and logit
+    trace must equal the eager loop's bitwise.  olmo-1b (published depth)
+    is then timed, both loops in turns.  starcoder2-7b keeps 2 of its 32
+    layers at its published widths: its 36 q heads padded to 48 over 4
+    kv heads, n_rep 12 under capture.  ``DF_STUB`` (musicgen-large, 2 of
+    48 layers, head_dim 64) runs at model level from seeded embeddings,
+    at DSCIM and at 'off': prefill, then ``DF_STUB_STEPS`` decode steps on
+    the int8 paged cache, each layer's paged attention held against the
+    plain read at PAGED_RTOL as the model calls it, the launches counted,
+    and the same steps on the dense bf16 cache.  The paged logits' drift
+    from the dense ones is held within KV_INT8_DRIFT at 'off'; at DSCIM
+    it is printed only: the estimator quantizes its activations, so the
+    int8 cache's small perturbation moves whole quantization levels, and
+    no contract of the reference bounds that (its own 3e-2 bound fails
+    at dscim2:64, ROADMAP C3)."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.kvcache import n_pages_for, paged_from_dense
+    from repro_torch.kernels import dscim_fused
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.serve import (clear_graphs, prepare_params,
+                                          serve_batch)
+    from repro_torch.layers import attention
+    from repro_torch.models import lm
+
+    clear_graphs()             # the qwen3 phases' runners and graph pools
+    kw = dict(kv="int8", page_size=PAGE)
+    names = ("dscim_fused_mvm", "paged_attention_decode")
+    counters = (dscim_fused.LAUNCHES, pa.LAUNCHES)
+    total = dict.fromkeys(names, 0)
+    out = {"served": {}, "launches": total}
+
+    def count():
+        return dict(zip(names, (c.count for c in counters)))
+
+    for name, layers in DF_SERVED:
+        cfg = get_arch(name)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
+        params = lm.init_params(cfg, 0)
+        n_params = _numel(params)
+        served = prepare_params(cfg_ds, params)
+        del params
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab,
+                                                    (BATCH, PROMPT))
+        warm = {}
+        serve_batch(cfg_ds, served, prompts, TOKENS, timings=warm, **kw)
+        serve_batch(cfg_ds, served, prompts, TOKENS, scan=False, **kw)
+        torch.cuda.synchronize()
+        if "capture_s" not in warm:
+            raise AssertionError(f"{name}: the warm-up captured no graph")
+        for c in counters:
+            c.reset()
+        t = {}
+        toks, _ = serve_batch(cfg_ds, served, prompts, TOKENS, timings=t,
+                              **kw)
+        launches = count()
+        want = {"dscim_fused_mvm": _fused_per_forward(cfg) * TOKENS,
+                "paged_attention_decode": cfg.n_layers * (TOKENS - 1)}
+        _log(f"dense_family {name} ({cfg.n_layers} layers, d "
+             f"{cfg.d_model}, {cfg.q_heads} q heads over {cfg.n_kv} kv "
+             f"heads: n_rep {cfg.q_heads // cfg.n_kv}, {n_params} "
+             f"parameters): launches {launches} (expected {want}), "
+             f"capture {warm['capture_s']:.3f} s")
+        if launches != want or "capture_s" in t:
+            raise AssertionError(f"{name}: launches {launches} != {want} "
+                                 "or the timed request captured again")
+        for k in names:
+            total[k] += launches[k]
+        (tg, lg), (te, le) = (serve_batch(cfg_ds, served, prompts, TOKENS,
+                                          scan=scan, trace_logits=True, **kw)
+                              for scan in (True, False))
+        if not (np.array_equal(tg, te) and np.array_equal(tg, toks)
+                and np.array_equal(np.stack(lg), np.stack(le))):
+            raise AssertionError(f"{name}: graph and eager loop disagree")
+        if not np.isfinite(np.stack(lg)).all() or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_padded:
+            raise AssertionError(f"{name}: bad tokens or logits")
+        _log(f"dense_family {name}: graph tokens and ({TOKENS}, {BATCH}, "
+             f"{cfg.vocab_padded}) logit trace bitwise the eager loop's")
+        res = {"layers": cfg.n_layers,
+               "published_layers": get_arch(name).n_layers,
+               "params": n_params, "n_rep": cfg.q_heads // cfg.n_kv,
+               "launches": launches, "capture_s": warm["capture_s"],
+               "tok_s": BATCH * TOKENS / t["generate_s"]}
+        if layers is None:
+            res["loops"] = _loops_in_turns(torch, cfg_ds, served, prompts,
+                                           tag=f"dense_family {name} ")
+        out["served"][name] = res
+        del served
+        clear_graphs()
+        torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_arch(DF_STUB), n_layers=DF_STUB_LAYERS)
+    params = lm.init_params(cfg, 0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    S, T = PROMPT, DF_STUB_STEPS
+    emb = torch.randn((BATCH, S + T, cfg.d_model), generator=gen,
+                      device="cuda")
+    mp = n_pages_for(S + T, PAGE)
+    errs = []
+
+    def held(*args):
+        got = pa.paged_attention_decode(*args)
+        errs.append(_check_close(f"dense_family {DF_STUB} paged decode "
+                                 f"call {len(errs)}", got,
+                                 pa.paged_read_plain(*args), PAGED_RTOL))
+        return got
+
+    out["stub"] = {"arch": DF_STUB, "layers": cfg.n_layers,
+                   "published_layers": get_arch(DF_STUB).n_layers,
+                   "head_dim": cfg.head_dim, "steps": T}
+    for spec in (DSCIM, "off"):
+        c_s = dataclasses.replace(cfg, dscim=spec)
+        served = prepare_params(c_s, params)
+        _, dense = lm.prefill(served, c_s, None, S + T, embeds=emb[:, :S])
+        _, short = lm.prefill(served, c_s, None, embeds=emb[:, :S])
+        paged = paged_from_dense(short["k"], short["v"], PAGE,
+                                 n_pages=BATCH * mp, max_pages=mp)
+        for c in counters:
+            c.reset()
+        attention.paged_attention_decode = held
+        try:
+            lp = [lm.decode(served, c_s, None, paged,
+                            embed=emb[:, S + t:S + t + 1])[0]
+                  for t in range(T)]
+        finally:
+            attention.paged_attention_decode = pa.paged_attention_decode
+        launches = count()
+        want = {"dscim_fused_mvm": _fused_per_forward(cfg) * T
+                if spec != "off" else 0,
+                "paged_attention_decode": cfg.n_layers * T}
+        if launches != want:
+            raise AssertionError(f"{DF_STUB} {spec}: launches {launches} "
+                                 f"!= {want}")
+        for k in names:
+            total[k] += launches[k]
+        ld = [lm.decode(served, c_s, None, dense,
+                        embed=emb[:, S + t:S + t + 1])[0] for t in range(T)]
+        lp, ld = torch.stack(lp), torch.stack(ld)
+        if not bool(torch.isfinite(lp).all()):
+            raise AssertionError(f"{DF_STUB} {spec}: non-finite logits")
+        drift = float((lp - ld).pow(2).mean().sqrt())
+        agree = float((lp.argmax(-1) == ld.argmax(-1)).float().mean())
+        _log(f"dense_family {DF_STUB} ({cfg.n_layers} of "
+             f"{get_arch(DF_STUB).n_layers} layers, head_dim "
+             f"{cfg.head_dim}, embedding inputs) dscim={spec}: {T} paged "
+             f"decode steps, launches {launches}; paged attention vs the "
+             f"plain read in the model: max abs err {max(errs):.3e} over "
+             f"{len(errs)} calls so far; logits vs the dense bf16 cache: "
+             f"RMSE {drift:.3e}"
+             + (f" (bound {KV_INT8_DRIFT:g})" if spec == "off" else "")
+             + f", logit RMS {float(ld.pow(2).mean().sqrt()):.3f}, argmax "
+             f"agreement {agree:.3f}")
+        if spec == "off" and drift > KV_INT8_DRIFT:
+            raise AssertionError(f"{DF_STUB}: paged vs dense drift {drift}")
+        out["stub"][spec] = {"launches": launches,
+                             "paged_vs_dense_logit_rmse": drift,
+                             "paged_vs_dense_argmax_agreement": agree}
+        del served, dense, short, paged
+    out["stub"]["paged_vs_plain_max_abs_err"] = max(errs)
+    out["stub"]["paged_calls_held"] = len(errs)
+    return out
+
+
+def check_dense_family_fused(torch, name):
+    """The fused MVM against its plain version at one new config's
+    shapes: its MLP sites (``_mlp_sites``) and the f32 head, one layer of
+    weights drawn at its published widths, at decode M = BATCH and
+    prefill M = BATCH * PROMPT (the plain version on DF_COLS columns
+    spread over N there; the head's M = 256 call is a check off the
+    serving path, which runs the head on the last token)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.qweights import prepare_linear_weight
+    from repro_torch.models.lm import _linear_for
+
+    cfg = get_arch(name)
+    lin = _linear_for(DSCIM)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    D, F = cfg.d_model, cfg.d_ff
+    sites = [(site, (F, D) if site == "w_down" else (D, F), torch.bfloat16,
+              n) for site, n in _mlp_sites(cfg)]
+    sites.append(("lm_head", (D, cfg.vocab_padded), torch.float32, 1))
+    calls = []
+    for site, (K, N), xdt, per_fwd in sites:
+        wf = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
+        qw = prepare_linear_weight(wf, lin.group_k)
+        for m, regime in ((BATCH, "decode"), (BATCH * PROMPT, "prefill")):
+            cols = None if m == BATCH else torch.arange(
+                0, N, -(-N // DF_COLS), device="cuda")
+            on_path = not (site == "lm_head" and m > BATCH)
+            calls.append(dict(
+                _fused_case(torch, gen, site, [qw], wf, xdt, m, lin.cfg,
+                            f" {name}", cols),
+                per_forward=per_fwd if on_path else 0,
+                phase=f"dense_family {name} {regime}" if on_path
+                else f"dense_family {name}, check only, not on the path"))
+            _log_fused(calls[-1])
+        del wf, qw
+    torch.cuda.empty_cache()
+    return calls
+
+
+def _paged_case(torch, gen, KV, R, HD, pos):
+    """Paged attention against its plain version on a synthetic pool of
+    BATCH slots at ``pos`` (pages of PAGE tokens in random order), with
+    the kernel's and the plain version's device times and the bound."""
+    from repro_torch.kernels import paged_attention as pa
+
+    B, ps = BATCH, PAGE
+    MP = pos // ps + 1
+    P = B * MP
+    args = (torch.randn((B, KV, R, HD), generator=gen, device="cuda"),
+            *(torch.randint(-127, 128, (P, ps, KV, HD), generator=gen,
+                            device="cuda").to(torch.int8) for _ in range(2)),
+            *(torch.rand((P, KV), generator=gen, device="cuda") * 0.02
+              for _ in range(2)),
+            *(torch.randn((B, ps, KV, HD), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+              for _ in range(2)),
+            torch.randperm(P, generator=gen, device="cuda").reshape(
+                B, MP).to(torch.int32),
+            torch.full((B,), pos, dtype=torch.int32, device="cuda"))
+    shape = f"B={B} KV={KV} n_rep={R} HD={HD} ps={ps} pos={pos}"
+    err = _check_close(f"paged_attention {shape}",
+                       pa.paged_attention_decode(*args),
+                       pa.paged_read_plain(*args), PAGED_RTOL)
+    bound, by = _paged_bound(args[-1], ps, KV, R, HD, args[-2])
+    case = {"shape": shape, "max_abs_err": err,
+            "ms": _cuda_ms(lambda: pa._launch_kernel(*args), reps=50),
+            "plain_ms": _cuda_ms(lambda: pa.paged_read_plain(*args),
+                                 reps=2, warmup=1),
+            "bound_ms": bound, "bound_by": by}
+    _log(f"paged_attention {shape}: err {err:.3e}, {case['ms']:.4f} ms "
+         f"(plain {case['plain_ms']:.3f} ms, bound {bound:.5f} ms {by})")
+    return case
+
+
+def check_dense_family_paged(torch):
+    """Paged attention against its plain version at each new config's
+    (KV, n_rep, HD), and starcoder2-7b's ``.reduced()`` one (48 padded q
+    heads over 2 kv heads, HD 16), at the main path's last decode
+    position and at LONG_POS."""
+    from repro_torch.configs import get_arch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    cfgs = [get_arch(n) for n in DF_ARCHS]
+    cfgs.append(get_arch("starcoder2-7b").reduced())
+    shapes = sorted({(c.n_kv, c.q_heads // c.n_kv, c.head_dim)
+                     for c in cfgs})
+    return [_paged_case(torch, gen, KV, R, HD, pos)
+            for KV, R, HD in shapes
+            for pos in (PROMPT + TOKENS - 2, LONG_POS)]
+
+
+def _mlp_sites(cfg):
+    """(site, calls a forward) of the fused MVM's MLP sites of ``cfg``:
+    the first matmul (``w_gate``, whose shape ``w_up`` shares, for SwiGLU;
+    ``w_up`` for the GELU MLP) and ``w_down``."""
+    if cfg.mlp_kind == "swiglu":
+        return (("w_gate", 2 * cfg.n_layers), ("w_down", cfg.n_layers))
+    return (("w_up", cfg.n_layers), ("w_down", cfg.n_layers))
+
+
+def _fused_per_forward(cfg):
+    """Fused-MVM launches of one forward at a kernel spec: every MLP matmul
+    of every layer and the head."""
+    return sum(n for _, n in _mlp_sites(cfg)) + 1
+
+
+def _fused_case(torch, gen, site, ws, wf, xdt, m, dcfg, tag="", cols=None):
+    """The fused MVM wrapper, as the serving path calls it (leading-dim
+    fold, dispatch, one C call: the quantize kernel, then the MVM), on
+    random (m, K) activations of ``xdt`` and the prepared weight ``ws[0]``,
+    against the plain version on the torch-quantized activations; the
+    kernel's own quantization must be the torch one, bitwise.  Times the
+    kernel and the wrapper over the weights ``ws`` (distinct layers' where
+    given: the serving path meets each weight once a forward, not hot in
+    L2), the plain version, and gives the bound and the estimator's RMSE
+    against the f32 product with the float weight ``wf``.  ``cols``: hold
+    (and time the plain version, and the RMSE) on these output columns
+    only, where the plain version over all of N would take minutes."""
+    from repro_torch.core.qweights import QuantizedLinearWeight
+    from repro_torch.kernels import dscim_fused
+
+    K, N = ws[0].k_orig, ws[0].n
+    x = torch.randn((m, K), generator=gen, device="cuda").to(xdt)
+    got = dscim_fused.dscim_fused_mvm_prepared(x, ws[0], dcfg)
+    xq = dscim_fused.quantize_activations_windowed(x, ws[0].nw, ws[0].g)
+    q = xq.q.contiguous()
+    sx = xq.scale.reshape(m, ws[0].nw).contiguous()
+    held = ws[0]
+    if cols is not None:
+        held = QuantizedLinearWeight(ws[0].q[..., cols].contiguous(),
+                                     ws[0].scale[..., cols].contiguous(),
+                                     K, ws[0].group_k)
+        got, wf = got[:, cols], wf[:, cols]
+    want = dscim_fused.dscim_fused_mvm_plain(q, sx, held.q, held.scale,
+                                             dcfg)
+    err = _check_close(f"dscim_fused{tag} {site} M={m}", got, want,
+                       FUSED_RTOL)
+    # the kernel's quantization is the torch one, bitwise
+    _, kq, ksx = dscim_fused._launch_kernel(x, ws[0], dcfg)
+    if not (torch.equal(kq, q) and torch.equal(
+            ksx.view(torch.int32), sx.view(torch.int32))):
+        raise AssertionError(f"dscim_fused{tag} {site} M={m}: the "
+                             "kernel's quantized activations differ")
+    # accuracy cost of the estimator itself: against x @ w in f32
+    exact = x.float() @ wf.float()
+    est_rmse = float((got - exact).pow(2).mean().sqrt())
+    exact_rms = float(exact.pow(2).mean().sqrt())
+    reps = 5 if m > BATCH else 20
+    ms = _cuda_ms(lambda: [dscim_fused._launch_kernel(x, w, dcfg)
+                           for w in ws], reps) / len(ws)
+    wrapper_ms = _cuda_ms(lambda: [
+        dscim_fused.dscim_fused_mvm_prepared(x, w, dcfg) for w in ws],
+        reps) / len(ws)
+    plain_ms = _cuda_ms(lambda: dscim_fused.dscim_fused_mvm_plain(
+        q, sx, held.q, held.scale, dcfg), reps=2, warmup=1)
+    kp = ws[0].nw * ws[0].g
+    nbytes = (x.numel() * x.element_size() + kp * N
+              + 4 * ws[0].nw * N + 2 * 4 * dcfg.group * dcfg.sbits
+              + 4 * m * N)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = _count_ops(m, N, ws[0].nw, ws[0].g, dcfg) / B1_OPS_PER_S * 1e3
+    out = {"shape": f"{tag.strip() + ' ' if tag else ''}{site} M={m} "
+                    f"K={K} N={N}",
+           "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper_ms,
+           "plain_ms": plain_ms, "rmse_vs_float_matmul": est_rmse,
+           "float_matmul_rms": exact_rms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if cols is not None:
+        out["held_cols"] = int(cols.numel())
+    return out
+
+
+def _log_fused(c):
+    _log(f"dscim_fused {c['shape']} ({c['phase']}, "
+         f"{c['per_forward']} a forward): err {c['max_abs_err']:.3e}"
+         + (f" on {c['held_cols']} columns" if "held_cols" in c else "")
+         + f", quantization bitwise; {c['ms']:.4f} ms (wrapper "
+         f"{c['wrapper_ms']:.4f} ms, plain {c['plain_ms']:.3f} ms, "
+         f"bound {c['bound_ms']:.4f} ms, {c['bound_by']}); estimate vs "
+         f"f32 x @ w: RMSE {c['rmse_vs_float_matmul']:.4f}, RMS of "
+         f"x @ w {c['float_matmul_rms']:.4f}")
+
+
 def check_fused(torch, cfg, params, launches):
     """Fused DS-CIM MVM vs its plain version at the serving shapes: the
     main path's (DSCIM: decode, prefix extend, prefill), the watchdog
     phase's segments and admissions at WD_DSCIM (other count tables), the
     ladder's ``serve_batch`` of the quarantined requests at DSCIM, and
     the router phase's extend chunks and bucket admissions at DSCIM."""
-    from repro_torch.kernels import dscim_fused
     from repro_torch.launch.steps import prepare_serving_params
     from repro_torch.models.lm import _linear_for
 
@@ -1760,72 +2162,16 @@ def check_fused(torch, cfg, params, launches):
         prep = prepare_serving_params(dataclasses.replace(cfg, dscim=spec),
                                       params)
         mlp = prep["layers"]["mlp"]
-        return {"w_gate": ([mlp["w_gate"][i] for i in range(L)],
-                           fmlp["w_gate"][0], torch.bfloat16, 2 * L),
-                "w_down": ([mlp["w_down"][i] for i in range(L)],
-                           fmlp["w_down"][0], torch.bfloat16, L),
-                "lm_head": ([prep["lm_head"]], params["embed"].T,
-                            torch.float32, 1)}, _linear_for(spec).cfg
+        out = {site: ([mlp[site][i] for i in range(L)], fmlp[site][0],
+                      torch.bfloat16, n) for site, n in _mlp_sites(cfg)}
+        out["lm_head"] = ([prep["lm_head"]], params["embed"].T,
+                          torch.float32, 1)
+        return out, _linear_for(spec).cfg
 
     def one(site, ws, wf, xdt, m, dcfg, tag=""):
-        K, N = ws[0].k_orig, ws[0].n
-        x = torch.randn((m, K), generator=gen, device="cuda").to(xdt)
-        # the wrapper the main path calls (leading-dim fold, dispatch,
-        # one C call: the quantize kernel, then the MVM)
-        # against the plain version on the torch-quantized activations
-        got = dscim_fused.dscim_fused_mvm_prepared(x, ws[0], dcfg)
-        xq = dscim_fused.quantize_activations_windowed(x, ws[0].nw, ws[0].g)
-        q = xq.q.contiguous()
-        sx = xq.scale.reshape(m, ws[0].nw).contiguous()
-        want = dscim_fused.dscim_fused_mvm_plain(q, sx, ws[0].q,
-                                                 ws[0].scale, dcfg)
-        err = _check_close(f"dscim_fused{tag} {site} M={m}", got, want,
-                           FUSED_RTOL)
-        # the kernel's quantization is the torch one, bitwise
-        _, kq, ksx = dscim_fused._launch_kernel(x, ws[0], dcfg)
-        if not (torch.equal(kq, q) and torch.equal(
-                ksx.view(torch.int32), sx.view(torch.int32))):
-            raise AssertionError(f"dscim_fused{tag} {site} M={m}: the "
-                                 "kernel's quantized activations differ")
-        # accuracy cost of the estimator itself: against x @ w in f32
-        exact = x.float() @ wf.float()
-        est_rmse = float((got - exact).pow(2).mean().sqrt())
-        exact_rms = float(exact.pow(2).mean().sqrt())
-        # time over distinct layers' weights: the main path meets each
-        # weight once per forward, not hot in L2
-        reps = 5 if m > BATCH else 20
-        ms = _cuda_ms(lambda: [dscim_fused._launch_kernel(x, w, dcfg)
-                               for w in ws], reps) / len(ws)
-        # the same through the wrapper the main path calls
-        wrapper_ms = _cuda_ms(lambda: [
-            dscim_fused.dscim_fused_mvm_prepared(x, w, dcfg) for w in ws],
-            reps) / len(ws)
-        plain_ms = _cuda_ms(lambda: dscim_fused.dscim_fused_mvm_plain(
-            q, sx, ws[0].q, ws[0].scale, dcfg), reps=2, warmup=1)
-        kp = ws[0].nw * ws[0].g
-        nbytes = (x.numel() * x.element_size() + kp * N
-                  + 4 * ws[0].nw * N + 2 * 4 * dcfg.group * dcfg.sbits
-                  + 4 * m * N)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = _count_ops(m, N, ws[0].nw, ws[0].g, dcfg) \
-            / B1_OPS_PER_S * 1e3
-        return {"shape": f"{tag.strip() + ' ' if tag else ''}{site} M={m} "
-                         f"K={K} N={N}",
-                "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper_ms,
-                "plain_ms": plain_ms,
-                "rmse_vs_float_matmul": est_rmse,
-                "float_matmul_rms": exact_rms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        return _fused_case(torch, gen, site, ws, wf, xdt, m, dcfg, tag)
 
-    def log(c):
-        _log(f"dscim_fused {c['shape']} ({c['phase']}, "
-             f"{c['per_forward']} a forward): err {c['max_abs_err']:.3e}, "
-             f"quantization bitwise; {c['ms']:.4f} ms (wrapper "
-             f"{c['wrapper_ms']:.4f} ms, plain {c['plain_ms']:.3f} ms, "
-             f"bound {c['bound_ms']:.4f} ms, {c['bound_by']}); estimate vs "
-             f"f32 x @ w: RMSE {c['rmse_vs_float_matmul']:.4f}, RMS of "
-             f"x @ w {c['float_matmul_rms']:.4f}")
+    log = _log_fused
 
     calls = []
     # the main path: decode (M = slots), an extend chunk of the prefix
@@ -1919,7 +2265,7 @@ def check_paged(torch, cfg, cache, launches):
     from repro_torch.kernels import paged_attention as pa
 
     B, KV, HD = BATCH, cfg.n_kv, cfg.head_dim
-    R = cfg.n_heads // KV
+    R = cfg.q_heads // KV
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     if cache is None:       # the main path failed: a pool of its shapes
@@ -2413,8 +2759,10 @@ def main() -> int:
     failures = []
 
     def phase(name, fn, *args):
-        """Run one phase; a failure is reported and the later phases still
-        run (one run on the card shows every fault), but the script fails."""
+        """Run one phase and print its wall time; a failure is reported
+        and the later phases still run (one run on the card shows every
+        fault), but the script fails."""
+        t0 = time.perf_counter()
         try:
             return fn(*args)
         except Exception:                  # report, keep going, fail at end
@@ -2422,6 +2770,8 @@ def main() -> int:
             failures.append(name)
             _log(f"phase {name} FAILED")
             return None
+        finally:
+            _log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2470,6 +2820,10 @@ def main() -> int:
                  e2e.get("tokens"))
     modes = phase("modes", modes_phase, torch, cfg, served, prompts)
     del served
+    df = phase("dense_family", dense_family, torch)
+    df_fused = [phase(f"dense_family_fused {name}", check_dense_family_fused,
+                      torch, name) for name in DF_ARCHS]
+    df_paged = phase("dense_family_paged", check_dense_family_paged, torch)
     counts = launches or {"dscim_fused_mvm": None,
                           "paged_attention_decode": None}
     kernels = [phase("dscim_fused", check_fused, torch, cfg, params, counts),
@@ -2480,6 +2834,14 @@ def main() -> int:
                         (kernels[1], "paged_attention_decode")):
         if entry is not None and rt is not None:
             entry["launches_router"] = rt["launches"].get(name, 0)
+    for entry, name, checks in ((kernels[0], "dscim_fused_mvm",
+                                 [c for cs in df_fused if cs for c in cs]),
+                                (kernels[1], "paged_attention_decode",
+                                 df_paged or [])):
+        if entry is not None:
+            entry["dense_family"] = checks
+            if df is not None:
+                entry["launches_dense_family"] = df["launches"][name]
     for extra, name in ((spec, "launches_spec"), (pfx, "launches_prefix")):
         if extra is None:
             continue
@@ -2511,6 +2873,7 @@ def main() -> int:
                       "spec": spec, "modes": modes, "prefix": pfx,
                       "faults": faults, "watchdog": wd,
                       "integrity": integ, "router": rt,
+                      "dense_family": df,
                       "prefill_logit_rmse_vs_off": e2e.get("logit_rmse"),
                       "reduced_gpu_vs_cpu_drift": drift,
                       "table1_rmse_pct": t1,

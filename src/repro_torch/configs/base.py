@@ -57,6 +57,12 @@ class ArchConfig:
     def vocab_padded(self) -> int:
         return math.ceil(self.vocab / self.vocab_pad_mult) * self.vocab_pad_mult
 
+    @property
+    def q_heads(self) -> int:
+        """The q heads as laid out in ``wq``: n_heads padded to
+        ``head_pad_to`` (pad heads have zero wq columns and wo rows)."""
+        return max(self.n_heads, self.head_pad_to or self.n_heads)
+
     def reduced(self) -> "ArchConfig":
         """Same family/topology, tiny dims: runs a real step on 1 CPU core."""
         def rd(v, lo, cap):

@@ -4,9 +4,10 @@ serving router (runtime/router.py), with and without injected faults
 
     python -m repro_torch.launch.loadtest --smoke
 
-serves qwen3-0.6b at its published width on the GPU (``--reduced`` cuts
-it to the smoke-test size, ``--device cpu`` runs the plain PyTorch
-versions on the CPU).
+serves ``--arch`` (any registered token-input config, default
+qwen3-0.6b) at its published width on the GPU (``--reduced`` cuts it to
+the smoke-test size, ``--device cpu`` runs the plain PyTorch versions on
+the CPU).
 
 The trace (``make_trace``, the reference's for every seed): mixed prompt
 lengths (bucketed one-shot lengths plus an odd-length tail that takes
@@ -17,7 +18,9 @@ with the fault schedule armed (``FailureInjector.sampled(chaos_seed)``:
 device losses and page-pool bit flips, replayed through snapshot and
 restore) as without.  Requests ``ok`` in both legs must have bitwise the
 same tokens (greedy serving is schedule- and replay-independent), but for
-those a page flip hit, whose tokens the flip decides; the full run also
+those a page flip hit, whose tokens the flip decides (``chaos_injector``
+says why; the reference's check, which holds them too, fails on them at
+some seeds); the full run also
 replays the plain leg's bucket-length ``ok`` requests
 through ``serve_continuous`` and holds them bitwise.  ``--prefix-cache``
 adds a shared-system-prompt trace served by an all-chunked cold router
@@ -36,6 +39,8 @@ import dataclasses
 import time
 
 import numpy as np
+
+from ..configs import TOKEN_ARCHS
 
 
 def make_trace(seed: int, n: int, *, buckets=(4, 8), max_prompt: int = 12,
@@ -280,6 +285,27 @@ class LoadShape:
                                           // self.page_size + 1))
 
 
+def chaos_injector(shape: LoadShape, cfg, plain_segments: int,
+                   chaos_seed: int):
+    """The chaos leg's fault schedule: ``FailureInjector.sampled`` over
+    ``max(min_fault_segments, fault_span * plain_segments)`` segments,
+    with the reference's arguments, so equal inputs give the reference's
+    flips (segment, slot, plane, element, bit).  Which request a flip
+    hits, and whether it hits a committed page (the flip persists and
+    may change that request's tokens) or one a later flush rewrites,
+    depends on where the router's arrivals, timed on the wall clock, have
+    put each request at that segment, and so does the plain leg's segment
+    count: the same seed lands its flips on other requests from run to
+    run, in either package."""
+    from ..runtime.failover import FailureInjector
+    segs = max(shape.min_fault_segments,
+               int(plain_segments * shape.fault_span))
+    return FailureInjector.sampled(
+        chaos_seed, segments=segs, slots=shape.slots, n_layers=cfg.n_layers,
+        page_size=shape.page_size, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
+        device_losses=shape.device_losses, flips=shape.flips)
+
+
 def run_loadtest(smoke: bool = True, *, requests: int | None = None,
                  seed: int = 0, chaos_seed: int = 0, arch: str = "qwen3-0.6b",
                  prefix: bool = False, reduced: bool = False,
@@ -295,8 +321,8 @@ def run_loadtest(smoke: bool = True, *, requests: int | None = None,
     bitwise with hits > 0, and a ``serve/prefix_router`` row.  The chaos
     leg's ok requests are held bitwise against the plain leg's, but for
     those an injected page flip hit (silent corruption: the flip decides
-    whether their tokens change, as in the chaos drill); how many of
-    those still matched is logged.
+    whether their tokens change, as in the chaos drill; see
+    ``chaos_injector``); how many of those still matched is logged.
 
     Weights are random from seed 0 at ``arch`` (``reduced``: the
     smoke-test width, not the published one) with ``dscim='off'``, as the
@@ -309,7 +335,6 @@ def run_loadtest(smoke: bool = True, *, requests: int | None = None,
     from ..configs import get_arch
     from ..device import resolve_device
     from ..models import lm
-    from ..runtime.failover import FailureInjector
     from ..runtime.watchdog import AccuracyWatchdog
     from .serve import prepare_params
 
@@ -356,12 +381,7 @@ def run_loadtest(smoke: bool = True, *, requests: int | None = None,
     plain, st_p, m_plain = leg("plain", trace)
 
     log(f"[loadtest] chaos leg: fault schedule seed={chaos_seed}")
-    segs = max(shape.min_fault_segments,
-               int(st_p["segments"] * shape.fault_span))
-    inj = FailureInjector.sampled(
-        chaos_seed, segments=segs, slots=shape.slots, n_layers=cfg.n_layers,
-        page_size=shape.page_size, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
-        device_losses=shape.device_losses, flips=shape.flips)
+    inj = chaos_injector(shape, cfg, st_p["segments"], chaos_seed)
     chaos, st_c, m_chaos = leg("chaos", trace, injector=inj,
                                monitor=AccuracyWatchdog(None),
                                snapshot_every=4)
@@ -440,7 +460,7 @@ def main(argv=None):
     ap.add_argument("--chaos-seed", type=int, default=0,
                     help="FailureInjector.sampled seed: reproduces a fault "
                          "schedule exactly")
-    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=TOKEN_ARCHS)
     ap.add_argument("--prefix-cache", action="store_true",
                     help="add the shared-system-prompt prefix legs: "
                          "bitwise hit-vs-cold under the trace's traffic and "

@@ -4,10 +4,11 @@ and the CLI of ``repro/launch/serve.py``).
 
     python -m repro_torch.launch.serve --dscim kernel:dscim1:256 --kv int8
 
-serves qwen3-0.6b at its published width on the GPU (``--reduced`` cuts
-it to the smoke-test size, ``--device cpu`` runs the plain PyTorch
-versions on the CPU) and prints tok/s for the float path and the DS-CIM
-path, their token agreement and the prefill logit RMSE between them.
+serves ``--arch`` (any registered token-input config, default
+qwen3-0.6b) at its published width on the GPU (``--reduced`` cuts it to
+the smoke-test size, ``--device cpu`` runs the plain PyTorch versions on
+the CPU) and prints tok/s for the float path and the DS-CIM path, their
+token agreement and the prefill logit RMSE between them.
 
 Generation replays one captured decode step as a CUDA graph (launch/
 steps.py, launch/graph.py): one host call per token instead of one per
@@ -36,10 +37,11 @@ import time
 import numpy as np
 import torch
 
-from ..configs import get_arch
+from ..configs import TOKEN_ARCHS, get_arch
 from ..device import resolve_device
 from ..models import lm
-from .steps import clear_graphs, make_generate_fn, prepare_serving_params
+from .steps import (_check_kv, clear_graphs, make_generate_fn,
+                    prepare_serving_params)
 
 __all__ = ["serve_batch", "serve_continuous", "prepare_params",
            "clear_graphs", "logit_drift_rmse", "main"]
@@ -96,6 +98,7 @@ def serve_batch(cfg, params, prompts, n_tokens: int, *,
     windows and emitted tokens, whose ratio is accepted tokens per
     verify.  ``return_cache``: also return a copy of the final KV cache
     (tensors on device), last."""
+    _check_kv(cfg, kv)
     dev = resolve_device(device)
 
     def sync():
@@ -232,6 +235,7 @@ def serve_continuous(cfg, params, prompts, n_tokens: int, *,
     without spec under greedy decoding.  ``params`` go through
     ``prepare_params``; ``device``: CUDA unless 'cpu' is asked for."""
     from ..runtime.serving import serve_continuous_ft
+    _check_kv(cfg, kv)
     dev = resolve_device(device)
     params = prepare_params(cfg, params, dev)
     return serve_continuous_ft(
@@ -303,7 +307,7 @@ def _agreement(a: np.ndarray, b: np.ndarray, eos_id: int | None) -> float:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=TOKEN_ARCHS)
     ap.add_argument("--reduced", action="store_true",
                     help="serve the reduced smoke-test width instead of "
                          "the published one")

@@ -4,9 +4,10 @@ maps its typed surface onto the wire).
 
     python -m repro_torch.launch.server --dscim kernel:dscim1:256
 
-serves qwen3-0.6b at its published width on the GPU (``--reduced`` cuts
-it to the smoke-test size, ``--device cpu`` runs the plain PyTorch
-versions on the CPU), random weights from seed 0.  Stdlib only
+serves ``--arch`` (any registered token-input config, default
+qwen3-0.6b) at its published width on the GPU (``--reduced`` cuts it to
+the smoke-test size, ``--device cpu`` runs the plain PyTorch versions on
+the CPU), random weights from seed 0.  Stdlib only
 (``asyncio.start_server`` and hand-written HTTP/1.1):
 
 * ``POST /v1/generate``: body ``{"prompt": [ids], "max_new": n,
@@ -201,12 +202,12 @@ def main(argv=None):
     import argparse
     import dataclasses
 
-    from ..configs import get_arch
+    from ..configs import TOKEN_ARCHS, get_arch
     from ..device import resolve_device
     from ..models import lm
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=TOKEN_ARCHS)
     ap.add_argument("--reduced", action="store_true",
                     help="serve the reduced smoke-test width instead of "
                          "the published one")

@@ -83,10 +83,16 @@ def prepare_serving_params(cfg: ArchConfig, params, *, golden: bool = False):
 
 
 def _check_kv(cfg: ArchConfig, kv: str):
+    """What the serving loops take: a dense token-input config and a
+    'float' or 'int8' cache."""
     if kv not in ("float", "int8"):
         raise ValueError(f"kv must be 'float' or 'int8', got {kv!r}")
     if cfg.family != "dense":
         raise ValueError(f"{cfg.family!r} models are not ported yet")
+    if cfg.stub_frontend:
+        raise ValueError(f"{cfg.name} takes embeddings (a stub frontend), "
+                         "and the serving loops take token prompts: drive "
+                         "models/lm.py prefill(embeds=) / decode(embed=)")
 
 
 def _make_sampler(sample: str):
@@ -401,8 +407,9 @@ def _prepare_fn(st: dict, uses):
         if "k_pages" in cache:
             cfg = uses[0][0]
             ps, KV, HD = cache["k_pages"].shape[2:]
+            # n_rep of q's padded heads, as the live call derives it
             paged_attention.prepare_capture(
-                st["tok"].shape[0], KV, cfg.n_heads // KV, HD, ps,
+                st["tok"].shape[0], KV, cfg.q_heads // KV, HD, ps,
                 cache["page_table"].shape[1], cache["pos"].device, stream)
 
     return prepare

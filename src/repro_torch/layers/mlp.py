@@ -1,4 +1,5 @@
-"""SwiGLU feed-forward block with an optional DS-CIM linear (port of
+"""Feed-forward blocks, SwiGLU (llama/qwen family) and the non-gated GELU
+MLP (starcoder2, musicgen), with an optional DS-CIM linear (port of
 ``repro/layers/mlp.py``).  Weights may be float matrices or prepared
 ``QuantizedLinearWeight``s; the latter need a DS-CIM ``linear``."""
 from __future__ import annotations
@@ -26,7 +27,11 @@ def mlp(params, x: torch.Tensor, kind: str = "swiglu", linear=None,
         s = None if salt is None else salt + site
         return linear(a, w, salt=s).to(a.dtype)
 
-    if kind != "swiglu":
-        raise NotImplementedError(f"mlp kind {kind!r} is not ported yet")
-    h = F.silu(mm(x, params["w_gate"], 0)) * mm(x, params["w_up"], 1)
+    if kind == "swiglu":
+        h = F.silu(mm(x, params["w_gate"], 0)) * mm(x, params["w_up"], 1)
+    elif kind == "gelu":
+        # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(mm(x, params["w_up"], 1), approximate="tanh")
+    else:
+        raise ValueError(f"unknown mlp kind {kind!r}")
     return mm(h, params["w_down"], 2)

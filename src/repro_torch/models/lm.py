@@ -1,5 +1,9 @@
 """Decoder-only transformer LM, dense family (port of the serving half of
-``repro/models/lm.py``).
+``repro/models/lm.py``): olmo-1b, qwen3-0.6b, starcoder2-7b,
+codeqwen1.5-7b, and the stub-frontend backbones musicgen-large and
+pixtral-12b, whose inputs are embeddings (``embeds=`` (B, S, D) to
+``prefill``, ``embed=`` (B, 1, D) to ``decode``) and whose head is always
+``lm_head``.
 
 Parameters are a nested dict of tensors in the reference's layout: every
 per-layer leaf is stacked on axis 0 (``params["layers"]["mlp"]["w_up"]`` is
@@ -29,7 +33,7 @@ from ..layers.attention import (attention, decode_attention,
                                 decode_attention_paged_multi, flush_plan,
                                 per_position, window_positions)
 from ..layers.mlp import mlp
-from ..layers.norms import rmsnorm
+from ..layers.norms import layernorm, rmsnorm
 
 __all__ = ["init_params", "prefill", "decode", "decode_multi",
            "cast_layers", "DTYPES"]
@@ -117,17 +121,30 @@ def _alin(cfg: ArchConfig):
     return _attn_linear_for(cfg.dscim, cfg.dscim_fault)
 
 
+def _norm(cfg: ArchConfig, x, params):
+    """cfg's norm: RMSNorm, or LayerNorm (``layernorm``: scale only;
+    ``layernorm_np``: none)."""
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, params)
+    return layernorm(x, params)
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, device=None):
     """Random f32 parameters in the reference's layout and scales, drawn
-    from a ``torch.Generator`` seeded with ``seed``."""
-    if cfg.family != "dense" or cfg.norm != "rmsnorm" or cfg.stub_frontend:
-        raise NotImplementedError(f"{cfg.name}: only the dense rmsnorm "
-                                  "family is ported")
+    from a ``torch.Generator`` seeded with ``seed``: norms with a scale
+    (none for ``layernorm_np``), no ``w_gate`` for the GELU MLP, q heads
+    padded to ``head_pad_to`` with zero ``wq`` columns and zero ``wo``
+    rows, no ``embed`` for a stub frontend and an ``lm_head`` unless the
+    head is tied to ``embed``."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: {cfg.family!r} models are "
+                                  "not ported yet")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
     H, KV, HD = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    hp = cfg.q_heads
 
     def randn(*shape, std):
         return torch.randn(shape, generator=gen, device=dev,
@@ -136,26 +153,30 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None):
     def ones(*shape):
         return torch.ones(shape, dtype=torch.float32, device=dev)
 
-    attn = {"wq": randn(L, D, H * HD, std=D ** -0.5),
+    def norm(*lead):
+        return {} if cfg.norm == "layernorm_np" else {"scale": ones(*lead, D)}
+
+    attn = {"wq": randn(L, D, hp * HD, std=D ** -0.5),
             "wk": randn(L, D, KV * HD, std=D ** -0.5),
             "wv": randn(L, D, KV * HD, std=D ** -0.5),
-            "wo": randn(L, H * HD, D, std=(H * HD) ** -0.5)}
+            "wo": randn(L, hp * HD, D, std=(H * HD) ** -0.5)}
+    attn["wq"][..., H * HD:] = 0.0        # pad heads: the function is
+    attn["wo"][:, H * HD:] = 0.0          # exactly the unpadded one's
     if cfg.qk_norm:
         attn["q_norm"] = {"scale": ones(L, HD)}
         attn["k_norm"] = {"scale": ones(L, HD)}
+    mlp_p = {"w_up": randn(L, D, F, std=D ** -0.5),
+             "w_down": randn(L, F, D, std=F ** -0.5)}
+    if cfg.mlp_kind == "swiglu":
+        mlp_p["w_gate"] = randn(L, D, F, std=D ** -0.5)
     params = {
-        "layers": {
-            "ln1": {"scale": ones(L, D)},
-            "ln2": {"scale": ones(L, D)},
-            "attn": attn,
-            "mlp": {"w_up": randn(L, D, F, std=D ** -0.5),
-                    "w_down": randn(L, F, D, std=F ** -0.5),
-                    "w_gate": randn(L, D, F, std=D ** -0.5)},
-        },
-        "final_norm": {"scale": ones(D)},
-        "embed": randn(cfg.vocab_padded, D, std=0.02),
+        "layers": {"ln1": norm(L), "ln2": norm(L), "attn": attn,
+                   "mlp": mlp_p},
+        "final_norm": norm(),
     }
-    if not cfg.tie_embeddings:
+    if not cfg.stub_frontend:
+        params["embed"] = randn(cfg.vocab_padded, D, std=0.02)
+    if not cfg.tie_embeddings or cfg.stub_frontend:
         params["lm_head"] = randn(D, cfg.vocab_padded, std=D ** -0.5)
     return params
 
@@ -186,7 +207,7 @@ def _head(params, cfg: ArchConfig, x):
     head = params.get("lm_head")
     if isinstance(head, QuantizedLinearWeight):
         return lin(x.to(torch.float32), head, salt=salt).to(torch.float32)
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and not cfg.stub_frontend:
         w = params["embed"].to(x.dtype).T
     else:
         w = head.to(x.dtype)
@@ -197,7 +218,7 @@ def _head(params, cfg: ArchConfig, x):
 
 
 def _ff(cfg: ArchConfig, lp, x, salt):
-    return mlp(lp["mlp"], rmsnorm(x, lp["ln2"]), cfg.mlp_kind,
+    return mlp(lp["mlp"], _norm(cfg, x, lp["ln2"]), cfg.mlp_kind,
                linear=_lin(cfg), salt=salt)
 
 
@@ -212,21 +233,39 @@ def _embed_prompt(params, tokens: torch.Tensor) -> torch.Tensor:
     return emb[torch.where(tokens < 0, tokens + V, tokens).clamp(0, V - 1)]
 
 
+def _inputs(cfg: ArchConfig, tokens, embeds, dt, embed_rows):
+    """The model's input rows in ``dt``: ``embeds`` for a stub-frontend
+    config (which requires them), else ``embed_rows(tokens)`` (a token
+    config refuses embeddings)."""
+    if cfg.stub_frontend:
+        if embeds is None or tokens is not None:
+            raise ValueError(f"{cfg.name} has a stub frontend: pass its "
+                             "input embeddings as embeds=/embed=, no "
+                             "token ids")
+        return embeds.to(dt)
+    if embeds is not None:
+        raise ValueError(f"{cfg.name} takes token ids, not embeddings")
+    return embed_rows(tokens).to(dt)
+
+
 @torch.no_grad()
-def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
-            capacity: int | None = None):
-    """Forward over the prompt + KV-cache construction.  tokens (B, S) ->
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor | None,
+            capacity: int | None = None, *,
+            embeds: torch.Tensor | None = None):
+    """Forward over the prompt + KV-cache construction.  tokens (B, S), or
+    for a stub-frontend config ``tokens=None`` and ``embeds`` (B, S, D) ->
     (last-token logits (B, Vp) f32, {"k","v": (L, B, T, KV, HD), "pos":
     (B,) int32}) with T = ``capacity`` (>= S, default S)."""
     dt = DTYPES[cfg.compute_dtype]
     cdt = DTYPES[cfg.cache_dtype]
-    x = _embed_prompt(params, tokens).to(dt)
+    x = _inputs(cfg, tokens, embeds, dt,
+                lambda t: _embed_prompt(params, t))
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     ks, vs = [], []
     for li in range(cfg.n_layers):
         lp = _cast(_layer(params["layers"], li), dt)
-        h, (k, v) = attention(lp["attn"], rmsnorm(x, lp["ln1"]), cfg,
+        h, (k, v) = attention(lp["attn"], _norm(cfg, x, lp["ln1"]), cfg,
                               positions, cfg.q_chunk, return_kv=True,
                               linear=_alin(cfg),
                               salt=8 * li)
@@ -239,7 +278,7 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
         pad = (0, 0, 0, 0, 0, capacity - S)
         ks = torch.nn.functional.pad(ks, pad)
         vs = torch.nn.functional.pad(vs, pad)
-    x = rmsnorm(x[:, -1:], params["final_norm"])
+    x = _norm(cfg, x[:, -1:], params["final_norm"])
     logits = _head(params, cfg, x)[:, 0]
     pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
     return logits, {"k": ks, "v": vs, "pos": pos}
@@ -256,33 +295,38 @@ def _advance(pos, done):
 
 
 @torch.no_grad()
-def decode(params, cfg: ArchConfig, token: torch.Tensor, cache,
-           done: torch.Tensor | None = None):
-    """One-token decode.  token (B,) -> (logits (B, Vp) f32, cache).  The
-    cache's tensors, ``pos`` included, are updated in place: ``pos``
-    advances (finished ``done`` slots stay put), so every address stays
-    what it was and the step can be captured in a CUDA graph.  A cache carrying ``k_pages`` is the int8
-    paged layout (core/kvcache.py)."""
-    if "k_pages" in cache:
-        return _decode_paged(params, cfg, token, cache, done)
+def decode(params, cfg: ArchConfig, token: torch.Tensor | None, cache,
+           done: torch.Tensor | None = None, *,
+           embed: torch.Tensor | None = None):
+    """One-token decode.  token (B,), or for a stub-frontend config
+    ``token=None`` and ``embed`` (B, 1, D) -> (logits (B, Vp) f32,
+    cache).  The cache's tensors, ``pos`` included, are updated in place:
+    ``pos`` advances (finished ``done`` slots stay put), so every address
+    stays what it was and the step can be captured in a CUDA graph.  A
+    cache carrying ``k_pages`` is the int8 paged layout
+    (core/kvcache.py)."""
     dt = DTYPES[cfg.compute_dtype]
-    x = params["embed"][token][:, None].to(dt)
+    x = _inputs(cfg, token, embed, dt,
+                lambda t: params["embed"][t][:, None])
+    if "k_pages" in cache:
+        return _decode_paged(params, cfg, x, cache, done)
     pos = cache["pos"]
     for li in range(cfg.n_layers):
         lp = _cast(_layer(params["layers"], li), dt)
-        h = decode_attention(lp["attn"], rmsnorm(x, lp["ln1"]),
+        h = decode_attention(lp["attn"], _norm(cfg, x, lp["ln1"]),
                              cache["k"][li], cache["v"][li], pos, cfg,
                              linear=_alin(cfg), salt=8 * li)
         x = x + h
         x = x + _ff(cfg, lp, x, 8 * li)
-    x = rmsnorm(x, params["final_norm"])
+    x = _norm(cfg, x, params["final_norm"])
     logits = _head(params, cfg, x)[:, 0]
     return logits, dict(cache, pos=_advance(pos, done))
 
 
-def _decode_paged(params, cfg: ArchConfig, token, cache, done=None):
-    dt = DTYPES[cfg.compute_dtype]
-    x = params["embed"][token][:, None].to(dt)
+def _decode_paged(params, cfg: ArchConfig, x, cache, done=None):
+    """``decode``'s layer loop over the int8 paged cache; x (B, 1, D) in
+    the compute dtype."""
+    dt = x.dtype
     plan = flush_plan(cache["page_table"], cache["pos"],
                       cache["k_pages"].shape[2], done)
     for li in range(cfg.n_layers):
@@ -292,12 +336,12 @@ def _decode_paged(params, cfg: ArchConfig, token, cache, done=None):
                  "v_tail")}
         view.update(page_table=cache["page_table"], pos=cache["pos"],
                     flush=plan)
-        h = decode_attention_paged(lp["attn"], rmsnorm(x, lp["ln1"]), view,
-                                   cfg, linear=_alin(cfg),
+        h = decode_attention_paged(lp["attn"], _norm(cfg, x, lp["ln1"]),
+                                   view, cfg, linear=_alin(cfg),
                                    salt=8 * li, done=done)
         x = x + h
         x = x + _ff(cfg, lp, x, 8 * li)
-    x = rmsnorm(x, params["final_norm"])
+    x = _norm(cfg, x, params["final_norm"])
     logits = _head(params, cfg, x)[:, 0]
     return logits, dict(cache, pos=_advance(cache["pos"], done))
 
@@ -330,6 +374,9 @@ def decode_multi(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
     (win_k, win_v) (n_layers, B, T, KV, HD) in the tail dtype for the
     paged layout (``core/kvcache.py spec_rollback`` consumes them) and
     None for the dense layout."""
+    if cfg.stub_frontend:
+        raise ValueError("decode_multi (speculative verify) needs token "
+                         "inputs; stub-frontend configs are unsupported")
     dt = DTYPES[cfg.compute_dtype]
     B, T = tokens.shape
     x = _embed_prompt(params, tokens).to(dt)                 # (B, T, D)
@@ -344,7 +391,7 @@ def decode_multi(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
     wks, wvs = [], []
     for li in range(cfg.n_layers):
         lp = _cast(_layer(params["layers"], li), dt)
-        hn = per_position(lambda v: rmsnorm(v, lp["ln1"]), x)
+        hn = per_position(lambda v: _norm(cfg, v, lp["ln1"]), x)
         if paged:
             view = {name: cache[name][li] for name in
                     ("k_pages", "v_pages", "k_scale", "v_scale", "k_tail",
@@ -361,10 +408,10 @@ def decode_multi(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
                                        cache["v"][li], pos, cfg, linear=alin,
                                        salt=8 * li, done=done)
         x = x + h
-        hn = per_position(lambda v: rmsnorm(v, lp["ln2"]), x)
+        hn = per_position(lambda v: _norm(cfg, v, lp["ln2"]), x)
         x = x + _window(lambda v: mlp(lp["mlp"], v, cfg.mlp_kind, linear=lin,
                                       salt=8 * li), lin, hn)
-    x = per_position(lambda v: rmsnorm(v, params["final_norm"]), x)
+    x = per_position(lambda v: _norm(cfg, v, params["final_norm"]), x)
     logits = _window(lambda v: _head(params, cfg, v), lin, x)
     step = T if done is None else (~done).to(pos.dtype) * T
     pos.add_(step)

@@ -72,8 +72,9 @@ from ..core.kvcache import (PageAllocator, PrefixCache, admission_pages,
                             cow_fork, n_pages_for)
 from ..device import resolve_device
 from ..launch.serve import prepare_params
-from ..launch.steps import (_parse_spec, init_serve_state, make_admit_fn,
-                            make_extend_fn, make_probe_fn, make_segment_fn)
+from ..launch.steps import (_check_kv, _parse_spec, init_serve_state,
+                            make_admit_fn, make_extend_fn, make_probe_fn,
+                            make_segment_fn)
 from .failover import (IntegrityReplay, SimulatedHardwareFailure,
                        restore_into, to_host)
 from .integrity import IntegrityEngine, parse_integrity
@@ -220,6 +221,7 @@ class Router:
                  max_replays: int = 3, integrity: str = "off",
                  prefix_cache: bool = False, resume: dict | None = None,
                  device=None, log=print):
+        _check_kv(cfg, kv)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = prepare_params(cfg, params, self.device)
@@ -312,12 +314,15 @@ class Router:
             "segments": 0, "global_step": 0,
             "live_steps": 0, "total_steps": 0,
             "prefill_computed": 0, "prefill_total": 0,
-            "corrupted": [],                 # rids a page flip hit (port)
             "counters": {"deadline_cancelled": 0, "cancelled": 0,
                          "quarantined": 0, "degraded": 0, "refused_queue": 0,
                          "refused_too_large": 0, "refused_draining": 0},
         }
         self._requests: dict = {}            # rid -> _Request (NOT snapshot)
+        # rids a page flip hit (port; NOT snapshot): their clients may
+        # have been streamed tokens decoded from the flipped page, which
+        # a restore from before the flip cannot take back
+        self._corrupted: list = []
         self._inbox: list = []               # submitted, not yet ingested
         self._next_rid = 0
         self._replays = 0
@@ -450,7 +455,8 @@ class Router:
         prefix hit); a chunked admission's spans the segments between
         its chunks), ``corrupted_requests`` (the rids whose slot an
         injected page flip hit, silent corruption the flips' effect
-        decides; a replay that restores from before a flip drops it),
+        decides; kept through a replay that restores from before the
+        flip, since tokens streamed meanwhile stay streamed),
         ``snapshots`` (host copies and restores, counts and seconds) and
         ``ladder`` (the re-serves' wall seconds, the decode graphs
         their ``serve_batch`` captured and each rung's record)."""
@@ -494,7 +500,7 @@ class Router:
             "capture_s": {"segment": sum(captured(f) for f in segs),
                           "extend": sum(captured(f) for f in exts)},
             "admit_lat": {k: list(v) for k, v in self._lat.items()},
-            "corrupted_requests": sorted(h["corrupted"]),
+            "corrupted_requests": sorted(self._corrupted),
             "snapshots": dict(self._snaps),
             "ladder": dict(self._ladder,
                            records=list(self._ladder["records"])),
@@ -854,8 +860,8 @@ class Router:
                                                  h["slot_pages"])
             for b in hit:
                 rid = h["slot_rid"][b]
-                if rid >= 0 and rid not in h["corrupted"]:
-                    h["corrupted"].append(rid)
+                if rid >= 0 and rid not in self._corrupted:
+                    self._corrupted.append(rid)
         if self.injector is not None and self.injector.weight_flips:
             self.injector.corrupt_weights(seg, self.params)
         if self._integrity is not None and self._integrity.due(seg):

@@ -1227,3 +1227,195 @@ def test_router_buckets_equal_serve_continuous_at_full_width(cuda):
     assert st["bindings"] == {"segment": 1, "extend": 1, "probe": 0}
     assert st["capture_s"]["segment"] > 0 and st["capture_s"]["extend"] > 0
     assert st["pages"]["live_pages"] == 0
+
+
+# the dense family's shapes: (K, N) of each new config's MLP sites and head
+# (olmo-1b, codeqwen1.5-7b, starcoder2-7b, musicgen-large, pixtral-12b)
+_DENSE_KN = [(2048, 8192), (8192, 2048), (2048, 50304), (4096, 13440),
+             (13440, 4096), (4608, 18432), (18432, 4608), (2048, 2048),
+             (5120, 14336), (14336, 5120), (5120, 131072)]
+
+
+@pytest.mark.parametrize("M", [4, 256])
+@pytest.mark.parametrize("K,N", _DENSE_KN)
+def test_fused_kernel_dense_family_shapes(cuda, K, N, M):
+    """The fused MVM at the new configs' K and N (starcoder2's w_down
+    K = 18432: 144 windows; pixtral's head N = 131072) against the plain
+    version on 512 columns spread over N."""
+    from repro_torch.core.qweights import (QuantizedLinearWeight,
+                                           prepare_linear_weight)
+    from repro_torch.core.seed_search import calibrated_config
+    from repro_torch.kernels import dscim_fused
+
+    cfg = calibrated_config("dscim1", 256, "paper")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(K + N + M)
+    x = torch.randn((M, K), generator=gen, device=cuda)
+    w = torch.randn((K, N), generator=gen, device=cuda) * K ** -0.5
+    qw = prepare_linear_weight(w, 128)
+    got = dscim_fused.dscim_fused_mvm_prepared(x, qw, cfg)
+    cols = torch.arange(0, N, max(1, N // 512), device=cuda)
+    xq = dscim_fused.quantize_activations_windowed(x, qw.nw, qw.g)
+    sl = QuantizedLinearWeight(qw.q[..., cols].contiguous(),
+                               qw.scale[..., cols].contiguous(), K, 128)
+    want = dscim_fused.dscim_fused_mvm_plain(
+        xq.q.contiguous(), xq.scale.reshape(M, qw.nw).contiguous(), sl.q,
+        sl.scale, cfg)
+    torch.cuda.synchronize()
+    _close(got[:, cols], want, 2e-5)
+
+
+@pytest.mark.parametrize("pos", [78, 2047])
+@pytest.mark.parametrize("KV,R,HD", [(16, 1, 128), (32, 1, 128),
+                                     (4, 12, 128), (2, 24, 16), (32, 1, 64),
+                                     (8, 4, 128)])
+def test_paged_kernel_dense_family_shapes(cuda, KV, R, HD, pos):
+    """Paged attention at the new configs' (KV, n_rep, HD): starcoder2's
+    padded n_rep 12 (and 24 at ``.reduced()``), musicgen's HD 64, at the
+    serving position and at 2048 tokens, pages in random order."""
+    from repro_torch.kernels import paged_attention as pa
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(KV * R + HD + pos)
+    B, ps = 4, 8
+    MP = pos // ps + 1
+    P = B * MP
+    args = (torch.randn((B, KV, R, HD), generator=gen, device=cuda),
+            *(torch.randint(-127, 128, (P, ps, KV, HD), generator=gen,
+                            device=cuda).to(torch.int8) for _ in range(2)),
+            *(torch.rand((P, KV), generator=gen, device=cuda) * 0.02
+              for _ in range(2)),
+            *(torch.randn((B, ps, KV, HD), generator=gen,
+                          device=cuda).to(torch.bfloat16) for _ in range(2)),
+            torch.randperm(P, generator=gen, device=cuda).reshape(
+                B, MP).to(torch.int32),
+            torch.tensor([pos, pos - 9, ps, 0], dtype=torch.int32,
+                         device=cuda))
+    got = pa.paged_attention_decode(*args)
+    want = pa.paged_read_plain(*args)
+    torch.cuda.synchronize()
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("name", ["olmo-1b", "codeqwen1.5-7b",
+                                  "starcoder2-7b"])
+def test_dense_family_graph_matches_eager_on_card(cuda, name, monkeypatch):
+    """The reduced token configs served through the captured decode step
+    at ``kernel:dscim1:256`` with int8 KV: the graph's tokens and logit
+    trace bitwise the eager loop's, and the paged kernel's capture
+    preparation sized for the n_rep the live launches use (starcoder2:
+    q heads padded to 48 over 2 kv heads, 24)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import paged_attention
+    from repro_torch.launch.serve import prepare_params, serve_batch
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_arch(name).reduced(),
+                              dscim="kernel:dscim1:256")
+    params = prepare_params(cfg, lm.init_params(cfg, 0), cuda)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (4, 16))
+    seen = {"prepared": set(), "launched": set()}
+    prep, launch = paged_attention.prepare_capture, \
+        paged_attention._launch_kernel
+
+    def prepare_capture(B, KV, R, *a):
+        seen["prepared"].add(R)
+        return prep(B, KV, R, *a)
+
+    def launch_kernel(q, *a):
+        seen["launched"].add(q.shape[2])
+        return launch(q, *a)
+
+    monkeypatch.setattr(paged_attention, "prepare_capture", prepare_capture)
+    monkeypatch.setattr(paged_attention, "_launch_kernel", launch_kernel)
+    kw = dict(kv="int8", page_size=4, trace_logits=True)
+    t = {}
+    g = serve_batch(cfg, params, prompts, 6, timings=t, **kw)
+    e = serve_batch(cfg, params, prompts, 6, scan=False, **kw)
+    torch.cuda.synchronize()
+    assert "capture_s" in t
+    np.testing.assert_array_equal(g[0], e[0])
+    np.testing.assert_array_equal(np.stack(g[1]), np.stack(e[1]))
+    assert seen["prepared"] == seen["launched"] == {cfg.q_heads // cfg.n_kv}
+
+
+@pytest.mark.parametrize("spec", ["off", "kernel:dscim1:256"])
+@pytest.mark.parametrize("name", ["musicgen-large", "pixtral-12b"])
+def test_stub_config_decodes_on_card(cuda, name, spec, monkeypatch):
+    """The reduced stub-frontend configs at model level from seeded
+    embeddings: prefill, then 4 paged decode steps through the kernels.
+    Every paged-attention call the model makes, and at the kernel spec
+    every fused-MVM call, is held against its plain version on the same
+    inputs.  At 'off' the logits are also held against the same run on
+    the CPU (plain versions): the same argmax at prefill, drift <= 1e-3.
+    At the kernel spec the devices are not compared: the estimator
+    quantizes its activations, so another f32 sum order moves whole
+    quantization levels (on the card the reduced musicgen-large's
+    prefill argmax moved in one of 3 rows)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.kvcache import paged_from_dense
+    from repro_torch.core.qweights import map_params
+    from repro_torch.kernels import dscim_fused
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.serve import logit_drift_rmse
+    from repro_torch.layers import attention
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_arch(name).reduced(), dscim=spec)
+    params = lm.init_params(cfg, 0, device="cpu")
+    emb = torch.from_numpy(np.random.default_rng(3).normal(
+        0, 1, (3, 20, cfg.d_model)).astype(np.float32))
+
+    def run(dev):
+        p = map_params(lambda _, a: a.to(dev), params)
+        e = emb.to(dev)
+        l0, dense = lm.prefill(p, cfg, None, embeds=e[:, :16])
+        cache = paged_from_dense(dense["k"], dense["v"], 4, n_pages=15,
+                                 max_pages=5)
+        steps = [l0]
+        for t in range(4):
+            lg, cache = lm.decode(p, cfg, None, cache,
+                                  embed=e[:, 16 + t:17 + t])
+            steps.append(lg)
+        return np.stack([s.cpu().numpy() for s in steps])
+
+    held = {"paged": 0, "fused": 0}
+
+    def paged(*a):
+        got = pa.paged_attention_decode(*a)
+        _close(got, pa.paged_read_plain(*a), 1e-5)
+        held["paged"] += 1
+        return got
+
+    fused_kernel = dscim_fused.dscim_fused_mvm_prepared
+
+    def fused(x, qw, c):
+        got = fused_kernel(x, qw, c)
+        x2 = x.reshape(-1, x.shape[-1])
+        xq = dscim_fused.quantize_activations_windowed(x2, qw.nw, qw.g)
+        want = dscim_fused.dscim_fused_mvm_plain(
+            xq.q.contiguous(), xq.scale.reshape(-1, qw.nw).contiguous(),
+            qw.q, qw.scale, c)
+        _close(got.reshape(want.shape), want, 2e-5)
+        held["fused"] += 1
+        return got
+
+    want = run("cpu") if spec == "off" else None
+    monkeypatch.setattr(attention, "paged_attention_decode", paged)
+    monkeypatch.setattr(dscim_fused, "dscim_fused_mvm_prepared", fused)
+    got = run("cuda")
+    torch.cuda.synchronize()
+    assert np.isfinite(got).all()
+    per_fwd = 2 * cfg.n_layers + 1 + (cfg.mlp_kind == "swiglu") \
+        * cfg.n_layers
+    assert held == {"paged": 4 * cfg.n_layers,
+                    "fused": 0 if spec == "off" else 5 * per_fwd}
+    if want is not None:
+        toks = {"cpu": want.argmax(-1).T, "cuda": got.argmax(-1).T}
+        np.testing.assert_array_equal(toks["cuda"][:, 0], toks["cpu"][:, 0])
+        assert logit_drift_rmse(toks["cpu"], toks["cuda"], list(want),
+                                list(got)) <= 1e-3

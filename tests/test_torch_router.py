@@ -349,6 +349,24 @@ def test_failover_replay_is_invisible(setup):
         assert a.status == b.status == "ok" and a.tokens == b.tokens
 
 
+def test_flip_before_a_restore_stays_counted(setup):
+    """A page flip whose segment a device loss later rolls back: the
+    restore predates the flip, so the replay decodes clean tokens, but
+    the tokens streamed from the flipped page before the loss stay
+    streamed, and the request stays in ``corrupted_requests`` (the load
+    test's chaos check skips it on that record)."""
+    _, cfg, _, params = setup
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(1, V, 8).astype(np.int32), 8, {})
+            for _ in range(2)]
+    inj = FailureInjector(
+        fail_at=(3,), page_flips={1: ((0, "k_scale", (0, 0, 0), 1 << 30),)})
+    _, st = _serve(lambda: _router(cfg, params, slots=2, snapshot_every=4,
+                                   injector=inj), reqs)
+    assert st["replays"] == 1 and len(inj.hits) == 1
+    assert st["corrupted_requests"] == [0]
+
+
 class _InfScaleInjector(FailureInjector):
     """A NaN source: one live dequant scale of slot 0's first page set
     to +inf at segment 1, in place."""
