@@ -95,7 +95,15 @@ In order it
    main path, launches counted, graph bitwise eager, olmo-1b's two loops
    timed in turns; musicgen-large (2 layers, head_dim 64) at model level
    from seeded embeddings, its paged decode held against the plain read
-   and against the dense cache;
+   and against the dense cache; then the MoE configs (``moe_family``):
+   granite-moe-1b-a400m at its published width and depth and
+   deepseek-moe-16b at its published widths cut to 8 of 28 layers, each
+   served like the main path (launches counted: the shared expert's
+   matmuls and the head on kernel 1, every layer on kernel 2), the
+   tokens each prefill's expert capacity dropped counted, graph bitwise
+   eager with no drop at decode, ``spec=SPEC`` bitwise plain, both loops
+   timed in turns, the cache bytes and a decode step's bytes bound
+   printed;
 4. holds each kernel's wrapper, as the main path calls it, against its
    plain PyTorch version on the same inputs at the main path's shapes,
    and times kernel, wrapper, plain version, the least
@@ -111,7 +119,11 @@ In order it
    accuracy DS-CIM costs); both kernels also at every other dense
    config's shapes (``dense_family_fused <arch>``: one layer's MLP sites
    and head at M = 4 and 256; ``dense_family_paged``: each config's (KV,
-   n_rep, HD) at the main path's position and at 2048 tokens);
+   n_rep, HD) at the main path's position and at 2048 tokens) and at the
+   MoE configs' (``moe_family_fused <arch>``: deepseek-moe-16b's shared expert
+   and both heads; ``moe_family_paged``); the count kernel's counts
+   must equal the cycle-level OR-MAC's (``core/ormac.py``) at M = 4,
+   K = 64, N = 16 for dscim1/L256 and dscim2/L64 (``cycle_oracle``);
 5. drives the DS-CIM operator path (``operators``): at qwen3-0.6b's MLP
    shapes (M, K, N) = (256, 1024, 3072), (256, 3072, 1024) and (4, 1024,
    3072), int8 operands from seed 0, it calls ``ops.int8_matmul`` (the
@@ -196,6 +208,13 @@ DF_STUB, DF_STUB_LAYERS, DF_STUB_STEPS = "musicgen-large", 2, 8
 DF_ARCHS = ("olmo-1b", "codeqwen1.5-7b", "starcoder2-7b", "musicgen-large",
             "pixtral-12b")
 DF_COLS = 512    # output columns the prefill-M fused checks hold
+# moe_family phase: the MoE configs served like the main path: (arch,
+# layers kept; None = the published depth, widths always kept).
+# deepseek-moe-16b's 64 routed experts are 0.55 G parameters a layer: 8 of
+# its 28 layers keep the f32 draw and the bf16 copy near 30 GB
+MOE_SERVED = (("granite-moe-1b-a400m", None), ("deepseek-moe-16b", 8))
+# kernel 6 against the cycle-level OR-MAC (core/ormac.py): (M, K, N)
+CYCLE_SHAPE = (4, 64, 16)
 # int8 paged KV against the dense cache on the float path: the
 # reference's own bound on their logit drift (tests/test_generate.py
 # test_paged_int8_kv_close_to_float_kv, dscim off)
@@ -1784,49 +1803,40 @@ def _numel(tree) -> int:
     return tree.numel()
 
 
-def dense_family(torch):
-    """Phase dense_family, the reference's other dense configs on the card.
-    ``DF_SERVED`` go through ``serve_batch`` at the main path's settings
-    and shape (random weights from seed 0, prepared once): the warm-up
-    request captures the decode step; a counted request's fused-MVM and
-    paged-attention launches must be a forward's MLP matmuls and head a
-    token and the layers a decode step; the graph's tokens and logit
-    trace must equal the eager loop's bitwise.  olmo-1b (published depth)
-    is then timed, both loops in turns.  starcoder2-7b keeps 2 of its 32
-    layers at its published widths: its 36 q heads padded to 48 over 4
-    kv heads, n_rep 12 under capture.  ``DF_STUB`` (musicgen-large, 2 of
-    48 layers, head_dim 64) runs at model level from seeded embeddings,
-    at DSCIM and at 'off': prefill, then ``DF_STUB_STEPS`` decode steps on
-    the int8 paged cache, each layer's paged attention held against the
-    plain read at PAGED_RTOL as the model calls it, the launches counted,
-    and the same steps on the dense bf16 cache.  The paged logits' drift
-    from the dense ones is held within KV_INT8_DRIFT at 'off'; at DSCIM
-    it is printed only: the estimator quantizes its activations, so the
-    int8 cache's small perturbation moves whole quantization levels, and
-    no contract of the reference bounds that (its own 3e-2 bound fails
-    at dscim2:64, ROADMAP C3)."""
+def _family_counters():
+    """The main path's kernel counters, by kernel name."""
+    from repro_torch.kernels import dscim_fused
+    from repro_torch.kernels import paged_attention as pa
+
+    return {"dscim_fused_mvm": dscim_fused.LAUNCHES,
+            "paged_attention_decode": pa.LAUNCHES}
+
+
+def _serve_family(torch, phase, archs, timed, extra=None):
+    """Serve each (arch, layers kept; None = the published depth, widths
+    always kept) of ``archs`` through ``serve_batch`` at the main path's
+    settings and shape (random weights from seed 0, prepared once): the
+    warm-up request captures the decode step; a counted request's
+    fused-MVM and paged-attention launches must be a forward's DS-CIM
+    matmuls and head a token (``_fused_per_forward``) and the layers a
+    decode step; the graph's tokens and logit trace must equal the eager
+    loop's bitwise.  ``extra(torch, cfg_ds, served, prompts, toks)``
+    returns results of its own checks; the archs in ``timed`` are then
+    timed, both loops in turns.  Returns ({arch: results}, launches summed
+    over the counted requests)."""
     import numpy as np
 
     from repro_torch.configs import get_arch
-    from repro_torch.core.kvcache import n_pages_for, paged_from_dense
-    from repro_torch.kernels import dscim_fused
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch.serve import (clear_graphs, prepare_params,
                                           serve_batch)
-    from repro_torch.layers import attention
     from repro_torch.models import lm
 
-    clear_graphs()             # the qwen3 phases' runners and graph pools
+    clear_graphs()             # the earlier phases' runners and graph pools
     kw = dict(kv="int8", page_size=PAGE)
-    names = ("dscim_fused_mvm", "paged_attention_decode")
-    counters = (dscim_fused.LAUNCHES, pa.LAUNCHES)
-    total = dict.fromkeys(names, 0)
-    out = {"served": {}, "launches": total}
-
-    def count():
-        return dict(zip(names, (c.count for c in counters)))
-
-    for name, layers in DF_SERVED:
+    counters = _family_counters()
+    total = dict.fromkeys(counters, 0)
+    out = {}
+    for name, layers in archs:
         cfg = get_arch(name)
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
@@ -1843,23 +1853,23 @@ def dense_family(torch):
         torch.cuda.synchronize()
         if "capture_s" not in warm:
             raise AssertionError(f"{name}: the warm-up captured no graph")
-        for c in counters:
+        for c in counters.values():
             c.reset()
         t = {}
         toks, _ = serve_batch(cfg_ds, served, prompts, TOKENS, timings=t,
                               **kw)
-        launches = count()
+        launches = {k: c.count for k, c in counters.items()}
         want = {"dscim_fused_mvm": _fused_per_forward(cfg) * TOKENS,
                 "paged_attention_decode": cfg.n_layers * (TOKENS - 1)}
-        _log(f"dense_family {name} ({cfg.n_layers} layers, d "
-             f"{cfg.d_model}, {cfg.q_heads} q heads over {cfg.n_kv} kv "
-             f"heads: n_rep {cfg.q_heads // cfg.n_kv}, {n_params} "
-             f"parameters): launches {launches} (expected {want}), "
-             f"capture {warm['capture_s']:.3f} s")
+        _log(f"{phase} {name} ({cfg.n_layers} of {get_arch(name).n_layers} "
+             f"layers, d {cfg.d_model}, {cfg.q_heads} q heads over "
+             f"{cfg.n_kv} kv heads: n_rep {cfg.q_heads // cfg.n_kv}, "
+             f"{n_params} parameters): launches {launches} (expected "
+             f"{want}), capture {warm['capture_s']:.3f} s")
         if launches != want or "capture_s" in t:
             raise AssertionError(f"{name}: launches {launches} != {want} "
                                  "or the timed request captured again")
-        for k in names:
+        for k in total:
             total[k] += launches[k]
         (tg, lg), (te, le) = (serve_batch(cfg_ds, served, prompts, TOKENS,
                                           scan=scan, trace_logits=True, **kw)
@@ -1870,20 +1880,53 @@ def dense_family(torch):
         if not np.isfinite(np.stack(lg)).all() or toks.min() < 0 \
                 or toks.max() >= cfg.vocab_padded:
             raise AssertionError(f"{name}: bad tokens or logits")
-        _log(f"dense_family {name}: graph tokens and ({TOKENS}, {BATCH}, "
+        _log(f"{phase} {name}: graph tokens and ({TOKENS}, {BATCH}, "
              f"{cfg.vocab_padded}) logit trace bitwise the eager loop's")
         res = {"layers": cfg.n_layers,
                "published_layers": get_arch(name).n_layers,
                "params": n_params, "n_rep": cfg.q_heads // cfg.n_kv,
                "launches": launches, "capture_s": warm["capture_s"],
                "tok_s": BATCH * TOKENS / t["generate_s"]}
-        if layers is None:
+        if extra is not None:
+            res.update(extra(torch, cfg_ds, served, prompts, toks))
+        if name in timed:
             res["loops"] = _loops_in_turns(torch, cfg_ds, served, prompts,
-                                           tag=f"dense_family {name} ")
-        out["served"][name] = res
+                                           tag=f"{phase} {name} ")
+        out[name] = res
         del served
         clear_graphs()
         torch.cuda.empty_cache()
+    return out, total
+
+
+def dense_family(torch):
+    """Phase dense_family, the reference's other dense configs on the card.
+    ``DF_SERVED`` go through ``_serve_family``; olmo-1b (published depth)
+    is timed.  starcoder2-7b keeps 2 of its 32 layers at its published
+    widths: its 36 q heads padded to 48 over 4 kv heads, n_rep 12 under
+    capture.  ``DF_STUB`` (musicgen-large, 2 of
+    48 layers, head_dim 64) runs at model level from seeded embeddings,
+    at DSCIM and at 'off': prefill, then ``DF_STUB_STEPS`` decode steps on
+    the int8 paged cache, each layer's paged attention held against the
+    plain read at PAGED_RTOL as the model calls it, the launches counted,
+    and the same steps on the dense bf16 cache.  The paged logits' drift
+    from the dense ones is held within KV_INT8_DRIFT at 'off'; at DSCIM
+    it is printed only: the estimator quantizes its activations, so the
+    int8 cache's small perturbation moves whole quantization levels, and
+    no contract of the reference bounds that (its own 3e-2 bound fails
+    at dscim2:64, ROADMAP C3)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.kvcache import n_pages_for, paged_from_dense
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.serve import prepare_params
+    from repro_torch.layers import attention
+    from repro_torch.models import lm
+
+    served_out, total = _serve_family(
+        torch, "dense_family", DF_SERVED,
+        timed=[n for n, layers in DF_SERVED if layers is None])
+    out = {"served": served_out, "launches": total}
+    counters = _family_counters()
 
     cfg = dataclasses.replace(get_arch(DF_STUB), n_layers=DF_STUB_LAYERS)
     params = lm.init_params(cfg, 0)
@@ -1912,7 +1955,7 @@ def dense_family(torch):
         _, short = lm.prefill(served, c_s, None, embeds=emb[:, :S])
         paged = paged_from_dense(short["k"], short["v"], PAGE,
                                  n_pages=BATCH * mp, max_pages=mp)
-        for c in counters:
+        for c in counters.values():
             c.reset()
         attention.paged_attention_decode = held
         try:
@@ -1921,14 +1964,14 @@ def dense_family(torch):
                   for t in range(T)]
         finally:
             attention.paged_attention_decode = pa.paged_attention_decode
-        launches = count()
+        launches = {k: c.count for k, c in counters.items()}
         want = {"dscim_fused_mvm": _fused_per_forward(cfg) * T
                 if spec != "off" else 0,
                 "paged_attention_decode": cfg.n_layers * T}
         if launches != want:
             raise AssertionError(f"{DF_STUB} {spec}: launches {launches} "
                                  f"!= {want}")
-        for k in names:
+        for k in total:
             total[k] += launches[k]
         ld = [lm.decode(served, c_s, None, dense,
                         embed=emb[:, S + t:S + t + 1])[0] for t in range(T)]
@@ -1958,24 +2001,30 @@ def dense_family(torch):
     return out
 
 
-def check_dense_family_fused(torch, name):
-    """The fused MVM against its plain version at one new config's
-    shapes: its MLP sites (``_mlp_sites``) and the f32 head, one layer of
-    weights drawn at its published widths, at decode M = BATCH and
-    prefill M = BATCH * PROMPT (the plain version on DF_COLS columns
-    spread over N there; the head's M = 256 call is a check off the
-    serving path, which runs the head on the last token)."""
+def check_family_fused(torch, phase, name, layers=None):
+    """The fused MVM against its plain version at one config's shapes: its
+    DS-CIM MLP sites (``_mlp_sites``: an MoE config's shared expert, of
+    width ``moe_shared * d_ff``) and the f32 head, one layer of weights
+    drawn at its published widths, at decode M = BATCH and prefill M =
+    BATCH * PROMPT (the plain version on DF_COLS columns spread over N
+    there; the head's M = 256 call is a check off the serving path, which
+    runs the head on the last token).  ``layers`` is the depth ``phase``
+    serves, which sets the calls a forward."""
     from repro_torch.configs import get_arch
     from repro_torch.core.qweights import prepare_linear_weight
     from repro_torch.models.lm import _linear_for
 
     cfg = get_arch(name)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     lin = _linear_for(DSCIM)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
-    D, F = cfg.d_model, cfg.d_ff
-    sites = [(site, (F, D) if site == "w_down" else (D, F), torch.bfloat16,
-              n) for site, n in _mlp_sites(cfg)]
+    D = cfg.d_model
+    F = cfg.moe_shared * cfg.d_ff if cfg.family == "moe" else cfg.d_ff
+    pre = "shared " if cfg.family == "moe" else ""
+    sites = [(pre + site, (F, D) if site == "w_down" else (D, F),
+              torch.bfloat16, n) for site, n in _mlp_sites(cfg)]
     sites.append(("lm_head", (D, cfg.vocab_padded), torch.float32, 1))
     calls = []
     for site, (K, N), xdt, per_fwd in sites:
@@ -1989,8 +2038,8 @@ def check_dense_family_fused(torch, name):
                 _fused_case(torch, gen, site, [qw], wf, xdt, m, lin.cfg,
                             f" {name}", cols),
                 per_forward=per_fwd if on_path else 0,
-                phase=f"dense_family {name} {regime}" if on_path
-                else f"dense_family {name}, check only, not on the path"))
+                phase=f"{phase} {name} {regime}" if on_path
+                else f"{phase} {name}, check only, not on the path"))
             _log_fused(calls[-1])
         del wf, qw
     torch.cuda.empty_cache()
@@ -2032,17 +2081,12 @@ def _paged_case(torch, gen, KV, R, HD, pos):
     return case
 
 
-def check_dense_family_paged(torch):
-    """Paged attention against its plain version at each new config's
-    (KV, n_rep, HD), and starcoder2-7b's ``.reduced()`` one (48 padded q
-    heads over 2 kv heads, HD 16), at the main path's last decode
-    position and at LONG_POS."""
-    from repro_torch.configs import get_arch
-
+def check_family_paged(torch, cfgs):
+    """Paged attention against its plain version at each (KV, n_rep, HD)
+    of ``cfgs``, at the main path's last decode position and at
+    LONG_POS."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
-    cfgs = [get_arch(n) for n in DF_ARCHS]
-    cfgs.append(get_arch("starcoder2-7b").reduced())
     shapes = sorted({(c.n_kv, c.q_heads // c.n_kv, c.head_dim)
                      for c in cfgs})
     return [_paged_case(torch, gen, KV, R, HD, pos)
@@ -2050,10 +2094,178 @@ def check_dense_family_paged(torch):
             for pos in (PROMPT + TOKENS - 2, LONG_POS)]
 
 
+def _step_bytes(served) -> int:
+    """Bytes one decode step's weights take: every layer tensor (the
+    routed experts all of them: the capacity buffers are dense (E, C, D),
+    so every expert runs whether a token reached it or not), the final
+    norm and the head; of the embedding only BATCH rows."""
+    from repro_torch.core.qweights import QuantizedLinearWeight, map_params
+
+    total = [BATCH * served["embed"].shape[1]
+             * served["embed"].element_size()]
+
+    def add(_, a):
+        if isinstance(a, QuantizedLinearWeight):
+            a = (a.q, a.scale)
+        for t in a if isinstance(a, tuple) else (a,):
+            total.append(t.numel() * t.element_size())
+    map_params(add, {k: v for k, v in served.items() if k != "embed"})
+    return sum(total)
+
+
+def _profile_step(torch, cfg_ds, served):
+    """``_profile_request`` of one replay of the captured decode step of
+    the main path's runner at ``cfg_ds`` (already captured), at the
+    middle of a request: its kernels and the device's busy time."""
+    from repro_torch.launch.steps import _generate_runner
+
+    runner = _generate_runner(cfg_ds, BATCH, PROMPT, TOKENS, "int8", PAGE,
+                              None, "greedy", False,
+                              torch.device("cuda", 0), None)
+    st = runner.st
+    st["params"] = served
+    st["cache"]["pos"].fill_(PROMPT + TOKENS // 2)
+    st["i"].fill_(TOKENS // 2)
+    try:
+        return _profile_request(torch, runner.step.graph.replay)
+    finally:
+        st["params"] = None
+
+
+def _moe_extras(torch, cfg_ds, served, prompts, toks):
+    """moe_family's checks beyond ``_serve_family``'s: the (token, expert)
+    pairs each layer's capacity dropped, counted by wrapping
+    ``layers/moe.py moe_routed`` for one eager request (its prefill drops
+    pairs at capacity 1.25; its decode must drop none, and its tokens
+    must be the graph's); ``spec=SPEC`` must emit the plain graph's
+    tokens bitwise; the paged and dense cache bytes (``core/kvcache.py``)
+    and the bytes a decode step reads at most (its weights and the paged
+    cache) over the HBM rate: the step's bytes bound; one replay of the
+    captured step profiled (its kernels and the device's busy time)."""
+    import numpy as np
+
+    from repro_torch.core.kvcache import (dense_cache_bytes, kv_cache_bytes,
+                                          paged_cache_specs)
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.layers import moe as moe_layer
+
+    cfg, name, L = cfg_ds, cfg_ds.name, cfg_ds.n_layers
+    kw = dict(kv="int8", page_size=PAGE)
+    routed, drops = moe_layer.moe_routed, []
+
+    def recording(*args, **kwargs):
+        res = routed(*args, **kwargs)
+        drops.append(int((~res[1]).sum()))
+        return res
+
+    moe_layer.moe_routed = recording
+    try:
+        te, _ = serve_batch(cfg_ds, served, prompts, TOKENS, scan=False, **kw)
+    finally:
+        moe_layer.moe_routed = routed
+    pre, decode_drops = drops[:L], sum(drops[L:])
+    C = moe_layer.capacity(BATCH * PROMPT, cfg.moe_topk, cfg.moe_experts,
+                           cfg.moe_capacity)
+    _log(f"moe_family {name} ({cfg.moe_experts} experts of {cfg.d_ff}, "
+         f"top-{cfg.moe_topk}, {cfg.moe_shared} shared): prefill "
+         f"({BATCH * PROMPT} tokens, capacity {C} an expert) dropped "
+         f"{sum(pre)} of {L * BATCH * PROMPT * cfg.moe_topk} (token, expert) "
+         f"pairs, by layer {pre}")
+    if not np.array_equal(te, toks) or decode_drops \
+            or len(drops) != L * TOKENS:
+        raise AssertionError(f"{name}: eager tokens differ from the "
+                             f"graph's, or {decode_drops} pairs dropped at "
+                             f"decode over {len(drops)} MoE calls")
+    ts = {}
+    sp, _, sstats = serve_batch(cfg_ds, served, prompts, TOKENS, spec=SPEC,
+                                spec_stats=True, timings=ts, **kw)
+    if not np.array_equal(sp, toks):
+        raise AssertionError(f"{name}: spec={SPEC} tokens differ from the "
+                             "plain graph's")
+    per_verify = float(sstats["emitted"].sum() / sstats["windows"].sum())
+    _log(f"moe_family {name}: no pair dropped at decode; spec={SPEC} tokens "
+         f"bitwise the plain graph's ({per_verify:.2f} tokens a verify, "
+         f"window capture {ts.get('capture_s', 0.0):.3f} s)")
+    specs = paged_cache_specs(cfg, BATCH, PROMPT + TOKENS, PAGE)
+    step_bytes = _step_bytes(served) + kv_cache_bytes(specs)
+    res = {"prefill_capacity": C, "prefill_drops_by_layer": pre,
+           "prefill_pairs": L * BATCH * PROMPT * cfg.moe_topk,
+           "spec_tokens_per_verify": per_verify,
+           "paged_cache_bytes": kv_cache_bytes(specs),
+           "dense_cache_bytes": dense_cache_bytes(cfg, BATCH,
+                                                  PROMPT + TOKENS),
+           "step_bytes": step_bytes,
+           "step_bytes_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3}
+    _log(f"moe_family {name}: a decode step reads at most {step_bytes} "
+         f"bytes (weights and the whole paged cache), "
+         f"{res['step_bytes_bound_ms']:.4f} ms at {HBM_BYTES_PER_S:.3g} B/s; "
+         f"KV cache at {BATCH} x {PROMPT + TOKENS}: paged "
+         f"{res['paged_cache_bytes']} B, dense {res['dense_cache_bytes']} B")
+    res["step_profile"] = prof = _profile_step(torch, cfg_ds, served)
+    _log(f"moe_family {name}: one decode step's graph replay under the "
+         f"profiler: {prof['kernel_launches']} kernels, device busy "
+         f"{prof['device_busy_ms']:.3f} ms of {prof['wall_ms_profiled']:.3f} "
+         "ms")
+    for k in prof["top_kernels"][:5]:
+        _log(f"  {k['device_ms']:.3f} ms in {k['calls']} x {k['name']}")
+    return res
+
+
+def moe_family(torch):
+    """Phase moe_family, the MoE configs on the serving path:
+    ``MOE_SERVED`` (granite-moe-1b-a400m at its published width and
+    depth, deepseek-moe-16b at its published widths cut to 8 of 28
+    layers) go through ``_serve_family`` with ``_moe_extras``, both
+    timed."""
+    served, total = _serve_family(torch, "moe_family", MOE_SERVED,
+                                  timed=[n for n, _ in MOE_SERVED],
+                                  extra=_moe_extras)
+    return {"served": served, "launches": total}
+
+
+def check_cycle_oracle(torch):
+    """The count kernel (row 6, ``kernels/dscim_mvm.py dscim_counts``)
+    against the cycle-level OR-MAC (``core/ormac.py``, through
+    ``DSCIMMacro.counts_cycle``, on the card and on the CPU) at
+    CYCLE_SHAPE, for OPS_PRESETS: the counts must be equal, exactly."""
+    from repro_torch.core.macro import DSCIMMacro
+    from repro_torch.core.seed_search import calibrated_config
+
+    M, K, N = CYCLE_SHAPE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    out = []
+    for key in OPS_PRESETS:
+        mac = DSCIMMacro(calibrated_config(*key))
+        x = torch.randint(-128, 128, (M, K), generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.int8)
+        w = torch.randint(-128, 128, (K, N), generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.int8)
+        kern = mac.counts_kernel(x, w)
+        cyc = mac.counts_cycle(x, w)
+        cyc_cpu = mac.counts_cycle(x.cpu(), w.cpu())
+        if not (torch.equal(kern.to(torch.int64), cyc)
+                and torch.equal(cyc.cpu(), cyc_cpu)):
+            raise AssertionError(f"{key}: count kernel and cycle-level "
+                                 "OR-MAC counts differ")
+        case = {"preset": "/".join(map(str, key)),
+                "shape": f"M={M} K={K} N={N}", "equal": True,
+                "count_sum": int(cyc.sum())}
+        _log(f"cycle oracle {case['preset']} {case['shape']}: count kernel "
+             f"== cycle-level OR-MAC (card and CPU), sum of counts "
+             f"{case['count_sum']}")
+        out.append(case)
+    return out
+
+
 def _mlp_sites(cfg):
     """(site, calls a forward) of the fused MVM's MLP sites of ``cfg``:
     the first matmul (``w_gate``, whose shape ``w_up`` shares, for SwiGLU;
-    ``w_up`` for the GELU MLP) and ``w_down``."""
+    ``w_up`` for the GELU MLP) and ``w_down``; for an MoE config its
+    shared expert's (none without one: the routed experts stay float)."""
+    if cfg.family == "moe":
+        return (("w_gate", 2 * cfg.n_layers), ("w_down", cfg.n_layers)) \
+            if cfg.moe_shared else ()
     if cfg.mlp_kind == "swiglu":
         return (("w_gate", 2 * cfg.n_layers), ("w_down", cfg.n_layers))
     return (("w_up", cfg.n_layers), ("w_down", cfg.n_layers))
@@ -2821,9 +3033,21 @@ def main() -> int:
     modes = phase("modes", modes_phase, torch, cfg, served, prompts)
     del served
     df = phase("dense_family", dense_family, torch)
-    df_fused = [phase(f"dense_family_fused {name}", check_dense_family_fused,
-                      torch, name) for name in DF_ARCHS]
-    df_paged = phase("dense_family_paged", check_dense_family_paged, torch)
+    df_fused = [phase(f"dense_family_fused {name}", check_family_fused,
+                      torch, "dense_family", name) for name in DF_ARCHS]
+    df_paged = phase("dense_family_paged", check_family_paged, torch,
+                     [get_arch(n) for n in DF_ARCHS]
+                     + [get_arch("starcoder2-7b").reduced()])
+    t_moe = time.perf_counter()
+    moe_fam = phase("moe_family", moe_family, torch)
+    moe_fused = [c for name, layers in MOE_SERVED
+                 for c in phase(f"moe_family_fused {name}",
+                                check_family_fused, torch, "moe_family",
+                                name, layers) or []]
+    moe_paged = phase("moe_family_paged", check_family_paged, torch,
+                      [get_arch(n) for n, _ in MOE_SERVED])
+    cycle = phase("cycle_oracle", check_cycle_oracle, torch)
+    _log(f"moe_family phases: {time.perf_counter() - t_moe:.1f} s")
     counts = launches or {"dscim_fused_mvm": None,
                           "paged_attention_decode": None}
     kernels = [phase("dscim_fused", check_fused, torch, cfg, params, counts),
@@ -2842,6 +3066,13 @@ def main() -> int:
             entry["dense_family"] = checks
             if df is not None:
                 entry["launches_dense_family"] = df["launches"][name]
+    for entry, name, checks in ((kernels[0], "dscim_fused_mvm", moe_fused),
+                                (kernels[1], "paged_attention_decode",
+                                 moe_paged)):
+        if entry is not None:
+            entry["moe_family"] = checks or []
+            if moe_fam is not None:
+                entry["launches_moe_family"] = moe_fam["launches"][name]
     for extra, name in ((spec, "launches_spec"), (pfx, "launches_prefix")):
         if extra is None:
             continue
@@ -2864,6 +3095,8 @@ def main() -> int:
     if modes is not None and kernels[3] is not None:
         kernels[3]["launches_modes_bitmatmul"] = \
             modes["bitmatmul_count_launches"]
+    if kernels[3] is not None:
+        kernels[3]["cycle_oracle"] = cycle or []
     t1 = phase("table1", table1, torch)
     drift = phase("reduced_gpu_vs_cpu", check_reduced, torch)
     print(json.dumps({"kernels": kernels, "card": smi[0] if smi else None,
@@ -2873,7 +3106,7 @@ def main() -> int:
                       "spec": spec, "modes": modes, "prefix": pfx,
                       "faults": faults, "watchdog": wd,
                       "integrity": integ, "router": rt,
-                      "dense_family": df,
+                      "dense_family": df, "moe_family": moe_fam,
                       "prefill_logit_rmse_vs_off": e2e.get("logit_rmse"),
                       "reduced_gpu_vs_cpu_drift": drift,
                       "table1_rmse_pct": t1,

@@ -50,7 +50,9 @@ __all__ = ["quantize_page", "n_pages_for", "admission_pages",
            "admit_request", "admit_dense", "spec_rollback", "PageAllocator",
            "prefix_chunk_keys", "PrefixCache", "cow_fork",
            "extract_slot_pages", "insert_slot_pages", "TAIL_DTYPE",
-           "CHECKSUM_KEY", "page_checksums", "refresh_page_checksums"]
+           "CHECKSUM_KEY", "page_checksums", "refresh_page_checksums",
+           "dequantize_page", "paged_cache_specs", "kv_cache_bytes",
+           "dense_cache_bytes"]
 
 TAIL_DTYPE = torch.bfloat16
 CHECKSUM_KEY = "page_sum"
@@ -69,6 +71,12 @@ def quantize_page(x: torch.Tensor):
     scale = torch.clamp_min(amax, 1e-8) * (1.0 / 127.0)
     q = torch.clamp(torch.round(x / scale[..., None, :, None]), -127, 127)
     return q.to(torch.int8), scale
+
+
+def dequantize_page(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``quantize_page``: q (..., ps, KV, HD) int8 and scale
+    (..., KV) -> f32 (..., ps, KV, HD)."""
+    return q.to(torch.float32) * scale[..., None, :, None]
 
 
 def page_checksums(k_pages, v_pages, k_scale, v_scale) -> torch.Tensor:
@@ -207,6 +215,38 @@ def paged_from_dense(ks: torch.Tensor, vs: torch.Tensor, page_size: int,
         cache["k_tail"][:, :, :rem] = ks[:, :, nf * ps:].to(TAIL_DTYPE)
         cache["v_tail"][:, :, :rem] = vs[:, :, nf * ps:].to(TAIL_DTYPE)
     return cache
+
+
+def paged_cache_specs(cfg, batch: int, capacity: int, page_size: int,
+                      n_pages: int | None = None, integrity: bool = False):
+    """``init_paged_cache``'s planes for ``cfg`` as ``meta`` tensors (shape
+    and dtype, no storage): ``batch`` slots of ``capacity`` tokens, a pool
+    of ``n_pages`` (default one full sequence a slot), the digest plane
+    with ``integrity`` (int64 here, where the reference's is uint32)."""
+    mp = n_pages_for(capacity, page_size)
+    if n_pages is None:
+        n_pages = batch * mp
+    return init_paged_cache(cfg.n_layers, batch, n_pages, page_size, mp,
+                            cfg.n_kv, cfg.head_dim, device="meta",
+                            integrity=integrity)
+
+
+def kv_cache_bytes(cache_or_specs) -> int:
+    """Resident decode-cache bytes of a cache or its specs (pages, scales,
+    tails, page table; the per-slot positions and the digest plane are
+    bookkeeping, left out as the reference leaves them out, so the count
+    is the same with integrity on or off)."""
+    skip = {"pos", CHECKSUM_KEY}
+    return sum(t.numel() * t.element_size()
+               for k, t in cache_or_specs.items() if k not in skip)
+
+
+def dense_cache_bytes(cfg, batch: int, capacity: int) -> int:
+    """k + v bytes of the dense fixed-capacity cache at cfg.cache_dtype."""
+    itemsize = torch.empty((), dtype=getattr(torch, cfg.cache_dtype)
+                           ).element_size()
+    return 2 * cfg.n_layers * batch * capacity * cfg.n_kv * cfg.head_dim \
+        * itemsize
 
 
 def _scatter_pages(cache, ks, vs, phys):

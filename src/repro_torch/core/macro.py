@@ -12,10 +12,9 @@ Count backends:
                   (the plain version of the count kernel,
                   ``kernels/dscim_mvm.py dscim_counts_plain``);
 * ``kernel``    — ``kernels/dscim_mvm.py dscim_counts``: the CUDA count
-                  kernel on CUDA tensors, its plain version on CPU tensors.
-
-The reference's ``cycle`` backend needs the cycle-level OR-MAC
-(``core/ormac.py``), which is not ported yet (ROADMAP A17).
+                  kernel on CUDA tensors, its plain version on CPU tensors;
+* ``cycle``     — the cycle-level OR-MAC (``core/ormac.py``), the hardware
+                  oracle the others are held to (test-sized operands).
 """
 from __future__ import annotations
 
@@ -27,12 +26,12 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.dscim_mvm import dscim_counts, dscim_counts_plain
-from . import prng
+from . import ormac, prng
 from .remap import build_count_lut, fold, group_size, shifted_bits
 
 __all__ = ["DSCIMConfig", "DSCIMMacro", "dscim1", "dscim2", "rmse_operands"]
 
-Backend = Literal["lut", "bitmatmul", "kernel"]
+Backend = Literal["lut", "bitmatmul", "kernel", "cycle"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,6 +163,15 @@ class DSCIMMacro:
         return dscim_counts(x_i8, w_i8, *self.folded, k=self.cfg.k,
                             length=self.cfg.length)
 
+    def counts_cycle(self, x_i8: torch.Tensor, w_i8: torch.Tensor
+                     ) -> torch.Tensor:
+        """The cycle-level OR-MAC's counts (M, N) int64, each OR group
+        checked collision-free (``core/ormac.py dscim_counts_cycle``):
+        small shapes only, K a whole number of OR groups."""
+        a, b = self._shift(torch.as_tensor(x_i8), torch.as_tensor(w_i8))
+        return ormac.dscim_counts_cycle(a, b, self.u, self.v, self.cfg.k,
+                                        assert_disjoint=True)
+
     def mvm_from_counts(self, x_i8, w_i8, counts) -> torch.Tensor:
         """psum estimate (M, N) f32 from a count matrix, with the exact
         correction terms (and the center-truncation terms when set)."""
@@ -193,8 +201,7 @@ class DSCIMMacro:
         elif backend == "kernel":
             counts = self.counts_kernel(x_i8, w_i8)
         elif backend == "cycle":
-            raise NotImplementedError(
-                "the cycle backend needs core/ormac.py, not ported yet")
+            counts = self.counts_cycle(x_i8, w_i8)
         else:
             raise ValueError(backend)
         return self.mvm_from_counts(x_i8, w_i8, counts)

@@ -90,7 +90,8 @@ def prepare_linear_weight(w: torch.Tensor, group_k: int | None = 128
 
 
 # Name patterns ('a/b/c' paths) of the matrices the DS-CIM serving path
-# routes through DSCIMLinear: the MLP matmuls and the LM head.  Attention
+# routes through DSCIMLinear: the MLP matmuls, the MoE shared expert (dense
+# on every token) and the LM head.  Attention
 # projections are exact unless the spec carries '+attn'.
 ELIGIBLE_PATTERNS = (
     "mlp/w_up", "mlp/w_gate", "mlp/w_down",
@@ -123,7 +124,9 @@ def prepare_dscim_params(params, cfg, *, group_k: int | None = 128):
     startup); returns a new tree, float originals dropped.  Tied models
     have no ``lm_head``, so a prepared head is materialized from
     ``embed.T`` (the embedding stays float for the lookup).  A '+attn'
-    spec adds the attention projections; 'off'/'float' return ``params``."""
+    spec adds the attention projections; 'off'/'float' return ``params``.
+    An MoE model's router and routed experts stay float; its shared
+    expert is prepared."""
     mode, attn = split_dscim_mode(cfg.dscim)
     if mode in ("off", "float"):
         return params

@@ -83,11 +83,11 @@ def prepare_serving_params(cfg: ArchConfig, params, *, golden: bool = False):
 
 
 def _check_kv(cfg: ArchConfig, kv: str):
-    """What the serving loops take: a dense token-input config and a
-    'float' or 'int8' cache."""
+    """What the serving loops take: a dense or MoE token-input config and
+    a 'float' or 'int8' cache."""
     if kv not in ("float", "int8"):
         raise ValueError(f"kv must be 'float' or 'int8', got {kv!r}")
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise ValueError(f"{cfg.family!r} models are not ported yet")
     if cfg.stub_frontend:
         raise ValueError(f"{cfg.name} takes embeddings (a stub frontend), "
@@ -230,7 +230,7 @@ def _draft_cfg(cfg: ArchConfig, variant: str) -> ArchConfig:
 
 
 def _check_spec(cfg: ArchConfig, trace_logits: bool = False):
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise ValueError("speculative decoding needs a model family with a "
                          f"batched verify forward, not {cfg.family!r}")
     if cfg.stub_frontend:

@@ -1,0 +1,117 @@
+"""Mixture-of-Experts block with sort-based fixed-capacity dispatch (port
+of ``repro/layers/moe.py`` at expert parallelism 1; the reference's
+``all_to_all`` under an ``ep_axis`` waits for multi-GPU placement).
+
+Each token picks its top-k experts from an f32 softmax router; the T*k
+(token, expert) pairs are sorted by expert (stably, so within an expert
+tokens keep their order) and written into per-expert buffers of a static
+capacity C = max(int(T*k/E*capacity_factor), k) rows.  A pair beyond its
+expert's C rows is dropped: it contributes nothing to its token.  The
+expert FFNs run as one batched SwiGLU over the (E, C, D) buffers, and each
+token sums its k weighted expert outputs.  A DeepSeek-style shared expert
+runs densely on every token through ``layers/mlp.py mlp``, with the
+serving path's DS-CIM ``linear`` (its weights are DS-CIM eligible, the
+routed experts are not).
+
+Everything is device arithmetic on static shapes: no value is read back
+to the host, so a decode step holding this block can be captured in a
+CUDA graph.  C depends on T, so a token's output can depend on the other
+tokens of its call when capacity drops pairs (never at capacity_factor
+>= E/k)."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .mlp import mlp
+
+__all__ = ["moe", "moe_routed", "capacity", "route", "dispatch"]
+
+
+def route(xs: torch.Tensor, router_w: torch.Tensor, top_k: int):
+    """xs (T, D) -> (ids (T, k) int64, weights (T, k) f32): f32 router
+    logits, softmax, top-k (descending, as ``jax.lax.top_k``), the k
+    probabilities renormalised to sum to 1.  The reference's Switch
+    load-balance aux is a training loss; serving leaves it out."""
+    logits = xs.to(torch.float32) @ router_w.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, ids = torch.topk(probs, top_k, dim=-1, sorted=True)
+    weights = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    return ids, weights
+
+
+def capacity(T: int, top_k: int, n_experts: int,
+             capacity_factor: float) -> int:
+    """Rows of each expert's buffer for a call of T tokens (static)."""
+    return max(int(T * top_k / n_experts * capacity_factor), top_k)
+
+
+def dispatch(ids: torch.Tensor, n_experts: int, cap: int):
+    """Sort-based capacity dispatch of ids (T, k) -> (order (T*k,), slot
+    (T*k,), keep (T*k,) bool), all in expert-sorted order: ``order`` maps
+    a sorted entry to its flat (token, choice) index, ``slot`` is its row
+    of the flattened (E*cap) buffers, or the spare row E*cap where
+    ``keep`` is False (the entry came after its expert's cap rows)."""
+    flat = ids.reshape(-1)
+    sorted_ids, order = torch.sort(flat, stable=True)
+    seg_pos = torch.arange(flat.shape[0], device=flat.device)
+    experts = torch.arange(n_experts, device=flat.device,
+                           dtype=sorted_ids.dtype)
+    starts = torch.searchsorted(sorted_ids, experts, right=False)
+    pos_in_e = seg_pos - starts[sorted_ids]
+    keep = pos_in_e < cap
+    slot = torch.where(keep, sorted_ids * cap + pos_in_e, n_experts * cap)
+    return order, slot, keep
+
+
+def _expert_ffn(we, x: torch.Tensor) -> torch.Tensor:
+    """x (E, C, D) through the per-expert SwiGLU FFNs."""
+    h = F.silu(torch.bmm(x, we["w_gate"])) * torch.bmm(x, we["w_up"])
+    return torch.bmm(h, we["w_down"])
+
+
+def moe_routed(params, x: torch.Tensor, *, top_k: int,
+               capacity_factor: float = 1.25):
+    """The routed experts alone: x (B, S, D) -> (out (B, S, D) in x's
+    dtype, keep (B*S*k,) bool in expert-sorted order)."""
+    B, S, D = x.shape
+    E = params["router"].shape[-1]
+    xt = x.reshape(B * S, D)
+    T = xt.shape[0]
+    ids, weights = route(xt, params["router"], top_k)
+    C = capacity(T, top_k, E, capacity_factor)
+    order, slot, keep = dispatch(ids, E, C)
+    tok_idx = order // top_k
+    # every kept entry has a row of its own; the dropped ones all write
+    # the spare row E*C, where duplicate indices leave any one of their
+    # rows, which is harmless only because that row is discarded
+    buf = xt.new_zeros((E * C + 1, D))
+    buf.index_put_((slot,), xt[tok_idx])
+    out_buf = _expert_ffn(params["experts"], buf[:-1].reshape(E, C, D))
+    flat_out = out_buf.reshape(E * C, D)
+    gathered = torch.where(keep[:, None],
+                           flat_out[torch.clamp_max(slot, E * C - 1)], 0.0)
+    contrib = gathered * weights.reshape(-1)[order][:, None]
+    # combine: the reference scatter-adds each entry (cast to x's dtype)
+    # into its token; an atomic index_add_ would reorder the k additions
+    # from run to run, so undo the sort instead (the inverse of ``order``)
+    # and sum each token's k contributions over a fixed (T, k) axis
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.shape[0], device=order.device))
+    out_t = contrib.to(xt.dtype)[inv].reshape(T, top_k, D).sum(1)
+    return out_t.reshape(B, S, D), keep
+
+
+def moe(params, x: torch.Tensor, *, top_k: int,
+        capacity_factor: float = 1.25, has_shared: bool = False,
+        linear=None, salt=None) -> torch.Tensor:
+    """x (B, S, D) -> out (B, S, D): the routed experts plus, with
+    ``has_shared``, the shared expert (``params["shared"]``, SwiGLU)
+    through ``linear`` with ``salt`` (the MLP's call sites 0..2).  The
+    reference's ``moe_local`` is this with its own default capacity."""
+    out, _ = moe_routed(params, x, top_k=top_k,
+                        capacity_factor=capacity_factor)
+    if has_shared:
+        out = out + mlp(params["shared"], x, "swiglu", linear=linear,
+                        salt=salt)
+    return out

@@ -1,6 +1,8 @@
-"""Decoder-only transformer LM, dense family (port of the serving half of
-``repro/models/lm.py``): olmo-1b, qwen3-0.6b, starcoder2-7b,
-codeqwen1.5-7b, and the stub-frontend backbones musicgen-large and
+"""Decoder-only transformer LM, dense and MoE families (port of the
+serving half of ``repro/models/lm.py``): olmo-1b, qwen3-0.6b,
+starcoder2-7b, codeqwen1.5-7b, the MoE models deepseek-moe-16b and
+granite-moe-1b-a400m (``layers/moe.py`` in place of the MLP, at expert
+parallelism 1), and the stub-frontend backbones musicgen-large and
 pixtral-12b, whose inputs are embeddings (``embeds=`` (B, S, D) to
 ``prefill``, ``embed=`` (B, 1, D) to ``decode``) and whose head is always
 ``lm_head``.
@@ -14,9 +16,10 @@ decode reads either the dense cache or the int8 paged one.  ``decode_multi``
 scores a window of T tokens per row in one forward (the verifier of
 self-speculative decoding).
 
-Salts: layer ``li`` owns the salt space ``8*li`` (MLP sites 0..2,
-attention 4..7) and the head takes ``8*n_layers``, as in the reference,
-so the DS-CIM noise modes draw distinct noise at every call site.
+Salts: layer ``li`` owns the salt space ``8*li`` (MLP or shared-expert
+sites 0..2, attention 4..7) and the head takes ``8*n_layers``, as in the
+reference, so the DS-CIM noise modes draw distinct noise at every call
+site.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.qweights import QuantizedLinearWeight, map_params
 from ..device import resolve_device
+from ..layers import moe as moe_layer
 from ..layers.attention import (attention, decode_attention,
                                 decode_attention_multi,
                                 decode_attention_paged,
@@ -135,10 +139,14 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None):
     (none for ``layernorm_np``), no ``w_gate`` for the GELU MLP, q heads
     padded to ``head_pad_to`` with zero ``wq`` columns and zero ``wo``
     rows, no ``embed`` for a stub frontend and an ``lm_head`` unless the
-    head is tied to ``embed``."""
-    if cfg.family != "dense":
+    head is tied to ``embed``.  An MoE config has ``moe`` in place of
+    ``mlp``: ``router`` (L, D, E), ``experts`` {w_gate, w_up (L, E, D,
+    F), w_down (L, E, F, D)} and, with shared experts, ``shared`` (a
+    SwiGLU MLP of width ``moe_shared * d_ff``), scaled as the reference's
+    ``init_moe``."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"{cfg.name}: {cfg.family!r} models are "
-                                  "not ported yet")
+                                  "not served by this module")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -156,6 +164,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None):
     def norm(*lead):
         return {} if cfg.norm == "layernorm_np" else {"scale": ones(*lead, D)}
 
+    def ffn(width, kind):
+        p = {"w_up": randn(L, D, width, std=D ** -0.5),
+             "w_down": randn(L, width, D, std=width ** -0.5)}
+        if kind == "swiglu":
+            p["w_gate"] = randn(L, D, width, std=D ** -0.5)
+        return p
+
     attn = {"wq": randn(L, D, hp * HD, std=D ** -0.5),
             "wk": randn(L, D, KV * HD, std=D ** -0.5),
             "wv": randn(L, D, KV * HD, std=D ** -0.5),
@@ -165,15 +180,19 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None):
     if cfg.qk_norm:
         attn["q_norm"] = {"scale": ones(L, HD)}
         attn["k_norm"] = {"scale": ones(L, HD)}
-    mlp_p = {"w_up": randn(L, D, F, std=D ** -0.5),
-             "w_down": randn(L, F, D, std=F ** -0.5)}
-    if cfg.mlp_kind == "swiglu":
-        mlp_p["w_gate"] = randn(L, D, F, std=D ** -0.5)
-    params = {
-        "layers": {"ln1": norm(L), "ln2": norm(L), "attn": attn,
-                   "mlp": mlp_p},
-        "final_norm": norm(),
-    }
+    layers = {"ln1": norm(L), "ln2": norm(L), "attn": attn}
+    if cfg.family == "moe":
+        E = cfg.moe_experts
+        layers["moe"] = {
+            "router": randn(L, D, E, std=D ** -0.5),
+            "experts": {"w_gate": randn(L, E, D, F, std=D ** -0.5),
+                        "w_up": randn(L, E, D, F, std=D ** -0.5),
+                        "w_down": randn(L, E, F, D, std=F ** -0.5)}}
+        if cfg.moe_shared:
+            layers["moe"]["shared"] = ffn(cfg.moe_shared * F, "swiglu")
+    else:
+        layers["mlp"] = ffn(F, cfg.mlp_kind)
+    params = {"layers": layers, "final_norm": norm()}
     if not cfg.stub_frontend:
         params["embed"] = randn(cfg.vocab_padded, D, std=0.02)
     if not cfg.tie_embeddings or cfg.stub_frontend:
@@ -218,8 +237,35 @@ def _head(params, cfg: ArchConfig, x):
 
 
 def _ff(cfg: ArchConfig, lp, x, salt):
-    return mlp(lp["mlp"], _norm(cfg, x, lp["ln2"]), cfg.mlp_kind,
-               linear=_lin(cfg), salt=salt)
+    """The block's feed-forward half on the residual ``x``: the MLP, or
+    for an MoE config the MoE block (the reference's ``_moe_apply``
+    without a mesh), after the second norm."""
+    hn = _norm(cfg, x, lp["ln2"])
+    if cfg.family == "moe":
+        return moe_layer.moe(lp["moe"], hn, top_k=cfg.moe_topk,
+                             capacity_factor=cfg.moe_capacity,
+                             has_shared=cfg.moe_shared > 0,
+                             linear=_lin(cfg), salt=salt)
+    return mlp(lp["mlp"], hn, cfg.mlp_kind, linear=_lin(cfg), salt=salt)
+
+
+def _ff_window(cfg: ArchConfig, lp, hn, lin, salt):
+    """``_ff``'s feed-forward on a normed (B, T, D) window, position t
+    bitwise what ``_ff`` gives at (B, 1, D): the MLP through ``_window``;
+    the MoE's routed experts per position (routing, and the capacity,
+    depend on the rows of a call), its shared expert through
+    ``_window``."""
+    if cfg.family != "moe":
+        return _window(lambda v: mlp(lp["mlp"], v, cfg.mlp_kind,
+                                     linear=lin, salt=salt), lin, hn)
+    p = lp["moe"]
+    out = per_position(lambda v: moe_layer.moe_routed(
+        p, v, top_k=cfg.moe_topk,
+        capacity_factor=cfg.moe_capacity)[0], hn)
+    if cfg.moe_shared:
+        out = out + _window(lambda v: mlp(p["shared"], v, "swiglu",
+                                          linear=lin, salt=salt), lin, hn)
+    return out
 
 
 def _embed_prompt(params, tokens: torch.Tensor) -> torch.Tensor:
@@ -409,8 +455,7 @@ def decode_multi(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
                                        salt=8 * li, done=done)
         x = x + h
         hn = per_position(lambda v: _norm(cfg, v, lp["ln2"]), x)
-        x = x + _window(lambda v: mlp(lp["mlp"], v, cfg.mlp_kind, linear=lin,
-                                      salt=8 * li), lin, hn)
+        x = x + _ff_window(cfg, lp, hn, lin, 8 * li)
     x = per_position(lambda v: _norm(cfg, v, params["final_norm"]), x)
     logits = _window(lambda v: _head(params, cfg, v), lin, x)
     step = T if done is None else (~done).to(pos.dtype) * T

@@ -1419,3 +1419,68 @@ def test_stub_config_decodes_on_card(cuda, name, spec, monkeypatch):
         np.testing.assert_array_equal(toks["cuda"][:, 0], toks["cpu"][:, 0])
         assert logit_drift_rmse(toks["cpu"], toks["cuda"], list(want),
                                 list(got)) <= 1e-3
+
+
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "deepseek-moe-16b"])
+def test_moe_graph_matches_eager_on_card(cuda, name):
+    """The reduced MoE configs at ``kernel:dscim1:256`` with int8 KV: the
+    captured step's tokens and logit trace bitwise the eager loop's, spec
+    (``dscim2:2``) bitwise plain, continuous serving bitwise one-shot, and
+    the card's tokens those of the CPU's run on the same weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import (prepare_params, serve_batch,
+                                          serve_continuous)
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_arch(name).reduced(),
+                              dscim="kernel:dscim1:256")
+    host = lm.init_params(cfg, 0, device="cpu")
+    params = prepare_params(cfg, host, cuda)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (4, 16))
+    kw = dict(kv="int8", page_size=4)
+    t = {}
+    g = serve_batch(cfg, params, prompts, 6, timings=t, trace_logits=True,
+                    **kw)
+    e = serve_batch(cfg, params, prompts, 6, scan=False, trace_logits=True,
+                    **kw)
+    assert "capture_s" in t
+    np.testing.assert_array_equal(g[0], e[0])
+    np.testing.assert_array_equal(np.stack(g[1]), np.stack(e[1]))
+    s = serve_batch(cfg, params, prompts, 6, spec="dscim2:2", **kw)
+    np.testing.assert_array_equal(s[0], g[0])
+    c = serve_batch(cfg, host, prompts, 6, device="cpu", **kw)
+    np.testing.assert_array_equal(c[0][:, 0], g[0][:, 0])
+    budgets = np.asarray([5, 2, 4, 3], np.int32)
+    outs, stats = serve_continuous(cfg, params, prompts, 6, slots=2,
+                                   seg_len=2, max_new=budgets, eos_id=-1,
+                                   **kw)
+    for r in range(4):
+        ref, _ = serve_batch(cfg, params, np.tile(prompts[r:r + 1], (2, 1)),
+                             6, eos_id=-1, max_new=[int(budgets[r])] * 2,
+                             **kw)
+        np.testing.assert_array_equal(outs[r], ref[0, :budgets[r]])
+
+
+@pytest.mark.parametrize("key", [("dscim1", 256, "paper"),
+                                 ("dscim2", 64, "paper"),
+                                 ("dscim1", 64, "opt")])
+@pytest.mark.parametrize("M,K,N", [(4, 64, 16), (3, 128, 33)])
+def test_count_kernel_equals_cycle_oracle_on_card(cuda, key, M, K, N):
+    """The count kernel's counts equal the cycle-level OR-MAC's, run on
+    the card, exactly."""
+    from repro_torch.core.macro import DSCIMMacro
+    from repro_torch.core.seed_search import calibrated_config
+
+    mac = DSCIMMacro(calibrated_config(*key))
+    rng = np.random.default_rng(M + K + N)
+    x = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (K, N)).astype(np.int8))
+    kern = mac.counts_kernel(x.to(cuda), w.to(cuda))
+    cyc = mac.counts_cycle(x.to(cuda), w.to(cuda))
+    assert cyc.device.type == "cuda"
+    np.testing.assert_array_equal(kern.to(torch.int64).cpu().numpy(),
+                                  cyc.cpu().numpy())
+    np.testing.assert_array_equal(cyc.cpu().numpy(),
+                                  mac.counts_lut(x, w).numpy())

@@ -79,7 +79,8 @@ def converted():
 
 def test_registry_equals_reference():
     from repro.configs import ARCHS as JARCHS
-    assert set(TOKEN_ARCHS) == {"qwen3-0.6b", *TOKEN}
+    assert set(TOKEN_ARCHS) == {"qwen3-0.6b", *TOKEN, "granite-moe-1b-a400m",
+                                "deepseek-moe-16b"}
     for name, cfg in ARCHS.items():
         ref = dataclasses.asdict(JARCHS[name])
         ref.pop("shapes")

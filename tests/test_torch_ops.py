@@ -248,8 +248,8 @@ def test_macro_rmse_equals_jax(key):
 
 def test_macro_backends_vs_jax():
     """mvm's lut, bitmatmul and kernel backends: counts_bitmatmul bitwise
-    equal to the reference's, the three estimates equal; cycle raises
-    until the OR-MAC is ported."""
+    equal to the reference's, the three estimates equal (K = 100 ends in a
+    partial dscim2 OR group)."""
     key = ("dscim2", 64, "paper")
     x, w = _int8(13, 4, 100, 6)
     x32, w32 = x.astype(np.int32), w.astype(np.int32)
@@ -261,8 +261,21 @@ def test_macro_backends_vs_jax():
     for backend in ("lut", "bitmatmul", "kernel"):
         np.testing.assert_array_equal(
             m.mvm(*_t(x32, w32), backend=backend).numpy(), want)
-    with pytest.raises(NotImplementedError):
-        m.mvm(*_t(x32, w32), backend="cycle")
+
+
+def test_macro_cycle_backend_vs_jax():
+    """mvm's cycle backend: counts_cycle bitwise equal to the reference's
+    and the estimate equal to the reference's lut estimate (K = 128: the
+    cycle OR-MAC, the reference's too, takes whole OR groups)."""
+    key = ("dscim2", 64, "paper")
+    x, w = _int8(13, 4, 128, 6)
+    x32, w32 = x.astype(np.int32), w.astype(np.int32)
+    jm, m = JMacro(jcalib(*key)), DSCIMMacro(calibrated_config(*key))
+    np.testing.assert_array_equal(m.counts_cycle(*_t(x32, w32)).numpy(),
+                                  jm.counts_cycle(x32, w32))
+    want = np.asarray(jm.mvm(jnp.asarray(x32), jnp.asarray(w32), "lut"))
+    np.testing.assert_array_equal(
+        m.mvm(*_t(x32, w32), backend="cycle").numpy(), want)
 
 
 def test_operator_wrappers_take_the_plain_route_on_cpu():
