@@ -103,7 +103,14 @@ In order it
    tokens each prefill's expert capacity dropped counted, graph bitwise
    eager with no drop at decode, ``spec=SPEC`` bitwise plain, both loops
    timed in turns, the cache bytes and a decode step's bytes bound
-   printed;
+   printed; then the RWKV6 and Zamba2 configs (``recurrent_family``):
+   rwkv6-7b and zamba2-7b at their published width and depth, served
+   like the main path but at ``dscim="off"`` with the float cache (the
+   reference serves them only so): no launch of any of the six kernels
+   in a counted request, graph bitwise eager, a ragged ``max_new``
+   request bitwise eager and each row the plain row cut at its budget,
+   both loops timed in turns, the state's bytes a slot, a decode step's
+   bytes bound and one profiled step;
 4. holds each kernel's wrapper, as the main path calls it, against its
    plain PyTorch version on the same inputs at the main path's shapes,
    and times kernel, wrapper, plain version, the least
@@ -141,8 +148,9 @@ In order it
 6. computes Table I through the card (``table1``): for all 12 presets the
    counts of ``DSCIMMacro.rmse``'s operands through the count kernel must
    equal the LUT's, and the RMSE must equal the JAX reference's;
-7. serves the reduced config on the GPU and on the CPU (plain versions)
-   and checks that they agree.
+7. serves the reduced qwen3-0.6b (``DSCIM``, int8 KV), rwkv6-7b and
+   zamba2-7b (``off``, float cache) configs on the GPU and on the CPU
+   (plain versions) and checks that they agree.
 
 Every time is device time (``_cuda_ms``): the device sleeps while the host
 queues all the timed calls, so the host's time per call does not enter it.
@@ -213,6 +221,12 @@ DF_COLS = 512    # output columns the prefill-M fused checks hold
 # deepseek-moe-16b's 64 routed experts are 0.55 G parameters a layer: 8 of
 # its 28 layers keep the f32 draw and the bf16 copy near 30 GB
 MOE_SERVED = (("granite-moe-1b-a400m", None), ("deepseek-moe-16b", 8))
+# recurrent_family phase: the RWKV6 and Zamba2 configs at their published
+# width and depth, served at the main path's shape with dscim 'off' and the
+# float cache (the reference serves them so and no other way); a ragged
+# request's budgets
+REC_SERVED = (("rwkv6-7b", None), ("zamba2-7b", None))
+REC_BUDGETS = (16, 5, 12, 3)
 # kernel 6 against the cycle-level OR-MAC (core/ormac.py): (M, K, N)
 CYCLE_SHAPE = (4, 64, 16)
 # int8 paged KV against the dense cache on the float path: the
@@ -403,19 +417,19 @@ def _decode_step_ms(torch, fn, reset, reps=5):
     return statistics.median(times)
 
 
-def _loops_in_turns(torch, cfg_ds, served, prompts, tag=""):
+def _loops_in_turns(torch, cfg_ds, served, prompts, tag="", kv="int8"):
     """The graph loop (``serve_batch(scan=True)``, already captured at
     these options) and the eager loop, 5 requests each in turns at the
-    main path's shape, each with the median device time of one decode
-    step of its runner; returns the two loops' readings, medians and
-    ranges."""
+    main path's shape and cache layout ``kv``, each with the median
+    device time of one decode step of its runner; returns the two loops'
+    readings, medians and ranges."""
     import numpy as np
 
     from repro_torch.launch.serve import serve_batch
     from repro_torch.launch.steps import _generate_runner
 
-    kw = dict(kv="int8", page_size=PAGE)
-    runner = _generate_runner(cfg_ds, BATCH, PROMPT, TOKENS, "int8", PAGE,
+    kw = dict(kv=kv, page_size=PAGE)
+    runner = _generate_runner(cfg_ds, BATCH, PROMPT, TOKENS, kv, PAGE,
                               None, "greedy", False,
                               torch.device("cuda", 0), None)
     st = runner.st
@@ -1803,6 +1817,12 @@ def _numel(tree) -> int:
     return tree.numel()
 
 
+def _numel_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_numel_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
 def _family_counters():
     """The main path's kernel counters, by kernel name."""
     from repro_torch.kernels import dscim_fused
@@ -1812,39 +1832,60 @@ def _family_counters():
             "paged_attention_decode": pa.LAUNCHES}
 
 
-def _serve_family(torch, phase, archs, timed, extra=None):
+def _all_counters():
+    """The launch counters of all six kernels, by kernel name."""
+    from repro_torch.kernels import (dscim_mvm, dscim_mvm_blocked,
+                                     flash_attention, int8_matmul)
+
+    return {**_family_counters(),
+            "flash_attention": flash_attention.LAUNCHES,
+            "int8_matmul": int8_matmul.LAUNCHES,
+            "dscim_counts_blocked": dscim_mvm_blocked.LAUNCHES,
+            "dscim_counts": dscim_mvm.LAUNCHES}
+
+
+def _attention_launches(cfg):
+    """A counted request's launches on the attention families' path at
+    DSCIM with the int8 cache: a forward's DS-CIM matmuls and head a
+    token on kernel 1, the layers a decode step on kernel 2."""
+    return {"dscim_fused_mvm": _fused_per_forward(cfg) * TOKENS,
+            "paged_attention_decode": cfg.n_layers * (TOKENS - 1)}
+
+
+def _serve_family(torch, phase, archs, timed, extra=None, *, kv="int8",
+                  dscim=DSCIM, want=_attention_launches):
     """Serve each (arch, layers kept; None = the published depth, widths
     always kept) of ``archs`` through ``serve_batch`` at the main path's
-    settings and shape (random weights from seed 0, prepared once): the
-    warm-up request captures the decode step; a counted request's
-    fused-MVM and paged-attention launches must be a forward's DS-CIM
-    matmuls and head a token (``_fused_per_forward``) and the layers a
-    decode step; the graph's tokens and logit trace must equal the eager
-    loop's bitwise.  ``extra(torch, cfg_ds, served, prompts, toks)``
-    returns results of its own checks; the archs in ``timed`` are then
-    timed, both loops in turns.  Returns ({arch: results}, launches summed
-    over the counted requests)."""
+    shape, with the cache layout ``kv`` and the spec ``dscim`` (random
+    weights from seed 0, prepared once): the warm-up request captures the
+    decode step; a counted request's launches must be ``want(cfg)``, a
+    dict by kernel name (``_all_counters``); the graph's tokens and logit
+    trace must equal the eager loop's bitwise.  ``extra(torch, cfg_ds,
+    served, prompts, toks)`` returns results of its own checks; the archs
+    in ``timed`` are then timed, both loops in turns.  Returns ({arch:
+    results}, launches summed over the counted requests)."""
     import numpy as np
 
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import (clear_graphs, prepare_params,
                                           serve_batch)
-    from repro_torch.models import lm
+    from repro_torch.models.registry import get_model
 
     clear_graphs()             # the earlier phases' runners and graph pools
-    kw = dict(kv="int8", page_size=PAGE)
-    counters = _family_counters()
-    total = dict.fromkeys(counters, 0)
+    kw = dict(kv=kv, page_size=PAGE)
+    counters = _all_counters()
+    total = {}
     out = {}
     for name, layers in archs:
         cfg = get_arch(name)
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
-        cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
-        params = lm.init_params(cfg, 0)
+        cfg_ds = dataclasses.replace(cfg, dscim=dscim)
+        params = get_model(cfg).init_params(cfg, 0)
         n_params = _numel(params)
         served = prepare_params(cfg_ds, params)
         del params
+        torch.cuda.empty_cache()
         prompts = np.random.default_rng(0).integers(0, cfg.vocab,
                                                     (BATCH, PROMPT))
         warm = {}
@@ -1853,24 +1894,25 @@ def _serve_family(torch, phase, archs, timed, extra=None):
         torch.cuda.synchronize()
         if "capture_s" not in warm:
             raise AssertionError(f"{name}: the warm-up captured no graph")
+        expected = want(cfg)
         for c in counters.values():
             c.reset()
         t = {}
         toks, _ = serve_batch(cfg_ds, served, prompts, TOKENS, timings=t,
                               **kw)
-        launches = {k: c.count for k, c in counters.items()}
-        want = {"dscim_fused_mvm": _fused_per_forward(cfg) * TOKENS,
-                "paged_attention_decode": cfg.n_layers * (TOKENS - 1)}
-        _log(f"{phase} {name} ({cfg.n_layers} of {get_arch(name).n_layers} "
-             f"layers, d {cfg.d_model}, {cfg.q_heads} q heads over "
-             f"{cfg.n_kv} kv heads: n_rep {cfg.q_heads // cfg.n_kv}, "
-             f"{n_params} parameters): launches {launches} (expected "
-             f"{want}), capture {warm['capture_s']:.3f} s")
-        if launches != want or "capture_s" in t:
-            raise AssertionError(f"{name}: launches {launches} != {want} "
-                                 "or the timed request captured again")
-        for k in total:
-            total[k] += launches[k]
+        launches = {k: counters[k].count for k in expected}
+        _log(f"{phase} {name} ({cfg.family}, {cfg.n_layers} of "
+             f"{get_arch(name).n_layers} layers, d {cfg.d_model}, "
+             f"{cfg.q_heads} q heads over {cfg.n_kv} kv heads: n_rep "
+             f"{cfg.q_heads // cfg.n_kv}, {n_params} parameters, dscim "
+             f"{dscim}, kv {kv}): launches {launches} (expected "
+             f"{expected}), capture {warm['capture_s']:.3f} s")
+        if launches != expected or "capture_s" in t:
+            raise AssertionError(f"{name}: launches {launches} != "
+                                 f"{expected} or the timed request "
+                                 "captured again")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
         (tg, lg), (te, le) = (serve_batch(cfg_ds, served, prompts, TOKENS,
                                           scan=scan, trace_logits=True, **kw)
                               for scan in (True, False))
@@ -1891,7 +1933,7 @@ def _serve_family(torch, phase, archs, timed, extra=None):
             res.update(extra(torch, cfg_ds, served, prompts, toks))
         if name in timed:
             res["loops"] = _loops_in_turns(torch, cfg_ds, served, prompts,
-                                           tag=f"{phase} {name} ")
+                                           tag=f"{phase} {name} ", kv=kv)
         out[name] = res
         del served
         clear_graphs()
@@ -2113,13 +2155,14 @@ def _step_bytes(served) -> int:
     return sum(total)
 
 
-def _profile_step(torch, cfg_ds, served):
+def _profile_step(torch, cfg_ds, served, kv="int8"):
     """``_profile_request`` of one replay of the captured decode step of
-    the main path's runner at ``cfg_ds`` (already captured), at the
-    middle of a request: its kernels and the device's busy time."""
+    the main path's runner at ``cfg_ds`` and cache layout ``kv`` (already
+    captured), at the middle of a request: its kernels and the device's
+    busy time."""
     from repro_torch.launch.steps import _generate_runner
 
-    runner = _generate_runner(cfg_ds, BATCH, PROMPT, TOKENS, "int8", PAGE,
+    runner = _generate_runner(cfg_ds, BATCH, PROMPT, TOKENS, kv, PAGE,
                               None, "greedy", False,
                               torch.device("cuda", 0), None)
     st = runner.st
@@ -2220,6 +2263,84 @@ def moe_family(torch):
     served, total = _serve_family(torch, "moe_family", MOE_SERVED,
                                   timed=[n for n, _ in MOE_SERVED],
                                   extra=_moe_extras)
+    return {"served": served, "launches": total}
+
+
+def _recurrent_extras(torch, cfg_ds, served, prompts, toks):
+    """recurrent_family's checks beyond ``_serve_family``'s: a ragged
+    request (budgets ``REC_BUDGETS``, ``eos_id=-1``) whose graph tokens
+    are bitwise the eager loop's, each row the plain request's tokens up
+    to its budget and ``PAD_ID`` after; the serving state's bytes a slot
+    (the recurrent state; for Zamba2 also the K/V caches at prompt +
+    tokens); the bytes a decode step must move (the weights once, BATCH
+    embedding rows, the recurrent state read and written, the K/V caches
+    read) over the HBM rate: the step's bytes bound; one graph request
+    and one replay of the captured step profiled (kernels, the device's
+    busy time and idle share)."""
+    import numpy as np
+
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import PAD_ID
+    from repro_torch.models.registry import get_model
+
+    name = cfg_ds.name
+    budgets = np.asarray(REC_BUDGETS, np.int32)
+    rg, re_ = (serve_batch(cfg_ds, served, prompts, TOKENS, eos_id=-1,
+                           max_new=budgets, scan=scan)[0]
+               for scan in (True, False))
+    if not np.array_equal(rg, re_):
+        raise AssertionError(f"{name}: ragged graph tokens differ from the "
+                             "eager loop's")
+    for b, n in enumerate(budgets):
+        if not (np.array_equal(rg[b, :n], toks[b, :n])
+                and (rg[b, n:] == PAD_ID).all()):
+            raise AssertionError(f"{name}: ragged row {b} is not the plain "
+                                 f"row cut at {n}")
+    spec = get_model(cfg_ds).cache_specs(cfg_ds, BATCH, PROMPT + TOKENS)
+    nbytes = {k: _numel_bytes(v) for k, v in spec.items() if k != "pos"}
+    kv_bytes = nbytes.pop("k", 0) + nbytes.pop("v", 0)
+    state_bytes = sum(nbytes.values())
+    step_bytes = _step_bytes(served) + 2 * state_bytes + kv_bytes
+    res = {"ragged_budgets": list(REC_BUDGETS),
+           "state_bytes_per_slot": state_bytes // BATCH,
+           "kv_bytes_per_slot": kv_bytes // BATCH,
+           "step_bytes": step_bytes,
+           "step_bytes_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3}
+    _log(f"recurrent_family {name}: ragged request (budgets "
+         f"{list(REC_BUDGETS)}) graph bitwise eager, each row the plain "
+         f"row cut at its budget; state {res['state_bytes_per_slot']} B a "
+         f"slot, K/V {res['kv_bytes_per_slot']} B a slot at "
+         f"{PROMPT + TOKENS} positions; a decode step moves {step_bytes} "
+         f"bytes, {res['step_bytes_bound_ms']:.4f} ms at "
+         f"{HBM_BYTES_PER_S:.3g} B/s")
+    res["request_profile"] = prof = _profile_request(
+        torch, lambda: serve_batch(cfg_ds, served, prompts, TOKENS))
+    _log(f"recurrent_family {name}: one graph request under the profiler: "
+         f"{prof['kernel_launches']} kernels, device busy "
+         f"{prof['device_busy_ms']:.3f} ms of {prof['wall_ms_profiled']:.3f}"
+         f" ms, idle {prof['device_idle_share']:.3f}")
+    res["step_profile"] = prof = _profile_step(torch, cfg_ds, served,
+                                               kv="float")
+    _log(f"recurrent_family {name}: one decode step's graph replay under "
+         f"the profiler: {prof['kernel_launches']} kernels, device busy "
+         f"{prof['device_busy_ms']:.3f} ms of "
+         f"{prof['wall_ms_profiled']:.3f} ms")
+    for k in prof["top_kernels"][:5]:
+        _log(f"  {k['device_ms']:.3f} ms in {k['calls']} x {k['name']}")
+    return res
+
+
+def recurrent_family(torch):
+    """Phase recurrent_family, the RWKV6 and Zamba2 configs on the serving
+    path: ``REC_SERVED`` (rwkv6-7b and zamba2-7b at their published width
+    and depth) go through ``_serve_family`` at ``dscim="off"`` and the
+    float cache with ``_recurrent_extras``, both timed.  None of the six
+    kernels runs on this path: a counted request must launch none."""
+    served, total = _serve_family(
+        torch, "recurrent_family", REC_SERVED,
+        timed=[n for n, _ in REC_SERVED], extra=_recurrent_extras,
+        kv="float", dscim="off",
+        want=lambda cfg: dict.fromkeys(_all_counters(), 0))
     return {"served": served, "launches": total}
 
 
@@ -2928,27 +3049,35 @@ def table1(torch):
 
 
 def check_reduced(torch):
-    """Phase 7: the reduced config on the GPU (kernels) vs the CPU (plain
-    versions), same weights and prompts."""
+    """Phase 7: the reduced configs on the GPU (kernels) vs the CPU (plain
+    versions), same weights and prompts: qwen3-0.6b at DSCIM with the
+    int8 cache, rwkv6-7b and zamba2-7b at 'off' with the float cache.
+    First tokens equal, logit drift RMSE on the teacher-matched prefix
+    <= 1e-3.  Returns the drifts by arch."""
     import numpy as np
 
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import logit_drift_rmse, serve_batch
-    from repro_torch.models import lm
+    from repro_torch.models.registry import get_model
 
-    cfg = dataclasses.replace(get_arch("qwen3-0.6b").reduced(), dscim=DSCIM)
-    params = lm.init_params(cfg, 0, device="cpu")
-    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (3, 16))
-    res = {dev: serve_batch(cfg, params, prompts, 10, kv="int8",
-                            page_size=4, trace_logits=True, device=dev)
-           for dev in ("cpu", "cuda")}
-    (tc, lc), (tg, lg) = res["cpu"], res["cuda"]
-    drift = logit_drift_rmse(tc, tg, lc, lg)
-    _log(f"reduced config GPU vs CPU: first tokens {tg[:, 0].tolist()} vs "
-         f"{tc[:, 0].tolist()}, logit drift RMSE {drift:.3e}")
-    if not (tc[:, 0] == tg[:, 0]).all() or not drift <= 1e-3:
-        raise AssertionError("reduced config: GPU and CPU disagree")
-    return drift
+    drifts = {}
+    for name, spec, kw in (("qwen3-0.6b", DSCIM,
+                            dict(kv="int8", page_size=4)),
+                           ("rwkv6-7b", "off", {}),
+                           ("zamba2-7b", "off", {})):
+        cfg = dataclasses.replace(get_arch(name).reduced(), dscim=spec)
+        params = get_model(cfg).init_params(cfg, 0, device="cpu")
+        prompts = np.random.default_rng(1).integers(0, cfg.vocab, (3, 16))
+        res = {dev: serve_batch(cfg, params, prompts, 10, trace_logits=True,
+                                device=dev, **kw)
+               for dev in ("cpu", "cuda")}
+        (tc, lc), (tg, lg) = res["cpu"], res["cuda"]
+        drifts[name] = drift = logit_drift_rmse(tc, tg, lc, lg)
+        _log(f"reduced {name} GPU vs CPU: first tokens {tg[:, 0].tolist()} "
+             f"vs {tc[:, 0].tolist()}, logit drift RMSE {drift:.3e}")
+        if not (tc[:, 0] == tg[:, 0]).all() or not drift <= 1e-3:
+            raise AssertionError(f"reduced {name}: GPU and CPU disagree")
+    return drifts
 
 
 def main() -> int:
@@ -3048,6 +3177,7 @@ def main() -> int:
                       [get_arch(n) for n, _ in MOE_SERVED])
     cycle = phase("cycle_oracle", check_cycle_oracle, torch)
     _log(f"moe_family phases: {time.perf_counter() - t_moe:.1f} s")
+    rec = phase("recurrent_family", recurrent_family, torch)
     counts = launches or {"dscim_fused_mvm": None,
                           "paged_attention_decode": None}
     kernels = [phase("dscim_fused", check_fused, torch, cfg, params, counts),
@@ -3097,6 +3227,11 @@ def main() -> int:
             modes["bitmatmul_count_launches"]
     if kernels[3] is not None:
         kernels[3]["cycle_oracle"] = cycle or []
+    if rec is not None:
+        for entry in kernels:
+            if entry is not None:
+                entry["launches_recurrent_family"] = \
+                    rec["launches"][entry["name"]]
     t1 = phase("table1", table1, torch)
     drift = phase("reduced_gpu_vs_cpu", check_reduced, torch)
     print(json.dumps({"kernels": kernels, "card": smi[0] if smi else None,
@@ -3107,6 +3242,7 @@ def main() -> int:
                       "faults": faults, "watchdog": wd,
                       "integrity": integ, "router": rt,
                       "dense_family": df, "moe_family": moe_fam,
+                      "recurrent_family": rec,
                       "prefill_logit_rmse_vs_off": e2e.get("logit_rmse"),
                       "reduced_gpu_vs_cpu_drift": drift,
                       "table1_rmse_pct": t1,

@@ -29,6 +29,12 @@ What capture needs, and where it is met:
   not run, so the counts the capture made are taken back and added once
   per replay (``chip_smoke.py``'s profile phase holds the counts so made
   against the kernel calls the profiler sees the device run);
+* no CUDA call from the collector: a CUDA graph object that dies during
+  a capture (an older runner's, held in a reference cycle) resets itself,
+  which the driver refuses while a stream captures, and the capture is
+  invalidated; ``capture`` collects first and holds the collector off
+  until the capture ends (a long Python step, a Zamba2 decode, makes
+  enough objects to start a collection);
 * memory: what the step allocates during capture (the wrappers' outputs
   and scratch) comes from the graph's private pool, which eager code
   never reuses while the graph lives;
@@ -43,6 +49,7 @@ A capture or replay failure raises; nothing falls back to eager steps.
 """
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -92,6 +99,9 @@ class CapturedStep:
         torch.cuda.current_stream(self.device).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         before = {c: c.count for c in build.COUNTERS}
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, stream=stream):
                 self.step()
@@ -99,6 +109,8 @@ class CapturedStep:
             raise RuntimeError(f"CUDA graph capture of the decode step "
                                f"failed: {e}") from e
         finally:
+            if collecting:
+                gc.enable()
             # the capture launched nothing: take its counts back
             self.launches = {c: c.count - n for c, n in before.items()
                              if c.count != n}

@@ -40,7 +40,7 @@ import time
 
 import numpy as np
 
-from ..configs import TOKEN_ARCHS
+from ..configs import CONTINUOUS_ARCHS
 
 
 def make_trace(seed: int, n: int, *, buckets=(4, 8), max_prompt: int = 12,
@@ -337,12 +337,14 @@ def run_loadtest(smoke: bool = True, *, requests: int | None = None,
     from ..models import lm
     from ..runtime.watchdog import AccuracyWatchdog
     from .serve import prepare_params
+    from .steps import _check_continuous
 
     dev = resolve_device(device)
     if cfg is None:
         cfg = get_arch(arch)
         if reduced:
             cfg = cfg.reduced()
+        _check_continuous(cfg)
         params = prepare_params(cfg, lm.init_params(cfg, 0, device=dev), dev)
     if shape is None:
         shape = LoadShape.smoke() if smoke else LoadShape()
@@ -460,7 +462,8 @@ def main(argv=None):
     ap.add_argument("--chaos-seed", type=int, default=0,
                     help="FailureInjector.sampled seed: reproduces a fault "
                          "schedule exactly")
-    ap.add_argument("--arch", default="qwen3-0.6b", choices=TOKEN_ARCHS)
+    ap.add_argument("--arch", default="qwen3-0.6b",
+                    choices=CONTINUOUS_ARCHS)
     ap.add_argument("--prefix-cache", action="store_true",
                     help="add the shared-system-prompt prefix legs: "
                          "bitwise hit-vs-cold under the trace's traffic and "

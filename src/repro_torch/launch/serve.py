@@ -8,7 +8,10 @@ serves ``--arch`` (any registered token-input config, default
 qwen3-0.6b) at its published width on the GPU (``--reduced`` cuts it to
 the smoke-test size, ``--device cpu`` runs the plain PyTorch versions on
 the CPU) and prints tok/s for the float path and the DS-CIM path, their
-token agreement and the prefill logit RMSE between them.
+token agreement and the prefill logit RMSE between them.  The RWKV6 and
+Zamba2 configs (rwkv6-7b, zamba2-7b) serve with ``--dscim off|float --kv
+float`` and without ``--continuous`` or ``--spec``, as the reference
+serves them.
 
 Generation replays one captured decode step as a CUDA graph (launch/
 steps.py, launch/graph.py): one host call per token instead of one per
@@ -38,8 +41,10 @@ import numpy as np
 import torch
 
 from ..configs import TOKEN_ARCHS, get_arch
+from ..core.qweights import map_params
 from ..device import resolve_device
 from ..models import lm
+from ..models.registry import get_model
 from .steps import (_check_kv, clear_graphs, make_generate_fn,
                     prepare_serving_params)
 
@@ -48,7 +53,6 @@ __all__ = ["serve_batch", "serve_continuous", "prepare_params",
 
 
 def _to(params, device):
-    from ..core.qweights import map_params
     return map_params(lambda _, a: a.to(device)
                       if isinstance(a, torch.Tensor) else a, params)
 
@@ -63,7 +67,7 @@ def prepare_params(cfg, params, device=None):
     bound to them (other tensors capture it again)."""
     dev = resolve_device(device)
     out = prepare_serving_params(cfg, _to(params, dev))
-    return lm.cast_layers(out, lm.DTYPES[cfg.compute_dtype])
+    return get_model(cfg).cast_layers(out, lm.DTYPES[cfg.compute_dtype])
 
 
 def serve_batch(cfg, params, prompts, n_tokens: int, *,
@@ -136,7 +140,7 @@ def serve_batch(cfg, params, prompts, n_tokens: int, *,
         result += (None if stats is None else
                    {k: v.cpu().numpy() for k, v in stats.items()},)
     if return_cache:
-        return result + ({k: v.clone() for k, v in cache.items()},)
+        return result + (map_params(lambda _, t: t.clone(), cache),)
     return result
 
 
@@ -410,7 +414,7 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     sample = _sample_spec(args)
-    params = lm.init_params(cfg, args.seed, device=dev)
+    params = get_model(cfg).init_params(cfg, args.seed, device=dev)
     rng = np.random.default_rng(args.seed)
     runs = [("off", cfg)]
     if args.dscim != "off":

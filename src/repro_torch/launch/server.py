@@ -202,12 +202,13 @@ def main(argv=None):
     import argparse
     import dataclasses
 
-    from ..configs import TOKEN_ARCHS, get_arch
+    from ..configs import CONTINUOUS_ARCHS, get_arch
     from ..device import resolve_device
     from ..models import lm
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="qwen3-0.6b", choices=TOKEN_ARCHS)
+    ap.add_argument("--arch", default="qwen3-0.6b",
+                    choices=CONTINUOUS_ARCHS)
     ap.add_argument("--reduced", action="store_true",
                     help="serve the reduced smoke-test width instead of "
                          "the published one")

@@ -14,8 +14,10 @@ and writes only static tensors in place, and ``launch/graph.py
 CapturedStep`` captures it once as a CUDA graph and replays it.  The
 same step serves:
 
-* ``make_generate_fn`` (one-shot requests): prefill eagerly, copy the cache
-  into the runner's static buffers, then replay the step ``n_tokens - 1``
+* ``make_generate_fn`` (one-shot requests, every family through
+  ``models/registry.py get_model``): prefill eagerly, copy the cache (or
+  a recurrent family's state tree) into the runner's static buffers,
+  then replay the step ``n_tokens - 1``
   times; the EOS loop looks at ``done`` on the host once every
   ``SEG_LEN`` replays only (done-masked steps are inert, so the tokens are those of a
   loop that stops at once).  ``scan=False`` is the eager host loop, one
@@ -54,6 +56,7 @@ from ..core.qweights import (QuantizedLinearWeight, golden_weight_copy,
                              map_params, prepare_dscim_params,
                              split_dscim_mode)
 from ..models import lm
+from ..models.registry import get_model
 from .graph import CapturedStep
 
 __all__ = ["prepare_serving_params", "make_generate_fn", "init_serve_state",
@@ -61,6 +64,9 @@ __all__ = ["prepare_serving_params", "make_generate_fn", "init_serve_state",
            "make_probe_fn", "clear_graphs", "PAD_ID"]
 
 PAD_ID = 0          # token written for finished slots
+# the families with an attention KV cache: every serving loop takes them;
+# the RWKV and hybrid families serve through serve_batch in float only
+ATTENTION_FAMILIES = ("dense", "moe")
 SEG_LEN = 4         # replays between two host looks at ``done``
 
 
@@ -72,6 +78,7 @@ def prepare_serving_params(cfg: ArchConfig, params, *, golden: bool = False):
     repair source), taken here where the planes are good by
     construction; None for 'off'/'float'."""
     spec = getattr(cfg, "dscim", "off")
+    _check_dscim(cfg)
     if split_dscim_mode(spec)[0] in ("off", "float"):
         return (params, None) if golden else params
     lin = lm._linear_for(spec)
@@ -83,16 +90,39 @@ def prepare_serving_params(cfg: ArchConfig, params, *, golden: bool = False):
 
 
 def _check_kv(cfg: ArchConfig, kv: str):
-    """What the serving loops take: a dense or MoE token-input config and
-    a 'float' or 'int8' cache."""
+    """What ``serve_batch`` takes: a token-input config and a 'float' or
+    'int8' cache; the RWKV and hybrid families take the float cache and
+    the 'off' and 'float' specs only (the reference pages no cache and
+    prepares no DS-CIM weights for them)."""
     if kv not in ("float", "int8"):
         raise ValueError(f"kv must be 'float' or 'int8', got {kv!r}")
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"{cfg.family!r} models are not ported yet")
+    if kv == "int8" and cfg.family not in ATTENTION_FAMILIES:
+        raise ValueError("the paged int8 KV cache needs an attention-"
+                         f"family model, not {cfg.family!r}")
+    _check_dscim(cfg)
     if cfg.stub_frontend:
         raise ValueError(f"{cfg.name} takes embeddings (a stub frontend), "
                          "and the serving loops take token prompts: drive "
                          "models/lm.py prefill(embeds=) / decode(embed=)")
+
+
+def _check_dscim(cfg: ArchConfig):
+    if cfg.family not in ATTENTION_FAMILIES and \
+            split_dscim_mode(cfg.dscim)[0] not in ("off", "float"):
+        raise ValueError(f"DS-CIM serving ({cfg.dscim!r}) needs an "
+                         "attention-family model; the "
+                         f"{cfg.family!r} family serves 'off' and 'float' "
+                         "only")
+
+
+def _check_continuous(cfg: ArchConfig):
+    """The continuous loops (the scheduler, the router, the watchdog's
+    probe, the integrity layer) admit into a dense or paged attention
+    cache slot by slot: an attention family only."""
+    if cfg.family not in ATTENTION_FAMILIES:
+        raise ValueError("continuous batching needs an attention-family "
+                         f"model, not {cfg.family!r}: serve {cfg.name} "
+                         "through serve_batch")
 
 
 def _make_sampler(sample: str):
@@ -230,7 +260,7 @@ def _draft_cfg(cfg: ArchConfig, variant: str) -> ArchConfig:
 
 
 def _check_spec(cfg: ArchConfig, trace_logits: bool = False):
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ATTENTION_FAMILIES:
         raise ValueError("speculative decoding needs a model family with a "
                          f"batched verify forward, not {cfg.family!r}")
     if cfg.stub_frontend:
@@ -249,12 +279,13 @@ def _make_step(cfg: ArchConfig, st: dict, nxt, *, masked: bool, eos: int):
     finishes on ``eos`` or when n_out reaches max_new (tokens counted
     including the prefill token).  Unmasked is the fixed-length loop.
     Nothing reads back to the host."""
+    decode = get_model(cfg).decode
 
     def step():
         params = st["params"]
         tok, done, i = st["tok"], st["done"], st["i"]
-        logits, _ = lm.decode(params, cfg, tok, st["cache"],
-                              done=done if masked else None)
+        logits, _ = decode(params, cfg, tok, st["cache"],
+                           done=done if masked else None)
         if "logits0" in st:                 # the segment's first logits
             st["logits0"].copy_(torch.where(i == 0, logits,
                                             st["logits0"]))
@@ -368,6 +399,13 @@ def _leaves(params):
     return out
 
 
+def _at(tree, path: str):
+    """The leaf of a nested dict at ``map_params``' 'a/b/c' path."""
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
+
+
 def _binding(*trees) -> tuple:
     """What a captured graph has baked in: every tensor's address, shape,
     strides and type.  A graph replays only for tensors with the same
@@ -431,6 +469,8 @@ def _static_cache(cfg: ArchConfig, B: int, capacity: int, kv: str,
     state's static buffers); ``integrity`` adds the int8 pool's digest
     plane."""
     from ..core.kvcache import init_paged_cache, n_pages_for
+    if cfg.family not in ATTENTION_FAMILIES:      # the family's own state
+        return get_model(cfg).cache_specs(cfg, B, capacity, device=device)
     if kv == "float":
         shape = (cfg.n_layers, B, capacity, cfg.n_kv, cfg.head_dim)
         cdt = lm.DTYPES[cfg.cache_dtype]
@@ -513,8 +553,7 @@ class _GenerateRunner:
     def _generate(self, params, tokens, max_new, rng_seed, graph):
         st, cfg, n = self.st, self.cfg, self.n_tokens
         logits0, cache = self._prefill(params, tokens)
-        for name, t in cache.items():
-            st["cache"][name].copy_(t)
+        map_params(lambda path, t: _at(st["cache"], path).copy_(t), cache)
         del cache
         st["seed"].fill_(rng_seed)
         st["n_out"].zero_()
@@ -564,7 +603,8 @@ class _GenerateRunner:
         B, S = tokens.shape
         cfg, n = self.cfg, self.n_tokens + self.k
         if self.kv == "float":
-            return lm.prefill(params, cfg, tokens, capacity=S + n)
+            return get_model(cfg).prefill(params, cfg, tokens,
+                                          capacity=S + n)
         from ..core.kvcache import n_pages_for, paged_from_dense
         logits0, dense = lm.prefill(params, cfg, tokens)
         mp = n_pages_for(S + n, self.page_size)
@@ -678,6 +718,7 @@ def init_serve_state(cfg: ArchConfig, slots: int, capacity: int, *,
     update these tensors in place, so a captured segment step keeps its
     addresses."""
     _check_kv(cfg, kv)
+    _check_continuous(cfg)
     if integrity and kv != "int8":
         raise ValueError("integrity checksums need the int8 paged cache "
                          "(kv='int8')")

@@ -846,12 +846,14 @@ def chaos_drill(arch: str = "qwen3-0.6b", *, seed: int = 0, params=None,
     segment.  ``params``: the f32 weights (default ``lm.init_params(cfg,
     seed)``).  Returns a report dict."""
     from ..configs import get_arch
+    from ..launch.steps import _check_continuous
     from ..launch.serve import serve_continuous
     from ..models import lm
     from .failover import FailureInjector
 
     spec = "kernel:dscim2:64"
     cfg = dataclasses.replace(get_arch(arch).reduced(), dscim=spec)
+    _check_continuous(cfg)
     if params is None:
         params = lm.init_params(cfg, seed, device=device)
     rng = np.random.default_rng(seed)
@@ -1033,10 +1035,12 @@ def integrity_drill(arch: str = "qwen3-0.6b", *, seed: int = 0, params=None,
     ``params``: the f32 weights (default ``lm.init_params(cfg, seed)``).
     Returns the scenario's report."""
     from ..configs import get_arch
+    from ..launch.steps import _check_continuous
     from ..models import lm
 
     spec = "kernel:dscim2:64"
     cfg = dataclasses.replace(get_arch(arch).reduced(), dscim=spec)
+    _check_continuous(cfg)
     if params is None:
         params = lm.init_params(cfg, seed, device=device)
     rng = np.random.default_rng(seed)
@@ -1069,11 +1073,13 @@ def prefix_drill(arch: str = "qwen3-0.6b", *, seed: int = 0, device=None,
     import dataclasses
 
     from ..configs import get_arch
+    from ..launch.steps import _check_continuous
     from ..launch.serve import serve_continuous
     from ..models import lm
 
     cfg = dataclasses.replace(get_arch(arch).reduced(),
                               dscim="kernel:dscim2:64")
+    _check_continuous(cfg)
     params = lm.init_params(cfg, seed, device=device)
     rng = np.random.default_rng(seed)
     R, S, n, ps = 6, 16, 6, 4

@@ -5,8 +5,9 @@ reduced config served on the GPU against the CPU, are held by
 the eager loop, bitwise; a capture from a cold process; a failed capture
 raising), the paged flush's C1 case, the prefix cache's extend graph,
 the scheduler's restores, the watchdog's probe, the digests and the
-integrity drill, and the asyncio router's bucket admissions at full width
-on the card.  Marked ``cuda``: without a GPU every test
+integrity drill, the asyncio router's bucket admissions at full width
+on the card, the RWKV6 and Zamba2 configs' captured step, and a capture
+that a dying graph must not break.  Marked ``cuda``: without a GPU every test
 here skips
 (decided inside the fixture, never at import).  On a GPU machine:
 
@@ -1484,3 +1485,88 @@ def test_count_kernel_equals_cycle_oracle_on_card(cuda, key, M, K, N):
                                   cyc.cpu().numpy())
     np.testing.assert_array_equal(cyc.cpu().numpy(),
                                   mac.counts_lut(x, w).numpy())
+
+
+def test_capture_holds_the_collector_off(cuda):
+    """A CUDA graph that becomes cyclic garbage while a step is captured
+    (the collector's threshold at 1, so the step's next allocation would
+    collect it) must not invalidate the capture: a graph that dies resets
+    itself, which the driver refuses while a stream captures."""
+    import gc
+
+    from repro_torch.launch.graph import CapturedStep
+
+    x = torch.zeros(4, device=cuda)
+    dead = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(dead):
+        x.mul_(2)
+    holder = {"graph": dead}
+    del dead
+
+    def step():
+        graph = holder.pop("graph", None)   # the last outside reference
+        if graph is not None:
+            cycle = [graph]
+            cycle.append(cycle)             # young cyclic garbage
+            del graph, cycle
+        kept = [[i] for i in range(100)]    # tracked allocations that
+        del kept                            # start collections
+        x.add_(1)
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        captured = CapturedStep(step, cuda)
+        captured.run()
+        captured.run()
+        torch.cuda.synchronize()
+    finally:
+        gc.set_threshold(*threshold)
+    assert x.tolist() == [2.0] * 4
+
+
+def _all_launch_counters():
+    """The six kernels' launch counters (each wrapper counts where it
+    launches its kernel)."""
+    from repro_torch.kernels import (dscim_fused, dscim_mvm,
+                                     dscim_mvm_blocked, flash_attention,
+                                     int8_matmul, paged_attention)
+    return [m.LAUNCHES for m in (dscim_fused, paged_attention,
+                                 flash_attention, int8_matmul,
+                                 dscim_mvm_blocked, dscim_mvm)]
+
+
+@pytest.mark.parametrize("name", ["rwkv6-7b", "zamba2-7b"])
+def test_recurrent_family_graph_matches_eager_on_card(cuda, name):
+    """The reduced RWKV6 and Zamba2 configs (``dscim="off"``, the float
+    cache): the captured step's tokens and logit trace bitwise the eager
+    loop's, an ``eos_id`` request with ``max_new`` budgets bitwise its
+    eager loop, no launch of the port's kernels, and the card against the
+    CPU on the same weights: first tokens equal, logit drift RMSE on the
+    teacher-matched prefix <= 1e-3."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import (logit_drift_rmse, prepare_params,
+                                          serve_batch)
+    from repro_torch.models.registry import get_model
+
+    cfg = get_arch(name).reduced()
+    host = get_model(cfg).init_params(cfg, 0, device="cpu")
+    params = prepare_params(cfg, host, cuda)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (4, 16))
+    counters = _all_launch_counters()
+    before = [c.count for c in counters]
+    t = {}
+    g = serve_batch(cfg, params, prompts, 6, timings=t, trace_logits=True)
+    e = serve_batch(cfg, params, prompts, 6, scan=False, trace_logits=True)
+    assert "capture_s" in t
+    np.testing.assert_array_equal(g[0], e[0])
+    np.testing.assert_array_equal(np.stack(g[1]), np.stack(e[1]))
+    eos, budgets = int(g[0][0, 2]), np.asarray([6, 3, 1, 4], np.int32)
+    ge, ee = (serve_batch(cfg, params, prompts, 6, eos_id=eos,
+                          max_new=budgets, scan=scan)[0]
+              for scan in (True, False))
+    np.testing.assert_array_equal(ge, ee)
+    assert [c.count for c in counters] == before
+    c = serve_batch(cfg, host, prompts, 6, device="cpu", trace_logits=True)
+    np.testing.assert_array_equal(c[0][:, 0], g[0][:, 0])
+    assert logit_drift_rmse(c[0], g[0], c[1], g[1]) <= 1e-3

@@ -48,7 +48,8 @@ import numpy as np  # noqa: E402
 from repro.configs import get_arch as jget_arch  # noqa: E402
 from repro.launch.serve import serve_batch as jserve_batch  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
-from repro_torch.configs import ARCHS, TOKEN_ARCHS, get_arch  # noqa: E402
+from repro_torch.configs import (ARCHS, CONTINUOUS_ARCHS,  # noqa: E402
+                                 TOKEN_ARCHS, get_arch)
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.launch.serve import logit_drift_rmse, serve_batch  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -80,7 +81,10 @@ def converted():
 def test_registry_equals_reference():
     from repro.configs import ARCHS as JARCHS
     assert set(TOKEN_ARCHS) == {"qwen3-0.6b", *TOKEN, "granite-moe-1b-a400m",
-                                "deepseek-moe-16b"}
+                                "deepseek-moe-16b", "rwkv6-7b", "zamba2-7b"}
+    assert set(CONTINUOUS_ARCHS) == set(TOKEN_ARCHS) - {"rwkv6-7b",
+                                                        "zamba2-7b"}
+    assert list(ARCHS) == list(JARCHS)
     for name, cfg in ARCHS.items():
         ref = dataclasses.asdict(JARCHS[name])
         ref.pop("shapes")

@@ -44,9 +44,9 @@ converted from the reference's ``init_params``.  Contracts:
 * within the port: spec (``dscim2:2``) tokens bitwise the plain loop's,
   continuous serving bitwise one-shot per request, prefix hits bitwise
   cold, MoE configs refused by nothing (``TOKEN_ARCHS`` lists them);
-* ``models/registry.py get_model`` as the reference's for dense and MoE,
-  ``NotImplementedError`` naming the ROADMAP item for the others (and
-  ``lm.init_params`` refusing them);
+* ``models/registry.py get_model`` as the reference's for every family
+  (``models/rwkv.py`` and ``models/zamba.py`` for the ssm and hybrid
+  ones, which ``lm.init_params`` refuses);
 * the cache accounting (``paged_cache_specs``, ``kv_cache_bytes``,
   ``dense_cache_bytes``) and ``dequantize_page`` equal to the
   reference's.
@@ -362,18 +362,28 @@ def test_prefix_hit_bitwise_cold(converted):
 
 def test_registry_and_refusals():
     from repro.models.registry import get_model as jget_model
+    from repro_torch.launch.steps import _check_continuous, _check_kv
+    from repro_torch.models import rwkv, zamba
     from repro_torch.models.registry import get_model
 
     assert set(MOE) <= set(TOKEN_ARCHS)
     for name in MOE + ("qwen3-0.6b",):
         assert get_model(get_arch(name)) is lm
         assert jget_model(jget_arch(name)) is jlm
-    for family, item in (("ssm", "A14c"), ("hybrid", "A14d")):
+    for family, module in (("ssm", rwkv), ("hybrid", zamba)):
         cfg = dataclasses.replace(get_arch("qwen3-0.6b"), family=family)
-        with pytest.raises(NotImplementedError, match=item):
-            get_model(cfg)
+        assert get_model(cfg) is module
+        assert jget_model(cfg).__name__.split(".")[-1] == \
+            module.__name__.split(".")[-1]
         with pytest.raises(NotImplementedError, match=family):
             lm.init_params(cfg.reduced(), 0, device="cpu")
+        _check_kv(cfg, "float")
+        for refused in (lambda: _check_kv(cfg, "int8"),
+                        lambda: _check_kv(dataclasses.replace(
+                            cfg, dscim="kernel:dscim1:256"), "float"),
+                        lambda: _check_continuous(cfg)):
+            with pytest.raises(ValueError, match=family):
+                refused()
 
 
 @pytest.mark.parametrize("integrity", [False, True])
