@@ -145,12 +145,29 @@ In order it
    full expansion is GBs), checks the blocked and all-L counts identical,
    and times kernel, plain version, bound and the library yardstick
    (``torch._int_mm``, ``scaled_dot_product_attention``);
-6. computes Table I through the card (``table1``): for all 12 presets the
+6. trains (``train``, ``train_phase``): olmo-1b at its published width
+   and depth through ``repro_torch.launch.train.TrainLoop`` (bf16, remat,
+   batch ``TRAIN_BATCH`` x ``TRAIN_SEQ``, ``TRAIN_STEPS`` steps, a
+   checkpoint every ``TRAIN_CKPT_EVERY``): finite losses starting near
+   ln(vocab), zero launches of the six kernels, step device ms (median
+   and range after the first), tokens/s, the model-FLOPs share of the
+   BF16 peak, peak memory, data wait and the row cache's hit rate,
+   checkpoint copy and write seconds, one step under the profiler, the
+   AdamW update against its bytes bound; the same run with a failure
+   injected just after a checkpoint must replay bitwise the first run's
+   losses, and ``restore_or_init`` must resume at the saved step;
+   granite-moe-1b-a400m (full), rwkv6-7b and zamba2-7b (depth cut so the
+   f32 training state fits ``TRAIN_STATE_SHARE`` of the card) take
+   ``TRAIN_OTHER_STEPS`` steps each (finite losses; the MoE aux finite
+   and positive, a second MoE run bitwise the first);
+7. computes Table I through the card (``table1``): for all 12 presets the
    counts of ``DSCIMMacro.rmse``'s operands through the count kernel must
    equal the LUT's, and the RMSE must equal the JAX reference's;
-7. serves the reduced qwen3-0.6b (``DSCIM``, int8 KV), rwkv6-7b and
+8. serves the reduced qwen3-0.6b (``DSCIM``, int8 KV), rwkv6-7b and
    zamba2-7b (``off``, float cache) configs on the GPU and on the CPU
-   (plain versions) and checks that they agree.
+   (plain versions) and checks that they agree, and takes one train step
+   of each family's reduced config on both (loss and gradient norm
+   within ``TRAIN_LOSS_RTOL`` and ``TRAIN_GNORM_RTOL``).
 
 Every time is device time (``_cuda_ms``): the device sleeps while the host
 queues all the timed calls, so the host's time per call does not enter it.
@@ -233,6 +250,29 @@ CYCLE_SHAPE = (4, 64, 16)
 # reference's own bound on their logit drift (tests/test_generate.py
 # test_paged_int8_kv_close_to_float_kv, dscim off)
 KV_INT8_DRIFT = 1e-2
+# train phase: olmo-1b at full width and depth through TrainLoop (bf16
+# compute, remat as the config sets it), checkpoints every
+# TRAIN_CKPT_EVERY steps, a replay after a failure injected just after a
+# checkpoint, a resume; then the other families a few steps each
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "olmo-1b", 8, 512
+TRAIN_STEPS, TRAIN_LR, TRAIN_CKPT_EVERY = 8, 3e-4, 4
+TRAIN_FAIL_AT = TRAIN_CKPT_EVERY + 1        # just after a checkpoint
+# (arch, cut the depth to fit, sequence): three steps each of TRAIN_BATCH
+# rows; the recurrent families' eager scans walk their chunks in Python
+# (a step of 512 tokens took 5.5-7.7 s), so they take 128
+TRAIN_OTHERS = (("granite-moe-1b-a400m", False, TRAIN_SEQ),
+                ("rwkv6-7b", True, 128), ("zamba2-7b", True, 128))
+TRAIN_OTHER_STEPS = 3
+# a cut config keeps the most layers whose f32 parameters, gradients and
+# two moments (16 bytes a parameter) take at most this share of the
+# card's memory; the rest holds activations and AdamW's temporaries
+TRAIN_STATE_SHARE = 0.7
+# reduced configs, one train step on the card against the CPU: the loss
+# to 1e-5 relative (f32 order); the gradient norm to 1e-3 relative (on
+# the CPU a 1e-7 relative change of the parameters moves a leaf's
+# gradient by up to 4e-4 of its norm: the attention's and WKV's bf16
+# roundings flip)
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-5, 1e-3
 FUSED_RTOL = 2e-5            # f32 summation order; counts are exact
 PAGED_RTOL = 1e-5            # f32 summation order of dot products / sums
 LONG_POS = 2047              # paged attention's long-context position
@@ -3020,7 +3060,7 @@ def check_flash(torch, inp, out, launches):
 
 
 def table1(torch):
-    """Phase 6: Table I through the card: each preset's rmse operands go
+    """Phase 7: Table I through the card: each preset's rmse operands go
     through the count kernel; counts equal to the LUT's, RMSE equal to the
     JAX reference's to TABLE1_RTOL."""
     from repro_torch.core.macro import DSCIMMacro, rmse_operands
@@ -3048,12 +3088,362 @@ def table1(torch):
     return res
 
 
+def _train_flops(cfg, B, S) -> dict:
+    """Model FLOPs of one train step: 6 N T for the N parameters of the
+    matmuls (every stacked layer matrix and the head; the embedding is a
+    gather), 2 N_layers T for the forward that remat recomputes, and the
+    causal attention's QK^T and PV (2 B H S^2 HD a layer forward over the
+    lower triangle; the backward twice that, remat once more)."""
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+
+    p = lm.init_params(cfg, 0, device="meta")
+    n_layers = sum(x.numel() for x in leaves(p["layers"]) if x.ndim >= 3)
+    n_head = cfg.d_model * cfg.vocab_padded
+    T = B * S
+    attn_fwd = 2 * B * cfg.n_heads * S * S * cfg.head_dim * cfg.n_layers
+    parts = {"matmul_6NT": 6 * (n_layers + n_head) * T,
+             "remat_2NT": 2 * n_layers * T if cfg.remat else 0,
+             "attention": attn_fwd * (4 if cfg.remat else 3)}
+    return dict(parts, total=sum(parts.values()), n_matmul_layers=n_layers,
+                n_head=n_head)
+
+
+def _cut_layers(torch, cfg):
+    """The most layers (whole super-blocks for the hybrid family) whose
+    training state, 16 bytes a parameter, fits TRAIN_STATE_SHARE of the
+    card's memory; with the parameter count at that depth."""
+    from repro_torch.models.registry import get_model
+
+    budget = TRAIN_STATE_SHARE * torch.cuda.get_device_properties(0) \
+        .total_memory
+    step = cfg.mamba_per_block if cfg.family == "hybrid" else 1
+    best = None
+    for n in range(step, cfg.n_layers + 1, step):
+        c = dataclasses.replace(cfg, n_layers=n)
+        params = _numel(get_model(c).init_params(c, 0, device="meta"))
+        if 16 * params <= budget:
+            best = (n, params)
+    return best
+
+
+class _StepTimer:
+    """Wraps a train step: CUDA events around each call (the device's
+    timeline of the step, its idle gaps included)."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.events = torch, fn, []
+
+    def __call__(self, *args):
+        ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = self.fn(*args)
+        ev[1].record()
+        self.events.append(ev)
+        return out
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def _losses(history):
+    return [h["loss"] for h in history]
+
+
+def train_phase(torch):
+    """Phase train: training on the card through ``repro_torch.launch.
+    train.TrainLoop``.  olmo-1b at its published width and depth (bf16
+    compute, remat), TRAIN_BATCH x TRAIN_SEQ tokens, TRAIN_STEPS steps at
+    TRAIN_LR with a checkpoint every TRAIN_CKPT_EVERY steps: every loss
+    finite, the first near ln(vocab), no launch of the six kernels; step
+    device ms (median and range after the first step), tokens/s, the
+    model-FLOPs share of the BF16 peak, peak memory, data wait and the
+    row cache's hit rate, checkpoint save seconds.  One step under the
+    profiler; AdamW's update timed against its bytes bound.  Then the
+    same run with a failure injected at step TRAIN_FAIL_AT: the replay
+    from the checkpoint must give bitwise the first run's losses, and
+    ``restore_or_init`` must resume at the saved step (timed).  Then
+    TRAIN_OTHERS, TRAIN_OTHER_STEPS steps each (depth cut to fit where
+    marked): finite losses, granite's aux finite and positive, and for
+    granite a second run bitwise the first."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.tree import leaves, unflatten
+
+    torch.cuda.empty_cache()
+    counters = _all_counters()
+    cfg = get_arch(TRAIN_ARCH)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    res = {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "lr": TRAIN_LR, "remat": cfg.remat,
+           "compute_dtype": cfg.compute_dtype}
+    try:
+        def loop_for(run, data=None, **kw):
+            loop = TrainLoop(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                             seq=TRAIN_SEQ, lr=TRAIN_LR,
+                             ckpt_dir=f"{tmp}/{run}",
+                             ckpt_every=TRAIN_CKPT_EVERY, log=_log, **kw)
+            if data is not None:     # the same corpus, its row cache warm
+                loop.data = data
+            loop.step_fn = timer = _StepTimer(torch, loop.step_fn)
+            return loop, timer
+
+        loop, timer = loop_for("run1")
+        data = loop.data
+        saves = []
+        save = loop.ckpt.save
+
+        def timed_save(step, *a, **kw):
+            t0, w0 = time.perf_counter(), time.time()
+            save(step, *a, **kw)
+            saves.append({"step": step, "start": w0,
+                          "host_copy_s": time.perf_counter() - t0})
+        loop.ckpt.save = timed_save
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = loop.run()
+        res["run_s"] = time.perf_counter() - t0
+        for sv in saves:           # the manifest is written after the leaves
+            with open(f"{tmp}/run1/step_{sv['step']:09d}/manifest.json") as f:
+                sv["write_s"] = json.load(f)["time"] - sv.pop("start")
+        res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        launches = {k: c.count for k, c in counters.items()}
+        res["launches"] = launches
+        losses = _losses(loop.history)
+        res["losses"] = losses
+        step_ms = timer.ms()
+        timed = step_ms[1:]
+        med = float(np.median(timed))
+        flops = _train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        n_params = _numel(state["params"])
+        res.update(params=n_params, step_ms=step_ms,
+                   step_ms_median=med, step_ms_range=[min(timed),
+                                                      max(timed)],
+                   tok_s=tokens / (med / 1e3), flops=flops,
+                   bf16_peak_share=flops["total"] / (med / 1e3)
+                   / BF16_FLOPS_PER_S,
+                   data_wait_ms=[h["data_s"] * 1e3 for h in loop.history],
+                   row_cache_hit_rate=loop.data.hit_rate(),
+                   row_cache_rows=len(loop.data._cum), ckpt_saves=saves)
+        _log(f"train {TRAIN_ARCH} ({cfg.n_layers} layers, d {cfg.d_model}, "
+             f"{n_params} parameters, {cfg.compute_dtype}, remat "
+             f"{cfg.remat}, batch {TRAIN_BATCH} x {TRAIN_SEQ}): losses "
+             f"{[round(x, 4) for x in losses]}; launches of the six kernels "
+             f"over the run {launches}")
+        _log(f"train {TRAIN_ARCH}: step device ms median {med:.2f} (range "
+             f"{min(timed):.2f}-{max(timed):.2f}, first {step_ms[0]:.1f}), "
+             f"{res['tok_s']:.0f} tokens/s; model FLOPs a step "
+             f"{flops['total']:.4g} ({flops}): "
+             f"{res['bf16_peak_share']:.4f} of the BF16 peak "
+             f"{BF16_FLOPS_PER_S:.3g}; peak memory "
+             f"{res['peak_memory_bytes'] / 2**30:.2f} GiB")
+        _log(f"train {TRAIN_ARCH}: data wait ms a step "
+             f"{[round(x, 1) for x in res['data_wait_ms']]}, row cache hit "
+             f"rate {res['row_cache_hit_rate']:.4f} ({res['row_cache_rows']}"
+             f" rows); checkpoint saves {saves} (host copy: the loop waits "
+             f"for it; write: from the call to the manifest, the leaves "
+             f"written in the background)")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"non-finite train losses {losses}")
+        if abs(losses[0] - math.log(cfg.vocab)) > 1.0:
+            raise AssertionError(f"first loss {losses[0]} is not near "
+                                 f"ln({cfg.vocab}) = {math.log(cfg.vocab)}")
+        if any(launches.values()):
+            raise AssertionError(f"the train path launched {launches}")
+        _log(f"train {TRAIN_ARCH}: the six kernels' counters read 0 over "
+             f"every step")
+
+        # one more step under the profiler, then AdamW alone
+        batch = loop.data.batch(TRAIN_BATCH, TRAIN_SEQ, step=TRAIN_STEPS)
+        params, opt = state["params"], state["opt"]
+        res["step_profile"] = prof = _profile_request(
+            torch, lambda: make_train_step(cfg, loop.opt, loop.device)(
+                params, opt, batch))
+        if prof["device_busy_ms"] <= 0.0:
+            raise AssertionError("the profiler saw no device time in a "
+                                 "train step")
+        _log(f"train {TRAIN_ARCH}: one step under the profiler: "
+             f"{prof['kernel_launches']} kernels, device busy "
+             f"{prof['device_busy_ms']:.2f} ms of "
+             f"{prof['wall_ms_profiled']:.2f} ms, idle "
+             f"{prof['device_idle_share']:.3f}")
+        for k in prof["top_kernels"][:6]:
+            _log(f"  {k['device_ms']:.2f} ms in {k['calls']} x {k['name']}")
+        grads = unflatten(params, [torch.full_like(p, 1e-3)
+                                   for p in leaves(params)])
+        adam_ms = _cuda_ms(lambda: loop.opt.update(params, grads, opt),
+                           reps=3, warmup=1)
+        adam_bytes = 7 * 4 * n_params
+        res["adamw"] = {"ms": adam_ms, "bytes": adam_bytes,
+                        "bound_ms": adam_bytes / HBM_BYTES_PER_S * 1e3}
+        _log(f"train {TRAIN_ARCH}: AdamW update {adam_ms:.3f} device ms "
+             f"against a bytes bound of {res['adamw']['bound_ms']:.3f} ms "
+             f"(p, g, m, v read, p, m, v written: {adam_bytes} bytes)")
+        del grads, params, opt, state, loop
+        shutil.rmtree(f"{tmp}/run1", ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # the replay: a failure just after the step-TRAIN_CKPT_EVERY
+        # checkpoint restores it and runs again from there
+        loop2, _ = loop_for("run2", data, fail_at=(TRAIN_FAIL_AT,))
+        loop2.run()
+        seen = {}
+        for h in loop2.history:
+            seen.setdefault(h["step"], []).append(h["loss"])
+        replayed = sorted(s for s, v in seen.items() if len(v) > 1)
+        res["replayed_steps"] = replayed
+        bitwise = all(v == [losses[s]] * len(v) for s, v in seen.items())
+        _log(f"train {TRAIN_ARCH}: failure at step {TRAIN_FAIL_AT}, replayed "
+             f"steps {replayed}; every loss bitwise the first run's: "
+             f"{bitwise}")
+        if not bitwise or replayed != list(range(TRAIN_CKPT_EVERY,
+                                                 TRAIN_FAIL_AT)) \
+                or sorted(seen) != list(range(TRAIN_STEPS)):
+            raise AssertionError(f"replay: {seen} against {losses}")
+        del loop2
+        torch.cuda.empty_cache()
+        loop3 = TrainLoop(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                          seq=TRAIN_SEQ, lr=TRAIN_LR, ckpt_dir=f"{tmp}/run2",
+                          log=_log)
+        t0 = time.perf_counter()
+        st = loop3.restore_or_init()
+        torch.cuda.synchronize()
+        res["restore_s"] = time.perf_counter() - t0
+        res["resumed_step"] = st["step"]
+        _log(f"train {TRAIN_ARCH}: restore_or_init resumed at step "
+             f"{st['step']} in {res['restore_s']:.2f} s")
+        if st["step"] != TRAIN_STEPS:
+            raise AssertionError(f"resumed at {st['step']}")
+        del st, loop3
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    res["others"] = {name: _train_other(torch, name, cut, seq)
+                     for name, cut, seq in TRAIN_OTHERS}
+    return res
+
+
+def _train_other(torch, name, cut, seq):
+    """TRAIN_OTHER_STEPS steps of ``name`` (depth cut when ``cut``) through
+    TrainLoop, TRAIN_BATCH x ``seq`` tokens: finite losses; an MoE
+    config's aux of the first batch finite and positive after the steps,
+    and a second run bitwise the first (the MoE dispatch's gathers in the
+    backward)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models.registry import get_model
+
+    cfg = get_arch(name)
+    full = _numel(get_model(cfg).init_params(cfg, 0, device="meta"))
+    if cut:
+        layers, n = _cut_layers(torch, cfg)
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    else:
+        n = full
+    runs = 2 if cfg.family == "moe" else 1
+    out = {"layers": cfg.n_layers, "published_layers":
+           get_arch(name).n_layers, "params": n, "seq": seq,
+           "published_params": full,
+           "state_bytes": 16 * n}
+    data = None
+    for r in range(runs):
+        torch.cuda.reset_peak_memory_stats()
+        loop = TrainLoop(cfg, steps=TRAIN_OTHER_STEPS, batch=TRAIN_BATCH,
+                         seq=seq, lr=TRAIN_LR, log=_log)
+        if data is not None:         # the same corpus, its row cache warm
+            loop.data = data
+        data = loop.data
+        loop.step_fn = timer = _StepTimer(torch, loop.step_fn)
+        state = loop.run()
+        losses = _losses(loop.history)
+        if r == 0:
+            out.update(losses=losses, step_ms=timer.ms(),
+                       peak_memory_bytes=torch.cuda.max_memory_allocated())
+            if cfg.family == "moe":
+                b = loop.data.batch(TRAIN_BATCH, seq, step=0)
+                tokens = torch.as_tensor(b["tokens"], device=loop.device)
+                with torch.no_grad():
+                    _, aux = loop.model.forward(state["params"], cfg,
+                                                tokens.long())
+                out["aux_after"] = float(aux)
+        else:
+            out["second_run_bitwise"] = losses == out["losses"]
+        del state, loop
+        torch.cuda.empty_cache()
+    _log(f"train {name}: {cfg.n_layers} of {out['published_layers']} "
+         f"layers, batch {TRAIN_BATCH} x {seq}, {n} of {full} parameters "
+         f"(state {16 * n / 2**30:.1f} GiB), losses "
+         f"{[round(x, 4) for x in out['losses']]}, step ms "
+         f"{[round(x, 1) for x in out['step_ms']]}, peak memory "
+         f"{out['peak_memory_bytes'] / 2**30:.2f} GiB"
+         + (f", aux {out['aux_after']:.4f}, second run bitwise "
+            f"{out['second_run_bitwise']}" if cfg.family == "moe" else ""))
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"{name}: non-finite losses")
+    if cfg.family == "moe" and not (math.isfinite(out["aux_after"])
+                                    and out["aux_after"] > 0
+                                    and out["second_run_bitwise"]):
+        raise AssertionError(f"{name}: aux {out['aux_after']} or a second "
+                             "run differs")
+    return out
+
+
+def _train_step_gpu_vs_cpu(torch):
+    """One ``make_train_step`` step of each family's reduced config on the
+    card and on the CPU from the same parameters (drawn on the CPU) and
+    the same batch (4 x 16 from SyntheticLM): the loss within
+    TRAIN_LOSS_RTOL and the gradient norm within TRAIN_GNORM_RTOL,
+    relative.  Returns the relative differences by arch."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.qweights import map_params
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import AdamW
+
+    out = {}
+    for name in ("olmo-1b", "granite-moe-1b-a400m", "rwkv6-7b",
+                 "zamba2-7b"):
+        cfg = get_arch(name).reduced()
+        params = get_model(cfg).init_params(cfg, 0, device="cpu")
+        batch = SyntheticLM(cfg.vocab).batch(4, 16, step=0)
+        opt = AdamW(lr=1e-3)
+        got = {}
+        for dev in ("cpu", "cuda"):
+            p = map_params(lambda _, a: a.to(dev, copy=True), params)
+            _, _, m = make_train_step(cfg, opt, dev)(p, opt.init(p), batch)
+            got[dev] = (float(m["loss"]), float(m["grad_norm"]))
+        (lc, gc), (lg, gg) = got["cpu"], got["cuda"]
+        out[name] = rel = {"loss": abs(lg - lc) / abs(lc),
+                           "grad_norm": abs(gg - gc) / abs(gc)}
+        _log(f"reduced {name} train step GPU vs CPU: loss {lg!r} vs {lc!r}, "
+             f"grad norm {gg!r} vs {gc!r} (relative {rel})")
+        if not (rel["loss"] <= TRAIN_LOSS_RTOL
+                and rel["grad_norm"] <= TRAIN_GNORM_RTOL):
+            raise AssertionError(f"reduced {name}: the train step on the "
+                                 "GPU and the CPU disagree")
+    return out
+
+
 def check_reduced(torch):
-    """Phase 7: the reduced configs on the GPU (kernels) vs the CPU (plain
+    """Phase 8: the reduced configs on the GPU (kernels) vs the CPU (plain
     versions), same weights and prompts: qwen3-0.6b at DSCIM with the
     int8 cache, rwkv6-7b and zamba2-7b at 'off' with the float cache.
     First tokens equal, logit drift RMSE on the teacher-matched prefix
-    <= 1e-3.  Returns the drifts by arch."""
+    <= 1e-3.  Then one train step of each family's reduced config
+    (``_train_step_gpu_vs_cpu``).  Returns the drifts by arch and the
+    train steps' relative differences."""
     import numpy as np
 
     from repro_torch.configs import get_arch
@@ -3077,7 +3467,8 @@ def check_reduced(torch):
              f"vs {tc[:, 0].tolist()}, logit drift RMSE {drift:.3e}")
         if not (tc[:, 0] == tg[:, 0]).all() or not drift <= 1e-3:
             raise AssertionError(f"reduced {name}: GPU and CPU disagree")
-    return drifts
+    return {"serve_logit_drift": drifts,
+            "train_step": _train_step_gpu_vs_cpu(torch)}
 
 
 def main() -> int:
@@ -3232,6 +3623,11 @@ def main() -> int:
             if entry is not None:
                 entry["launches_recurrent_family"] = \
                     rec["launches"][entry["name"]]
+    train = phase("train", train_phase, torch)
+    if train is not None:
+        for entry in kernels:
+            if entry is not None:
+                entry["launches_train"] = train["launches"][entry["name"]]
     t1 = phase("table1", table1, torch)
     drift = phase("reduced_gpu_vs_cpu", check_reduced, torch)
     print(json.dumps({"kernels": kernels, "card": smi[0] if smi else None,
@@ -3242,7 +3638,7 @@ def main() -> int:
                       "faults": faults, "watchdog": wd,
                       "integrity": integ, "router": rt,
                       "dense_family": df, "moe_family": moe_fam,
-                      "recurrent_family": rec,
+                      "recurrent_family": rec, "train": train,
                       "prefill_logit_rmse_vs_off": e2e.get("logit_rmse"),
                       "reduced_gpu_vs_cpu_drift": drift,
                       "table1_rmse_pct": t1,

@@ -1,7 +1,13 @@
-"""Serving steps (port of ``prepare_serving_params``, the sampler,
-``make_generate_fn`` and the continuous-batching pieces
-``init_serve_state`` / ``make_admit_fn`` / ``make_segment_fn`` /
-``make_extend_fn`` from ``repro/launch/steps.py``).
+"""Step builders (port of ``repro/launch/steps.py``): the training and
+scoring steps ``make_train_step`` / ``make_eval_step`` and the one-call
+``make_prefill_step`` / ``make_decode_step``; and for serving
+``prepare_serving_params``, the sampler, ``make_generate_fn`` and the
+continuous-batching pieces ``init_serve_state`` / ``make_admit_fn`` /
+``make_segment_fn`` / ``make_extend_fn``.
+
+The train step differentiates ``forward`` (models/) with autograd and
+updates in place through ``optim/adamw.py``; it runs eagerly, with
+``dscim`` 'off' or 'float' only (``_check_train``).
 
 ``prepare_serving_params`` converts every DS-CIM-eligible weight once into
 resident int8 ``QuantizedLinearWeight`` planes.
@@ -55,19 +61,131 @@ from ..core import counter_rng, kvcache
 from ..core.qweights import (QuantizedLinearWeight, golden_weight_copy,
                              map_params, prepare_dscim_params,
                              split_dscim_mode)
+from ..device import resolve_device
 from ..models import lm
 from ..models.registry import get_model
+from ..tree import leaves, unflatten
 from .graph import CapturedStep
 
-__all__ = ["prepare_serving_params", "make_generate_fn", "init_serve_state",
-           "make_admit_fn", "make_segment_fn", "make_extend_fn",
-           "make_probe_fn", "clear_graphs", "PAD_ID"]
+__all__ = ["make_train_step", "make_eval_step", "make_prefill_step",
+           "make_decode_step", "prepare_serving_params", "make_generate_fn",
+           "init_serve_state", "make_admit_fn", "make_segment_fn",
+           "make_extend_fn", "make_probe_fn", "clear_graphs", "PAD_ID",
+           "AUX_WEIGHT"]
 
 PAD_ID = 0          # token written for finished slots
 # the families with an attention KV cache: every serving loop takes them;
 # the RWKV and hybrid families serve through serve_batch in float only
 ATTENTION_FAMILIES = ("dense", "moe")
 SEG_LEN = 4         # replays between two host looks at ``done``
+
+
+AUX_WEIGHT = 0.01   # MoE load-balance loss weight
+
+
+def _check_train(cfg: ArchConfig):
+    """Training differentiates the float model: a DS-CIM spec other than
+    'off' or 'float' is refused.  A 'kernel:' spec has no gradient (the
+    reference fails there too: a ``pallas_call`` has none); training
+    through the jnp DS-CIM modes waits for ROADMAP A15b."""
+    if split_dscim_mode(cfg.dscim)[0] not in ("off", "float"):
+        raise ValueError(f"training runs at dscim 'off' or 'float', not "
+                         f"{cfg.dscim!r}: the 'kernel' modes have no "
+                         "gradient, and training through the other DS-CIM "
+                         "modes is ROADMAP A15b")
+
+
+def _forward(model, params, cfg: ArchConfig, batch, dev):
+    """``model.forward`` on the batch's inputs, moved to ``dev``:
+    ``tokens`` (B, S), or ``embeds`` (B, S, D) for a stub frontend."""
+    if cfg.stub_frontend:
+        return model.forward(params, cfg, None,
+                             embeds=torch.as_tensor(batch["embeds"],
+                                                    device=dev))
+    return model.forward(params, cfg,
+                         torch.as_tensor(batch["tokens"], device=dev).long())
+
+
+def _labels(batch, dev) -> torch.Tensor:
+    return torch.as_tensor(batch["labels"], device=dev).long()
+
+
+def make_train_step(cfg: ArchConfig, opt, device=None):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "grad_norm"})`` on ``device`` (CUDA unless the caller asks
+    for another; the parameters and the state must live there): the
+    token-mean cross-entropy plus ``AUX_WEIGHT`` times the MoE aux, its
+    gradients by autograd, then ``opt.update`` (optim/adamw.py), which
+    writes the parameters and the state in place.  ``batch`` holds
+    ``tokens`` (or ``embeds``) and ``labels`` (B, S), numpy or tensors.
+    The metrics stay on the device (reading one waits for the step)."""
+    _check_train(cfg)
+    model = get_model(cfg)
+    dev = resolve_device(device)
+
+    def train_step(params, opt_state, batch):
+        flat = leaves(params)
+        for p in flat:
+            p.requires_grad_(True)
+        logits, aux = _forward(model, params, cfg, batch, dev)
+        loss = lm.lm_loss(logits, _labels(batch, dev)) + AUX_WEIGHT * aux
+        grads = torch.autograd.grad(loss, flat, materialize_grads=True)
+        del logits
+        params, opt_state, gnorm = opt.update(
+            params, unflatten(params, grads), opt_state)
+        return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return train_step
+
+
+def make_eval_step(cfg: ArchConfig, device=None):
+    """``eval_step(params, batch) -> loss`` on ``device`` (CUDA unless the
+    caller asks for another): the token-mean cross-entropy of
+    ``forward`` (no aux), without autograd."""
+    model = get_model(cfg)
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        logits, _ = _forward(model, params, cfg, batch, dev)
+        return lm.lm_loss(logits, _labels(batch, dev))
+
+    return eval_step
+
+
+def make_prefill_step(cfg: ArchConfig, capacity: int | None = None):
+    """``prefill_step(params, batch) -> (last logits, cache)``: the
+    model's ``prefill`` of ``batch["tokens"]`` (or ``embeds``) with a
+    cache of ``capacity`` positions."""
+    model = get_model(cfg)
+
+    def prefill_step(params, batch):
+        if cfg.stub_frontend:
+            return model.prefill(params, cfg, None, capacity,
+                                 embeds=batch["embeds"])
+        return model.prefill(params, cfg, batch["tokens"], capacity)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig, return_logits: bool = False):
+    """``decode_step(params, batch, cache) -> (token, cache)``, or
+    ``(token, logits, cache)`` with ``return_logits``: one greedy decode
+    of ``batch["token"]`` (or ``embed``), the cache updated in place."""
+    model = get_model(cfg)
+
+    def decode_step(params, batch, cache):
+        if cfg.stub_frontend:
+            logits, cache = model.decode(params, cfg, None, cache,
+                                         embed=batch["embed"])
+        else:
+            logits, cache = model.decode(params, cfg, batch["token"], cache)
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        if return_logits:
+            return token, logits, cache
+        return token, cache
+
+    return decode_step
 
 
 def prepare_serving_params(cfg: ArchConfig, params, *, golden: bool = False):

@@ -121,14 +121,17 @@ def _flash(q, k, v, q_pos, kv_pos, q_chunk: int, kv_chunk: int, n_rep: int):
     lower_only = S == T and q_chunk == kv_chunk and nq == nk
     outs = []
     for i in range(nq):
-        qi = _bf16(qc[i])
         acc = torch.zeros((B, G, n_rep, q_chunk, D), dtype=torch.float32,
                           device=q.device)
         m = torch.full((B, G, n_rep, q_chunk), NEG_INF, dtype=torch.float32,
                        device=q.device)
         l = torch.zeros_like(m)
         for j in range(i + 1 if lower_only else nk):
-            s = torch.einsum("bgrqd,bgkd->bgrqk", qi, _bf16(kc[j])) * scale
+            # q is rounded in every (i, j) pair, as the reference rounds
+            # it: the same forward bits, and under autograd q's gradient
+            # is rounded to bf16 a pair, then summed, as the reference's
+            s = torch.einsum("bgrqd,bgkd->bgrqk", _bf16(qc[i]),
+                             _bf16(kc[j])) * scale
             s = torch.where(qp[i][:, None] >= kp[j][None, :], s, NEG_INF)
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp(s - m_new[..., None])

@@ -7,9 +7,11 @@ Recurrence per head (state h in R^{P x N}, P = head dim, N = ssm state):
     y_t = h_t C_t + D x_t
 
 Chunked evaluation uses the scalar pairwise decay ratio (B,C,C,H); the
-state is carried from chunk to chunk by a Python loop.  A depthwise
-causal conv (kernel 4) precedes x/B/C; decode (chunk 1) carries the conv
-tail and h.  Used by the zamba2-7b hybrid config.
+state is carried from chunk to chunk by a Python loop.  Under autograd,
+with more than one chunk, a chunk's intermediates are recomputed in the
+backward pass (the reference's ``jax.checkpoint`` of the chunk body).  A
+depthwise causal conv (kernel 4) precedes x/B/C; decode (chunk 1)
+carries the conv tail and h.  Used by the zamba2-7b hybrid config.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from .norms import rmsnorm
+from .remat import remat
 
 __all__ = ["init_mamba2_state", "mamba2_block", "CONV_K"]
 
@@ -104,8 +107,9 @@ def mamba2_block(params, x, state, head_dim: int = 64, chunk: int = 64):
     Bf, Cf = Bm.to(f32), Cm.to(f32)
     h, ys = state["h"], []
     for j in range(0, S, c):
-        h, y = _ssd_chunk(h, xh[:, j:j + c], Bf[:, j:j + c], Cf[:, j:j + c],
-                          lw[:, j:j + c], dt[:, j:j + c])
+        h, y = remat(_ssd_chunk, h, xh[:, j:j + c], Bf[:, j:j + c],
+                     Cf[:, j:j + c], lw[:, j:j + c], dt[:, j:j + c],
+                     on=S > c)
         ys.append(y)
     y = torch.cat(ys, dim=1)
     y = y + params["D"][None, None, :, None] * xh

@@ -25,19 +25,38 @@ import torch.nn.functional as F
 
 from .mlp import mlp
 
-__all__ = ["moe", "moe_routed", "capacity", "route", "dispatch"]
+__all__ = ["moe", "moe_routed", "moe_with_aux", "capacity", "route",
+           "dispatch", "load_balance_aux"]
+
+
+def _router_probs(xs: torch.Tensor, router_w: torch.Tensor):
+    """xs (T, D) -> the f32 softmax over the experts (T, E)."""
+    return torch.softmax(xs.to(torch.float32) @ router_w.to(torch.float32),
+                         dim=-1)
+
+
+def _pick(probs: torch.Tensor, top_k: int):
+    """The top-k experts of each row (descending, as ``jax.lax.top_k``)
+    and their probabilities renormalised to sum to 1."""
+    top_p, ids = torch.topk(probs, top_k, dim=-1, sorted=True)
+    weights = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    return ids, weights
 
 
 def route(xs: torch.Tensor, router_w: torch.Tensor, top_k: int):
     """xs (T, D) -> (ids (T, k) int64, weights (T, k) f32): f32 router
-    logits, softmax, top-k (descending, as ``jax.lax.top_k``), the k
-    probabilities renormalised to sum to 1.  The reference's Switch
-    load-balance aux is a training loss; serving leaves it out."""
-    logits = xs.to(torch.float32) @ router_w.to(torch.float32)
-    probs = torch.softmax(logits, dim=-1)
-    top_p, ids = torch.topk(probs, top_k, dim=-1, sorted=True)
-    weights = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
-    return ids, weights
+    logits, softmax, top-k, the k probabilities renormalised.  Serving
+    leaves the load-balance aux out; ``moe_with_aux`` computes it."""
+    return _pick(_router_probs(xs, router_w), top_k)
+
+
+def load_balance_aux(probs: torch.Tensor, ids: torch.Tensor):
+    """The reference's Switch-style load-balance loss, E * sum_e (share of
+    the tokens whose first choice is e) * (mean router probability of
+    e); probs (T, E), ids (T, k)."""
+    E = probs.shape[-1]
+    frac = F.one_hot(ids[:, 0], E).to(torch.float32).mean(0)
+    return E * torch.sum(frac * probs.mean(0))
 
 
 def capacity(T: int, top_k: int, n_experts: int,
@@ -70,15 +89,13 @@ def _expert_ffn(we, x: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, we["w_down"])
 
 
-def moe_routed(params, x: torch.Tensor, *, top_k: int,
-               capacity_factor: float = 1.25):
-    """The routed experts alone: x (B, S, D) -> (out (B, S, D) in x's
-    dtype, keep (B*S*k,) bool in expert-sorted order)."""
-    B, S, D = x.shape
+def _experts(params, xt: torch.Tensor, ids, weights, top_k: int,
+             capacity_factor: float):
+    """The routed experts on the tokens xt (T, D) routed to ``ids`` with
+    ``weights``: (out (T, D) in xt's dtype, keep (T*k,) bool in
+    expert-sorted order)."""
+    T, D = xt.shape
     E = params["router"].shape[-1]
-    xt = x.reshape(B * S, D)
-    T = xt.shape[0]
-    ids, weights = route(xt, params["router"], top_k)
     C = capacity(T, top_k, E, capacity_factor)
     order, slot, keep = dispatch(ids, E, C)
     tok_idx = order // top_k
@@ -86,7 +103,10 @@ def moe_routed(params, x: torch.Tensor, *, top_k: int,
     # the spare row E*C, where duplicate indices leave any one of their
     # rows, which is harmless only because that row is discarded
     buf = xt.new_zeros((E * C + 1, D))
-    buf.index_put_((slot,), xt[tok_idx])
+    # a token's k copies: F.embedding, whose backward sums them in one
+    # fixed order on the CPU and on CUDA (an index's adds them with
+    # atomics on the CPU)
+    buf.index_put_((slot,), F.embedding(tok_idx, xt))
     out_buf = _expert_ffn(params["experts"], buf[:-1].reshape(E, C, D))
     flat_out = out_buf.reshape(E * C, D)
     gathered = torch.where(keep[:, None],
@@ -99,7 +119,26 @@ def moe_routed(params, x: torch.Tensor, *, top_k: int,
     inv = torch.empty_like(order).scatter_(
         0, order, torch.arange(order.shape[0], device=order.device))
     out_t = contrib.to(xt.dtype)[inv].reshape(T, top_k, D).sum(1)
+    return out_t, keep
+
+
+def moe_routed(params, x: torch.Tensor, *, top_k: int,
+               capacity_factor: float = 1.25):
+    """The routed experts alone: x (B, S, D) -> (out (B, S, D) in x's
+    dtype, keep (B*S*k,) bool in expert-sorted order)."""
+    B, S, D = x.shape
+    xt = x.reshape(B * S, D)
+    ids, weights = route(xt, params["router"], top_k)
+    out_t, keep = _experts(params, xt, ids, weights, top_k,
+                           capacity_factor)
     return out_t.reshape(B, S, D), keep
+
+
+def _add_shared(params, x, out, has_shared: bool, linear, salt):
+    if has_shared:
+        out = out + mlp(params["shared"], x, "swiglu", linear=linear,
+                        salt=salt)
+    return out
 
 
 def moe(params, x: torch.Tensor, *, top_k: int,
@@ -111,7 +150,24 @@ def moe(params, x: torch.Tensor, *, top_k: int,
     reference's ``moe_local`` is this with its own default capacity."""
     out, _ = moe_routed(params, x, top_k=top_k,
                         capacity_factor=capacity_factor)
-    if has_shared:
-        out = out + mlp(params["shared"], x, "swiglu", linear=linear,
-                        salt=salt)
-    return out
+    return _add_shared(params, x, out, has_shared, linear, salt)
+
+
+def moe_with_aux(params, x: torch.Tensor, *, top_k: int,
+                 capacity_factor: float = 1.25, has_shared: bool = False,
+                 linear=None, salt=None):
+    """``moe`` and the load-balance aux of its routing: (out (B, S, D),
+    aux 0-d f32), the reference's ``moe`` at expert parallelism 1 (the
+    training forward's MoE block).  In the backward pass every gather
+    adds its gradient into distinct rows, or adds zeros (a dropped
+    entry), except for a token's k copies, which ``F.embedding``'s
+    backward sums in one fixed order: the gradients are the same bits
+    from run to run."""
+    B, S, D = x.shape
+    xt = x.reshape(B * S, D)
+    probs = _router_probs(xt, params["router"])
+    ids, weights = _pick(probs, top_k)
+    out_t, _ = _experts(params, xt, ids, weights, top_k, capacity_factor)
+    out = _add_shared(params, x, out_t.reshape(B, S, D), has_shared,
+                      linear, salt)
+    return out, load_balance_aux(probs, ids)

@@ -9,9 +9,10 @@ The WKV recurrence per head (state S in R^{dk x dv}):
 is evaluated chunk-parallel: within a chunk of C tokens the decay is split
 two-sided (``_wkv_chunk``), so the intra-chunk scores are one bf16-operand
 product with f32 accumulation, as the reference rounds them; the state
-is carried from chunk to chunk by a Python loop.  Decode is the same
-block at chunk 1.  The state is (B, H, dk, dv) whatever the sequence
-length.
+is carried from chunk to chunk by a Python loop.  Under autograd a
+chunk's intermediates are recomputed in the backward pass (the
+reference's ``remat_chunk``).  Decode is the same block at chunk 1.  The
+state is (B, H, dk, dv) whatever the sequence length.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from .norms import rmsnorm
+from .remat import remat
 
 __all__ = ["init_rwkv6_state", "wkv6", "rwkv6_block", "rwkv6_decode",
            "LORA_R", "DECAY_CLIP"]
@@ -98,8 +100,8 @@ def wkv6(r, k, v, lw, u, state, chunk: int = 32):
                          f"DECAY_CLIP <= 80 for f32, got chunk {c}")
     outs = []
     for j in range(0, S, c):
-        state, out = _wkv_chunk(state, r[:, j:j + c], k[:, j:j + c],
-                                v[:, j:j + c], lw[:, j:j + c], u)
+        state, out = remat(_wkv_chunk, state, r[:, j:j + c],
+                           k[:, j:j + c], v[:, j:j + c], lw[:, j:j + c], u)
         outs.append(out)
     return torch.cat(outs, dim=1), state
 

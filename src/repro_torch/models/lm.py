@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, dense and MoE families (port of the
-serving half of ``repro/models/lm.py``): olmo-1b, qwen3-0.6b,
+"""Decoder-only transformer LM, dense and MoE families (port of
+``repro/models/lm.py``): olmo-1b, qwen3-0.6b,
 starcoder2-7b, codeqwen1.5-7b, the MoE models deepseek-moe-16b and
 granite-moe-1b-a400m (``layers/moe.py`` in place of the MLP, at expert
 parallelism 1), and the stub-frontend backbones musicgen-large and
@@ -11,9 +11,11 @@ Parameters are a nested dict of tensors in the reference's layout: every
 per-layer leaf is stacked on axis 0 (``params["layers"]["mlp"]["w_up"]`` is
 (L, D, F)), so ``convert.params_from_jax`` is a plain tree copy.  Prepared
 DS-CIM weights (``QuantizedLinearWeight``) slice per layer the same way.
-The layer loop is a Python loop; prefill builds the dense KV cache, and
-decode reads either the dense cache or the int8 paged one.  ``decode_multi``
-scores a window of T tokens per row in one forward (the verifier of
+The layer loop is a Python loop; ``forward`` is the training and scoring
+pass (out of place, each layer rematerialized under ``cfg.remat``, with
+``lm_loss``); prefill builds the dense KV cache, and decode reads either
+the dense cache or the int8 paged one.  ``decode_multi`` scores a
+window of T tokens per row in one forward (the verifier of
 self-speculative decoding).
 
 Salts: layer ``li`` owns the salt space ``8*li`` (MLP or shared-expert
@@ -38,9 +40,10 @@ from ..layers.attention import (attention, decode_attention,
                                 per_position, window_positions)
 from ..layers.mlp import mlp
 from ..layers.norms import layernorm, rmsnorm
+from ..layers.remat import remat
 
-__all__ = ["init_params", "prefill", "decode", "decode_multi",
-           "cast_layers", "DTYPES"]
+__all__ = ["init_params", "forward", "lm_loss", "embed", "prefill",
+           "decode", "decode_multi", "cast_layers", "DTYPES"]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -133,6 +136,17 @@ def _norm(cfg: ArchConfig, x, params):
     return layernorm(x, params)
 
 
+def generator(dev: torch.device, seed: int):
+    """The ``torch.Generator`` an ``init_params`` draws from, or None on
+    the ``meta`` device, where the draws have shapes only (a tree's
+    structure, e.g. a checkpoint's restore target)."""
+    if dev.type == "meta":
+        return None
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return gen
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, device=None):
     """Random f32 parameters in the reference's layout and scales, drawn
     from a ``torch.Generator`` seeded with ``seed``: norms with a scale
@@ -148,8 +162,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None):
         raise NotImplementedError(f"{cfg.name}: {cfg.family!r} models are "
                                   "not served by this module")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = generator(dev, seed)
     L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
     H, KV, HD = cfg.n_heads, cfg.n_kv, cfg.head_dim
     hp = cfg.q_heads
@@ -218,6 +231,19 @@ def cast_layers(params, dtype: torch.dtype):
 def _layer(layers, i: int):
     """Layer ``i`` of the stacked per-layer tree."""
     return map_params(lambda _, a: a[i], layers)
+
+
+def unstack(tree, n: int) -> list:
+    """The n per-layer trees of a stacked tree (leaves stacked on axis 0).
+    A tensor is split by ``unbind``, whose backward stacks the n layers'
+    gradients once (a per-layer ``a[i]`` would add a full-size gradient
+    for every layer); other leaves (prepared weights) are indexed."""
+    if isinstance(tree, dict):
+        subs = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: subs[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, torch.Tensor):
+        return list(tree.unbind(0))
+    return [tree[i] for i in range(n)]
 
 
 def _head(params, cfg: ArchConfig, x):
@@ -292,6 +318,67 @@ def _inputs(cfg: ArchConfig, tokens, embeds, dt, embed_rows):
     if embeds is not None:
         raise ValueError(f"{cfg.name} takes token ids, not embeddings")
     return embed_rows(tokens).to(dt)
+
+
+def embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of in-range ``tokens`` for a forward that is
+    differentiated: ``F.embedding``, whose backward sums a row's repeats
+    in one fixed order on the CPU and on CUDA (an index's backward adds
+    them with atomics on the CPU, in an order that varies)."""
+    return torch.nn.functional.embedding(tokens, params["embed"])
+
+
+def _train_layer(cfg: ArchConfig, li: int, positions, x, lp):
+    """Layer ``li`` of ``forward`` (the reference's ``_block_apply``
+    without a cache): (x, the layer's MoE aux, None for a dense config).
+    The layer's weights are cast to the compute dtype here, inside the
+    rematerialized body, as the reference casts them."""
+    lp = _cast(lp, x.dtype)
+    h, _ = attention(lp["attn"], _norm(cfg, x, lp["ln1"]), cfg, positions,
+                     cfg.q_chunk, linear=_alin(cfg), salt=8 * li)
+    x = x + h
+    hn = _norm(cfg, x, lp["ln2"])
+    if cfg.family == "moe":
+        h, aux = moe_layer.moe_with_aux(
+            lp["moe"], hn, top_k=cfg.moe_topk,
+            capacity_factor=cfg.moe_capacity, has_shared=cfg.moe_shared > 0,
+            linear=_lin(cfg), salt=8 * li)
+        return x + h, aux
+    return x + mlp(lp["mlp"], hn, cfg.mlp_kind, linear=_lin(cfg),
+                   salt=8 * li), None
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor | None, *,
+            embeds: torch.Tensor | None = None):
+    """Training and scoring forward over whole sequences: tokens (B, S),
+    or for a stub-frontend config ``tokens=None`` and ``embeds`` (B, S,
+    D) -> (logits (B, S, Vp) f32, aux 0-d f32), aux the MoE load-balance
+    loss averaged over the layers (0 for a dense config).  Each layer is
+    rematerialized in the backward pass when ``cfg.remat`` (the
+    reference's per-layer ``jax.checkpoint``).  Nothing is written in
+    place, so autograd can differentiate it; the serving paths (prefill,
+    decode) are separate."""
+    dt = DTYPES[cfg.compute_dtype]
+    x = _inputs(cfg, tokens, embeds, dt, lambda t: embed(params, t))
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device)[None]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for li, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
+        x, a = remat(functools.partial(_train_layer, cfg, li), positions, x,
+                     lp, on=cfg.remat)
+        if a is not None:
+            aux = aux + a
+    x = _norm(cfg, x, params["final_norm"])
+    return _head(params, cfg, x), aux / cfg.n_layers
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Token-mean cross-entropy over the padded vocabulary; logits (B, S,
+    Vp) f32, labels (B, S).  The label's logit is a gather, whose
+    backward writes one element a row (no two adds meet)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - ll)
 
 
 @torch.no_grad()

@@ -1,12 +1,12 @@
-"""RWKV6 "Finch" LM, the ssm family (port of the serving half of
-``repro/models/rwkv.py``): rwkv6-7b, attention-free, O(1)-state decode.
+"""RWKV6 "Finch" LM, the ssm family (port of ``repro/models/rwkv.py``):
+rwkv6-7b, attention-free, O(1)-state decode.
 
 The API is ``models/lm.py``'s (``init_params``, ``cast_layers``,
-``prefill``, ``decode``) plus ``cache_specs``.  The "cache" is the
-per-layer recurrent state, stacked on axis 0 (token-shift tails and WKV
-matrices), whose size does not depend on the sequence length.  The model
-is served in float only: the reference prepares no DS-CIM weights for
-this family and pages no cache.
+``forward``, ``prefill``, ``decode``) plus ``cache_specs``.  The "cache"
+is the per-layer recurrent state, stacked on axis 0 (token-shift tails
+and WKV matrices), whose size does not depend on the sequence length.
+The model is served in float only: the reference prepares no DS-CIM
+weights for this family and pages no cache.
 """
 from __future__ import annotations
 
@@ -15,10 +15,13 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..layers.norms import rmsnorm
+from ..layers.remat import remat
 from ..layers.rwkv6 import LORA_R, init_rwkv6_state, rwkv6_block
-from .lm import DTYPES, _cast, _embed_prompt, _layer
+from .lm import (DTYPES, _cast, _embed_prompt, _layer, embed, generator,
+                 unstack)
 
-__all__ = ["init_params", "cast_layers", "prefill", "decode", "cache_specs"]
+__all__ = ["init_params", "cast_layers", "forward", "prefill", "decode",
+           "cache_specs"]
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None):
@@ -28,8 +31,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None):
     ``wr_ffn`` from the key it draws ``wr`` from, so the two are equal
     there; here ``wr_ffn`` is a copy of ``wr`` for the same function."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = generator(dev, seed)
     L, D, Fd, hd = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.ssm_head_dim
     H = D // hd
     s = D ** -0.5
@@ -89,6 +91,30 @@ def cache_specs(cfg: ArchConfig, batch: int, seq: int, device="meta"):
                 "x_ffn": torch.zeros((L, batch, D), **f32),
                 "wkv": torch.zeros((L, batch, D // hd, hd, hd), **f32)},
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _train_layer(cfg: ArchConfig, zero, x, lp):
+    """One layer of ``forward`` from the zero state (its weights cast to
+    the compute dtype inside the rematerialized body)."""
+    return rwkv6_block(_cast(lp, x.dtype), x, zero, cfg.ssm_head_dim,
+                       cfg.scan_chunk)[0]
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor):
+    """Training and scoring forward: tokens (B, S), S a multiple of
+    ``scan_chunk`` or shorter -> (logits (B, S, Vp) f32, aux 0), every
+    layer from the zero state, rematerialized in the backward pass when
+    ``cfg.remat``.  Out of place (prefill and decode are the serving
+    paths, which write the state)."""
+    dt = DTYPES[cfg.compute_dtype]
+    x = rmsnorm(embed(params, tokens).to(dt), params["ln_in"])
+    B, _, D = x.shape
+    zero = init_rwkv6_state(B, D, cfg.ssm_head_dim, device=x.device)
+    for lp in unstack(params["layers"], cfg.n_layers):
+        x = remat(_train_layer, cfg, zero, x, lp, on=cfg.remat)
+    x = rmsnorm(x, params["final_norm"])
+    logits = (x @ params["lm_head"].to(dt)).to(torch.float32)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 @torch.no_grad()

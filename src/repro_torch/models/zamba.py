@@ -1,4 +1,4 @@
-"""Zamba2 hybrid LM (port of the serving half of ``repro/models/zamba.py``):
+"""Zamba2 hybrid LM (port of ``repro/models/zamba.py``):
 a Mamba2 (SSD) backbone and one *shared* GQA attention block, zamba2-7b.
 
 The n_layers Mamba2 layers form n_blocks = n_layers // mamba_per_block
@@ -9,8 +9,9 @@ Per-block leaves are stacked (n_blocks, mamba_per_block, ...).
 The cache is the Mamba2 states (stacked the same way) and one dense K/V
 cache per application of the shared block, (n_blocks, B, T, KV, HD);
 ``pos`` is one position for every row.  The API is ``models/lm.py``'s
-plus ``cache_specs``.  The model is served in float only: the reference
-prepares no DS-CIM weights for this family and pages no cache.
+(``forward`` included) plus ``cache_specs``.  The model is served in
+float only: the reference prepares no DS-CIM weights for this family and
+pages no cache.
 """
 from __future__ import annotations
 
@@ -21,9 +22,12 @@ from ..device import resolve_device
 from ..layers.attention import attention, decode_attention
 from ..layers.mamba2 import CONV_K, init_mamba2_state, mamba2_block
 from ..layers.norms import rmsnorm
-from .lm import DTYPES, _cast, _embed_prompt, _layer
+from ..layers.remat import remat
+from .lm import (DTYPES, _cast, _embed_prompt, _layer, embed, generator,
+                 unstack)
 
-__all__ = ["init_params", "cast_layers", "prefill", "decode", "cache_specs"]
+__all__ = ["init_params", "cast_layers", "forward", "prefill", "decode",
+           "cache_specs"]
 
 
 def _n_blocks(cfg: ArchConfig) -> int:
@@ -39,8 +43,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None):
     mamba_per_block, ...); ``init_attention`` for the shared block),
     drawn from a ``torch.Generator`` seeded with ``seed``."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = generator(dev, seed)
     nb, mpb = _n_blocks(cfg), cfg.mamba_per_block
     D, N, hd = cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim
     H, KV, HD = cfg.n_heads, cfg.n_kv, cfg.head_dim
@@ -113,6 +116,41 @@ def cache_specs(cfg: ArchConfig, batch: int, seq: int, device="meta"):
             "k": torch.zeros(kv, dtype=cdt, device=device),
             "v": torch.zeros(kv, dtype=cdt, device=device),
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _train_block(cfg: ArchConfig, positions, zero, shared, shared_ln, x,
+                 blk):
+    """One super-block of ``forward``: its Mamba2 layers from the zero
+    state, then the shared attention (the block's weights cast to the
+    compute dtype inside the rematerialized body)."""
+    blk = _cast(blk, x.dtype)
+    for lp in unstack(blk, cfg.mamba_per_block):
+        h, _ = mamba2_block(lp["mamba"], rmsnorm(x, lp["ln"]), zero,
+                            cfg.ssm_head_dim, cfg.scan_chunk)
+        x = x + h
+    h, _ = attention(shared, rmsnorm(x, shared_ln), cfg, positions,
+                     cfg.q_chunk)
+    return x + h
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor):
+    """Training and scoring forward: tokens (B, S) -> (logits (B, S, Vp)
+    f32, aux 0), every Mamba2 layer from the zero state, each super-block
+    rematerialized in the backward pass when ``cfg.remat``.  Out of place
+    (prefill and decode are the serving paths, which write the cache)."""
+    dt = DTYPES[cfg.compute_dtype]
+    x = embed(params, tokens).to(dt)
+    B, S, D = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
+    shared = _cast(params["shared_attn"], dt)
+    zero = init_mamba2_state(B, D, cfg.ssm_head_dim, cfg.ssm_state,
+                             device=x.device)
+    for blk in unstack(params["blocks"], _n_blocks(cfg)):
+        x = remat(_train_block, cfg, positions, zero, shared,
+                  params["shared_ln"], x, blk, on=cfg.remat)
+    x = rmsnorm(x, params["final_norm"])
+    logits = (x @ params["lm_head"].to(dt)).to(torch.float32)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 @torch.no_grad()

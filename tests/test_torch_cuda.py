@@ -22,10 +22,22 @@ import numpy as np  # noqa: E402
 pytestmark = pytest.mark.cuda
 
 
+@pytest.fixture(scope="session")
+def _built():
+    """Every kernel library, built before the first card test (one ``nvcc``
+    a source, all at once, as ``chip_smoke.py`` builds them): a child
+    process started after a profiler session leaves the later sessions
+    blind to some kernels (ROADMAP C12)."""
+    from repro_torch.kernels import build
+
+    build.build()
+
+
 @pytest.fixture
-def cuda():
+def cuda(request):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    request.getfixturevalue("_built")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 

@@ -1,7 +1,8 @@
 """The port stands alone: no file of ``src/repro_torch`` (nor
 ``chip_smoke.py``) imports JAX or the JAX package, importing the serving
-entry points pulls no JAX in, and entry points (serving, the router, the
-HTTP server, the load test) refuse to run on the CPU unless asked to."""
+and training entry points pulls no JAX in, and entry points (serving,
+the router, the HTTP server, the load test, training) refuse to run on
+the CPU unless asked to."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -46,6 +47,46 @@ def test_serve_import_pulls_no_jax():
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("modules", [
+    "repro_torch.launch.train, repro_torch.launch.steps",
+    "repro_torch.optim.adamw, repro_torch.optim.compression",
+    "repro_torch.data.synthetic, repro_torch.data.pipeline",
+    "repro_torch.checkpoint.checkpointer, repro_torch.tree"])
+def test_train_import_pulls_no_jax(modules):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = (f"import sys, {modules}; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_train_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch,
+                                                          tmp_path):
+    """``TrainLoop``, ``make_train_step`` / ``make_eval_step`` and the
+    train CLI refuse to run without CUDA unless the CPU is asked for."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps, train
+    from repro_torch.optim.adamw import AdamW
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_arch("olmo-1b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.TrainLoop(cfg, steps=1, batch=2, seq=8)
+    for make in (lambda: steps.make_train_step(cfg, AdamW()),
+                 lambda: steps.make_eval_step(cfg)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    argv = ["--reduced", "--steps", "2", "--batch", "2", "--seq", "8"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(argv)
+    loop = train.main(argv + ["--device", "cpu", "--ckpt",
+                              str(tmp_path)])
+    assert [h["step"] for h in loop.history] == [0, 1]
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
