@@ -52,7 +52,19 @@ In order it
    and ``paper_inject`` (``modes``, full depth), each graph bitwise its
    eager loop, ``bitmatmul`` bitwise ``lut`` with its count-kernel
    launches counted, the noise modes' logit RMSE against ``exact``
-   printed; serves the continuous queue with requests 1-6 sharing
+   printed; serves the main path under a mesh (``mesh``, ``mesh_phase``):
+   (a) under ``parallel_ctx_from_spec("model=1")`` over NCCL at world 1,
+   the decode step and its collectives captured, tokens bitwise the main
+   path's, launches counted, one decode step's device time beside the
+   unsharded step's in turns; (b) kernel 1 at layer 0's MLP sites and the
+   head, M = 4 and 256: each of 4 N-slices and 2 batch slices launched
+   alone bitwise that slice of the full call; (c) kernel 2 at the main
+   path's head layout and at LONG_POS: 2 batch slices bitwise the full
+   call's rows; (d) two ranks on the one card over gloo
+   (``chip_smoke.py --mesh-rank``): which collectives gloo carries for
+   CUDA tensors, then qwen3 at full width cut to ``MESH_D_LAYERS`` layers
+   at model=2, eagerly (a gloo group cannot be captured), both ranks'
+   tokens bitwise one process's; serves the continuous queue with requests 1-6 sharing
    request 0's first 48 tokens through the prefix cache, ``'cold'`` and
    ``'on'`` (``prefix``): warm tokens bitwise cold, the hit counters, 224
    of 512 prefill positions computed, the extend steps' fused-MVM and
@@ -312,6 +324,12 @@ TABLE1_JAX = {
     ("dscim2", 256, "opt"): 1.0482831949140168,
 }
 TABLE1_RTOL = 1e-5
+# mesh phase: kernel 1's N-slices and both kernels' batch slices per leg;
+# leg (d)'s two gloo ranks serve qwen3 at full width cut to this depth,
+# this many tokens (each decode step gathers the f32 embedding through
+# the host), each rank given this long
+MESH_N_SLICES, MESH_B_SLICES = 4, 2
+MESH_D_LAYERS, MESH_D_TOKENS, MESH_D_TIMEOUT_S = 2, 4, 240
 
 
 def _log(msg: str) -> None:
@@ -3471,6 +3489,346 @@ def check_reduced(torch):
             "train_step": _train_step_gpu_vs_cpu(torch)}
 
 
+def _mesh_world1(torch, cfg, served, prompts, plain_toks):
+    """Leg (a): the main path under ``parallel_ctx_from_spec('model=1')``
+    over NCCL at world 1, the decode step (and its collectives) captured:
+    tokens bitwise the main path's, launches counted over the replays, one
+    decode step's device time beside the unsharded step's, in turns."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.kernels import dscim_fused, paged_attention
+    from repro_torch.launch.mesh import parallel_ctx_from_spec
+    from repro_torch.launch.serve import prepare_params, serve_batch
+    from repro_torch.launch.steps import _generate_runner
+
+    cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            par = parallel_ctx_from_spec("model=1")
+            if not par.capturable:
+                raise AssertionError(f"backend {par.backend} not capturable")
+            placed = prepare_params(cfg_ds, served, par=par)
+            kw = dict(kv="int8", page_size=PAGE)
+            warm = {}
+            serve_batch(cfg_ds, placed, prompts, TOKENS, timings=warm,
+                        par=par, **kw)
+            if not warm["graph"] or "capture_s" not in warm:
+                raise AssertionError(f"no graph captured under the mesh: "
+                                     f"{warm}")
+            dscim_fused.LAUNCHES.reset()
+            paged_attention.LAUNCHES.reset()
+            t = {}
+            toks, logits = serve_batch(cfg_ds, placed, prompts, TOKENS,
+                                       timings=t, par=par, **kw)
+            launches = {"dscim_fused_mvm": dscim_fused.LAUNCHES.count,
+                        "paged_attention_decode":
+                        paged_attention.LAUNCHES.count}
+            want = {"dscim_fused_mvm": _fused_per_forward(cfg) * TOKENS,
+                    "paged_attention_decode": cfg.n_layers * (TOKENS - 1)}
+            if launches != want:
+                raise AssertionError(f"mesh launches {launches} != {want}")
+            if plain_toks is None or not np.array_equal(toks, plain_toks):
+                raise AssertionError("model=1 tokens differ from the main "
+                                     "path's")
+            if not np.isfinite(logits[0]).all():
+                raise AssertionError("non-finite prefill logits")
+            runners = {name: _generate_runner(
+                cfg_ds, BATCH, PROMPT, TOKENS, "int8", PAGE, None, "greedy",
+                False, dev, None, *p) for name, p in (("unsharded", ()),
+                                                      ("model=1", (par,)))}
+            params = {"unsharded": served, "model=1": placed}
+            # the unsharded graph at these options (captured again if a
+            # later capture replaced it)
+            serve_batch(cfg_ds, served, prompts, TOKENS, **kw)
+            step_ms = {name: [] for name in runners}
+            for name in ("unsharded", "model=1") * 3:
+                st = runners[name].st
+
+                def reset():
+                    st["params"] = params[name]
+                    st["cache"]["pos"].fill_(PROMPT + TOKENS // 2)
+                    st["i"].fill_(TOKENS // 2)
+                step_ms[name].append(_decode_step_ms(
+                    torch, runners[name].step.graph.replay, reset))
+                st["params"] = None
+            med = {k: float(np.median(v)) for k, v in step_ms.items()}
+            # one replay of each graph under the profiler: the kernels the
+            # mesh adds (NCCL's, the gathers' copies)
+            prof = {}
+            for name in ("unsharded", "model=1"):
+                st = runners[name].st
+                st["params"] = params[name]
+                st["cache"]["pos"].fill_(PROMPT + TOKENS // 2)
+                st["i"].fill_(TOKENS // 2)
+                try:
+                    prof[name] = _profile_request(
+                        torch, runners[name].step.graph.replay)
+                finally:
+                    st["params"] = None
+                p = prof[name]
+                _log(f"mesh (a) {name} step profiled: "
+                     f"{p['kernel_launches']} kernels, "
+                     f"{p['device_busy_ms']:.3f} ms busy of "
+                     f"{p['wall_ms_profiled']:.3f}; top "
+                     + ", ".join(f"{k['name'][:40]} {k['calls']} x "
+                                 f"{k['device_ms']:.3f} ms"
+                                 for k in p["top_kernels"][:6]))
+            _log(f"mesh (a) NCCL world 1, model=1, graph: tokens bitwise "
+                 f"the main path, launches {launches}, capture "
+                 f"{warm['capture_s']:.3f} s, {BATCH * TOKENS / t['generate_s']:.1f} "
+                 f"tok/s; decode step {med['model=1']:.4f} ms device "
+                 f"median (unsharded {med['unsharded']:.4f} ms), runs "
+                 f"{step_ms}")
+            return {"launches": launches, "capture_s": warm["capture_s"],
+                    "tok_s": BATCH * TOKENS / t["generate_s"],
+                    "decode_step_ms": step_ms, "decode_step_ms_median": med,
+                    "profiled_step": prof, "tokens_bitwise_main_path": True}
+        finally:
+            runners = None
+            dist.destroy_process_group()
+
+
+def _mesh_fused_shards(torch, cfg, served):
+    """Leg (b): kernel 1 placement-invariant at full width: for each
+    prepared weight of layer 0's MLP and the head, at M = 4 and 256, each
+    of MESH_N_SLICES N-slices and each of MESH_B_SLICES batch slices,
+    launched alone, is bitwise that slice of the full call."""
+    from repro_torch.core.qweights import QuantizedLinearWeight
+    from repro_torch.kernels.dscim_fused import dscim_fused_mvm_prepared
+    from repro_torch.models import lm
+
+    dcfg = lm._lin(dataclasses.replace(cfg, dscim=DSCIM)).cfg
+    mlp = served["layers"]["mlp"]
+    sites = [(n, mlp[n][0], torch.bfloat16) for n in
+             ("w_gate", "w_up", "w_down")]
+    sites.append(("head", served["lm_head"], torch.float32))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    checked = []
+    for name, qw, xdt in sites:
+        for M in (4, 256):
+            x = torch.randn((M, qw.k_orig), generator=gen,
+                            device="cuda").to(xdt)
+            full = dscim_fused_mvm_prepared(x, qw, dcfg)
+            n = qw.n // MESH_N_SLICES
+            for j in range(MESH_N_SLICES):
+                part = QuantizedLinearWeight(
+                    qw.q[..., j * n:(j + 1) * n].contiguous(),
+                    qw.scale[..., j * n:(j + 1) * n].contiguous(),
+                    qw.k_orig, qw.group_k)
+                got = dscim_fused_mvm_prepared(x, part, dcfg)
+                if not torch.equal(got, full[:, j * n:(j + 1) * n]):
+                    raise AssertionError(f"kernel 1 {name} M={M}: N-slice "
+                                         f"{j} differs from the full call")
+            b = M // MESH_B_SLICES
+            for j in range(MESH_B_SLICES):
+                got = dscim_fused_mvm_prepared(x[j * b:(j + 1) * b], qw, dcfg)
+                if not torch.equal(got, full[j * b:(j + 1) * b]):
+                    raise AssertionError(f"kernel 1 {name} M={M}: batch "
+                                         f"slice {j} differs from the full "
+                                         "call")
+            checked.append(f"{name} M={M} K={qw.k_orig} N={qw.n}")
+    _log(f"mesh (b) kernel 1: {MESH_N_SLICES} N-slices and {MESH_B_SLICES} "
+         f"batch slices bitwise the full call at {checked}")
+    return checked
+
+
+def _mesh_paged_shards(torch, cfg):
+    """Leg (c): kernel 2 placement-invariant: at the main path's head
+    layout, at its last decode position and at LONG_POS, each of
+    MESH_B_SLICES batch slices (the pool whole) is bitwise the full
+    call's rows."""
+    from repro_torch.kernels import paged_attention as pa
+
+    B, ps, KV, HD = BATCH, PAGE, cfg.n_kv, cfg.head_dim
+    R = cfg.q_heads // KV
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    checked = []
+    for pos in (PROMPT + TOKENS - 2, LONG_POS):
+        MP = pos // ps + 1
+        P = B * MP
+        q = torch.randn((B, KV, R, HD), generator=gen, device="cuda")
+        pages = [torch.randint(-127, 128, (P, ps, KV, HD), generator=gen,
+                               device="cuda").to(torch.int8)
+                 for _ in range(2)]
+        scales = [torch.rand((P, KV), generator=gen, device="cuda") * 0.02
+                  for _ in range(2)]
+        tails = [torch.randn((B, ps, KV, HD), generator=gen,
+                             device="cuda").to(torch.bfloat16)
+                 for _ in range(2)]
+        table = torch.randperm(P, generator=gen, device="cuda").reshape(
+            B, MP).to(torch.int32)
+        # ragged: each slot at its own position
+        posv = torch.tensor([pos - 3 * i for i in range(B)],
+                            dtype=torch.int32, device="cuda")
+        full = pa.paged_attention_decode(q, *pages, *scales, *tails, table,
+                                         posv)
+        b = B // MESH_B_SLICES
+        for j in range(MESH_B_SLICES):
+            s = slice(j * b, (j + 1) * b)
+            got = pa.paged_attention_decode(
+                q[s], *pages, *scales, tails[0][s], tails[1][s], table[s],
+                posv[s])
+            if not torch.equal(got, full[s]):
+                raise AssertionError(f"kernel 2 pos={pos}: batch slice {j} "
+                                     "differs from the full call")
+        checked.append(f"B={B} KV={KV} n_rep={R} HD={HD} ps={ps} "
+                       f"pos={posv.tolist()}")
+    _log(f"mesh (c) kernel 2: {MESH_B_SLICES} batch slices bitwise the full "
+         f"call at {checked}")
+    return checked
+
+
+def _mesh_rank(rank: int, store: str, out: str) -> int:
+    """One rank of leg (d) (``chip_smoke.py --mesh-rank RANK STORE OUT``):
+    joins a 2-rank gloo group on the one card, probes which collectives
+    gloo carries for CUDA tensors, and serves the cut qwen3 at model=2
+    eagerly if ``all_gather`` is among them; writes its results to OUT."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2)
+    res = {"rank": rank, "collectives": {}}
+    try:
+        x = torch.full((2, 3), float(rank), device="cuda")
+        probes = {
+            "all_gather": lambda: dist.all_gather(
+                [torch.empty_like(x) for _ in range(2)], x),
+            "all_to_all_single": lambda: dist.all_to_all_single(
+                torch.empty_like(x), x),
+            "all_reduce": lambda: dist.all_reduce(x.clone())}
+        for name, fn in probes.items():
+            try:
+                fn()
+                torch.cuda.synchronize()
+                res["collectives"][name] = "ok"
+            except Exception as e:          # report which one is missing
+                res["collectives"][name] = f"missing: {type(e).__name__}: " \
+                                           f"{str(e)[:200]}"
+        if res["collectives"]["all_gather"] == "ok":
+            from repro_torch.configs import get_arch
+            from repro_torch.kernels import dscim_fused, paged_attention
+            from repro_torch.launch.mesh import parallel_ctx_from_spec
+            from repro_torch.launch.serve import serve_batch
+            from repro_torch.models import lm
+            par = parallel_ctx_from_spec("model=2")
+            cfg = dataclasses.replace(get_arch("qwen3-0.6b"),
+                                      n_layers=MESH_D_LAYERS, dscim=DSCIM)
+            params = lm.init_params(cfg, 0)
+            prompts = np.random.default_rng(0).integers(
+                0, cfg.vocab, (BATCH, PROMPT))
+            dscim_fused.LAUNCHES.reset()
+            paged_attention.LAUNCHES.reset()
+            t = {}
+            toks, logits = serve_batch(cfg, params, prompts, MESH_D_TOKENS,
+                                       kv="int8", page_size=PAGE, par=par,
+                                       timings=t)
+            res.update(tokens=toks.tolist(), graph=t["graph"],
+                       eager_reason=t.get("eager_reason"),
+                       generate_s=t["generate_s"],
+                       launches={"dscim_fused_mvm": dscim_fused.LAUNCHES.count,
+                                 "paged_attention_decode":
+                                 paged_attention.LAUNCHES.count},
+                       finite=bool(np.isfinite(logits[0]).all()))
+    finally:
+        dist.destroy_process_group()
+        with open(out, "w") as f:
+            json.dump(res, f)
+    return 0
+
+
+def _mesh_gloo(torch):
+    """Leg (d): two ranks on the one card over gloo (``_mesh_rank``), the
+    cut qwen3 at model=2 eagerly, tokens bitwise one process's."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b"), n_layers=MESH_D_LAYERS,
+                              dscim=DSCIM)
+    params = lm.init_params(cfg, 0)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab,
+                                                (BATCH, PROMPT))
+    want, _ = serve_batch(cfg, params, prompts, MESH_D_TOKENS, kv="int8",
+                          page_size=PAGE)
+    del params
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+             str(r), f"{tmp}/store", f"{tmp}/r{r}.json"], cwd=str(ROOT),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=MESH_D_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        if any(p.returncode for p in procs):
+            raise AssertionError("a gloo rank failed:\n" + "\n".join(
+                o[-3000:] for o in outs))
+        res = [json.loads(Path(f"{tmp}/r{r}.json").read_text())
+               for r in range(2)]
+    coll = res[0]["collectives"]
+    missing = [k for k, v in coll.items() if v != "ok"]
+    _log(f"mesh (d) gloo on CUDA tensors: {coll}"
+         + (f"; missing: {missing}" if missing else ""))
+    leg = {"collectives": coll, "missing": missing}
+    if "tokens" not in res[0]:
+        _log("mesh (d): gloo carries no all_gather of CUDA tensors, so "
+             "the two-rank serve did not run")
+        return leg
+    for r in res:
+        if r["tokens"] != want.tolist() or not r["finite"]:
+            raise AssertionError(f"rank {r['rank']} tokens differ from one "
+                                 "process's")
+        if r["graph"] or not r["eager_reason"]:
+            raise AssertionError(f"rank {r['rank']}: gloo step not eager "
+                                 "or not said so")
+    leg.update(tokens_bitwise_world1=True, eager_reason=res[0]["eager_reason"],
+               generate_s=[r["generate_s"] for r in res],
+               launches=res[0]["launches"])
+    _log(f"mesh (d) model=2 over gloo, {MESH_D_LAYERS} layers at full "
+         f"width, {MESH_D_TOKENS} tokens: both ranks' tokens bitwise one "
+         f"process's; eager ({res[0]['eager_reason']}); generate "
+         f"{leg['generate_s']} s; rank 0 launches {leg['launches']}")
+    return leg
+
+
+def mesh_phase(torch, cfg, served, prompts, plain_toks):
+    """The serving path under a mesh (``mesh``): legs (a) NCCL world 1 at
+    full width, captured; (b) kernel 1 and (c) kernel 2 per shard; (d)
+    two ranks on the one card over gloo."""
+    t0 = time.perf_counter()
+    out = {"nccl_world1": _mesh_world1(torch, cfg, served, prompts,
+                                       plain_toks),
+           "fused_shards": _mesh_fused_shards(torch, cfg, served),
+           "paged_shards": _mesh_paged_shards(torch, cfg),
+           "gloo_two_ranks": _mesh_gloo(torch)}
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3551,6 +3909,8 @@ def main() -> int:
     spec = phase("spec", spec_phase, torch, cfg, served, prompts,
                  e2e.get("tokens"))
     modes = phase("modes", modes_phase, torch, cfg, served, prompts)
+    mesh = phase("mesh", mesh_phase, torch, cfg, served, prompts,
+                 e2e.get("tokens"))
     del served
     df = phase("dense_family", dense_family, torch)
     df_fused = [phase(f"dense_family_fused {name}", check_family_fused,
@@ -3594,6 +3954,12 @@ def main() -> int:
             entry["moe_family"] = checks or []
             if moe_fam is not None:
                 entry["launches_moe_family"] = moe_fam["launches"][name]
+    if mesh is not None:
+        for entry, name in ((kernels[0], "dscim_fused_mvm"),
+                            (kernels[1], "paged_attention_decode")):
+            if entry is not None:
+                entry["launches_mesh"] = \
+                    mesh["nccl_world1"]["launches"][name]
     for extra, name in ((spec, "launches_spec"), (pfx, "launches_prefix")):
         if extra is None:
             continue
@@ -3636,7 +4002,7 @@ def main() -> int:
                       "loops": e2e.get("loops"), "continuous": cb,
                       "spec": spec, "modes": modes, "prefix": pfx,
                       "faults": faults, "watchdog": wd,
-                      "integrity": integ, "router": rt,
+                      "integrity": integ, "router": rt, "mesh": mesh,
                       "dense_family": df, "moe_family": moe_fam,
                       "recurrent_family": rec, "train": train,
                       "prefill_logit_rmse_vs_off": e2e.get("logit_rmse"),
@@ -3655,4 +4021,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(_mesh_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -43,7 +43,7 @@ import torch
 from .counter_rng import fold
 from .error_model import ErrorModel
 from .macro import DSCIMConfig, DSCIMMacro
-from .qweights import QuantizedLinearWeight
+from .qweights import QuantizedLinearWeight, prepare_linear_weight
 from .quant import quantize_int8
 from .seed_search import calibrated_config
 
@@ -67,6 +67,10 @@ class DSCIMLinear:
     mode: Mode = "lut"
     group_k: int | None = 128
     seed: int = 0                   # base of the noise key
+    # the mesh a serving run is placed on (parallel.ParallelCtx), or None:
+    # 'kernel' routes through the sharded fused MVM, the other modes make
+    # a rank's N-slice of a prepared weight whole first
+    par: object = None
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -129,6 +133,17 @@ class DSCIMLinear:
         """x (..., K) float; w (K, N) float or QuantizedLinearWeight ->
         (..., N) float32.  ``salt``: the call site's int, folded into the
         noise key of the noise modes (ignored by the others)."""
+        if self.par is not None:
+            from ..parallel import Sharded
+            if self.mode == "kernel":
+                from ..kernels.dscim_fused import dscim_fused_mvm_sharded
+                qw = w.local if isinstance(w, Sharded) else w
+                if not isinstance(qw, QuantizedLinearWeight):
+                    w = qw = prepare_linear_weight(w, self.group_k)
+                self._check_prepared(x, qw)
+                return dscim_fused_mvm_sharded(
+                    x, w, self.cfg, self.par, batch_axes=self.par.dp_axes)
+            w = self.par.whole_qweight(w)
         prepared = isinstance(w, QuantizedLinearWeight)
         if self.mode == "float":
             if prepared:
@@ -180,9 +195,12 @@ class DSCIMLinear:
 
 
 def make_linear(variant: str = "dscim1", length: int = 256,
-                mode: Mode = "lut", calib: str = "paper") -> DSCIMLinear:
-    """Calibrated DS-CIM1/2 linear ('paper' or 'opt' point sets)."""
+                mode: Mode = "lut", calib: str = "paper", *,
+                par=None) -> DSCIMLinear:
+    """Calibrated DS-CIM1/2 linear ('paper' or 'opt' point sets); ``par``
+    places it on a mesh (``DSCIMLinear.par``)."""
     if variant not in ("dscim1", "dscim2"):
         raise ValueError(variant)
-    return DSCIMLinear(calibrated_config(variant, length, calib), mode)
+    return DSCIMLinear(calibrated_config(variant, length, calib), mode,
+                       par=par)
 

@@ -33,7 +33,7 @@ __all__ = ["QuantizedLinearWeight", "prepare_linear_weight",
            "ELIGIBLE_PATTERNS", "ATTN_PATTERNS", "plane_digest",
            "iter_qweight_planes", "weight_plane_index",
            "weight_plane_digests", "golden_weight_copy",
-           "restore_weight_plane"]
+           "restore_weight_plane", "qweight_replicated_specs"]
 
 
 @dataclasses.dataclass
@@ -67,6 +67,16 @@ class QuantizedLinearWeight:
         """Slice the stack dims (one layer of a stacked weight)."""
         return QuantizedLinearWeight(self.q[i], self.scale[i], self.k_orig,
                                      self.group_k)
+
+
+def qweight_replicated_specs(qw: QuantizedLinearWeight
+                             ) -> QuantizedLinearWeight:
+    """The spec subtree (launch/sharding.py) of a prepared weight that is
+    whole on every rank: every dim of its planes and scales ``None``.  The
+    MoE shared expert's rule: ``models/lm.py _moe_apply`` runs it on each
+    rank's own tokens, with no gather."""
+    return QuantizedLinearWeight((None,) * qw.q.ndim, (None,) * qw.scale.ndim,
+                                 qw.k_orig, qw.group_k)
 
 
 def prepare_linear_weight(w: torch.Tensor, group_k: int | None = 128

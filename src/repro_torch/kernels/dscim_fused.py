@@ -26,6 +26,10 @@ window by window and in N chunks (a one-shot expansion at the head's
 shape, K=1024, N=152064, pmax=18, would need about 11 GB).  Float outputs
 agree with the reference to f32 summation-order rounding.
 
+``dscim_fused_mvm_sharded`` places the kernel on a mesh (a rank's N
+columns and DP batch slice, then gathers): no other kernel, bitwise the
+call on one device.
+
 ``dscim_windowed_vmap_mvm`` is the staged per-window path the fused kernel
 replaced, kept as its A/B baseline: one ``dscim_counts_blocked`` launch
 per window, the psum staged in memory, corrections and dequant in
@@ -48,7 +52,7 @@ from .dscim_mvm_blocked import block_point_tables, dscim_counts_blocked
 __all__ = ["dscim_fused_mvm", "dscim_fused_mvm_prepared",
            "dscim_fused_mvm_plain", "quantize_activations_windowed",
            "mask_tables", "dscim_windowed_vmap_mvm", "prepare_capture",
-           "LAUNCHES", "launches_for"]
+           "LAUNCHES", "launches_for", "dscim_fused_mvm_sharded"]
 
 LAUNCHES = build.LaunchCounter("dscim_fused_mvm")
 _BY_CFG: dict = {}
@@ -304,6 +308,55 @@ def dscim_fused_mvm(x: torch.Tensor, w: torch.Tensor, cfg: DSCIMConfig, *,
     """Fused DS-CIM linear from float weights: ``prepare_linear_weight``
     + the prepared entry."""
     return dscim_fused_mvm_prepared(x, prepare_linear_weight(w, group_k), cfg)
+
+
+def dscim_fused_mvm_sharded(x: torch.Tensor, w, cfg: DSCIMConfig, par, *,
+                            batch_axes: tuple = ()) -> torch.Tensor:
+    """The fused MVM placed on a mesh (the reference's
+    ``dscim_fused_mvm_sharded``): x (..., K) float, whole on every rank;
+    ``w`` a prepared weight, whole or this rank's N-slice
+    (``parallel.Sharded``, launch/sharding.py's rule) -> (..., N) f32,
+    whole on every rank.
+
+    Each rank runs the kernel on its N / tp columns and, over
+    ``batch_axes`` when x's leading dim divides, on its slice of the
+    batch; the columns are then gathered over ``model`` and the batch
+    over the DP axes.  Quantization windows live on K, which no rank
+    cuts, and every output element is a function of its own row and
+    column: the result is bitwise ``dscim_fused_mvm_prepared`` on one
+    device.  A whole weight whose N does not divide is computed whole on
+    every rank (N-fold redundant work and memory), with a warning (shown
+    once per shape by Python's default filter): the reference's
+    fallback."""
+    from ..parallel import Sharded
+    tp = par.tp_axis
+    if isinstance(w, Sharded):
+        qw, t = w.local, w.spec[-1]
+    else:
+        qw, t = w, (tp,) if w.n % par.tp_size == 0 else None
+        if t is None:
+            import warnings
+            warnings.warn(
+                f"dscim_fused_mvm_sharded: N={w.n} not divisible by mesh "
+                f"axis {tp!r}={par.tp_size}; every rank computes the full "
+                "output (no speedup, N-fold redundant work and memory)",
+                stacklevel=2)
+        else:
+            from ..launch.sharding import qweight_specs, shard_for
+            qw = shard_for(par.rank_coords, qweight_specs(w, tp, par.sizes),
+                           w)
+            qw = QuantizedLinearWeight(qw.q.contiguous(),
+                                       qw.scale.contiguous(), qw.k_orig,
+                                       qw.group_k)
+    b = None
+    if batch_axes and x.ndim >= 2:
+        x, b = par.batch_slice(x, batch_axes)
+    out = dscim_fused_mvm_prepared(x, qw, cfg)
+    if t:
+        out = par.all_gather(out, t, out.ndim - 1)
+    if b:
+        out = par.all_gather(out, b, 0)
+    return out
 
 
 def dscim_windowed_vmap_mvm(x: torch.Tensor, w: torch.Tensor,

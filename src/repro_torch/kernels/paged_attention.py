@@ -12,6 +12,9 @@ block combines in run order; its header gives the
 design and what bounds it) on CUDA tensors, and runs ``paged_read_plain`` on CPU tensors.  The
 plain version is the port of the reference's jnp read path
 (``repro/layers/attention.py _paged_read_jnp``).
+``paged_attention_decode_sharded`` places the call on a mesh: a rank
+reads its slots over the DP axes, the pool whole, and the rows are
+gathered.
 """
 from __future__ import annotations
 
@@ -21,8 +24,8 @@ import torch
 
 from . import build
 
-__all__ = ["paged_attention_decode", "paged_read_plain", "prepare_capture",
-           "LAUNCHES", "NEG_INF"]
+__all__ = ["paged_attention_decode", "paged_attention_decode_sharded",
+           "paged_read_plain", "prepare_capture", "LAUNCHES", "NEG_INF"]
 
 NEG_INF = -1e30
 LAUNCHES = build.LaunchCounter("paged_attention_decode")
@@ -151,3 +154,29 @@ def paged_attention_decode(q, k_pages, v_pages, k_scale, v_scale,
     if q.device.type == "cuda":
         return _launch_kernel(*args)
     raise ValueError(f"no paged attention route for device {q.device}")
+
+
+def paged_attention_decode_sharded(q, k_pages, v_pages, k_scale, v_scale,
+                                   k_tail, v_tail, page_table, pos, *, par,
+                                   dp_axes: tuple = ()) -> torch.Tensor:
+    """The paged read placed on a mesh (the reference's
+    ``paged_attention_decode_sharded``): the batch-carried operands (q,
+    the tails, the page table, pos) are cut to this rank's slots over
+    ``dp_axes`` when B divides, the page pool and its scales are read
+    whole on every rank (the allocator may grant a slot any physical
+    page), and the output is gathered over the DP axes.  Each slot's page
+    walk is its own: the result is bitwise the call on one device."""
+    b = None
+    if dp_axes:
+        i, n = par.index(dp_axes)
+        if q.shape[0] % n == 0:
+            b = tuple(dp_axes)
+    if b is None:
+        return paged_attention_decode(q, k_pages, v_pages, k_scale, v_scale,
+                                      k_tail, v_tail, page_table, pos)
+    rows = q.shape[0] // n
+    cut = slice(i * rows, (i + 1) * rows)
+    out = paged_attention_decode(q[cut], k_pages, v_pages, k_scale, v_scale,
+                                 k_tail[cut], v_tail[cut], page_table[cut],
+                                 pos[cut])
+    return par.all_gather(out, b, 0)

@@ -30,6 +30,17 @@ the prefix cache's self-verifying drill (runtime/serving.py).
 pages and weight planes; ``--sampled-chaos`` arms a fault schedule drawn
 from ``--chaos-seed`` on it; ``--chaos`` and ``--integrity-drill`` run
 the watchdog's and the integrity layer's self-verifying drills.
+
+``--mesh SPEC`` ('model=N' or 'data=D,model=M') serves under a mesh, one
+process a device, every rank the same program:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh model=2
+
+(launch/mesh.py ``init_distributed``: NCCL on CUDA, device ``LOCAL_RANK``;
+gloo with ``--device cpu``).  Prepared weights split N over ``model``, the
+fused MVM and the paged read run placed on the mesh, the MoE experts with
+expert parallelism; the tokens are those of one device.  Only rank 0
+prints.
 """
 from __future__ import annotations
 
@@ -53,21 +64,32 @@ __all__ = ["serve_batch", "serve_continuous", "prepare_params",
 
 
 def _to(params, device):
-    return map_params(lambda _, a: a.to(device)
-                      if isinstance(a, torch.Tensor) else a, params)
+    from ..parallel import Sharded
+
+    def move(_, a):
+        if isinstance(a, Sharded) and isinstance(a.local, torch.Tensor):
+            return a if a.local.device == device else \
+                Sharded(a.local.to(device), a.spec, a.shape)
+        return a.to(device) if isinstance(a, torch.Tensor) else a
+    return map_params(move, params)
 
 
-def prepare_params(cfg, params, device=None):
+def prepare_params(cfg, params, device=None, par=None):
     """``params`` as the serving entry points use them: on ``device`` (CUDA
     unless 'cpu' is asked for), DS-CIM-eligible weights quantized once
     into int8 planes (no-op when cfg.dscim is 'off') and the layers cast
-    to the compute dtype.  Prepared params pass through unchanged, the
-    same tensors: a caller that serves many requests prepares once and
-    hands these to ``serve_batch``, whose captured decode graph then stays
+    to the compute dtype; with ``par`` placed on that mesh (the
+    reference's ``_place``: launch/sharding.py's rules, each rank keeps
+    its pieces).  Prepared params pass through unchanged, the same
+    tensors: a caller that serves many requests prepares once and hands
+    these to ``serve_batch``, whose captured decode graph then stays
     bound to them (other tensors capture it again)."""
     dev = resolve_device(device)
-    out = prepare_serving_params(cfg, _to(params, dev))
+    out = prepare_serving_params(cfg, _to(params, dev), par)
     return get_model(cfg).cast_layers(out, lm.DTYPES[cfg.compute_dtype])
+
+
+_place = prepare_params
 
 
 def serve_batch(cfg, params, prompts, n_tokens: int, *,
@@ -76,7 +98,7 @@ def serve_batch(cfg, params, prompts, n_tokens: int, *,
                 scan: bool = True, sample: str = "greedy", rng_seed: int = 0,
                 device=None, timings: dict | None = None,
                 return_cache: bool = False, spec: str | None = None,
-                spec_stats: bool = False):
+                spec_stats: bool = False, par=None):
     """prompts (B, S) int -> generated (B, n_tokens) int32 numpy, logits
     list (the per-step trace under ``trace_logits``, else [prefill
     logits]), as numpy f32.
@@ -101,7 +123,13 @@ def serve_batch(cfg, params, prompts, n_tokens: int, *,
     "emitted": (B,)}`` np.int32 (None without spec): per-row verify
     windows and emitted tokens, whose ratio is accepted tokens per
     verify.  ``return_cache``: also return a copy of the final KV cache
-    (tensors on device), last."""
+    (tensors on device), last.  ``timings`` also gets 'graph' (whether
+    the decode step replayed a captured graph) and, where a graph was
+    asked for on CUDA and the step ran eagerly, 'eager_reason'.
+
+    ``par``: serve under that mesh (launch/mesh.py); ``params`` are placed
+    by ``prepare_params(..., par)`` and every rank returns the tokens and
+    logits one device would, the same on every rank."""
     _check_kv(cfg, kv)
     dev = resolve_device(device)
 
@@ -110,7 +138,7 @@ def serve_batch(cfg, params, prompts, n_tokens: int, *,
             torch.cuda.synchronize(dev)
 
     t0 = time.perf_counter()
-    params = prepare_params(cfg, params, dev)
+    params = prepare_params(cfg, params, dev, par)
     tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                              device=dev)
     budgets = None
@@ -124,12 +152,15 @@ def serve_batch(cfg, params, prompts, n_tokens: int, *,
     t1 = time.perf_counter()
     generate = make_generate_fn(cfg, n_tokens, trace_logits=trace_logits,
                                 eos_id=eos_id, kv=kv, page_size=page_size,
-                                sample=sample, scan=scan, spec=spec)
+                                sample=sample, scan=scan, spec=spec, par=par)
     out, logits, cache = generate(params, tokens, budgets, rng_seed)
     sync()
     t2 = time.perf_counter()
     if timings is not None:
-        timings.update(prepare_s=t1 - t0, generate_s=t2 - t1)
+        timings.update(prepare_s=t1 - t0, generate_s=t2 - t1,
+                       graph=generate.last_graph)
+        if generate.eager_reason is not None:
+            timings["eager_reason"] = generate.eager_reason
         if generate.last_capture_s is not None:
             timings["capture_s"] = generate.last_capture_s
     logits = logits.cpu().numpy()
@@ -154,7 +185,7 @@ def serve_continuous(cfg, params, prompts, n_tokens: int, *,
                      injector=None, snapshot_every: int = 0,
                      max_replays: int = 3, watchdog=None,
                      integrity: str = "off", prefix_cache=False,
-                     device=None, log=print):
+                     device=None, log=print, par=None):
     """Continuous-batching scheduler: serve a queue of R requests through
     ``slots`` persistent decode slots.
 
@@ -237,11 +268,17 @@ def serve_continuous(cfg, params, prompts, n_tokens: int, *,
     draft/verify window, and every slot's capacity and page grant gain k
     positions of headroom; each request's tokens are bitwise those
     without spec under greedy decoding.  ``params`` go through
-    ``prepare_params``; ``device``: CUDA unless 'cpu' is asked for."""
+    ``prepare_params``; ``device``: CUDA unless 'cpu' is asked for.
+
+    ``par``: serve under that mesh, every rank running the same scheduler
+    on the same queue and returning the same outputs.  The knobs whose
+    decisions a rank takes alone (``deadline_s``'s and a ``watchdog``'s
+    wall clocks) or that address one device's planes (``integrity``, the
+    injector's weight flips) are refused under a mesh (ROADMAP A13b)."""
     from ..runtime.serving import serve_continuous_ft
     _check_kv(cfg, kv)
     dev = resolve_device(device)
-    params = prepare_params(cfg, params, dev)
+    params = prepare_params(cfg, params, dev, par)
     return serve_continuous_ft(
         cfg, params, prompts, n_tokens, slots=slots, seg_len=seg_len,
         max_new=max_new, eos_id=eos_id, sample=sample, kv=kv,
@@ -250,7 +287,7 @@ def serve_continuous(cfg, params, prompts, n_tokens: int, *,
         priority=priority, monitor=monitor, injector=injector,
         snapshot_every=snapshot_every, max_replays=max_replays,
         watchdog=watchdog, spec=spec, integrity=integrity,
-        prefix_cache=prefix_cache, device=dev, log=log)
+        prefix_cache=prefix_cache, device=dev, log=log, par=par)
 
 
 def _sample_spec(args) -> str:
@@ -395,11 +432,43 @@ def main(argv=None):
                          "reproduces from the logged seed")
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, which must exist)")
+    ap.add_argument("--mesh", default=None, metavar="SPEC",
+                    help="serve under a mesh, e.g. 'model=2' or "
+                         "'data=2,model=2': one process a device under "
+                         "torchrun --nproc-per-node data*model (NCCL; "
+                         "gloo with --device cpu); only rank 0 prints")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompts")
     args = ap.parse_args(argv)
+    if not args.mesh:
+        return _run(args, resolve_device(args.device), None)
+    from .mesh import init_distributed, parallel_ctx_from_spec, \
+        parse_mesh_spec
+    from .steps import check_mesh
+    parse_mesh_spec(args.mesh)
+    check_mesh(get_arch(args.arch))
+    drills = [f for f in ("chaos", "integrity_drill", "prefix_drill",
+                          "sampled_chaos") if getattr(args, f)]
+    if drills or args.integrity != "off":
+        raise ValueError(f"--mesh serves --continuous and one-shot batches; "
+                         f"{drills or ['--integrity']} run on one device "
+                         "(ROADMAP A13b)")
+    import os
+    import sys
 
-    dev = resolve_device(args.device)
+    import torch.distributed as dist
+    dev = init_distributed(args.device)
+    try:
+        par = parallel_ctx_from_spec(args.mesh)
+        if dist.get_rank() != 0:           # every rank serves, rank 0 prints
+            sys.stdout = open(os.devnull, "w")
+        return _run(args, dev, par)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, dev, par) -> int:
+    """``main`` after the device (and under ``--mesh`` the mesh) is set."""
     if args.chaos or args.integrity_drill:
         from ..runtime import serving
         drill = serving.chaos_drill if args.chaos \
@@ -419,7 +488,8 @@ def main(argv=None):
     runs = [("off", cfg)]
     if args.dscim != "off":
         runs.append((args.dscim, dataclasses.replace(cfg, dscim=args.dscim)))
-    name = f"{cfg.name}{' (reduced)' if args.reduced else ''} on {dev}"
+    name = f"{cfg.name}{' (reduced)' if args.reduced else ''} on {dev}" \
+        + (f" under mesh {args.mesh}" if par is not None else "")
 
     if args.continuous:
         prompts = rng.integers(0, cfg.vocab, (args.requests, args.prompt_len),
@@ -451,7 +521,7 @@ def main(argv=None):
                 device=dev, spec=args.spec if tag != "off" else None,
                 prefix_cache=args.prefix_cache, injector=injector,
                 snapshot_every=1 if injector is not None else 0,
-                integrity=args.integrity)
+                integrity=args.integrity, par=par)
             pages = stats["pages"]
             pf = stats["prefix"]
             ig = stats["integrity"]
@@ -480,7 +550,8 @@ def main(argv=None):
         return 0
 
     mode = "host loop" if args.host_loop else (
-        "graph" if dev.type == "cuda" else "step loop")
+        "graph" if dev.type == "cuda" and (par is None or par.capturable)
+        else "step loop")
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
                            dtype=np.int64)
     results = {}
@@ -491,7 +562,7 @@ def main(argv=None):
             c, params, prompts, args.tokens, eos_id=args.eos, kv=args.kv,
             page_size=args.page_size, scan=not args.host_loop,
             sample=sample, device=dev, timings=t, spec=spec,
-            spec_stats=True)
+            spec_stats=True, par=par)
         useful = _useful_tokens(toks, args.eos)
         results[tag] = (toks, logits)
         line = (f"[serve] dscim={tag} kv={args.kv} {name} ({mode}): "

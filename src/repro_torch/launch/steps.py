@@ -48,6 +48,15 @@ a rejected draft consumes no draw, and the spec and plain paths draw the
 same token at the same emission of a row.
 
 On the CPU there are no graphs: the same step runs eagerly.
+
+Under a mesh (``par``, a ``parallel.ParallelCtx``, to every serving
+builder): ``prepare_serving_params`` places the prepared params by the
+rules of ``launch/sharding.py`` and every step passes ``par`` to the
+model, whose collectives the step then holds.  On NCCL the captured step
+captures them too (one eager collective on each group before the first
+capture sets the communicators up); a gloo group cannot be captured, so
+with gloo on CUDA the step runs eagerly and the builders say so
+(``generate.last_graph``, ``segment.eager_reason``).
 """
 from __future__ import annotations
 
@@ -153,33 +162,56 @@ def make_eval_step(cfg: ArchConfig, device=None):
     return eval_step
 
 
-def make_prefill_step(cfg: ArchConfig, capacity: int | None = None):
+def check_mesh(cfg: ArchConfig) -> None:
+    """Meshes serve the attention families only: the RWKV6 and hybrid
+    families' placement (their ``shard_fn``) is ROADMAP A13b."""
+    if cfg.family not in ATTENTION_FAMILIES:
+        raise ValueError(f"{cfg.name}: serving the {cfg.family!r} family "
+                         "under a mesh is ROADMAP A13b; serve it on one "
+                         "device")
+
+
+def _mesh_kw(cfg: ArchConfig, par) -> dict:
+    """The model's ``par`` keyword, checked: {} on one device."""
+    if par is None:
+        return {}
+    check_mesh(cfg)
+    return {"par": par}
+
+
+def make_prefill_step(cfg: ArchConfig, capacity: int | None = None,
+                      par=None):
     """``prefill_step(params, batch) -> (last logits, cache)``: the
     model's ``prefill`` of ``batch["tokens"]`` (or ``embeds``) with a
-    cache of ``capacity`` positions."""
+    cache of ``capacity`` positions; ``par``: under that mesh."""
     model = get_model(cfg)
+    kw = _mesh_kw(cfg, par)
 
     def prefill_step(params, batch):
         if cfg.stub_frontend:
             return model.prefill(params, cfg, None, capacity,
-                                 embeds=batch["embeds"])
-        return model.prefill(params, cfg, batch["tokens"], capacity)
+                                 embeds=batch["embeds"], **kw)
+        return model.prefill(params, cfg, batch["tokens"], capacity, **kw)
 
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig, return_logits: bool = False):
+def make_decode_step(cfg: ArchConfig, return_logits: bool = False,
+                     par=None):
     """``decode_step(params, batch, cache) -> (token, cache)``, or
     ``(token, logits, cache)`` with ``return_logits``: one greedy decode
-    of ``batch["token"]`` (or ``embed``), the cache updated in place."""
+    of ``batch["token"]`` (or ``embed``), the cache updated in place;
+    ``par``: under that mesh."""
     model = get_model(cfg)
+    kw = _mesh_kw(cfg, par)
 
     def decode_step(params, batch, cache):
         if cfg.stub_frontend:
             logits, cache = model.decode(params, cfg, None, cache,
-                                         embed=batch["embed"])
+                                         embed=batch["embed"], **kw)
         else:
-            logits, cache = model.decode(params, cfg, batch["token"], cache)
+            logits, cache = model.decode(params, cfg, batch["token"], cache,
+                                         **kw)
         token = torch.argmax(logits, dim=-1).to(torch.int32)
         if return_logits:
             return token, logits, cache
@@ -188,20 +220,56 @@ def make_decode_step(cfg: ArchConfig, return_logits: bool = False):
     return decode_step
 
 
-def prepare_serving_params(cfg: ArchConfig, params, *, golden: bool = False):
+def _whole_for_prepare(cfg: ArchConfig, params, par):
+    """``params`` with the placed float leaves that preparation reads (the
+    DS-CIM-eligible matrices, and the embedding a tied head is made from)
+    gathered whole: a window's int8 scale spans its whole K and a column's
+    whole N."""
+    from ..core.qweights import ATTN_PATTERNS, ELIGIBLE_PATTERNS
+    pats = ELIGIBLE_PATTERNS
+    if split_dscim_mode(cfg.dscim)[1]:
+        pats += ATTN_PATTERNS
+    if cfg.tie_embeddings and "lm_head" not in params:
+        pats += ("embed",)
+    return map_params(lambda path, a: par.whole(a) if any(
+        t in path for t in pats) else a, params)
+
+
+def prepare_serving_params(cfg: ArchConfig, params, par=None, *,
+                           golden: bool = False):
     """Quantize-once weight preparation for DS-CIM serving; a no-op for
     'off'/'float' specs.  ``golden=True`` returns ``(prepared, blob)``
     with the host golden copy and digest vector of every prepared plane
     (core/qweights.py ``golden_weight_copy``, the integrity layer's
     repair source), taken here where the planes are good by
-    construction; None for 'off'/'float'."""
+    construction; None for 'off'/'float'.
+
+    ``par``: the prepared params placed on that mesh
+    (launch/sharding.py ``shard_params``: prepared weights N over
+    ``model``, the MoE's prepared shared expert whole, float leaves by
+    their rules); params placed already (whole leaves or ``Sharded``
+    pieces, e.g. ``convert.params_from_jax(par=)``) are prepared from
+    their gathered matrices and placed again.  Placed prepared params
+    pass through as they are."""
     spec = getattr(cfg, "dscim", "off")
     _check_dscim(cfg)
+    _mesh_kw(cfg, par)
     if split_dscim_mode(spec)[0] in ("off", "float"):
-        return (params, None) if golden else params
-    lin = lm._linear_for(spec)
-    prepared = prepare_dscim_params(params, cfg,
-                                    group_k=lin.group_k if lin else 128)
+        prepared = params
+    else:
+        lin = lm._linear_for(spec)
+        src = params if par is None else _whole_for_prepare(cfg, params,
+                                                            par)
+        prepared = prepare_dscim_params(src, cfg,
+                                        group_k=lin.group_k if lin else 128)
+    if par is not None:
+        from .sharding import shard_params
+        if golden:
+            raise ValueError("integrity golden copies are per device; "
+                             "serving them under a mesh is ROADMAP A13b")
+        prepared = shard_params(prepared, par)
+    if split_dscim_mode(spec)[0] in ("off", "float"):
+        return (prepared, None) if golden else prepared
     if golden:
         return prepared, golden_weight_copy(prepared)
     return prepared
@@ -389,21 +457,23 @@ def _check_spec(cfg: ArchConfig, trace_logits: bool = False):
                          "speculative windows keep logits off the path")
 
 
-def _make_step(cfg: ArchConfig, st: dict, nxt, *, masked: bool, eos: int):
+def _make_step(cfg: ArchConfig, st: dict, nxt, *, masked: bool, eos: int,
+               par=None):
     """One decode step over the static state ``st``, in place: decode
     ``st["tok"]``, draw, write the token (and the logits / live / bad
     planes ``st`` carries) at row ``st["i"]``, advance ``i``.  ``masked``:
     done slots stay put, emit ``PAD_ID`` and their n_out stops; a slot
     finishes on ``eos`` or when n_out reaches max_new (tokens counted
     including the prefill token).  Unmasked is the fixed-length loop.
-    Nothing reads back to the host."""
+    Nothing reads back to the host.  ``par``: decode under that mesh."""
     decode = get_model(cfg).decode
+    kw = _mesh_kw(cfg, par)
 
     def step():
         params = st["params"]
         tok, done, i = st["tok"], st["done"], st["i"]
         logits, _ = decode(params, cfg, tok, st["cache"],
-                           done=done if masked else None)
+                           done=done if masked else None, **kw)
         if "logits0" in st:                 # the segment's first logits
             st["logits0"].copy_(torch.where(i == 0, logits,
                                             st["logits0"]))
@@ -429,7 +499,7 @@ def _make_step(cfg: ArchConfig, st: dict, nxt, *, masked: bool, eos: int):
 
 
 def _make_window(cfg: ArchConfig, cfg_draft: ArchConfig, st: dict, nxt,
-                 k: int, eos: int):
+                 k: int, eos: int, par=None):
     """One self-speculative draft/verify window over the static state
     ``st``, in place (the port of the reference's ``_make_spec_window``).
 
@@ -464,7 +534,8 @@ def _make_window(cfg: ArchConfig, cfg_draft: ArchConfig, st: dict, nxt,
         cnt0 = n_out.clone()
         drafts, dtok = [], tok
         for _ in range(k):
-            dlogits, _ = lm.decode(params, cfg_draft, dtok, cache, done=done)
+            dlogits, _ = lm.decode(params, cfg_draft, dtok, cache, done=done,
+                                   par=par)
             dtok = torch.argmax(dlogits, dim=-1).to(torch.int32)
             drafts.append(dtok)
         # rewind: the verify pass rewrites every draft write before it
@@ -476,7 +547,7 @@ def _make_window(cfg: ArchConfig, cfg_draft: ArchConfig, st: dict, nxt,
             cache["v_tail"].copy_(tails0[1])
         vlogits, _, win_kv = lm.decode_multi(
             params, cfg, torch.stack([tok] + drafts, dim=1), cache,
-            done=done)
+            done=done, par=par)
         acc, dn, nout, last = ~done, done.clone(), n_out.clone(), tok
         em, vm = [], []
         for t in range(k + 1):
@@ -504,10 +575,14 @@ def _make_window(cfg: ArchConfig, cfg_draft: ArchConfig, st: dict, nxt,
 
 
 def _leaves(params):
-    """Every tensor of a parameter tree (prepared weights' planes too)."""
+    """Every tensor of a parameter tree (prepared weights' planes too, a
+    placed leaf's piece)."""
+    from ..parallel import Sharded
     out = []
 
     def visit(_, a):
+        if isinstance(a, Sharded):
+            a = a.local
         if isinstance(a, QuantizedLinearWeight):
             out.extend((a.q, a.scale))
         elif isinstance(a, torch.Tensor):
@@ -532,21 +607,32 @@ def _binding(*trees) -> tuple:
                  for tree in trees for t in _leaves(tree))
 
 
-def _prepare_fn(st: dict, uses):
+def _prepare_fn(st: dict, uses, par=None):
     """The kernels' capture preparation for a step over ``st``: ``uses``
     lists the (cfg, M) pairs of the estimators the step runs and the rows
     each DS-CIM matmul sees (a speculative window runs the draft's at B
     rows and the verifier's at B and B*(k+1)).  Per estimator mode: the
     fused MVM for every prepared weight shape (``kernel``), the count
     kernel's tables (``bitmatmul``), the count LUT on the device
-    (``lut``); paged attention for an int8 cache, at B rows."""
+    (``lut``); paged attention for an int8 cache, at B rows.  Under a
+    mesh (``par``) the prepared weights are the rank's pieces, and one
+    eager collective on every group of the mesh sets NCCL's communicators
+    up."""
     from ..kernels import dscim_fused, dscim_mvm, paged_attention
+    from ..parallel import Sharded
 
     def prepare(stream):
         dev = st["tok"].device
+        if par is not None:
+            par.warm_up(dev)
         qws = []
-        map_params(lambda _, a: qws.append(a) if isinstance(
-            a, QuantizedLinearWeight) else None, st["params"])
+
+        def visit(_, a):
+            if isinstance(a, Sharded):
+                a = a.local
+            if isinstance(a, QuantizedLinearWeight):
+                qws.append(a)
+        map_params(visit, st["params"])
         first = [w[(0,) * len(w.stack)] if w.stack else w for w in qws]
         for cfg, M in uses:
             lin = lm._lin(cfg)
@@ -611,8 +697,9 @@ class _GenerateRunner:
     runner holds the params only during a call."""
 
     def __init__(self, cfg, B, S, n_tokens, kv, page_size, eos_id, sample,
-                 trace_logits, device, spec=None):
+                 trace_logits, device, spec=None, par=None):
         self.cfg, self.n_tokens, self.kv = cfg, n_tokens, kv
+        self.par = par
         self.page_size, self.eos_id = page_size, eos_id
         self.spec = sp = _parse_spec(spec)
         self.k = sp[1] if sp else 0
@@ -637,7 +724,7 @@ class _GenerateRunner:
             st["toks"] = torch.zeros((B, n_tokens + 1), **i32)
             st["windows"] = torch.zeros((B,), **i32)
             window = _make_window(cfg, _draft_cfg(cfg, sp[0]), st, self.nxt,
-                                  self.k, eos)
+                                  self.k, eos, par)
 
             def step():
                 st["windows"].add_((~st["done"]).to(torch.int32))
@@ -651,9 +738,9 @@ class _GenerateRunner:
                 st["trace"] = torch.zeros((n_tokens, B, cfg.vocab_padded),
                                           dtype=torch.float32, device=dev)
             step = _make_step(cfg, st, self.nxt, masked=eos_id is not None,
-                              eos=eos)
-        self.step = CapturedStep(step, dev, _prepare_fn(st, _uses(cfg, B,
-                                                                  sp)))
+                              eos=eos, par=par)
+        self.step = CapturedStep(step, dev, _prepare_fn(
+            st, _uses(cfg, B, sp), par))
         self.bound = None
 
     def __call__(self, params, tokens, max_new, rng_seed: int,
@@ -720,11 +807,12 @@ class _GenerateRunner:
     def _prefill(self, params, tokens):
         B, S = tokens.shape
         cfg, n = self.cfg, self.n_tokens + self.k
+        kw = _mesh_kw(cfg, self.par)
         if self.kv == "float":
             return get_model(cfg).prefill(params, cfg, tokens,
-                                          capacity=S + n)
+                                          capacity=S + n, **kw)
         from ..core.kvcache import n_pages_for, paged_from_dense
-        logits0, dense = lm.prefill(params, cfg, tokens)
+        logits0, dense = lm.prefill(params, cfg, tokens, **kw)
         mp = n_pages_for(S + n, self.page_size)
         return logits0, paged_from_dense(dense["k"], dense["v"],
                                          self.page_size, n_pages=B * mp,
@@ -733,16 +821,30 @@ class _GenerateRunner:
 
 @functools.lru_cache(maxsize=8)
 def _generate_runner(cfg, B, S, n_tokens, kv, page_size, eos_id, sample,
-                     trace_logits, device, spec):
+                     trace_logits, device, spec, par=None):
+    """The one-shot runner of these options, made once.  Callers pass
+    ``par`` only under a mesh, so a runner of one device has one key."""
     return _GenerateRunner(cfg, B, S, n_tokens, kv, page_size, eos_id,
-                           sample, trace_logits, device, spec)
+                           sample, trace_logits, device, spec, par)
+
+
+def graph_ok(dev, par) -> str | None:
+    """Why a step on ``dev`` under mesh ``par`` runs eagerly where a graph
+    was asked for, or None when it can be captured: no graphs off CUDA,
+    and none over gloo (its collectives sync with the host)."""
+    if dev.type != "cuda":
+        return "no CUDA graphs off CUDA"
+    if par is not None and not par.capturable:
+        return (f"a {par.backend} group's collectives cannot be captured "
+                "in a CUDA graph")
+    return None
 
 
 def make_generate_fn(cfg: ArchConfig, n_tokens: int = 16, *,
                      trace_logits: bool = False, eos_id: int | None = None,
                      kv: str = "float", page_size: int = 8,
                      sample: str = "greedy", scan: bool = True,
-                     spec: str | None = None):
+                     spec: str | None = None, par=None):
     """Generation: ``generate(params, tokens, max_new=None, rng_seed=0)``
     with tokens (B, S) int -> ``(out (B, n_tokens) int32, logits, cache)``.
 
@@ -777,8 +879,15 @@ def make_generate_fn(cfg: ArchConfig, n_tokens: int = 16, *,
     the same tokens and logits, bitwise.  The graph stays bound to the
     addresses of ``params``: handing the same prepared tensors again
     replays it, other tensors capture it again (``clear_graphs`` frees
-    the runners)."""
+    the runners).
+
+    ``par``: generation under that mesh (``params`` placed by
+    ``prepare_serving_params(..., par)``); every rank returns the same
+    tokens.  Over gloo on CUDA the step runs eagerly
+    (``generate.last_graph`` is False and ``generate.eager_reason`` says
+    why)."""
     _check_kv(cfg, kv)
+    _mesh_kw(cfg, par)
     _make_sampler(sample)                   # reject a bad spec up front
     if trace_logits and eos_id is not None:
         raise ValueError("trace_logits is a fixed-length-loop feature")
@@ -793,11 +902,16 @@ def make_generate_fn(cfg: ArchConfig, n_tokens: int = 16, *,
         B, S = tokens.shape
         runner = _generate_runner(cfg, B, S, n_tokens, kv, page_size,
                                   eos_id, sample, trace_logits,
-                                  tokens.device, spec)
+                                  tokens.device, spec,
+                                  *(() if par is None else (par,)))
         captures = runner.step.captures
+        why = graph_ok(tokens.device, par)
+        graph = scan and why is None
+        generate.last_graph = graph
+        generate.eager_reason = why if scan and tokens.device.type == \
+            "cuda" else None
         out, logits, cache, stats = runner(
-            params, tokens, max_new, rng_seed,
-            scan and tokens.device.type == "cuda")
+            params, tokens, max_new, rng_seed, graph)
         generate.last_capture_s = runner.step.capture_s \
             if runner.step.captures != captures else None
         generate.last_spec_stats = stats
@@ -805,6 +919,8 @@ def make_generate_fn(cfg: ArchConfig, n_tokens: int = 16, *,
 
     generate.last_capture_s = None   # capture time of the last call, if any
     generate.last_spec_stats = None
+    generate.last_graph = None       # whether the last call replayed a graph
+    generate.eager_reason = None     # why a graph asked for ran eagerly
     return generate
 
 
@@ -856,18 +972,20 @@ def init_serve_state(cfg: ArchConfig, slots: int, capacity: int, *,
 
 @functools.lru_cache(maxsize=16)
 def make_admit_fn(cfg: ArchConfig, *, eos_id: int | None = None,
-                  sample: str = "greedy"):
+                  sample: str = "greedy", par=None):
     """One request admission: prefill a (1, S) prompt (eagerly), write its
     KV into free slot ``slot`` of the live cache (dense row overwrite, or
     the host-granted physical pages ``page_ids`` of the paged layout),
     give the slot the next stream, and seed its first token (its draw 0),
-    budget and done flag.  Runs between segments; writes in place."""
+    budget and done flag.  Runs between segments; writes in place.
+    ``par``: the prefill under that mesh."""
     nxt = _next_fn(_make_sampler(sample))
     eos = -1 if eos_id is None else eos_id
+    kw = _mesh_kw(cfg, par)
 
     @torch.no_grad()
     def admit(params, state, prompt, slot: int, page_ids, max_new: int):
-        logits0, dense = lm.prefill(params, cfg, prompt)
+        logits0, dense = lm.prefill(params, cfg, prompt, **kw)
         state["stream"][slot] = state["admitted"]
         state["admitted"] += 1
         stream = state["stream"][slot:slot + 1]
@@ -896,7 +1014,8 @@ class _SegmentRun:
     chronologically, non-emitted positions dead (``live`` False, token
     ``PAD_ID``)."""
 
-    def __init__(self, cfg, state, params, seg_len, nxt, eos, spec):
+    def __init__(self, cfg, state, params, seg_len, nxt, eos, spec,
+                 par=None):
         dev = state["tok"].device
         B = state["tok"].shape[0]
         k = spec[1] if spec else 0
@@ -911,7 +1030,7 @@ class _SegmentRun:
                                 device=dev))
         if spec:
             window = _make_window(cfg, _draft_cfg(cfg, spec[0]), st, nxt, k,
-                                  eos)
+                                  eos, par)
             offs = torch.arange(k + 1, device=dev)
 
             def step():
@@ -924,14 +1043,15 @@ class _SegmentRun:
                 st["bad"].index_copy_(0, at, bad.T)
                 i.add_(1)
         else:
-            step = _make_step(cfg, st, nxt, masked=True, eos=eos)
+            step = _make_step(cfg, st, nxt, masked=True, eos=eos, par=par)
         self.step = CapturedStep(step, dev,
-                                 _prepare_fn(st, _uses(cfg, B, spec)))
+                                 _prepare_fn(st, _uses(cfg, B, spec), par))
 
 
 def make_segment_fn(cfg: ArchConfig, seg_len: int = SEG_LEN, *,
                     eos_id: int | None = None, sample: str = "greedy",
-                    graph: bool = True, spec: str | None = None):
+                    graph: bool = True, spec: str | None = None,
+                    par=None):
     """One continuous-batching segment: ``seg_len`` done-masked decode
     steps over the whole slot batch, as replays of the captured step on
     CUDA (eager steps on the CPU).  Slots finish on EOS or their budget
@@ -950,12 +1070,15 @@ def make_segment_fn(cfg: ArchConfig, seg_len: int = SEG_LEN, *,
     state and the params it last ran on, and is captured again for
     others; the function holds them (and the graph) until it is dropped,
     so it is made per serving run and not cached.  ``graph=False`` runs
-    the same step eagerly on CUDA too (the A/B baseline)."""
+    the same step eagerly on CUDA too (the A/B baseline).  ``par``: the
+    step under that mesh; over gloo on CUDA it runs eagerly
+    (``segment.eager_reason`` says why)."""
     nxt = _next_fn(_make_sampler(sample))
     eos = -1 if eos_id is None else eos_id
     sp = _parse_spec(spec)
     if sp:
         _check_spec(cfg)
+    _mesh_kw(cfg, par)
     box = {"bindings": 0}
 
     k = sp[1] if sp else 0
@@ -963,13 +1086,16 @@ def make_segment_fn(cfg: ArchConfig, seg_len: int = SEG_LEN, *,
     @torch.no_grad()
     def segment(params, state):
         run = _bound_run(box, params, state, lambda: _SegmentRun(
-            cfg, state, params, seg_len, nxt, eos, sp))
+            cfg, state, params, seg_len, nxt, eos, sp, par))
         st = run.st
         st["i"].zero_()
         cache = state["cache"]
         sums = kvcache.CHECKSUM_KEY in cache
         pos0 = cache["pos"].clone() if sums else None
-        step = run.step.run if graph else run.step.step
+        why = graph_ok(run.step.device, par)
+        if graph and why is not None and run.step.device.type == "cuda":
+            segment.eager_reason = why
+        step = run.step.run if graph and why is None else run.step.step
         for _ in range(seg_len):
             step()
         if sums:
@@ -980,6 +1106,7 @@ def make_segment_fn(cfg: ArchConfig, seg_len: int = SEG_LEN, *,
             {"bad": st["bad"].clone(), "logits0": st["logits0"].clone()}
 
     segment.runs = box      # the current binding and the count of bindings
+    segment.eager_reason = None
     return segment
 
 
@@ -1004,7 +1131,7 @@ class _ExtendRun:
     not of the state, so the segment step's binding never sees them."""
 
     def __init__(self, cfg, state, params, chunk_len, nxt, eos,
-                 trace_logits):
+                 trace_logits, par=None):
         dev = state["tok"].device
         B = state["tok"].shape[0]
         i32 = dict(dtype=torch.int32, device=dev)
@@ -1030,7 +1157,7 @@ class _ExtendRun:
             tails0 = (cache["k_tail"].clone(), cache["v_tail"].clone()) \
                 if "k_pages" in cache else None
             logits, _, win_kv = lm.decode_multi(st["params"], cfg, tokens,
-                                                cache, done=~is_t)
+                                                cache, done=~is_t, par=par)
             new_pos = pos0 + torch.where(is_t, st["x_n_real"], 0)
             kvcache.spec_rollback(cache, pos0, new_pos, tails0, win_kv)
             lg_t = logits.index_select(0, slot)[0]             # (T, Vp)
@@ -1051,12 +1178,13 @@ class _ExtendRun:
                     else st[name].index_select(0, slot)
                 st[name].index_copy_(0, slot, torch.where(emit, val, old))
         uses = [(cfg, B), (cfg, B * chunk_len)]
-        self.step = CapturedStep(step, dev, _prepare_fn(st, uses))
+        self.step = CapturedStep(step, dev, _prepare_fn(st, uses, par))
 
 
 def make_extend_fn(cfg: ArchConfig, chunk_len: int, *,
                    eos_id: int | None = None, sample: str = "greedy",
-                   trace_logits: bool = False, graph: bool = True):
+                   trace_logits: bool = False, graph: bool = True,
+                   par=None):
     """One chunked-prefill step (the port of the reference's
     ``make_extend_fn``): feed ``chunk_len`` prompt tokens of ONE slot
     through the batched verify forward (``models/lm.py decode_multi``)
@@ -1088,9 +1216,11 @@ def make_extend_fn(cfg: ArchConfig, chunk_len: int, *,
     The graph binds the state and the params it last ran on, like
     ``make_segment_fn``'s; ``extend.runs["bindings"]`` counts its
     bindings and ``extend.launches`` the kernel launches its calls made
-    (counter name -> launches)."""
+    (counter name -> launches).  ``par``: the chunk under that mesh
+    (eagerly over gloo on CUDA)."""
     from ..kernels import build
     _check_spec(cfg)
+    _mesh_kw(cfg, par)
     nxt = _next_fn(_make_sampler(sample))
     eos = -1 if eos_id is None else eos_id
     box = {"bindings": 0}
@@ -1100,7 +1230,7 @@ def make_extend_fn(cfg: ArchConfig, chunk_len: int, *,
     def extend(params, state, toks, slot: int, n_real: int, emit: bool,
                max_new: int):
         run = _bound_run(box, params, state, lambda: _ExtendRun(
-            cfg, state, params, chunk_len, nxt, eos, trace_logits))
+            cfg, state, params, chunk_len, nxt, eos, trace_logits, par))
         st = run.st
         st["x_toks"].copy_(torch.as_tensor(toks).reshape(1, -1))
         st["x_slot"].fill_(int(slot))
@@ -1109,13 +1239,14 @@ def make_extend_fn(cfg: ArchConfig, chunk_len: int, *,
         st["x_max_new"].fill_(int(max_new))
         st["x_admitted"].fill_(state["admitted"])
         step = run.step
-        if graph and step.device.type == "cuda" and step.graph is None:
+        use_graph = graph and graph_ok(step.device, par) is None
+        if use_graph and step.graph is None:
             step.capture()     # its preparation launches are not the step's
         cache = state["cache"]
         pos0 = cache["pos"].clone() \
             if kvcache.CHECKSUM_KEY in cache else None
         before = {c: c.count for c in build.COUNTERS}
-        (step.run if graph else step.step)()
+        (step.run if use_graph else step.step)()
         for c in build.COUNTERS:
             if c.count != before.get(c, 0):
                 launches[c.name] = launches.get(c.name, 0) \
@@ -1143,7 +1274,7 @@ class _ProbeRun:
     """The probe's scratch buffers and captured step, bound to one serve
     state and one set of params (see ``make_probe_fn``)."""
 
-    def __init__(self, cfg, state, params):
+    def __init__(self, cfg, state, params, par=None):
         cache = state["cache"]
         dev = state["tok"].device
         B = state["tok"].shape[0]
@@ -1178,16 +1309,17 @@ class _ProbeRun:
             for name in names:
                 saved[name].copy_(cache[name][at])
             logits, _ = lm.decode(params, cfg, state["tok"], scratch,
-                                  done=state["done"])
+                                  done=state["done"], par=par)
             for name in names:
                 cache[name][at] = saved[name]
             out.copy_(logits)
 
         st = {"params": params, "tok": state["tok"], "cache": cache}
-        self.step = CapturedStep(step, dev, _prepare_fn(st, [(cfg, B)]))
+        self.step = CapturedStep(step, dev, _prepare_fn(st, [(cfg, B)],
+                                                        par))
 
 
-def make_probe_fn(cfg_ref: ArchConfig, *, graph: bool = True):
+def make_probe_fn(cfg_ref: ArchConfig, *, graph: bool = True, par=None):
     """The exact half of the accuracy watchdog's probe (the port of the
     reference's ``make_probe_fn``): one decode of the serve state's
     (token, cache) under ``cfg_ref``, normally the serving spec's
@@ -1204,14 +1336,17 @@ def make_probe_fn(cfg_ref: ArchConfig, *, graph: bool = True):
     captured graph on the card (eager on the CPU, or with
     ``graph=False``), bound to the state and params it last ran on;
     ``probe.runs["bindings"]`` counts its bindings.  Nothing reads back
-    to the host."""
+    to the host.  ``par``: the probe under that mesh (eagerly over gloo
+    on CUDA)."""
+    _mesh_kw(cfg_ref, par)
     box = {"bindings": 0}
 
     @torch.no_grad()
     def probe(params, state):
         run = _bound_run(box, params, state,
-                         lambda: _ProbeRun(cfg_ref, state, params))
-        (run.step.run if graph else run.step.step)()
+                         lambda: _ProbeRun(cfg_ref, state, params, par))
+        use_graph = graph and graph_ok(run.step.device, par) is None
+        (run.step.run if use_graph else run.step.step)()
         return run.out.clone()
 
     probe.runs = box

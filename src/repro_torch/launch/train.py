@@ -11,8 +11,8 @@ from a checkpoint replays the same batches.  ``--fail-at`` injects a
 simulated hardware failure before those steps: the loop restores the
 latest checkpoint and replays.  Every step is one eager forward and
 backward (``launch/steps.py make_train_step``) at ``dscim="off"``; the
-reference's meshes (``--mesh`` other than ``off``) wait for multi-GPU
-placement (ROADMAP A13).
+reference's meshes (``--mesh`` other than ``off``) are refused: training
+under a mesh is ROADMAP A13b (serving under one is ``launch/mesh.py``).
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ class TrainLoop:
     rate peaking at ``lr``, a checkpoint every ``ckpt_every`` steps and
     at the end when ``ckpt_dir`` is given, on ``device`` (CUDA unless the
     caller asks for another).  ``mesh`` is None or 'off' (meshes are
-    ROADMAP A13).  ``history`` records each step's loss, wall seconds
+    ROADMAP A13b).  ``history`` records each step's loss, wall seconds
     (``time``) and seconds waited for its batch (``data_s``), replayed
     steps again."""
 
@@ -51,8 +51,8 @@ class TrainLoop:
                  mesh=None, ckpt_every: int = 20, seed: int = 0,
                  fail_at: tuple = (), log=print, device=None):
         if mesh not in (None, "off"):
-            raise ValueError(f"mesh {mesh!r}: training under a mesh waits "
-                             "for multi-GPU placement (ROADMAP A13)")
+            raise ValueError(f"mesh {mesh!r}: training under a mesh is "
+                             "ROADMAP A13b")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.steps, self.batch, self.seq = steps, batch, seq
@@ -152,7 +152,7 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--mesh", default="off",
-                    help="off (meshes wait for ROADMAP A13)")
+                    help="off (training under a mesh is ROADMAP A13b)")
     ap.add_argument("--fail-at", type=int, nargs="*", default=[])
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--device", default=None,

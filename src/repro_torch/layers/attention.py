@@ -15,8 +15,9 @@ from __future__ import annotations
 import torch
 
 from ..core.kvcache import quantize_page
-from ..core.qweights import QuantizedLinearWeight
-from ..kernels.paged_attention import NEG_INF, paged_attention_decode
+from ..kernels.paged_attention import (NEG_INF, paged_attention_decode,
+                                       paged_attention_decode_sharded)
+from ..parallel import is_prepared
 from .norms import qk_norm
 from .rope import apply_rope, rope_angles
 
@@ -29,7 +30,7 @@ __all__ = ["attention", "decode_attention", "decode_attention_multi",
 def _mm(x, w, linear, salt=None):
     """Projection matmul: exact by default, DS-CIM when ``linear`` given."""
     if linear is None:
-        if isinstance(w, QuantizedLinearWeight):
+        if is_prepared(w):
             raise TypeError("prepared attention weights need a DS-CIM "
                             "`linear` operator (the '+attn' dscim mode)")
         return x @ w
@@ -247,7 +248,7 @@ def flush_plan(page_table, pos, ps: int, done=None):
     return phys, src.any(1), src.to(torch.int32).argmax(1)
 
 
-def _paged_step(view, q, k, v, pos, plan, done=None):
+def _paged_step(view, q, k, v, pos, plan, done=None, par=None):
     """One position of paged decode attention, in place on ``view``:
 
     1. the new token k/v (B,1,KV,HD) is written to each slot's tail at
@@ -258,6 +259,10 @@ def _paged_step(view, q, k, v, pos, plan, done=None):
        physical page (``plan``: ``flush_plan`` at ``pos``; done slots
        neither write nor flush, and a done slot's stale table row never
        overwrites a live slot's flush).
+
+    ``par`` (a ``ParallelCtx``): the read is placed on the mesh
+    (``paged_attention_decode_sharded``: each rank reads its slots over
+    the DP axes, the output gathered); the cache is whole on every rank.
 
     q (B,1,H,HD) post-RoPE.  Returns (B,1,H*HD) f32."""
     B = q.shape[0]
@@ -275,8 +280,13 @@ def _paged_step(view, q, k, v, pos, plan, done=None):
 
     n_rep = q.shape[2] // KV
     qf = q[:, 0].to(torch.float32).reshape(B, KV, n_rep, HD).contiguous()
-    out = paged_attention_decode(qf, k_pages, v_pages, k_scale, v_scale,
-                                 k_tail, v_tail, view["page_table"], pos)
+    args = (qf, k_pages, v_pages, k_scale, v_scale, k_tail, v_tail,
+            view["page_table"], pos)
+    if par is None:
+        out = paged_attention_decode(*args)
+    else:
+        out = paged_attention_decode_sharded(*args, par=par,
+                                             dp_axes=par.dp_axes)
 
     phys, hit, frm = plan
     for tail, pages, scales in ((k_tail, k_pages, k_scale),
@@ -289,7 +299,7 @@ def _paged_step(view, q, k, v, pos, plan, done=None):
 
 
 def decode_attention_paged(params, x, view, cfg, linear=None, salt=None,
-                           done=None):
+                           done=None, par=None):
     """Single-token decode against one layer of the int8 paged KV cache.
 
     ``view`` holds one layer's k/v_pages (P, ps, KV, HD) int8, k/v_scale
@@ -304,12 +314,12 @@ def decode_attention_paged(params, x, view, cfg, linear=None, salt=None,
     plan = view["flush"] if "flush" in view \
         else flush_plan(view["page_table"], pos, view["k_pages"].shape[1],
                         done)
-    out = _paged_step(view, q, k, v, pos, plan, done)
+    out = _paged_step(view, q, k, v, pos, plan, done, par)
     return _mm(out.to(x.dtype), params["wo"], linear, _site(salt, 7))
 
 
 def decode_attention_paged_multi(params, x, view, cfg, linear=None,
-                                 salt=None, done=None):
+                                 salt=None, done=None, par=None):
     """Speculative-verify decode against one layer of the int8 paged
     cache: T consecutive tokens per row.
 
@@ -343,7 +353,7 @@ def decode_attention_paged_multi(params, x, view, cfg, linear=None,
         qt, kt = _qk_rope(params, at(q, t), at(k, t), pt[:, None],
                           cfg.head_dim, cfg.rope_theta, cfg.qk_norm)
         vt = at(v, t)
-        outs.append(_paged_step(view, qt, kt, vt, pt, plan, done))
+        outs.append(_paged_step(view, qt, kt, vt, pt, plan, done, par))
         wk.append(kt.to(view["k_tail"].dtype))
         wv.append(vt.to(view["v_tail"].dtype))
     out = torch.cat(outs, dim=1).to(x.dtype)

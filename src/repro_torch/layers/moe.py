@@ -1,6 +1,6 @@
 """Mixture-of-Experts block with sort-based fixed-capacity dispatch (port
-of ``repro/layers/moe.py`` at expert parallelism 1; the reference's
-``all_to_all`` under an ``ep_axis`` waits for multi-GPU placement).
+of ``repro/layers/moe.py``, with its expert parallelism on
+``torch.distributed``: ``par=``).
 
 Each token picks its top-k experts from an f32 softmax router; the T*k
 (token, expert) pairs are sorted by expert (stably, so within an expert
@@ -17,7 +17,21 @@ Everything is device arithmetic on static shapes: no value is read back
 to the host, so a decode step holding this block can be captured in a
 CUDA graph.  C depends on T, so a token's output can depend on the other
 tokens of its call when capacity drops pairs (never at capacity_factor
->= E/k)."""
+>= E/k).
+
+Under a mesh (``par``, a ``parallel.ParallelCtx``: the reference's
+``moe(ep_axis=)`` inside ``models/lm.py _moe_apply``'s ``shard_map``) the
+routed experts run with expert parallelism: the batch is cut over the DP
+axes (where it divides), the experts' weights are ``Sharded`` with the
+expert dim over ``model`` and their other dims over the last DP axis,
+gathered whole on that axis before use (the explicit ZeRO-3 of the
+reference).  Each rank of a ``model`` group routes its slice of the
+sequence (all of it when S does not divide, as at decode), fills its
+(E, C, D) buffers with C counted from its own tokens, as the reference
+counts it per shard, sends each expert's rows to the rank that holds the
+expert (``all_to_all``), runs its E / ep experts, sends the outputs back
+(``all_to_all``) and combines; the sequence and the batch are then
+gathered.  The aux is averaged over the mesh."""
 from __future__ import annotations
 
 import torch
@@ -90,10 +104,11 @@ def _expert_ffn(we, x: torch.Tensor) -> torch.Tensor:
 
 
 def _experts(params, xt: torch.Tensor, ids, weights, top_k: int,
-             capacity_factor: float):
+             capacity_factor: float, ffn=None):
     """The routed experts on the tokens xt (T, D) routed to ``ids`` with
     ``weights``: (out (T, D) in xt's dtype, keep (T*k,) bool in
-    expert-sorted order)."""
+    expert-sorted order).  ``ffn`` maps the (E, C, D) buffers to their
+    expert outputs (default: every expert here, ``_expert_ffn``)."""
     T, D = xt.shape
     E = params["router"].shape[-1]
     C = capacity(T, top_k, E, capacity_factor)
@@ -107,7 +122,9 @@ def _experts(params, xt: torch.Tensor, ids, weights, top_k: int,
     # fixed order on the CPU and on CUDA (an index's adds them with
     # atomics on the CPU)
     buf.index_put_((slot,), F.embedding(tok_idx, xt))
-    out_buf = _expert_ffn(params["experts"], buf[:-1].reshape(E, C, D))
+    buf = buf[:-1].reshape(E, C, D)
+    out_buf = _expert_ffn(params["experts"], buf) if ffn is None \
+        else ffn(buf)
     flat_out = out_buf.reshape(E * C, D)
     gathered = torch.where(keep[:, None],
                            flat_out[torch.clamp_max(slot, E * C - 1)], 0.0)
@@ -122,10 +139,57 @@ def _experts(params, xt: torch.Tensor, ids, weights, top_k: int,
     return out_t, keep
 
 
+def _routed_ep(params, x: torch.Tensor, top_k: int, capacity_factor: float,
+               par):
+    """``moe_routed`` with expert parallelism (module docstring): (out
+    (B, S, D), keep of this rank's tokens, aux averaged over the mesh)."""
+    from ..parallel import Sharded
+    tp = par.tp_axis
+    ep = par.tp_size
+    E = params["router"].shape[-1]
+    if E % ep:
+        raise ValueError(f"{E} experts do not split over {tp}={ep}")
+    fsdp = (par.dp_axes[-1],)
+    we = {}
+    for name, w in params["experts"].items():
+        if not isinstance(w, Sharded) or w.spec[-3] != (tp,):
+            raise ValueError(f"expert parallelism needs the experts' "
+                             f"{name} placed with its expert dim over {tp} "
+                             "(launch/sharding.py)")
+        we[name] = par.gather_spec(w.local, w.spec, only=fsdp)[0]
+    xb, b = par.batch_slice(x)
+    B, S, D = xb.shape
+    split_seq = ep > 1 and S % ep == 0
+    if split_seq:
+        s_loc = S // ep
+        r = par.coords[tp]
+        xb = xb[:, r * s_loc:(r + 1) * s_loc]
+    xt = xb.reshape(-1, D)
+    probs = _router_probs(xt, params["router"])
+    ids, weights = _pick(probs, top_k)
+
+    def ffn(buf):                                # (E, C, D) on every rank
+        buf = par.all_to_all(buf, tp, 0, 1)      # (E/ep, ep*C, D)
+        return par.all_to_all(_expert_ffn(we, buf), tp, 1, 0)
+
+    out_t, keep = _experts(params, xt, ids, weights, top_k,
+                           capacity_factor, ffn)
+    out = out_t.reshape(B, -1, D)
+    if split_seq:
+        out = par.all_gather(out, tp, 1)
+    if b:
+        out = par.all_gather(out, b, 0)
+    aux = par.all_reduce_mean(load_balance_aux(probs, ids))
+    return out, keep, aux
+
+
 def moe_routed(params, x: torch.Tensor, *, top_k: int,
-               capacity_factor: float = 1.25):
+               capacity_factor: float = 1.25, par=None):
     """The routed experts alone: x (B, S, D) -> (out (B, S, D) in x's
-    dtype, keep (B*S*k,) bool in expert-sorted order)."""
+    dtype, keep (B*S*k,) bool in expert-sorted order; under ``par`` the
+    keep of this rank's tokens)."""
+    if par is not None:
+        return _routed_ep(params, x, top_k, capacity_factor, par)[:2]
     B, S, D = x.shape
     xt = x.reshape(B * S, D)
     ids, weights = route(xt, params["router"], top_k)
@@ -143,26 +207,31 @@ def _add_shared(params, x, out, has_shared: bool, linear, salt):
 
 def moe(params, x: torch.Tensor, *, top_k: int,
         capacity_factor: float = 1.25, has_shared: bool = False,
-        linear=None, salt=None) -> torch.Tensor:
+        linear=None, salt=None, par=None) -> torch.Tensor:
     """x (B, S, D) -> out (B, S, D): the routed experts plus, with
-    ``has_shared``, the shared expert (``params["shared"]``, SwiGLU)
-    through ``linear`` with ``salt`` (the MLP's call sites 0..2).  The
-    reference's ``moe_local`` is this with its own default capacity."""
+    ``has_shared``, the shared expert (``params["shared"]``, SwiGLU,
+    whole on every rank) through ``linear`` with ``salt`` (the MLP's call
+    sites 0..2).  The reference's ``moe_local`` is this with its own
+    default capacity; with ``par`` its ``moe(ep_axis=)``."""
     out, _ = moe_routed(params, x, top_k=top_k,
-                        capacity_factor=capacity_factor)
+                        capacity_factor=capacity_factor, par=par)
     return _add_shared(params, x, out, has_shared, linear, salt)
 
 
 def moe_with_aux(params, x: torch.Tensor, *, top_k: int,
                  capacity_factor: float = 1.25, has_shared: bool = False,
-                 linear=None, salt=None):
+                 linear=None, salt=None, par=None):
     """``moe`` and the load-balance aux of its routing: (out (B, S, D),
     aux 0-d f32), the reference's ``moe`` at expert parallelism 1 (the
     training forward's MoE block).  In the backward pass every gather
     adds its gradient into distinct rows, or adds zeros (a dropped
     entry), except for a token's k copies, which ``F.embedding``'s
     backward sums in one fixed order: the gradients are the same bits
-    from run to run."""
+    from run to run.  ``par``: expert parallelism (forward only), the
+    aux averaged over the mesh."""
+    if par is not None:
+        out, _, aux = _routed_ep(params, x, top_k, capacity_factor, par)
+        return _add_shared(params, x, out, has_shared, linear, salt), aux
     B, S, D = x.shape
     xt = x.reshape(B * S, D)
     probs = _router_probs(xt, params["router"])

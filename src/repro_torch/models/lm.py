@@ -1,8 +1,8 @@
 """Decoder-only transformer LM, dense and MoE families (port of
 ``repro/models/lm.py``): olmo-1b, qwen3-0.6b,
 starcoder2-7b, codeqwen1.5-7b, the MoE models deepseek-moe-16b and
-granite-moe-1b-a400m (``layers/moe.py`` in place of the MLP, at expert
-parallelism 1), and the stub-frontend backbones musicgen-large and
+granite-moe-1b-a400m (``layers/moe.py`` in place of the MLP; expert
+parallelism over ``model`` under a mesh), and the stub-frontend backbones musicgen-large and
 pixtral-12b, whose inputs are embeddings (``embeds=`` (B, S, D) to
 ``prefill``, ``embed=`` (B, 1, D) to ``decode``) and whose head is always
 ``lm_head``.
@@ -18,6 +18,11 @@ the dense cache or the int8 paged one.  ``decode_multi`` scores a
 window of T tokens per row in one forward (the verifier of
 self-speculative decoding).
 
+Serving under a mesh (``par``, a ``parallel.ParallelCtx``, to
+``prefill``, ``decode`` and ``decode_multi``): SPMD over
+``torch.distributed``, params placed by ``launch/sharding.py``; see
+``prefill``.  Training under a mesh is ROADMAP A13b.
+
 Salts: layer ``li`` owns the salt space ``8*li`` (MLP or shared-expert
 sites 0..2, attention 4..7) and the head takes ``8*n_layers``, as in the
 reference, so the DS-CIM noise modes draw distinct noise at every call
@@ -30,7 +35,7 @@ import functools
 import torch
 
 from ..configs.base import ArchConfig
-from ..core.qweights import QuantizedLinearWeight, map_params
+from ..core.qweights import map_params
 from ..device import resolve_device
 from ..layers import moe as moe_layer
 from ..layers.attention import (attention, decode_attention,
@@ -41,6 +46,7 @@ from ..layers.attention import (attention, decode_attention,
 from ..layers.mlp import mlp
 from ..layers.norms import layernorm, rmsnorm
 from ..layers.remat import remat
+from ..parallel import Sharded, is_prepared
 
 __all__ = ["init_params", "forward", "lm_loss", "embed", "prefill",
            "decode", "decode_multi", "cast_layers", "DTYPES"]
@@ -97,35 +103,53 @@ class _Faulted:
 
 
 @functools.lru_cache(maxsize=16)
-def _linear_for(dscim_spec: str, fault: str = ""):
+def _linear_for(dscim_spec: str, fault: str = "", par=None):
     """DS-CIM linear for cfg.dscim (MLP matmuls and LM head), None if off.
     ``fault`` (cfg.dscim_fault): 'stuck:<stride>:<value>' wraps it in
-    ``_Faulted``."""
+    ``_Faulted``.  ``par``: the operator is placed on that mesh
+    (``DSCIMLinear.par``: 'kernel' runs the N-sharded fused MVM)."""
     if dscim_spec == "off":
         return None
     from ..core.dscim_layer import make_linear
     mode, _, variant, length, calib = _parse_dscim(dscim_spec)
-    op = make_linear(variant, length, mode, calib)
+    op = make_linear(variant, length, mode, calib, par=par)
     if not fault:
         return op
     return _Faulted(op, *_parse_fault(fault))
 
 
-def _attn_linear_for(dscim_spec: str, fault: str = ""):
+def _attn_linear_for(dscim_spec: str, fault: str = "", par=None):
     """The attention-projection operator: non-None only for '+attn'."""
     if dscim_spec == "off" or not _parse_dscim(dscim_spec)[1]:
         return None
-    return _linear_for(dscim_spec, fault)
+    return _linear_for(dscim_spec, fault, par)
 
 
-def _lin(cfg: ArchConfig):
+def _lin(cfg: ArchConfig, par=None):
     """cfg's DS-CIM operator for the MLP matmuls and the head."""
-    return _linear_for(cfg.dscim, cfg.dscim_fault)
+    return _linear_for(cfg.dscim, cfg.dscim_fault, par)
 
 
-def _alin(cfg: ArchConfig):
+def _alin(cfg: ArchConfig, par=None):
     """cfg's attention-projection operator (None unless '+attn')."""
-    return _attn_linear_for(cfg.dscim, cfg.dscim_fault)
+    return _attn_linear_for(cfg.dscim, cfg.dscim_fault, par)
+
+
+def _full(leaf, par):
+    """A float leaf whole on this rank: a ``Sharded`` piece gathered over
+    the mesh (the reference's explicit ZeRO-3 gather before use)."""
+    return leaf if par is None else par.whole(leaf)
+
+
+def _whole(tree, par):
+    """``_full`` of every float leaf of one layer's tree but the MoE's
+    routed experts, which ``_moe_apply`` gathers over the FSDP axis only
+    (their expert dim stays split over ``model``); prepared N-slices stay
+    for the sharded fused MVM."""
+    if par is None:
+        return tree
+    return map_params(lambda path, a: a if "moe/experts" in path
+                      else par.whole(a), tree)
 
 
 def _norm(cfg: ArchConfig, x, params):
@@ -218,7 +242,7 @@ def _cast(tree, dtype):
     through (their int8 planes are the compute representation and their
     scales stay f32)."""
     return map_params(
-        lambda _, a: a.to(dtype) if isinstance(a, torch.Tensor)
+        lambda _, a: a.to(dtype) if isinstance(a, (torch.Tensor, Sharded))
         and a.dtype == torch.float32 else a, tree)
 
 
@@ -246,61 +270,81 @@ def unstack(tree, n: int) -> list:
     return [tree[i] for i in range(n)]
 
 
-def _head(params, cfg: ArchConfig, x):
-    lin = _lin(cfg)
+def _head(params, cfg: ArchConfig, x, par=None):
+    lin = _lin(cfg, par)
     salt = 8 * cfg.n_layers
     head = params.get("lm_head")
-    if isinstance(head, QuantizedLinearWeight):
+    if is_prepared(head):
         return lin(x.to(torch.float32), head, salt=salt).to(torch.float32)
     if cfg.tie_embeddings and not cfg.stub_frontend:
-        w = params["embed"].to(x.dtype).T
+        w = _full(params["embed"], par).to(x.dtype).T
     else:
-        w = head.to(x.dtype)
+        w = _full(head, par).to(x.dtype)
     if lin is not None:
         return lin(x.to(torch.float32), w.to(torch.float32),
                    salt=salt).to(torch.float32)
     return (x @ w).to(torch.float32)
 
 
-def _ff(cfg: ArchConfig, lp, x, salt):
-    """The block's feed-forward half on the residual ``x``: the MLP, or
-    for an MoE config the MoE block (the reference's ``_moe_apply``
-    without a mesh), after the second norm."""
-    hn = _norm(cfg, x, lp["ln2"])
-    if cfg.family == "moe":
-        return moe_layer.moe(lp["moe"], hn, top_k=cfg.moe_topk,
+def _moe_apply(p, hn, cfg: ArchConfig, par, salt):
+    """The MoE block on the normed ``hn`` (the reference's ``_moe_apply``):
+    on one device ``layers/moe.py moe``; under a mesh the routed experts
+    with expert parallelism (``moe_routed(par=)``: the batch over DP, the
+    experts over ``model``, two ``all_to_all``s) and the shared expert
+    computed on every rank with the operator of one device (a prepared
+    shared expert is whole on every rank; a float one was gathered by
+    ``_whole``), added in the single-device order."""
+    if par is None:
+        return moe_layer.moe(p, hn, top_k=cfg.moe_topk,
                              capacity_factor=cfg.moe_capacity,
                              has_shared=cfg.moe_shared > 0,
                              linear=_lin(cfg), salt=salt)
-    return mlp(lp["mlp"], hn, cfg.mlp_kind, linear=_lin(cfg), salt=salt)
+    out, _ = moe_layer.moe_routed(p, hn, top_k=cfg.moe_topk,
+                                  capacity_factor=cfg.moe_capacity, par=par)
+    if cfg.moe_shared:
+        out = out + mlp(p["shared"], hn, "swiglu", linear=_lin(cfg),
+                        salt=salt)
+    return out
 
 
-def _ff_window(cfg: ArchConfig, lp, hn, lin, salt):
+def _ff(cfg: ArchConfig, lp, x, salt, par=None):
+    """The block's feed-forward half on the residual ``x``: the MLP, or
+    for an MoE config the MoE block (``_moe_apply``), after the second
+    norm."""
+    hn = _norm(cfg, x, lp["ln2"])
+    if cfg.family == "moe":
+        return _moe_apply(lp["moe"], hn, cfg, par, salt)
+    return mlp(lp["mlp"], hn, cfg.mlp_kind, linear=_lin(cfg, par),
+               salt=salt)
+
+
+def _ff_window(cfg: ArchConfig, lp, hn, lin, salt, par=None):
     """``_ff``'s feed-forward on a normed (B, T, D) window, position t
     bitwise what ``_ff`` gives at (B, 1, D): the MLP through ``_window``;
     the MoE's routed experts per position (routing, and the capacity,
     depend on the rows of a call), its shared expert through
-    ``_window``."""
+    ``_window`` with the operator ``_moe_apply`` gives it."""
     if cfg.family != "moe":
         return _window(lambda v: mlp(lp["mlp"], v, cfg.mlp_kind,
                                      linear=lin, salt=salt), lin, hn)
     p = lp["moe"]
     out = per_position(lambda v: moe_layer.moe_routed(
         p, v, top_k=cfg.moe_topk,
-        capacity_factor=cfg.moe_capacity)[0], hn)
+        capacity_factor=cfg.moe_capacity, par=par)[0], hn)
     if cfg.moe_shared:
+        slin = _lin(cfg)
         out = out + _window(lambda v: mlp(p["shared"], v, "swiglu",
-                                          linear=lin, salt=salt), lin, hn)
+                                          linear=slin, salt=salt), slin, hn)
     return out
 
 
-def _embed_prompt(params, tokens: torch.Tensor) -> torch.Tensor:
+def _embed_prompt(params, tokens: torch.Tensor, par=None) -> torch.Tensor:
     """Embedding rows of caller-given ids (a prompt, an extend chunk), as
     the reference's gather reads them: a negative id wraps once (adds
     the table's size), then an id still outside the table is clamped
     into it, where indexing would raise on the CPU and trap on the card.
     Sampled ids are in range and index the table directly."""
-    emb = params["embed"]
+    emb = _full(params["embed"], par)
     V = emb.shape[0]
     return emb[torch.where(tokens < 0, tokens + V, tokens).clamp(0, V - 1)]
 
@@ -384,26 +428,34 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor | None,
             capacity: int | None = None, *,
-            embeds: torch.Tensor | None = None):
+            embeds: torch.Tensor | None = None, par=None):
     """Forward over the prompt + KV-cache construction.  tokens (B, S), or
     for a stub-frontend config ``tokens=None`` and ``embeds`` (B, S, D) ->
     (last-token logits (B, Vp) f32, {"k","v": (L, B, T, KV, HD), "pos":
-    (B,) int32}) with T = ``capacity`` (>= S, default S)."""
+    (B,) int32}) with T = ``capacity`` (>= S, default S).
+
+    ``par`` (a ``ParallelCtx``; likewise for ``decode`` and
+    ``decode_multi``): ``params`` are placed on that mesh
+    (launch/sharding.py).  Each layer's float leaves are gathered whole
+    before use, so the float math is the single-device math; the DS-CIM
+    matmuls run the N-sharded fused MVM, the paged read cuts the batch
+    over DP and the MoE's experts run with expert parallelism.  Inputs,
+    cache and outputs are whole on every rank."""
     dt = DTYPES[cfg.compute_dtype]
     cdt = DTYPES[cfg.cache_dtype]
     x = _inputs(cfg, tokens, embeds, dt,
-                lambda t: _embed_prompt(params, t))
+                lambda t: _embed_prompt(params, t, par))
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     ks, vs = [], []
     for li in range(cfg.n_layers):
-        lp = _cast(_layer(params["layers"], li), dt)
+        lp = _cast(_whole(_layer(params["layers"], li), par), dt)
         h, (k, v) = attention(lp["attn"], _norm(cfg, x, lp["ln1"]), cfg,
                               positions, cfg.q_chunk, return_kv=True,
-                              linear=_alin(cfg),
+                              linear=_alin(cfg, par),
                               salt=8 * li)
         x = x + h
-        x = x + _ff(cfg, lp, x, 8 * li)
+        x = x + _ff(cfg, lp, x, 8 * li, par)
         ks.append(k.to(cdt))
         vs.append(v.to(cdt))
     ks, vs = torch.stack(ks), torch.stack(vs)
@@ -412,7 +464,7 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor | None,
         ks = torch.nn.functional.pad(ks, pad)
         vs = torch.nn.functional.pad(vs, pad)
     x = _norm(cfg, x[:, -1:], params["final_norm"])
-    logits = _head(params, cfg, x)[:, 0]
+    logits = _head(params, cfg, x, par)[:, 0]
     pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
     return logits, {"k": ks, "v": vs, "pos": pos}
 
@@ -430,7 +482,7 @@ def _advance(pos, done):
 @torch.no_grad()
 def decode(params, cfg: ArchConfig, token: torch.Tensor | None, cache,
            done: torch.Tensor | None = None, *,
-           embed: torch.Tensor | None = None):
+           embed: torch.Tensor | None = None, par=None):
     """One-token decode.  token (B,), or for a stub-frontend config
     ``token=None`` and ``embed`` (B, 1, D) -> (logits (B, Vp) f32,
     cache).  The cache's tensors, ``pos`` included, are updated in place:
@@ -440,42 +492,42 @@ def decode(params, cfg: ArchConfig, token: torch.Tensor | None, cache,
     (core/kvcache.py)."""
     dt = DTYPES[cfg.compute_dtype]
     x = _inputs(cfg, token, embed, dt,
-                lambda t: params["embed"][t][:, None])
+                lambda t: _full(params["embed"], par)[t][:, None])
     if "k_pages" in cache:
-        return _decode_paged(params, cfg, x, cache, done)
+        return _decode_paged(params, cfg, x, cache, done, par)
     pos = cache["pos"]
     for li in range(cfg.n_layers):
-        lp = _cast(_layer(params["layers"], li), dt)
+        lp = _cast(_whole(_layer(params["layers"], li), par), dt)
         h = decode_attention(lp["attn"], _norm(cfg, x, lp["ln1"]),
                              cache["k"][li], cache["v"][li], pos, cfg,
-                             linear=_alin(cfg), salt=8 * li)
+                             linear=_alin(cfg, par), salt=8 * li)
         x = x + h
-        x = x + _ff(cfg, lp, x, 8 * li)
+        x = x + _ff(cfg, lp, x, 8 * li, par)
     x = _norm(cfg, x, params["final_norm"])
-    logits = _head(params, cfg, x)[:, 0]
+    logits = _head(params, cfg, x, par)[:, 0]
     return logits, dict(cache, pos=_advance(pos, done))
 
 
-def _decode_paged(params, cfg: ArchConfig, x, cache, done=None):
+def _decode_paged(params, cfg: ArchConfig, x, cache, done=None, par=None):
     """``decode``'s layer loop over the int8 paged cache; x (B, 1, D) in
     the compute dtype."""
     dt = x.dtype
     plan = flush_plan(cache["page_table"], cache["pos"],
                       cache["k_pages"].shape[2], done)
     for li in range(cfg.n_layers):
-        lp = _cast(_layer(params["layers"], li), dt)
+        lp = _cast(_whole(_layer(params["layers"], li), par), dt)
         view = {name: cache[name][li] for name in
                 ("k_pages", "v_pages", "k_scale", "v_scale", "k_tail",
                  "v_tail")}
         view.update(page_table=cache["page_table"], pos=cache["pos"],
                     flush=plan)
         h = decode_attention_paged(lp["attn"], _norm(cfg, x, lp["ln1"]),
-                                   view, cfg, linear=_alin(cfg),
-                                   salt=8 * li, done=done)
+                                   view, cfg, linear=_alin(cfg, par),
+                                   salt=8 * li, done=done, par=par)
         x = x + h
-        x = x + _ff(cfg, lp, x, 8 * li)
+        x = x + _ff(cfg, lp, x, 8 * li, par)
     x = _norm(cfg, x, params["final_norm"])
-    logits = _head(params, cfg, x)[:, 0]
+    logits = _head(params, cfg, x, par)[:, 0]
     return logits, dict(cache, pos=_advance(cache["pos"], done))
 
 
@@ -490,7 +542,7 @@ def _window(fn, lin, x):
 
 @torch.no_grad()
 def decode_multi(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
-                 done: torch.Tensor | None = None):
+                 done: torch.Tensor | None = None, par=None):
     """Speculative-verify decode: score T consecutive tokens per row in one
     forward.  tokens (B, T); ``cache["pos"]`` (B,).  Position t of the
     logits is bitwise what ``decode`` gives for token t after decoding
@@ -512,10 +564,10 @@ def decode_multi(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
                          "inputs; stub-frontend configs are unsupported")
     dt = DTYPES[cfg.compute_dtype]
     B, T = tokens.shape
-    x = _embed_prompt(params, tokens).to(dt)                 # (B, T, D)
+    x = _embed_prompt(params, tokens, par).to(dt)            # (B, T, D)
     pos = cache["pos"]
-    lin = _lin(cfg)
-    alin = _alin(cfg)
+    lin = _lin(cfg, par)
+    alin = _alin(cfg, par)
     paged = "k_pages" in cache
     if paged:
         ps = cache["k_pages"].shape[2]
@@ -523,7 +575,7 @@ def decode_multi(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
                   for pt in window_positions(pos, T, done)]
     wks, wvs = [], []
     for li in range(cfg.n_layers):
-        lp = _cast(_layer(params["layers"], li), dt)
+        lp = _cast(_whole(_layer(params["layers"], li), par), dt)
         hn = per_position(lambda v: _norm(cfg, v, lp["ln1"]), x)
         if paged:
             view = {name: cache[name][li] for name in
@@ -533,7 +585,7 @@ def decode_multi(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
                         window=window)
             h, (wk, wv) = decode_attention_paged_multi(
                 lp["attn"], hn, view, cfg, linear=alin, salt=8 * li,
-                done=done)
+                done=done, par=par)
             wks.append(wk)
             wvs.append(wv)
         else:
@@ -542,9 +594,9 @@ def decode_multi(params, cfg: ArchConfig, tokens: torch.Tensor, cache,
                                        salt=8 * li, done=done)
         x = x + h
         hn = per_position(lambda v: _norm(cfg, v, lp["ln2"]), x)
-        x = x + _ff_window(cfg, lp, hn, lin, 8 * li)
+        x = x + _ff_window(cfg, lp, hn, lin, 8 * li, par)
     x = per_position(lambda v: _norm(cfg, v, params["final_norm"]), x)
-    logits = _window(lambda v: _head(params, cfg, v), lin, x)
+    logits = _window(lambda v: _head(params, cfg, v, par), lin, x)
     step = T if done is None else (~done).to(pos.dtype) * T
     pos.add_(step)
     win_kv = (torch.stack(wks), torch.stack(wvs)) if paged else None

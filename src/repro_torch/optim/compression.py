@@ -1,8 +1,8 @@
 """Gradient compression: symmetric per-tensor int8 with error feedback
 (port of ``compress``, ``decompress`` and ``init_error`` from
 ``repro/optim/compression.py``).  The reference's
-``compressed_psum_tree``, the all-reduce over a slow mesh axis, needs a
-collective and waits for multi-GPU placement (ROADMAP A13)."""
+``compressed_psum_tree``, the all-reduce over a slow mesh axis, is part
+of training under a mesh (ROADMAP A13b)."""
 from __future__ import annotations
 
 import torch

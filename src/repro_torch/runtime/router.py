@@ -53,10 +53,16 @@ What the port does differently:
   force, each its own graph;
 * the host reads back ``done`` and the segment's outputs once a round;
   nothing inside a segment or chunk syncs;
-* ``device``: CUDA unless 'cpu' is asked for; the reference's ``par``,
-  ``paged_attn`` and ``prepare`` are gone (one device; the card always
-  takes the paged-attention kernel, the CPU its plain version; prepared
-  params pass ``prepare_params`` unchanged).
+* ``device``: CUDA unless 'cpu' is asked for; the reference's
+  ``paged_attn`` and ``prepare`` are gone (the card always takes the
+  paged-attention kernel, the CPU its plain version; prepared params pass
+  ``prepare_params`` unchanged);
+* ``par`` (a ``ParallelCtx``): the reference's mesh serving, SPMD: every
+  rank runs its own router on the same submissions, which must reach
+  every rank at the same rounds (e.g. all submitted before ``start()``),
+  and streams the same tokens.  ``deadline_s``, integrity checks and
+  weight flips are refused under a mesh
+  (``runtime/serving.py mesh_refusals``).
 """
 from __future__ import annotations
 
@@ -78,7 +84,7 @@ from ..launch.steps import (_check_kv, _parse_spec, init_serve_state,
 from .failover import (IntegrityReplay, SimulatedHardwareFailure,
                        restore_into, to_host)
 from .integrity import IntegrityEngine, parse_integrity
-from .serving import _escalate, exact_probe_spec
+from .serving import _escalate, exact_probe_spec, mesh_refusals
 from .watchdog import StepHang
 
 __all__ = ["Router", "RequestHandle", "RouterResult", "Refused",
@@ -220,11 +226,14 @@ class Router:
                  injector=None, snapshot_every: int = 0,
                  max_replays: int = 3, integrity: str = "off",
                  prefix_cache: bool = False, resume: dict | None = None,
-                 device=None, log=print):
+                 device=None, log=print, par=None):
         _check_kv(cfg, kv)
+        if par is not None:
+            mesh_refusals(integrity=integrity, injector=injector)
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = prepare_params(cfg, params, self.device)
+        self.par = par
+        self.params = prepare_params(cfg, params, self.device, par)
         self.slots = slots
         self.seg_len = seg_len
         self.kv = kv
@@ -296,7 +305,8 @@ class Router:
                 raise ValueError("drift probes need a dscim serving spec "
                                  "(see runtime/serving.py)")
             self._probe = make_probe_fn(dataclasses.replace(
-                cfg, dscim=exact_probe_spec(cfg.dscim), dscim_fault=""))
+                cfg, dscim=exact_probe_spec(cfg.dscim), dscim_fault=""),
+                par=par)
         self._k_spec = k_spec
 
         # host bookkeeping: everything the failover snapshot must carry
@@ -390,6 +400,8 @@ class Router:
         call (queue time counts); ``deadline_steps`` at admission.
         ``priority`` orders admission only (higher first, FIFO within a
         class): the router never preempts a live slot."""
+        if self.par is not None and deadline_s is not None:
+            mesh_refusals(deadline_s=deadline_s)
         if self._draining:
             self._host["counters"]["refused_draining"] += 1
             raise Refused("draining")
@@ -459,7 +471,9 @@ class Router:
         flip, since tokens streamed meanwhile stay streamed),
         ``snapshots`` (host copies and restores, counts and seconds) and
         ``ladder`` (the re-serves' wall seconds, the decode graphs
-        their ``serve_batch`` captured and each rung's record)."""
+        their ``serve_batch`` captured and each rung's record) and
+        ``eager_reason`` (why the segments stepped eagerly where graphs
+        were asked for: a gloo mesh on CUDA; else None)."""
         h = self._host
         dt = time.perf_counter() - self._t_start
         useful = sum(len(o) for o in h["out"].values())
@@ -504,6 +518,8 @@ class Router:
             "snapshots": dict(self._snaps),
             "ladder": dict(self._ladder,
                            records=list(self._ladder["records"])),
+            "eager_reason": next((f.eager_reason for f in segs
+                                  if f.eager_reason), None),
         }
 
     # ------------------------------------------------------------------
@@ -571,9 +587,10 @@ class Router:
                 if fault else self.cfg
             self._fns[fault] = (
                 make_segment_fn(c, self.seg_len, eos_id=self.eos_id,
-                                sample=self.sample, spec=self.spec),
+                                sample=self.sample, spec=self.spec,
+                                par=self.par),
                 make_extend_fn(c, self.chunk_len, eos_id=self.eos_id,
-                               sample=self.sample))
+                               sample=self.sample, par=self.par))
         return self._fns[fault]
 
     @property
@@ -697,7 +714,7 @@ class Router:
                 admit = make_admit_fn(
                     dataclasses.replace(self.cfg, dscim_fault=fault)
                     if fault else self.cfg,
-                    eos_id=self.eos_id, sample=self.sample)
+                    eos_id=self.eos_id, sample=self.sample, par=self.par)
                 prompt = torch.as_tensor(req.prompt[None], dtype=torch.long,
                                          device=self.device)
                 _, tok0 = admit(self.params, self._state, prompt, b, pages,
@@ -759,7 +776,7 @@ class Router:
             [req.max_new], eos_id=self.eos, sample=self.sample, kv=self.kv,
             page_size=self.page_size, rng_seed=self.rng_seed,
             monitor=self.monitor, records=records, device=self.device,
-            log=self.log)
+            log=self.log, par=self.par)
         self._ladder["records"] += [dict(r, request=rid) for r in records]
         h["out"][rid] = one["out"][0]
         h["status"][rid] = STATUS_DEGRADED

@@ -79,7 +79,7 @@ from .watchdog import AccuracyWatchdog
 __all__ = ["STATUS_OK", "STATUS_DEADLINE", "serve_continuous_ft",
            "next_ladder_spec", "exact_probe_spec", "watchdog_for_spec",
            "chaos_drill", "integrity_drill", "integrity_scenario",
-           "prefix_drill"]
+           "prefix_drill", "mesh_refusals"]
 
 STATUS_OK = "ok"
 STATUS_DEADLINE = "deadline"
@@ -144,6 +144,27 @@ def _req_array(x, R, dtype, name):
     return arr
 
 
+def mesh_refusals(*, deadline_s=None, watchdog=None, integrity="off",
+                  injector=None):
+    """The scheduler's knobs refused under a mesh, where every rank must
+    take every host decision the same way: wall-clock deadlines and the
+    hang watchdog (a rank's own clock), integrity checks and weight
+    flips (they address one device's whole planes).  ROADMAP A13b."""
+    why = []
+    if deadline_s is not None:
+        why.append("deadline_s")
+    if watchdog is not None:
+        why.append("watchdog")
+    if integrity not in ("off", "", None):
+        why.append("integrity")
+    if injector is not None and getattr(injector, "weight_flips", None):
+        why.append("injector weight_flips")
+    if why:
+        raise ValueError(f"{', '.join(why)} under a mesh: each rank would "
+                         "decide alone or address its own planes (ROADMAP "
+                         "A13b); serve them on one device")
+
+
 def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
                         slots: int = 4, seg_len: int = 4, max_new=None,
                         eos_id: int | None = None, sample: str = "greedy",
@@ -153,7 +174,8 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
                         monitor=None, injector=None, snapshot_every: int = 0,
                         max_replays: int = 3, watchdog=None,
                         spec: str | None = None, integrity: str = "off",
-                        prefix_cache=False, device=None, log=print):
+                        prefix_cache=False, device=None, log=print,
+                        par=None):
     """Continuous batching over already-prepared ``params`` on
     ``device`` (launch/serve.py ``serve_continuous`` is the user-facing
     wrapper and documents the arguments).  Returns (outputs, stats):
@@ -176,8 +198,10 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
     ``probe_s`` (wall seconds of the watchdog's probes, synchronized by
     their read), ``escalation_s`` (wall seconds of the ladder),
     ``escalation_captures`` (decode graphs the ladder's ``serve_batch``
-    runs captured) and ``quarantine_log`` (the reference's quarantine records: request,
-    slot, segment, reason, rel)."""
+    runs captured), ``quarantine_log`` (the reference's quarantine records: request,
+    slot, segment, reason, rel) and ``eager_reason`` (why the segments
+    stepped eagerly where graphs were asked for: a gloo mesh on CUDA;
+    else None)."""
     from ..core.kvcache import (PageAllocator, PrefixCache, admission_pages,
                                 cow_fork, extract_slot_pages,
                                 insert_slot_pages, n_pages_for)
@@ -192,6 +216,9 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
 
     prompts = np.asarray(prompts)
     R, S = prompts.shape
+    if par is not None:
+        mesh_refusals(deadline_s=deadline_s, watchdog=watchdog,
+                      integrity=integrity, injector=injector)
     budgets = np.full((R,), n_tokens, np.int32) if max_new is None \
         else _req_array(max_new, R, np.int32, "max_new")
     if not (budgets >= 1).all():
@@ -259,7 +286,8 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
     probe = None
     if monitor is not None and monitor.rel_threshold is not None:
         probe = make_probe_fn(dataclasses.replace(
-            cfg, dscim=exact_probe_spec(cfg.dscim), dscim_fault=""))
+            cfg, dscim=exact_probe_spec(cfg.dscim), dscim_fault=""),
+            par=par)
     # the step functions of each fault spec in force, made once: their
     # graphs stay bound to the state across restores
     fns: dict = {}
@@ -268,11 +296,12 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
         if fault not in fns:
             c = dataclasses.replace(cfg, dscim_fault=fault) if fault else cfg
             fns[fault] = (
-                make_admit_fn(c, eos_id=eos_id, sample=sample),
-                make_extend_fn(c, page_size, eos_id=eos_id, sample=sample)
+                make_admit_fn(c, eos_id=eos_id, sample=sample, par=par),
+                make_extend_fn(c, page_size, eos_id=eos_id, sample=sample,
+                               par=par)
                 if use_prefix else None,
                 make_segment_fn(c, seg_len, eos_id=eos_id, sample=sample,
-                                spec=spec))
+                                spec=spec, par=par))
         return fns[fault]
 
     steps_for("")
@@ -688,7 +717,7 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
         esc_captures = _escalate(cfg, params, prompts, n_tokens, host, budgets,
                   eos_id=eos_id, sample=sample, kv=kv, page_size=page_size,
                   rng_seed=rng_seed, monitor=monitor, records=esc_records,
-                  device=dev, log=log)
+                  device=dev, log=log, par=par)
     t_esc = time.perf_counter() - t_esc
     for r in range(R):
         if host["status"][r] is None:
@@ -749,13 +778,17 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
         "probe_s": timers["probe_s"],
         "escalation_s": t_esc,
         "escalation_captures": esc_captures,
+        # why the segments stepped eagerly where graphs were asked for (a
+        # gloo mesh on CUDA), else None
+        "eager_reason": next((f.eager_reason for f in segs
+                              if f.eager_reason), None),
     }
     return [np.asarray(o, np.int32) for o in host["out"]], stats
 
 
 def _escalate(cfg, params, prompts, n_tokens, host, budgets, *, eos_id,
               sample, kv, page_size, rng_seed, monitor, records, device,
-              log):
+              log, par=None):
     """Serve quarantined requests again from their prompts down the
     ladder.  A segment runs one estimator for the whole slot batch, so a
     request restarts through ``serve_batch`` on a clean config
@@ -788,7 +821,7 @@ def _escalate(cfg, params, prompts, n_tokens, host, budgets, *, eos_id,
         for spec, rows in sorted(groups.items()):
             kw = dict(eos_id=eos, max_new=[int(budgets[r]) for r in rows],
                       sample=sample, kv=kv, page_size=page_size,
-                      rng_seed=rng_seed, device=device)
+                      rng_seed=rng_seed, device=device, par=par)
             t: dict = {}
             toks, lgs = serve_batch(
                 dataclasses.replace(cfg, dscim=spec, dscim_fault=""),

@@ -53,7 +53,9 @@ def test_serve_import_pulls_no_jax():
     "repro_torch.launch.train, repro_torch.launch.steps",
     "repro_torch.optim.adamw, repro_torch.optim.compression",
     "repro_torch.data.synthetic, repro_torch.data.pipeline",
-    "repro_torch.checkpoint.checkpointer, repro_torch.tree"])
+    "repro_torch.checkpoint.checkpointer, repro_torch.tree",
+    "repro_torch.parallel, repro_torch.launch.mesh, "
+    "repro_torch.launch.sharding"])
 def test_train_import_pulls_no_jax(modules):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = (f"import sys, {modules}; "
