@@ -2,6 +2,7 @@
 """GPU smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase mesh|train_mesh    # that phase alone
 
 Needs one NVIDIA GPU with ``nvcc`` (sm_90a); exits non-zero without one.
 In order it
@@ -165,13 +166,33 @@ In order it
    and range after the first), tokens/s, the model-FLOPs share of the
    BF16 peak, peak memory, data wait and the row cache's hit rate,
    checkpoint copy and write seconds, one step under the profiler, the
-   AdamW update against its bytes bound; the same run with a failure
-   injected just after a checkpoint must replay bitwise the first run's
-   losses, and ``restore_or_init`` must resume at the saved step;
-   granite-moe-1b-a400m (full), rwkv6-7b and zamba2-7b (depth cut so the
-   f32 training state fits ``TRAIN_STATE_SHARE`` of the card) take
-   ``TRAIN_OTHER_STEPS`` steps each (finite losses; the MoE aux finite
-   and positive, a second MoE run bitwise the first);
+   AdamW update against its bytes bound; a run from the first run's
+   step-``TRAIN_CKPT_EVERY`` checkpoint with a failure injected just
+   after it must replay bitwise the first run's losses, and
+   ``restore_or_init`` must resume at that step and, after the run, at
+   ``TRAIN_STEPS`` (leg (a) below holds the steps before the checkpoint
+   from the seed); granite-moe-1b-a400m (full), rwkv6-7b and zamba2-7b (depth
+   cut so the f32 training state fits ``TRAIN_STATE_SHARE`` of the card)
+   take ``TRAIN_OTHER_STEPS`` steps each (finite losses; the MoE aux
+   finite and positive, a second MoE run bitwise the first); then trains
+   under a mesh and drives the paper-facing surface (``train_mesh``,
+   ``train_mesh_phase``): (a) the olmo-1b run under ``REPRO_MESH=d1x1``
+   over NCCL at world 1 (every leaf a placed piece gathered each step),
+   its first ``TM_A_STEPS`` losses bitwise the train run's, step device
+   ms beside it, peak memory; (b) two gloo ranks on the one card
+   (``chip_smoke.py --train-mesh-rank``), olmo-1b at full width cut to
+   ``TM_LAYERS`` layers under d2x1 with a failure injected on rank 0
+   alone: every rank starts again and replays bitwise, the losses and
+   gradient norms within ``TM_LOSS_RTOL`` and ``TM_GNORM_RTOL`` of one
+   device's, the mesh's checkpoint restored on one device bitwise the
+   ranks' final pieces, and its parameters' update within
+   ``TM_UPDATE_RTOL`` of one device's; (c)
+   ``pp_dryrun`` at the reference's defaults over pod=2, its result
+   bitwise the stages applied in turn; (d) ``compressed_psum_tree`` over
+   pod=2 bitwise its host re-statement; (e) ``examples/
+   serve_dscim_torch.py --kv int8`` at its reduced config, prepared and
+   ``--no-prepare``, kernels 1 and 2 counted; (f) ``fp8_cast`` and
+   ``fp8_to_int8_aligned`` on the card bitwise the CPU's;
 7. computes Table I through the card (``table1``): for all 12 presets the
    counts of ``DSCIMMacro.rmse``'s operands through the count kernel must
    equal the LUT's, and the RMSE must equal the JAX reference's;
@@ -255,6 +276,9 @@ MOE_SERVED = (("granite-moe-1b-a400m", None), ("deepseek-moe-16b", 8))
 # float cache (the reference serves them so and no other way); a ragged
 # request's budgets
 REC_SERVED = (("rwkv6-7b", None), ("zamba2-7b", None))
+# requests of each loop timed in turns (an eager zamba2-7b request takes
+# about 4.5 s)
+REC_TURNS = 3
 REC_BUDGETS = (16, 5, 12, 3)
 # kernel 6 against the cycle-level OR-MAC (core/ormac.py): (M, K, N)
 CYCLE_SHAPE = (4, 64, 16)
@@ -274,7 +298,7 @@ TRAIN_FAIL_AT = TRAIN_CKPT_EVERY + 1        # just after a checkpoint
 # (a step of 512 tokens took 5.5-7.7 s), so they take 128
 TRAIN_OTHERS = (("granite-moe-1b-a400m", False, TRAIN_SEQ),
                 ("rwkv6-7b", True, 128), ("zamba2-7b", True, 128))
-TRAIN_OTHER_STEPS = 3
+TRAIN_OTHER_STEPS = 2
 # a cut config keeps the most layers whose f32 parameters, gradients and
 # two moments (16 bytes a parameter) take at most this share of the
 # card's memory; the rest holds activations and AdamW's temporaries
@@ -330,6 +354,39 @@ TABLE1_RTOL = 1e-5
 # the host), each rank given this long
 MESH_N_SLICES, MESH_B_SLICES = 4, 2
 MESH_D_LAYERS, MESH_D_TOKENS, MESH_D_TIMEOUT_S = 2, 4, 240
+# train_mesh phase: (a) the train phase's olmo-1b run under REPRO_MESH
+# d1x1 over NCCL at world 1, TM_A_STEPS steps from the seed (losses
+# bitwise the train phase's first ones, every step before its
+# checkpoint); (b)-(d) two gloo ranks on the one card
+# (``chip_smoke.py --train-mesh-rank``): olmo-1b at full width cut to
+# TM_LAYERS layers, TM_BATCH x TM_SEQ, TM_STEPS steps under d2x1 with a
+# failure injected on rank 0 alone at step TM_FAIL_AT (before any
+# checkpoint: every rank starts again from the seed and replays),
+# ``pp_dryrun`` at the reference's defaults and ``compressed_psum_tree``
+# over pod=2; (e) ``examples/serve_dscim_torch.py`` at its reduced config
+# with the int8 cache, prepared and per call; (f) the FP8 helpers on the
+# card against the CPU
+TM_A_STEPS = TRAIN_CKPT_EVERY
+# (b) takes 3 steps: the schedule's step-0 rate is 0, so the last loss is
+# the first to follow an update
+TM_LAYERS, TM_BATCH, TM_SEQ, TM_STEPS, TM_FAIL_AT = 2, 4, 128, 3, 1
+TM_TIMEOUT_S = 420
+# (b) at DP=2 against one device: bf16 compute, each rank's half of the
+# batch through GEMMs of half the rows (cuBLAS may take another
+# algorithm, and so other bf16 roundings) and the f32 mean of two
+# half-batch means.  Losses and gradient norms relative; the update
+# ||(p_mesh - p0) - (p_one - p0)|| / ||p_one - p0|| over every parameter.
+# Read on an H100: losses at most 3.9e-5 off, gradient norms 1.1e-4, the
+# update 0.016.  Each bound must lie below its fault reading, which the
+# leg measures too: the last loss of a mesh that updated nothing (0.070
+# off), and the update of a rank with no DP reduction, one device on
+# rank 0's half of each batch.  Gradients summed over DP and not averaged
+# double the gradient norm (and leave the parameters as they are: Adam
+# and the clip are scale-free)
+TM_LOSS_RTOL = 1e-3
+TM_GNORM_RTOL = 1e-3
+TM_UPDATE_RTOL = 5e-2
+TM_EXAMPLE_TOKENS = 12       # serve_dscim_torch.py's default --tokens
 
 
 def _log(msg: str) -> None:
@@ -475,12 +532,14 @@ def _decode_step_ms(torch, fn, reset, reps=5):
     return statistics.median(times)
 
 
-def _loops_in_turns(torch, cfg_ds, served, prompts, tag="", kv="int8"):
+def _loops_in_turns(torch, cfg_ds, served, prompts, tag="", kv="int8",
+                    turns=5):
     """The graph loop (``serve_batch(scan=True)``, already captured at
-    these options) and the eager loop, 5 requests each in turns at the
-    main path's shape and cache layout ``kv``, each with the median
-    device time of one decode step of its runner; returns the two loops'
-    readings, medians and ranges."""
+    these options) and the eager loop, ``turns`` requests each in turns
+    (graph, eager, eager, graph, ...) at the main path's shape and cache
+    layout ``kv``, each with the median device time of one decode step
+    of its runner; returns the two loops' readings, medians and
+    ranges."""
     import numpy as np
 
     from repro_torch.launch.serve import serve_batch
@@ -500,7 +559,7 @@ def _loops_in_turns(torch, cfg_ds, served, prompts, tag="", kv="int8"):
         st["i"].fill_(TOKENS // 2)
     step_fn = {True: runner.step.graph.replay, False: runner.step.step}
     runs = {True: [], False: []}
-    for scan in (True, False, False, True) * 2 + (True, False):
+    for scan in ((True, False, False, True) * turns)[:2 * turns]:
         tt = {}
         serve_batch(cfg_ds, served, prompts, TOKENS, scan=scan, timings=tt,
                     **kw)
@@ -613,6 +672,14 @@ PROFILED_KERNELS = {"fused_mvm": "::fused_kernel<",
                     "paged_attention": "::paged_split_kernel"}
 
 
+# idle host time kept inside the profiler's window before and after the
+# profiled work.  Kineto keeps only the device activity that lies inside
+# the window, on the device's timestamps as it converts them to the
+# host's clock; without this margin a hit admission's last four fused-MVM
+# calls (4 of 170) once fell outside it.
+PROFILE_MARGIN_S = 0.1
+
+
 def _profile_request(torch, serve):
     """Wall time, device busy time (kernel durations summed), idle share,
     kernel count, the costliest kernel names of one ``serve()``, and the
@@ -623,15 +690,19 @@ def _profile_request(torch, serve):
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         serve()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_MARGIN_S)
+    # kineto's own events: ``prof.events()`` would build a FunctionEvent
+    # for every host op as well, which took longer than the profiled work
     by_name = collections.defaultdict(lambda: [0, 0.0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name][0] += 1
-            by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by_name[e.name()][0] += 1
+            by_name[e.name()][1] += (e.end_ns() - e.start_ns()) / 1e6
     busy_ms = sum(ms for _, ms in by_name.values())
     top = sorted(by_name.items(), key=lambda it: -it[1][1])[:8]
     return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
@@ -1911,7 +1982,7 @@ def _attention_launches(cfg):
 
 
 def _serve_family(torch, phase, archs, timed, extra=None, *, kv="int8",
-                  dscim=DSCIM, want=_attention_launches):
+                  dscim=DSCIM, want=_attention_launches, turns=5):
     """Serve each (arch, layers kept; None = the published depth, widths
     always kept) of ``archs`` through ``serve_batch`` at the main path's
     shape, with the cache layout ``kv`` and the spec ``dscim`` (random
@@ -1920,7 +1991,8 @@ def _serve_family(torch, phase, archs, timed, extra=None, *, kv="int8",
     dict by kernel name (``_all_counters``); the graph's tokens and logit
     trace must equal the eager loop's bitwise.  ``extra(torch, cfg_ds,
     served, prompts, toks)`` returns results of its own checks; the archs
-    in ``timed`` are then timed, both loops in turns.  Returns ({arch:
+    in ``timed`` are then timed, both loops ``turns`` requests in turns
+    (the eager loop's first request is the graph check's).  Returns ({arch:
     results}, launches summed over the counted requests)."""
     import numpy as np
 
@@ -1948,7 +2020,6 @@ def _serve_family(torch, phase, archs, timed, extra=None, *, kv="int8",
                                                     (BATCH, PROMPT))
         warm = {}
         serve_batch(cfg_ds, served, prompts, TOKENS, timings=warm, **kw)
-        serve_batch(cfg_ds, served, prompts, TOKENS, scan=False, **kw)
         torch.cuda.synchronize()
         if "capture_s" not in warm:
             raise AssertionError(f"{name}: the warm-up captured no graph")
@@ -1991,6 +2062,7 @@ def _serve_family(torch, phase, archs, timed, extra=None, *, kv="int8",
             res.update(extra(torch, cfg_ds, served, prompts, toks))
         if name in timed:
             res["loops"] = _loops_in_turns(torch, cfg_ds, served, prompts,
+                                           turns=turns,
                                            tag=f"{phase} {name} ", kv=kv)
         out[name] = res
         del served
@@ -2398,7 +2470,7 @@ def recurrent_family(torch):
         torch, "recurrent_family", REC_SERVED,
         timed=[n for n, _ in REC_SERVED], extra=_recurrent_extras,
         kv="float", dscim="off",
-        want=lambda cfg: dict.fromkeys(_all_counters(), 0))
+        want=lambda cfg: dict.fromkeys(_all_counters(), 0), turns=REC_TURNS)
     return {"served": served, "launches": total}
 
 
@@ -3178,13 +3250,16 @@ def train_phase(torch):
     device ms (median and range after the first step), tokens/s, the
     model-FLOPs share of the BF16 peak, peak memory, data wait and the
     row cache's hit rate, checkpoint save seconds.  One step under the
-    profiler; AdamW's update timed against its bytes bound.  Then the
-    same run with a failure injected at step TRAIN_FAIL_AT: the replay
-    from the checkpoint must give bitwise the first run's losses, and
-    ``restore_or_init`` must resume at the saved step (timed).  Then
+    profiler; AdamW's update timed against its bytes bound.  Then a run
+    from the first run's step-TRAIN_CKPT_EVERY checkpoint with a failure
+    injected at step TRAIN_FAIL_AT: the replay from the checkpoint must
+    give bitwise the first run's losses, and ``restore_or_init`` must
+    resume at the saved step, at the run's start and after the failure,
+    and at TRAIN_STEPS after the run (timed).  Then
     TRAIN_OTHERS, TRAIN_OTHER_STEPS steps each (depth cut to fit where
     marked): finite losses, granite's aux finite and positive, and for
     granite a second run bitwise the first."""
+    import os
     import shutil
     import tempfile
 
@@ -3308,12 +3383,28 @@ def train_phase(torch):
              f"against a bytes bound of {res['adamw']['bound_ms']:.3f} ms "
              f"(p, g, m, v read, p, m, v written: {adam_bytes} bytes)")
         del grads, params, opt, state, loop
+        # the replay starts from the first run's step-TRAIN_CKPT_EVERY
+        # checkpoint (moved, not copied: 15.4 GB): a failure just after it
+        # restores it and runs again from there (the steps before it from
+        # the seed are held again by train_mesh's leg (a))
+        first = f"step_{TRAIN_CKPT_EVERY:09d}"
+        os.makedirs(f"{tmp}/run2")
+        os.rename(f"{tmp}/run1/{first}", f"{tmp}/run2/{first}")
+        with open(f"{tmp}/run2/LATEST", "w") as f:
+            f.write(first)
         shutil.rmtree(f"{tmp}/run1", ignore_errors=True)
         torch.cuda.empty_cache()
-
-        # the replay: a failure just after the step-TRAIN_CKPT_EVERY
-        # checkpoint restores it and runs again from there
         loop2, _ = loop_for("run2", data, fail_at=(TRAIN_FAIL_AT,))
+        restores = []
+        restore = loop2.restore_or_init
+
+        def timed_restore():
+            t0 = time.perf_counter()
+            st = restore()
+            torch.cuda.synchronize()
+            restores.append((st["step"], time.perf_counter() - t0))
+            return st
+        loop2.restore_or_init = timed_restore
         loop2.run()
         seen = {}
         for h in loop2.history:
@@ -3326,23 +3417,18 @@ def train_phase(torch):
              f"{bitwise}")
         if not bitwise or replayed != list(range(TRAIN_CKPT_EVERY,
                                                  TRAIN_FAIL_AT)) \
-                or sorted(seen) != list(range(TRAIN_STEPS)):
+                or sorted(seen) != list(range(TRAIN_CKPT_EVERY, TRAIN_STEPS)):
             raise AssertionError(f"replay: {seen} against {losses}")
+        timed_restore()            # the run's last save, through LATEST
+        res["resumed_step"], res["restore_s"] = restores[0]
+        res["restores"] = restores
+        _log(f"train {TRAIN_ARCH}: restore_or_init resumed at steps "
+             f"{[st for st, _ in restores]} in "
+             f"{[round(t, 2) for _, t in restores]} s")
+        if [st for st, _ in restores] != [TRAIN_CKPT_EVERY] * 2 \
+                + [TRAIN_STEPS]:
+            raise AssertionError(f"resumed at {restores}")
         del loop2
-        torch.cuda.empty_cache()
-        loop3 = TrainLoop(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
-                          seq=TRAIN_SEQ, lr=TRAIN_LR, ckpt_dir=f"{tmp}/run2",
-                          log=_log)
-        t0 = time.perf_counter()
-        st = loop3.restore_or_init()
-        torch.cuda.synchronize()
-        res["restore_s"] = time.perf_counter() - t0
-        res["resumed_step"] = st["step"]
-        _log(f"train {TRAIN_ARCH}: restore_or_init resumed at step "
-             f"{st['step']} in {res['restore_s']:.2f} s")
-        if st["step"] != TRAIN_STEPS:
-            raise AssertionError(f"resumed at {st['step']}")
-        del st, loop3
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -3829,7 +3915,572 @@ def mesh_phase(torch, cfg, served, prompts, plain_toks):
     return out
 
 
-def main() -> int:
+def _piece_digests(tree) -> list:
+    """(spec, digest) of each leaf of a placed tree in ``tree.leaves``
+    order: this rank's piece's uint32 digest (``core/qweights.py
+    plane_digest``, on the device: any change to one element moves it)
+    and the spec it was cut by (None for a whole leaf)."""
+    from repro_torch.core.qweights import plane_digest
+    from repro_torch.parallel import Sharded
+    from repro_torch.tree import leaves
+    return [(x.spec, int(plane_digest(x.local))) if isinstance(x, Sharded)
+            else (None, int(plane_digest(x.detach()))) for x in leaves(tree)]
+
+
+def _pieces_match(tree, rank_coords, digests) -> bool:
+    """Whether the pieces a rank at ``rank_coords`` would cut from the
+    whole leaves of ``tree`` have the rank's ``digests``
+    (``_piece_digests``)."""
+    from repro_torch.core.qweights import plane_digest
+    from repro_torch.launch.sharding import shard_for
+    from repro_torch.tree import leaves
+    flat = leaves(tree)
+    if len(flat) != len(digests):
+        return False
+    for x, (spec, d) in zip(flat, digests):
+        piece = x if spec is None else \
+            shard_for(rank_coords, spec, x).contiguous()
+        if int(plane_digest(piece)) != d:
+            return False
+    return True
+
+
+def _train_mesh_world1(torch, train_res):
+    """Leg (a): olmo-1b at full width and depth through ``TrainLoop`` under
+    ``REPRO_MESH=d1x1`` (``runtime/elastic.py mesh_from_env``) over NCCL
+    at world 1, TRAIN_BATCH x TRAIN_SEQ, TM_A_STEPS steps: every leaf is a
+    placed piece gathered each step (ZeRO-3), the gradients' mean over
+    the DP axis an all-reduce; the losses bitwise the train phase's first
+    TM_A_STEPS (the same seed, data and learning rates), no launch of the
+    six kernels, step device ms beside the unsharded step's, peak
+    memory."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.runtime.elastic import mesh_from_env
+
+    if train_res is None:
+        raise AssertionError("no train phase losses to hold leg (a) to")
+    cfg = get_arch(TRAIN_ARCH)
+    counters = _all_counters()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            os.environ["REPRO_MESH"] = "d1x1"
+            loop = TrainLoop(cfg, steps=TM_A_STEPS, batch=TRAIN_BATCH,
+                             seq=TRAIN_SEQ, lr=TRAIN_LR, mesh=mesh_from_env(),
+                             log=_log)
+            if loop.par.backend != "nccl":
+                raise AssertionError(f"backend {loop.par.backend}")
+            loop.step_fn = timer = _StepTimer(torch, loop.step_fn)
+            for c in counters.values():
+                c.reset()
+            torch.cuda.reset_peak_memory_stats()
+            loop.run()
+            peak = torch.cuda.max_memory_allocated()
+            launches = {k: c.count for k, c in counters.items()}
+            step_ms = timer.ms()
+        finally:
+            os.environ.pop("REPRO_MESH", None)
+            dist.destroy_process_group()
+    losses = _losses(loop.history)
+    want = train_res["losses"][:TM_A_STEPS]
+    unsharded = train_res["step_ms"][:TM_A_STEPS]
+    res = {"losses": losses, "unsharded_losses": want,
+           "bitwise": losses == want, "launches": launches,
+           "step_ms": step_ms, "unsharded_step_ms": unsharded,
+           "step_ms_median_after_first": float(np.median(step_ms[1:])),
+           "unsharded_step_ms_median_after_first":
+           float(np.median(unsharded[1:])), "peak_memory_bytes": peak,
+           "unsharded_peak_memory_bytes": train_res["peak_memory_bytes"]}
+    _log(f"train_mesh (a) {TRAIN_ARCH} under d1x1 over NCCL at world 1, "
+         f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TM_A_STEPS} steps: losses "
+         f"{losses} (unsharded {want}: bitwise {res['bitwise']}); step "
+         f"device ms {[round(x, 1) for x in step_ms]} (unsharded "
+         f"{[round(x, 1) for x in unsharded]}); peak memory "
+         f"{peak / 2**30:.2f} GiB (unsharded "
+         f"{train_res['peak_memory_bytes'] / 2**30:.2f}); launches "
+         f"{launches}")
+    if not res["bitwise"]:
+        raise AssertionError(f"d1x1 losses {losses} differ from {want}")
+    if any(launches.values()):
+        raise AssertionError(f"the mesh train path launched {launches}")
+    return res
+
+
+def _with_grad_norms(step_fn, out: list):
+    """``step_fn`` appending each step's gradient norm to ``out`` (one
+    entry a ``TrainLoop.history`` entry)."""
+    def step(params, opt_state, batch):
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        out.append(float(m["grad_norm"]))
+        return params, opt_state, m
+    return step
+
+
+def _train_mesh_rank(rank: int, store: str, out: str) -> int:
+    """One rank of legs (b)-(d) (``chip_smoke.py --train-mesh-rank RANK
+    STORE OUT``): joins a 2-rank gloo group on the one card; (b) trains
+    the cut olmo-1b under d2x1 with the failure injected on rank 0 alone
+    and digests its final state's pieces; (c) ``pp_dryrun`` over pod=2 and
+    its stages applied
+    in turn on this rank; (d) ``compressed_psum_tree`` over pod=2 on a
+    seeded tree; pickles the results to OUT."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2)
+    res = {"rank": rank}
+    try:
+        from repro_torch.configs import get_arch
+        from repro_torch.launch.mesh import make_debug_mesh, make_parallel_ctx
+        from repro_torch.launch.pipeline import gelu_mlp_stage, pp_dryrun
+        from repro_torch.launch.train import TrainLoop
+        from repro_torch.optim.compression import compressed_psum_tree
+
+        counters = _all_counters()
+        for c in counters.values():
+            c.reset()
+        cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TM_LAYERS)
+        ck = str(Path(store).parent / "ckpt")
+        t0 = time.perf_counter()
+        loop = TrainLoop(cfg, steps=TM_STEPS, batch=TM_BATCH, seq=TM_SEQ,
+                         lr=TRAIN_LR, ckpt_dir=ck, ckpt_every=TM_STEPS,
+                         mesh=make_debug_mesh(2, 1), device="cuda:0",
+                         fail_at=(TM_FAIL_AT,) if rank == 0 else (),
+                         log=_log)
+        gnorms = []
+        loop.step_fn = _with_grad_norms(loop.step_fn, gnorms)
+        state = loop.run()
+        torch.cuda.synchronize()
+        res["train_s"] = time.perf_counter() - t0
+        par = loop.par
+        res["history"] = [(h["step"], h["loss"], h["time"])
+                          for h in loop.history]
+        res["grad_norms"] = gnorms
+        res["coords"] = par.rank_coords
+        res["digests"] = _piece_digests({"params": state["params"],
+                                         "opt": state["opt"]})
+        del state, loop
+        torch.cuda.empty_cache()
+
+        pod = make_parallel_ctx(make_debug_mesh(1, 1, pod=2))
+        t0 = time.perf_counter()
+        rec = pp_dryrun(par=pod, device="cuda:0")
+        res["pp_s"] = time.perf_counter() - t0
+        w1, w2, x = rec.pop("inputs")
+        out_pp = rec.pop("out")
+        in_turn = torch.stack([gelu_mlp_stage(
+            (w1[1], w2[1]), gelu_mlp_stage((w1[0], w2[0]), xm))
+            for xm in x])
+        rec["bitwise_stages_in_turn"] = bool(torch.equal(out_pp, in_turn))
+        res["pp"] = rec
+        del w1, w2, x, out_pp, in_turn
+
+        g = torch.Generator(device="cuda")
+        g.manual_seed(100 + rank)
+        grads = {"w": torch.randn((256, 512), generator=g, device="cuda")
+                 * (rank + 1), "b": torch.randn((512,), generator=g,
+                                                device="cuda") * 1e-3}
+        err = {k: torch.randn(v.shape, generator=g, device="cuda") * 1e-4
+               for k, v in grads.items()}
+        ng, ne = compressed_psum_tree(grads, err, "pod", pod)
+        host = lambda t: {k: v.cpu().numpy() for k, v in t.items()}  # noqa
+        res["psum"] = {"g": host(grads), "e": host(err), "mean": host(ng),
+                       "err": host(ne)}
+        res["launches"] = {k: c.count for k, c in counters.items()}
+        # both ranks done with their last collective before either tears
+        # its connections down (a gloo peer cut off mid-transfer aborts)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+        with open(out, "wb") as f:
+            pickle.dump(res, f)
+    return 0
+
+
+def _update_rel(torch, got, want, start):
+    """(||(got - start) - (want - start)|| / ||want - start||, max |got -
+    want|) over every leaf of the parameter trees, in f64."""
+    from repro_torch.tree import leaves
+    num = den = 0.0
+    worst = 0.0
+    for g, w, s0 in zip(leaves(got), leaves(want), leaves(start)):
+        d = (g.double() - w.double())
+        num += float(torch.sum(d * d))
+        u = (w.double() - s0.double())
+        den += float(torch.sum(u * u))
+        worst = max(worst, float(d.abs().max()))
+    return math.sqrt(num / den), worst
+
+
+def _psum_restated(ranks):
+    """``compressed_psum_tree``'s arithmetic re-stated on the host in
+    numpy f32 over the two ranks' inputs: (mean, [each rank's new
+    error])."""
+    import numpy as np
+
+    f32 = np.float32
+    recip = f32(1.0) / f32(127.0)
+    out_mean, out_err = {}, [{}, {}]
+    for k in ranks[0]["psum"]["g"]:
+        g32 = [r["psum"]["g"][k].astype(f32) + r["psum"]["e"][k]
+               for r in ranks]
+        s = [f32(max(np.abs(a).max(), f32(1e-12))) * recip for a in g32]
+        s_max = f32(max(s))
+        q = [np.clip(np.round(a / s_max), -127, 127) for a in g32]
+        out_mean[k] = ((q[0] + q[1]) * s_max / f32(2)).astype(f32)
+        for i in range(2):
+            out_err[i][k] = g32[i] - q[i] * s_max
+    return out_mean, out_err
+
+
+def _train_mesh_gloo(torch):
+    """Legs (b)-(d): two gloo ranks on the one card (``_train_mesh_rank``);
+    (b) the cut olmo-1b under d2x1: the failure on rank 0 alone made
+    every rank start again and replay step 0 bitwise, the losses and
+    gradient norms within TM_LOSS_RTOL and TM_GNORM_RTOL of one device's,
+    the mesh's last checkpoint restored on one device bitwise the final
+    state (each rank's pieces' digests against the same pieces cut from
+    the restored leaves; restoring under a mesh is held on the CPU,
+    tests/test_torch_train_mesh.py) and its parameters' update within
+    TM_UPDATE_RTOL of one device's (``_update_rel``); the loss of the
+    unchanged parameters on the last batch, and the update of one device
+    on rank 0's half of each batch (no DP reduction), above the loss and
+    update bounds; (c)
+    ``pp_dryrun``'s record, its result bitwise the stages
+    applied in turn; (d) ``compressed_psum_tree`` bitwise its host
+    re-statement."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_eval_step
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models.registry import get_model
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TM_LAYERS)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--train-mesh-rank", str(r), f"{tmp}/store",
+             f"{tmp}/r{r}.pkl"], cwd=str(ROOT), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=TM_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        ranks_s = time.perf_counter() - t0
+        if any(p.returncode for p in procs):
+            raise AssertionError("a gloo rank failed:\n" + "\n".join(
+                o[-3000:] for o in outs))
+        ranks = []
+        for r in range(2):
+            with open(f"{tmp}/r{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+        for r in ranks:
+            if "launches" not in r:
+                raise AssertionError(f"rank {r['rank']} stopped early:\n"
+                                     + outs[r["rank"]][-3000:])
+        # one device: the same run, no mesh; the mesh's checkpoint on it
+        one = TrainLoop(cfg, steps=TM_STEPS, batch=TM_BATCH, seq=TM_SEQ,
+                        lr=TRAIN_LR, log=_log)
+        want_gn = []
+        one.step_fn = _with_grad_norms(one.step_fn, want_gn)
+        final = one.run()
+        want = _losses(one.history)
+        meta = get_model(cfg).init_params(cfg, 0, device="meta")
+        step, tree, _ = Checkpointer(f"{tmp}/ckpt").restore_latest(
+            {"params": meta, "opt": one.opt.init(meta)}, device="cuda")
+        restored = [_pieces_match(tree, r["coords"], r["digests"])
+                    for r in ranks]
+        p0 = one.init_state()["params"]
+        update_rel, param_max_abs = _update_rel(
+            torch, tree["params"], final["params"], p0)
+        last = one.data.batch(TM_BATCH, TM_SEQ, step=TM_STEPS - 1)
+        unchanged_loss = float(make_eval_step(cfg, one.device)(p0, last))
+        del one, tree
+        half = TrainLoop(cfg, steps=TM_STEPS, batch=TM_BATCH, seq=TM_SEQ,
+                         lr=TRAIN_LR, log=_log)
+        whole_step = half.step_fn
+        half.step_fn = lambda p, o, b: whole_step(
+            p, o, {k: v[:TM_BATCH // 2] for k, v in b.items()})
+        no_dp_rel, _ = _update_rel(torch, half.run()["params"],
+                                   final["params"], p0)
+        del half, final, p0
+        torch.cuda.empty_cache()
+    hist = ranks[0]["history"]
+    steps = [s for s, _, _ in hist]
+    by_step = {}
+    for s, loss, _ in hist:
+        by_step.setdefault(s, []).append(loss)
+    got = [by_step[s][0] for s in range(TM_STEPS)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    gn = ranks[0]["grad_norms"][-TM_STEPS:]          # the replayed run's
+    gn_rel = [abs(a - b) / abs(b) for a, b in zip(gn, want_gn)]
+    res = {"ranks_s": ranks_s, "history": hist, "one_device_losses": want,
+           "rel_diff": rel, "grad_norms": ranks[0]["grad_norms"],
+           "one_device_grad_norms": want_gn, "grad_norm_rel_diff": gn_rel,
+           "update_rel_diff": update_rel, "param_max_abs_diff":
+           param_max_abs, "unchanged_params_last_loss": unchanged_loss,
+           "unchanged_rel_diff": abs(unchanged_loss - want[-1])
+           / abs(want[-1]), "no_dp_reduction_update_rel_diff": no_dp_rel,
+           "train_s": [r["train_s"] for r in ranks],
+           "restored_step": step, "pp": ranks[0]["pp"],
+           "pp_s": [r["pp_s"] for r in ranks],
+           "launches": ranks[0]["launches"]}
+    _log(f"train_mesh (b) {TRAIN_ARCH} at full width, {TM_LAYERS} layers, "
+         f"d2x1 over gloo on one card, {TM_BATCH} x {TM_SEQ}: history "
+         f"(step, loss, s) {hist}; one device {want}; relative "
+         f"{rel}; gradient norms {ranks[0]['grad_norms']} against "
+         f"{want_gn}, relative {gn_rel}; the mesh checkpoint (step "
+         f"{step}) restored on one device: its update {update_rel:.6g} "
+         f"off one device's (relative), parameters at most "
+         f"{param_max_abs:.6g} apart; the last batch's loss on the "
+         f"unchanged parameters {unchanged_loss} "
+         f"({res['unchanged_rel_diff']:.6g} off one device's); rank 0's "
+         f"half of each batch alone (no DP reduction): its update "
+         f"{no_dp_rel:.6g} off; ranks' train s {res['train_s']}")
+    _log(f"train_mesh (c) pp_dryrun over pod=2: {ranks[0]['pp']} "
+         f"(rank 1 {ranks[1]['pp']}), s {res['pp_s']}")
+    for r in ranks[1:]:
+        if [(s, loss) for s, loss, _ in r["history"]] != \
+                [(s, loss) for s, loss, _ in hist]:
+            raise AssertionError("the ranks' losses differ")
+    if steps != list(range(TM_FAIL_AT)) + list(range(TM_STEPS)):
+        raise AssertionError(f"steps run {steps}")
+    if any(len(set(v)) != 1 for v in by_step.values()):
+        raise AssertionError(f"a replayed loss differs: {by_step}")
+    if not all(x <= TM_LOSS_RTOL for x in rel):
+        raise AssertionError(f"DP=2 losses {got} vs one device {want}")
+    if len(ranks[0]["grad_norms"]) != len(hist) \
+            or not all(x <= TM_GNORM_RTOL for x in gn_rel):
+        raise AssertionError(f"DP=2 gradient norms {ranks[0]['grad_norms']}"
+                             f" vs one device {want_gn}")
+    if not update_rel <= TM_UPDATE_RTOL:
+        raise AssertionError(f"DP=2 update {update_rel} off one device's")
+    if not (res["unchanged_rel_diff"] > TM_LOSS_RTOL
+            and no_dp_rel > TM_UPDATE_RTOL):
+        raise AssertionError("a bound lies above its fault reading: "
+                             f"{res['unchanged_rel_diff']}, {no_dp_rel}")
+    if not all(restored) or step != TM_STEPS:
+        raise AssertionError("the mesh checkpoint restored on one device "
+                             "differs from the final state")
+    for r in ranks:
+        pp = r["pp"]
+        if not (pp["ok"] and pp["bitwise_stages_in_turn"]
+                and pp["stages"] == 2 and pp["microbatches"] == 8
+                and pp["sends"] == 9):
+            raise AssertionError(f"pp_dryrun on rank {r['rank']}: {pp}")
+    mean, errs = _psum_restated(ranks)
+    for r in ranks:
+        for k in mean:
+            if not (np.array_equal(r["psum"]["mean"][k], mean[k])
+                    and np.array_equal(r["psum"]["err"][k],
+                                       errs[r["rank"]][k])):
+                raise AssertionError(f"compressed_psum_tree rank "
+                                     f"{r['rank']} leaf {k} differs from "
+                                     "its host re-statement")
+    res["psum_bitwise_host"] = True
+    _log("train_mesh (d) compressed_psum_tree over pod=2 (gloo, CUDA "
+         "tensors): both ranks' means and errors bitwise the host "
+         "re-statement")
+    if any(v for r in ranks for v in r["launches"].values()):
+        raise AssertionError(f"the ranks launched "
+                             f"{[r['launches'] for r in ranks]}")
+    return res
+
+
+def _serve_example(torch):
+    """Leg (e): ``examples/serve_dscim_torch.py`` at its reduced config
+    with ``--kv int8`` (its five specs through the captured decode step),
+    prepared and with ``--no-prepare``: kernel 1 launched by the
+    ``kernel`` spec alone, a forward's matmuls a token, kernel 2 by every
+    spec, the layers a decode step; each spec's request captures its
+    step (the example's params are new tensors), and the capture's
+    preparation launches kernel 1 once on each weight shape in f32 and
+    bf16 and kernel 2 once; the kernel spec's tokens per call bitwise
+    prepared."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+
+    spec = importlib.util.spec_from_file_location(
+        "serve_dscim_torch", ROOT / "examples" / "serve_dscim_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    cfg = get_arch("qwen3-0.6b").reduced()
+    n = TM_EXAMPLE_TOKENS
+    shapes = len(_mlp_sites(cfg)) + 1            # the MLP sites and head
+    want = {"dscim_fused_mvm": _fused_per_forward(cfg) * n + 2 * shapes,
+            "paged_attention_decode":
+            len(mod.SPECS) * (cfg.n_layers * (n - 1) + 1)}
+    counters = _family_counters()
+    res = {}
+    for tag, argv in (("prepared", ["--kv", "int8"]),
+                      ("per_call", ["--kv", "int8", "--no-prepare"])):
+        for c in counters.values():
+            c.reset()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = mod.main(argv)
+        launches = {k: c.count for k, c in counters.items()}
+        res[tag] = {"lines": buf.getvalue().splitlines(),
+                    "launches": launches, "s": time.perf_counter() - t0,
+                    "tokens": {t: v[0] for t, v in out.items()}}
+        _log(f"train_mesh (e) serve_dscim_torch.py {' '.join(argv)}: "
+             f"{res[tag]['lines']}; launches {launches} (expected {want})")
+        if launches != want or len(res[tag]["lines"]) != len(mod.SPECS):
+            raise AssertionError(f"serve example {tag}: {launches}")
+    key = "dscim1/L256/fused-kernel"
+    if not np.array_equal(res["prepared"]["tokens"][key],
+                          res["per_call"]["tokens"][key]):
+        raise AssertionError("--no-prepare tokens differ from prepared")
+    for r in res.values():
+        r["tokens"] = {t: v.tolist() for t, v in r["tokens"].items()}
+    return {**res, "launches": res["prepared"]["launches"]}
+
+
+def _fp8_on_card(torch):
+    """Leg (f): ``fp8_cast`` and ``fp8_to_int8_aligned`` on CUDA bitwise
+    the CPU's on the same values (both signs over 1e-4 to 1e3 and the
+    format's edges), NaN positions included."""
+    import numpy as np
+
+    from repro_torch.core.quant import fp8_cast, fp8_to_int8_aligned
+
+    rng = np.random.default_rng(0)
+    x = (np.exp(rng.uniform(np.log(1e-4), np.log(1e3), 19200))
+         * rng.choice([-1.0, 1.0], 19200)).astype(np.float32)
+    edge = np.asarray([448, 464, np.nextafter(np.float32(464),
+                                              np.float32(np.inf)),
+                       480, np.inf, np.nan, 0.0, 2.0 ** -10], np.float32)
+    x = np.concatenate([x, edge, -edge])
+    cpu = torch.from_numpy(x)
+    gpu = cpu.cuda()
+
+    def same(a, b):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        if a.dtype.kind != "f":
+            return bool(np.array_equal(a, b))
+        nan = np.isnan(a)
+        return bool(np.array_equal(nan, np.isnan(b)) and np.array_equal(
+            a[~nan].view(np.uint32), b[~nan].view(np.uint32)))
+    ok = {"fp8_cast": same(fp8_cast(gpu), fp8_cast(cpu))}
+    xa = x[:19200].reshape(64, 300)
+    ga = fp8_to_int8_aligned(torch.from_numpy(xa).cuda())
+    ca = fp8_to_int8_aligned(torch.from_numpy(xa))
+    ok["fp8_to_int8_aligned"] = same(ga[0], ca[0]) and same(ga[1], ca[1])
+    n_nan = int(torch.isnan(fp8_cast(gpu)).sum())
+    _log(f"train_mesh (f) FP8 on CUDA bitwise the CPU's: {ok}; {n_nan} "
+         f"NaNs of {x.size} values")
+    if not all(ok.values()):
+        raise AssertionError(f"FP8 on the card differs: {ok}")
+    return {**ok, "nan": n_nan, "values": int(x.size)}
+
+
+def train_mesh_phase(torch, train_res):
+    """Phase train_mesh: training under a mesh and the paper-facing
+    surface on the card: legs (a) NCCL world 1 at full width, (b)-(d) two
+    gloo ranks, (e) the serving example, (f) FP8."""
+    out = {}
+    for name, fn, args in (("nccl_world1", _train_mesh_world1,
+                            (torch, train_res)),
+                           ("gloo_two_ranks", _train_mesh_gloo, (torch,)),
+                           ("serve_example", _serve_example, (torch,)),
+                           ("fp8", _fp8_on_card, (torch,))):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        out[name]["s"] = time.perf_counter() - t0
+        _log(f"train_mesh {name}: {out[name]['s']:.1f} s")
+    return out
+
+
+def phase_alone(torch, name: str) -> int:
+    """``chip_smoke.py --phase mesh|train_mesh``: one phase alone, for
+    iterating on the card without the whole run.  Builds the fused-MVM
+    and paged-attention kernels, makes what the phase takes from earlier
+    phases (``mesh``: qwen3-0.6b prepared once and its tokens served
+    one-shot on the int8 cache; ``train_mesh``: olmo-1b trained unsharded
+    for TM_A_STEPS steps, as the train phase's first steps), runs the
+    phase and prints its result as one JSON line; 1 if it failed."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.build(("dscim_fused", "paged_attention"))
+    _log(f"built in {time.perf_counter() - t0:.1f} s")
+    if name == "mesh":
+        from repro_torch.launch.serve import prepare_params, serve_batch
+        from repro_torch.models import lm
+        cfg = get_arch("qwen3-0.6b")
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab,
+                                                    (BATCH, PROMPT))
+        cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
+        served = prepare_params(cfg_ds, lm.init_params(cfg, 0))
+        toks, _ = serve_batch(cfg_ds, served, prompts, TOKENS, kv="int8",
+                              page_size=PAGE)
+        fn, args = mesh_phase, (torch, cfg, served, prompts, toks)
+    elif name == "train_mesh":
+        from repro_torch.launch.train import TrainLoop
+        loop = TrainLoop(get_arch(TRAIN_ARCH), steps=TM_A_STEPS,
+                         batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                         log=_log)
+        loop.step_fn = timer = _StepTimer(torch, loop.step_fn)
+        torch.cuda.reset_peak_memory_stats()
+        loop.run()
+        train = {"losses": _losses(loop.history), "step_ms": timer.ms(),
+                 "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        del loop
+        torch.cuda.empty_cache()
+        fn, args = train_mesh_phase, (torch, train)
+    else:
+        print(f"chip_smoke: --phase {name!r}: want mesh or train_mesh",
+              file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    try:
+        out = fn(*args)
+    except Exception:
+        traceback.print_exc()
+        _log(f"phase {name} FAILED")
+        return 1
+    _log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps(out, default=str), flush=True)
+    return 0
+
+
+def main(argv) -> int:
     try:
         import torch
     except ImportError:
@@ -3846,6 +4497,13 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    if argv[:1] == ["--phase"]:
+        print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+        return phase_alone(torch, argv[1])
     failures = []
 
     def phase(name, fn, *args):
@@ -3863,10 +4521,6 @@ def main() -> int:
         finally:
             _log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
     import numpy as np
 
     from repro_torch.configs import get_arch
@@ -3994,6 +4648,16 @@ def main() -> int:
         for entry in kernels:
             if entry is not None:
                 entry["launches_train"] = train["launches"][entry["name"]]
+    tmesh = phase("train_mesh", train_mesh_phase, torch, train)
+    if tmesh is not None:
+        for entry in kernels:
+            if entry is not None:
+                name = entry["name"]
+                entry["launches_train_mesh"] = \
+                    tmesh["nccl_world1"]["launches"][name] \
+                    + tmesh["gloo_two_ranks"]["launches"][name]
+                entry["launches_serve_example"] = \
+                    tmesh["serve_example"]["launches"].get(name, 0)
     t1 = phase("table1", table1, torch)
     drift = phase("reduced_gpu_vs_cpu", check_reduced, torch)
     print(json.dumps({"kernels": kernels, "card": smi[0] if smi else None,
@@ -4005,6 +4669,7 @@ def main() -> int:
                       "integrity": integ, "router": rt, "mesh": mesh,
                       "dense_family": df, "moe_family": moe_fam,
                       "recurrent_family": rec, "train": train,
+                      "train_mesh": tmesh,
                       "prefill_logit_rmse_vs_off": e2e.get("logit_rmse"),
                       "reduced_gpu_vs_cpu_drift": drift,
                       "table1_rmse_pct": t1,
@@ -4023,4 +4688,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(_mesh_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
-    sys.exit(main())
+    if sys.argv[1:2] == ["--train-mesh-rank"]:
+        sys.exit(_train_mesh_rank(int(sys.argv[2]), sys.argv[3],
+                                  sys.argv[4]))
+    sys.exit(main(sys.argv[1:]))

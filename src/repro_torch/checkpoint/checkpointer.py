@@ -18,6 +18,15 @@ where the reference writes JAX's.
 ``save`` copies every leaf to the host before its writer thread starts,
 so a caller may update the tensors in place (the train step's AdamW)
 while the files are written.
+
+Under a mesh (``par``, a ``parallel.ParallelCtx``) every rank calls
+``save`` and ``restore`` at the same points.  ``save`` gathers each
+placed (``Sharded``) leaf whole, a collective, and rank 0 alone writes,
+in the same format: a checkpoint does not know the mesh it came from.
+``restore`` waits for rank 0's pending write and for every rank, reads
+the whole leaves and places this rank's pieces where the target's leaf
+is a ``Sharded`` (the reference's reshard on restore): a checkpoint
+saved under one mesh restores under another or on one device.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import time
 import numpy as np
 import torch
 
+from ..parallel import Sharded
 from ..tree import leaves, structure, unflatten
 
 __all__ = ["Checkpointer"]
@@ -41,19 +51,32 @@ def _host(x: torch.Tensor) -> np.ndarray:
 
 
 class Checkpointer:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, par=None):
         self.dir = directory
         self.keep = keep
+        self.par = par
         os.makedirs(directory, exist_ok=True)
         self._pending: threading.Thread | None = None
         self._error: Exception | None = None
 
+    @property
+    def _writer(self) -> bool:
+        """Whether this process writes: one device, or rank 0 of a mesh."""
+        import torch.distributed as dist
+        return self.par is None or dist.get_rank() == 0
+
     # -- save -----------------------------------------------------------------
     def save(self, step: int, tree, extras: dict | None = None,
              blocking: bool = False):
-        """Async by default; the previous pending save is joined first."""
+        """Async by default; the previous pending save is joined first.
+        Under a mesh, a collective: every rank calls it."""
         self.wait()
-        host_leaves = [_host(x) for x in leaves(tree)]
+        flat = leaves(tree)
+        if self.par is not None:
+            flat = [self.par.whole(x) for x in flat]
+        if not self._writer:
+            return
+        host_leaves = [_host(x) for x in flat]
         treedef = structure(tree)
 
         def _write():
@@ -118,12 +141,25 @@ class Checkpointer:
             return None
         return int(name.split("_")[1])
 
+    def _synced(self) -> None:
+        """Under a mesh: rank 0's pending write published, and every rank
+        here, before any rank reads."""
+        if self.par is not None:
+            self.wait()
+            self.par.barrier()
+
     def restore(self, step: int, target_tree, device=None):
         """Load the leaves of ``step`` as tensors on ``device`` (default:
         each target leaf's device), in the file's dtype.  ``target_tree``
         gives the structure and the shapes, not the values (``meta``
-        tensors will do).  Returns (tree, extras); a checkpoint whose leaf
-        count or a leaf's shape differs raises ``ValueError``."""
+        tensors will do); where its leaf is a ``Sharded``, this rank's
+        piece of the whole leaf is placed by its spec.  Returns (tree,
+        extras); a checkpoint whose leaf count or a leaf's shape differs
+        raises ``ValueError``."""
+        self._synced()
+        return self._read(step, target_tree, device)
+
+    def _read(self, step: int, target_tree, device):
         d = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -138,13 +174,22 @@ class Checkpointer:
             if tuple(arr.shape) != tuple(ref.shape):
                 raise ValueError(f"leaf {i} shape {arr.shape} != expected "
                                  f"{tuple(ref.shape)}")
+            if isinstance(ref, Sharded):
+                from ..launch.sharding import shard_for, wrap
+                dev = device if device is not None else ref.local.device
+                piece = shard_for(self.par.rank_coords, ref.spec, arr)
+                out.append(wrap(torch.from_numpy(
+                    np.ascontiguousarray(piece)).to(dev), ref.spec,
+                    ref.shape))
+                continue
             dev = device if device is not None else ref.device
             out.append(torch.from_numpy(arr).to(dev))
         return unflatten(target_tree, out), manifest["extras"]
 
     def restore_latest(self, target_tree, device=None):
+        self._synced()
         step = self.latest_step()
         if step is None:
             return None
-        tree, extras = self.restore(step, target_tree, device)
+        tree, extras = self._read(step, target_tree, device)
         return step, tree, extras

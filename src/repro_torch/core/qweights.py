@@ -29,6 +29,7 @@ from .digest import fold
 from .quant import quantize_int8
 
 __all__ = ["QuantizedLinearWeight", "prepare_linear_weight",
+           "dequantize_linear_weight", "dscim_patterns", "ties_head",
            "prepare_dscim_params", "split_dscim_mode", "map_params",
            "ELIGIBLE_PATTERNS", "ATTN_PATTERNS", "plane_digest",
            "iter_qweight_planes", "weight_plane_index",
@@ -111,6 +112,13 @@ ELIGIBLE_PATTERNS = (
 ATTN_PATTERNS = ("attn/wq", "attn/wk", "attn/wv", "attn/wo")
 
 
+def dequantize_linear_weight(qw: QuantizedLinearWeight) -> torch.Tensor:
+    """Prepared -> float ``(*stack, K, N)`` f32, the pad rows stripped."""
+    wf = qw.q.to(torch.float32) * qw.scale[..., :, None, :]
+    wf = wf.reshape(*qw.stack, qw.nw * qw.g, qw.n)
+    return wf[..., :qw.k_orig, :]
+
+
 def split_dscim_mode(spec: str) -> tuple[str, bool]:
     """dscim spec -> (base mode, attn opt-in): 'kernel+attn:...' ->
     ('kernel', True); 'off' -> ('off', False)."""
@@ -129,6 +137,21 @@ def map_params(fn, tree, path: str = ""):
     return fn(path, tree)
 
 
+def dscim_patterns(cfg) -> tuple:
+    """The name patterns of the matrices ``cfg.dscim`` prepares:
+    ``ELIGIBLE_PATTERNS``, and ``ATTN_PATTERNS`` under '+attn'."""
+    if split_dscim_mode(cfg.dscim)[1]:
+        return ELIGIBLE_PATTERNS + ATTN_PATTERNS
+    return ELIGIBLE_PATTERNS
+
+
+def ties_head(cfg, params) -> bool:
+    """Whether preparation makes the head from ``embed.T``: a tied model
+    with a token embedding and no ``lm_head``."""
+    return (cfg.tie_embeddings and not cfg.stub_frontend
+            and "lm_head" not in params)
+
+
 def prepare_dscim_params(params, cfg, *, group_k: int | None = 128):
     """Convert every DS-CIM-eligible matrix of ``params`` once (serve
     startup); returns a new tree, float originals dropped.  Tied models
@@ -137,10 +160,9 @@ def prepare_dscim_params(params, cfg, *, group_k: int | None = 128):
     spec adds the attention projections; 'off'/'float' return ``params``.
     An MoE model's router and routed experts stay float; its shared
     expert is prepared."""
-    mode, attn = split_dscim_mode(cfg.dscim)
-    if mode in ("off", "float"):
+    if split_dscim_mode(cfg.dscim)[0] in ("off", "float"):
         return params
-    pats = ELIGIBLE_PATTERNS + (ATTN_PATTERNS if attn else ())
+    pats = dscim_patterns(cfg)
 
     def assign(path, leaf):
         if (isinstance(leaf, torch.Tensor) and leaf.ndim >= 2
@@ -149,7 +171,7 @@ def prepare_dscim_params(params, cfg, *, group_k: int | None = 128):
         return leaf
 
     out = map_params(assign, params)
-    if cfg.tie_embeddings and not cfg.stub_frontend and "lm_head" not in out:
+    if ties_head(cfg, out):
         out["lm_head"] = prepare_linear_weight(params["embed"].T, group_k)
     return out
 

@@ -8,11 +8,15 @@ The port serves under a mesh as SPMD, one process a device:
 ``init_distributed`` joins the group ``torchrun`` describes (NCCL on CUDA,
 each rank on device ``LOCAL_RANK``; gloo when the CPU is asked for), and
 ``parallel_ctx_from_spec`` builds the ``("data", "model")`` mesh over it.
-There is no single-process fallback: a spec whose size is not the
-group's raises.
+``make_mesh`` builds any mesh over the group, ``make_production_mesh``
+the reference's (data=16, model=16) pod or (pod=2, data=16, model=16)
+pair of pods, whose ``pod`` axis is data-parallel (training's
+``runtime/elastic.py`` picks one from ``REPRO_MESH``).  There is no
+single-process fallback: a mesh whose size is not the group's raises.
 """
 from __future__ import annotations
 
+import math
 import os
 
 import torch
@@ -20,8 +24,9 @@ import torch.distributed as dist
 
 from ..parallel import ParallelCtx
 
-__all__ = ["init_distributed", "make_debug_mesh", "make_parallel_ctx",
-           "parallel_ctx_from_spec", "parse_mesh_spec"]
+__all__ = ["init_distributed", "make_mesh", "make_production_mesh",
+           "make_debug_mesh", "make_parallel_ctx", "parallel_ctx_from_spec",
+           "parse_mesh_spec"]
 
 
 def init_distributed(device=None) -> torch.device:
@@ -55,12 +60,37 @@ def _device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
-def make_debug_mesh(data: int = 2, model: int = 2):
-    """A ``("data", "model")`` ``DeviceMesh`` over the joined group (NCCL's
-    on CUDA, gloo's on the CPU)."""
+def make_mesh(shape, axes):
+    """A ``DeviceMesh`` of ``shape`` with dims named ``axes`` over the
+    joined group (NCCL's on CUDA, gloo's on the CPU), which must hold
+    exactly prod(shape) ranks."""
     from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(_device_type(), (data, model),
-                            mesh_dim_names=("data", "model"))
+    shape, axes = tuple(shape), tuple(axes)
+    if not dist.is_initialized():
+        raise ValueError(f"a mesh {dict(zip(axes, shape))} needs a joined "
+                         "process group (launch/mesh.py init_distributed, "
+                         "under torchrun)")
+    n, world = math.prod(shape), dist.get_world_size()
+    if n != world:
+        raise ValueError(f"a mesh {dict(zip(axes, shape))} needs {n} ranks, "
+                         f"the process group has {world}")
+    return init_device_mesh(_device_type(), shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh: (data=16, model=16), or with
+    ``multi_pod`` (pod=2, data=16, model=16)."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_mesh((16, 16), ("data", "model"))
+
+
+def make_debug_mesh(data: int = 2, model: int = 2, pod: int = 0):
+    """A small ``("data", "model")`` mesh, or ``("pod", "data",
+    "model")`` with ``pod``, over the joined group."""
+    if pod:
+        return make_mesh((pod, data, model), ("pod", "data", "model"))
+    return make_mesh((data, model), ("data", "model"))
 
 
 def make_parallel_ctx(mesh) -> ParallelCtx:

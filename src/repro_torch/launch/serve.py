@@ -17,6 +17,8 @@ Generation replays one captured decode step as a CUDA graph (launch/
 steps.py, launch/graph.py): one host call per token instead of one per
 kernel.  ``--host-loop`` runs the eager loop instead (the A/B baseline).
 ``--temp``/``--top-k``/``--top-p`` sample instead of taking the argmax.
+``--no-prepare`` quantizes the DS-CIM weights at every call instead of
+once before serving (the A/B of the quantize-once weights).
 ``--continuous`` serves ``--requests`` prompts through ``--batch``
 persistent slots, admitting between segments of ``--segment-len`` steps
 (runtime/serving.py).  ``--spec dscim2:<k>`` turns on self-speculative
@@ -74,7 +76,8 @@ def _to(params, device):
     return map_params(move, params)
 
 
-def prepare_params(cfg, params, device=None, par=None):
+def prepare_params(cfg, params, device=None, par=None, *,
+                   prepare: bool = True):
     """``params`` as the serving entry points use them: on ``device`` (CUDA
     unless 'cpu' is asked for), DS-CIM-eligible weights quantized once
     into int8 planes (no-op when cfg.dscim is 'off') and the layers cast
@@ -83,9 +86,19 @@ def prepare_params(cfg, params, device=None, par=None):
     its pieces).  Prepared params pass through unchanged, the same
     tensors: a caller that serves many requests prepares once and hands
     these to ``serve_batch``, whose captured decode graph then stays
-    bound to them (other tensors capture it again)."""
+    bound to them (other tensors capture it again).  ``prepare=False``
+    keeps the float weights (placed and cast all the same): every DS-CIM
+    matmul then quantizes its weight at each call, the reference's
+    ``--no-prepare`` A/B, bitwise the prepared path under f32 compute."""
     dev = resolve_device(device)
-    out = prepare_serving_params(cfg, _to(params, dev), par)
+    params = _to(params, dev)
+    if prepare:
+        out = prepare_serving_params(cfg, params, par)
+    elif par is not None:
+        from .sharding import shard_params
+        out = shard_params(params, par)
+    else:
+        out = params
     return get_model(cfg).cast_layers(out, lm.DTYPES[cfg.compute_dtype])
 
 
@@ -98,7 +111,7 @@ def serve_batch(cfg, params, prompts, n_tokens: int, *,
                 scan: bool = True, sample: str = "greedy", rng_seed: int = 0,
                 device=None, timings: dict | None = None,
                 return_cache: bool = False, spec: str | None = None,
-                spec_stats: bool = False, par=None):
+                spec_stats: bool = False, par=None, prepare: bool = True):
     """prompts (B, S) int -> generated (B, n_tokens) int32 numpy, logits
     list (the per-step trace under ``trace_logits``, else [prefill
     logits]), as numpy f32.
@@ -129,7 +142,9 @@ def serve_batch(cfg, params, prompts, n_tokens: int, *,
 
     ``par``: serve under that mesh (launch/mesh.py); ``params`` are placed
     by ``prepare_params(..., par)`` and every rank returns the tokens and
-    logits one device would, the same on every rank."""
+    logits one device would, the same on every rank.  ``prepare=False``:
+    the weights stay float and are quantized at every call
+    (``prepare_params``), bitwise the prepared path under f32 compute."""
     _check_kv(cfg, kv)
     dev = resolve_device(device)
 
@@ -138,7 +153,7 @@ def serve_batch(cfg, params, prompts, n_tokens: int, *,
             torch.cuda.synchronize(dev)
 
     t0 = time.perf_counter()
-    params = prepare_params(cfg, params, dev, par)
+    params = prepare_params(cfg, params, dev, par, prepare=prepare)
     tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                              device=dev)
     budgets = None
@@ -274,7 +289,7 @@ def serve_continuous(cfg, params, prompts, n_tokens: int, *,
     on the same queue and returning the same outputs.  The knobs whose
     decisions a rank takes alone (``deadline_s``'s and a ``watchdog``'s
     wall clocks) or that address one device's planes (``integrity``, the
-    injector's weight flips) are refused under a mesh (ROADMAP A13b)."""
+    injector's weight flips) are refused under a mesh (ROADMAP A13c)."""
     from ..runtime.serving import serve_continuous_ft
     _check_kv(cfg, kv)
     dev = resolve_device(device)
@@ -369,6 +384,9 @@ def main(argv=None):
                     help="eager host loop (one decode step of kernel "
                          "launches per token) instead of replaying the "
                          "captured decode step (A/B)")
+    ap.add_argument("--no-prepare", action="store_true",
+                    help="quantize the DS-CIM weights at every call instead "
+                         "of once before serving (A/B; one-shot batches)")
     ap.add_argument("--temp", type=float, default=None,
                     help="temperature sampling (default greedy argmax)")
     ap.add_argument("--top-k", type=int, default=None,
@@ -452,7 +470,7 @@ def main(argv=None):
     if drills or args.integrity != "off":
         raise ValueError(f"--mesh serves --continuous and one-shot batches; "
                          f"{drills or ['--integrity']} run on one device "
-                         "(ROADMAP A13b)")
+                         "(ROADMAP A13c)")
     import os
     import sys
 
@@ -462,7 +480,11 @@ def main(argv=None):
         par = parallel_ctx_from_spec(args.mesh)
         if dist.get_rank() != 0:           # every rank serves, rank 0 prints
             sys.stdout = open(os.devnull, "w")
-        return _run(args, dev, par)
+        rc = _run(args, dev, par)
+        # every rank done with its last collective before any tears its
+        # connections down (a gloo peer cut off mid-transfer aborts)
+        dist.barrier()
+        return rc
     finally:
         dist.destroy_process_group()
 
@@ -492,6 +514,9 @@ def _run(args, dev, par) -> int:
         + (f" under mesh {args.mesh}" if par is not None else "")
 
     if args.continuous:
+        if args.no_prepare:
+            raise ValueError("--no-prepare serves one-shot batches; the "
+                             "continuous scheduler prepares once")
         prompts = rng.integers(0, cfg.vocab, (args.requests, args.prompt_len),
                                dtype=np.int64)
         if args.prefix_cache:
@@ -562,7 +587,7 @@ def _run(args, dev, par) -> int:
             c, params, prompts, args.tokens, eos_id=args.eos, kv=args.kv,
             page_size=args.page_size, scan=not args.host_loop,
             sample=sample, device=dev, timings=t, spec=spec,
-            spec_stats=True, par=par)
+            spec_stats=True, par=par, prepare=not args.no_prepare)
         useful = _useful_tokens(toks, args.eos)
         results[tag] = (toks, logits)
         line = (f"[serve] dscim={tag} kv={args.kv} {name} ({mode}): "

@@ -22,8 +22,10 @@ is a 1-tuple here).  The rules are the reference's, name-based over the
 ``shard_for`` cuts one rank's piece of a leaf by its spec and
 ``shard_params`` places a whole tree: a leaf some dim of which is split
 becomes a ``parallel.Sharded`` (its piece and the spec), the rest stay as
-they are.  The port's serving keeps the KV cache whole on every rank (its
-float math is the single-device math, and the paged read cuts the batch
+they are; ``to_shardings`` does the same by a spec tree (the training
+state: ``opt_state_specs``, AdamW's moments placed as the params).  The
+port's serving keeps the KV cache whole on every rank (its float math
+is the single-device math, and the paged read cuts the batch
 itself: ``kernels/paged_attention.py paged_attention_decode_sharded``);
 ``cache_partition`` and ``batch_specs`` are the reference's rules, kept
 for the mesh the cache would take.
@@ -39,9 +41,9 @@ from ..core.qweights import (QuantizedLinearWeight, map_params,
                              qweight_replicated_specs)
 from ..parallel import ParallelCtx, Sharded
 
-__all__ = ["param_specs", "batch_specs", "cache_partition", "qweight_specs",
-           "shard_for", "shard_params", "place_leaf", "placement",
-           "leaf_spec", "wrap"]
+__all__ = ["param_specs", "opt_state_specs", "batch_specs",
+           "cache_partition", "qweight_specs", "shard_for", "shard_params",
+           "to_shardings", "place_leaf", "placement", "leaf_spec", "wrap"]
 
 # name -> spec of the trailing dims of the param (stacking dims get None);
 # the FSDP axis written as 'F', the tensor axis as 'T'.  First match wins.
@@ -122,6 +124,11 @@ def param_specs(cfg: ArchConfig, par: ParallelCtx, params):
             return qweight_specs(leaf, tp, par.sizes)
         return leaf_spec(path, tuple(leaf.shape), fsdp, tp, par.sizes)
     return map_params(assign, params)
+
+
+def opt_state_specs(pspecs):
+    """AdamW's ``m`` and ``v`` mirror the params; ``count`` is whole."""
+    return {"m": pspecs, "v": pspecs, "count": ()}
 
 
 def _div(n: int, axes, sizes: dict) -> bool:
@@ -261,3 +268,21 @@ def shard_params(params, par: ParallelCtx):
     """``params`` placed on ``par`` (``place_leaf`` leaf by leaf); placed
     params come back as they are."""
     return map_params(lambda path, a: place_leaf(path, a, par), params)
+
+
+def to_shardings(par: ParallelCtx, spec_tree, tree):
+    """``tree`` (whole leaves, nested dicts) placed by ``spec_tree`` (the
+    same nesting, e.g. ``param_specs`` or ``opt_state_specs``): each leaf
+    whose spec splits a dim becomes this rank's ``Sharded`` piece
+    (``shard_for`` / ``wrap``), the rest stay whole.  The port's
+    counterpart of the reference's ``device_put`` onto
+    ``to_shardings(mesh, specs)``."""
+    if isinstance(tree, dict):
+        return {k: to_shardings(par, spec_tree[k], v)
+                for k, v in tree.items()}
+    spec = spec_tree
+    split = any(spec.q) if isinstance(spec, QuantizedLinearWeight) \
+        else any(spec)
+    if isinstance(tree, Sharded) or not split:
+        return tree
+    return wrap(shard_for(par.rank_coords, spec, tree), spec, tree.shape)

@@ -7,7 +7,11 @@ continuous-batching pieces ``init_serve_state`` / ``make_admit_fn`` /
 
 The train step differentiates ``forward`` (models/) with autograd and
 updates in place through ``optim/adamw.py``; it runs eagerly, with
-``dscim`` 'off' or 'float' only (``_check_train``).
+``dscim`` 'off' or 'float' only (``_check_train``).  Under a mesh
+(``par``) it is the reference's FSDP/TP step as ZeRO-3: the placed
+leaves are gathered whole outside autograd, each rank runs forward and
+backward on its DP slice of the batch, the whole gradients are averaged
+over the DP axes, and each rank updates its own pieces.
 
 ``prepare_serving_params`` converts every DS-CIM-eligible weight once into
 resident int8 ``QuantizedLinearWeight`` planes.
@@ -119,7 +123,7 @@ def _labels(batch, dev) -> torch.Tensor:
     return torch.as_tensor(batch["labels"], device=dev).long()
 
 
-def make_train_step(cfg: ArchConfig, opt, device=None):
+def make_train_step(cfg: ArchConfig, opt, device=None, par=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"})`` on ``device`` (CUDA unless the caller asks
     for another; the parameters and the state must live there): the
@@ -127,10 +131,26 @@ def make_train_step(cfg: ArchConfig, opt, device=None):
     gradients by autograd, then ``opt.update`` (optim/adamw.py), which
     writes the parameters and the state in place.  ``batch`` holds
     ``tokens`` (or ``embeds``) and ``labels`` (B, S), numpy or tensors.
-    The metrics stay on the device (reading one waits for the step)."""
+    The metrics stay on the device (reading one waits for the step).
+
+    ``par`` (a ``ParallelCtx``): the params and the AdamW state are placed
+    on that mesh (``Sharded`` pieces, launch/sharding.py) and every rank
+    passes the same global batch.  Each step gathers every placed leaf
+    whole outside autograd, runs forward and backward on whole leaves on
+    this rank's slice of the batch over the DP axes (``batch_slice``;
+    the whole batch where it does not divide), averages the loss and the
+    whole gradients over the DP axes, takes the clip's global norm of
+    that mean (the same on every rank) and updates this rank's pieces.
+    With no DP split (``model=N``) this is the one-device step bitwise.
+    The MoE experts run on whole gathered weights, not with expert
+    parallelism (its ``all_to_all`` has no backward: ROADMAP A13c); the
+    RWKV6 and hybrid families are refused (``check_mesh``)."""
     _check_train(cfg)
     model = get_model(cfg)
     dev = resolve_device(device)
+    if par is not None:
+        check_mesh(cfg)
+        return _mesh_train_step(cfg, opt, model, dev, par)
 
     def train_step(params, opt_state, batch):
         flat = leaves(params)
@@ -143,6 +163,50 @@ def make_train_step(cfg: ArchConfig, opt, device=None):
         params, opt_state, gnorm = opt.update(
             params, unflatten(params, grads), opt_state)
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return train_step
+
+
+def _mesh_train_step(cfg: ArchConfig, opt, model, dev, par):
+    """``make_train_step``'s step under the mesh ``par`` (ZeRO-3)."""
+    from ..optim.adamw import global_norm
+    from ..parallel import Sharded
+    from .sharding import shard_for
+
+    def dp_mean(t):
+        for a in par.dp_axes:
+            t = par.psum(t, a)
+        return t / par.dp_size
+
+    def local(batch):
+        out = {}
+        for k in ("tokens", "embeds", "labels"):
+            if k in batch:
+                out[k] = par.batch_slice(
+                    torch.as_tensor(batch[k], device=dev))[0]
+        return out
+
+    def train_step(params, opt_state, batch):
+        placed = leaves(params)
+        with torch.no_grad():
+            flat = [par.whole(p) for p in placed]
+        flat = [w.detach().requires_grad_(True) for w in flat]
+        part = local(batch)
+        logits, aux = _forward(model, unflatten(params, flat), cfg, part,
+                               dev)
+        loss = lm.lm_loss(logits, _labels(part, dev)) + AUX_WEIGHT * aux
+        grads = torch.autograd.grad(loss, flat, materialize_grads=True)
+        del logits, flat
+        with torch.no_grad():
+            grads = [dp_mean(g) for g in grads]
+            loss = dp_mean(loss.detach())
+            gnorm = global_norm(unflatten(params, grads))
+            pieces = [shard_for(par.rank_coords, p.spec, g)
+                      if isinstance(p, Sharded) else g
+                      for p, g in zip(placed, grads)]
+        params, opt_state, gnorm = opt.update(
+            params, unflatten(params, pieces), opt_state, gnorm=gnorm)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step
 
@@ -163,12 +227,12 @@ def make_eval_step(cfg: ArchConfig, device=None):
 
 
 def check_mesh(cfg: ArchConfig) -> None:
-    """Meshes serve the attention families only: the RWKV6 and hybrid
-    families' placement (their ``shard_fn``) is ROADMAP A13b."""
+    """Meshes serve and train the attention families only: the RWKV6 and
+    hybrid families' placement (their ``shard_fn``) is ROADMAP A13c."""
     if cfg.family not in ATTENTION_FAMILIES:
-        raise ValueError(f"{cfg.name}: serving the {cfg.family!r} family "
-                         "under a mesh is ROADMAP A13b; serve it on one "
-                         "device")
+        raise ValueError(f"{cfg.name}: serving or training the "
+                         f"{cfg.family!r} family under a mesh is ROADMAP "
+                         "A13c; run it on one device")
 
 
 def _mesh_kw(cfg: ArchConfig, par) -> dict:
@@ -225,11 +289,9 @@ def _whole_for_prepare(cfg: ArchConfig, params, par):
     DS-CIM-eligible matrices, and the embedding a tied head is made from)
     gathered whole: a window's int8 scale spans its whole K and a column's
     whole N."""
-    from ..core.qweights import ATTN_PATTERNS, ELIGIBLE_PATTERNS
-    pats = ELIGIBLE_PATTERNS
-    if split_dscim_mode(cfg.dscim)[1]:
-        pats += ATTN_PATTERNS
-    if cfg.tie_embeddings and "lm_head" not in params:
+    from ..core.qweights import dscim_patterns, ties_head
+    pats = dscim_patterns(cfg)
+    if ties_head(cfg, params):
         pats += ("embed",)
     return map_params(lambda path, a: par.whole(a) if any(
         t in path for t in pats) else a, params)
@@ -266,7 +328,7 @@ def prepare_serving_params(cfg: ArchConfig, params, par=None, *,
         from .sharding import shard_params
         if golden:
             raise ValueError("integrity golden copies are per device; "
-                             "serving them under a mesh is ROADMAP A13b")
+                             "serving them under a mesh is ROADMAP A13c")
         prepared = shard_params(prepared, par)
     if split_dscim_mode(spec)[0] in ("off", "float"):
         return (prepared, None) if golden else prepared
@@ -643,8 +705,10 @@ def _prepare_fn(st: dict, uses, par=None):
             elif lin.mode == "bitmatmul":
                 dscim_mvm.prepare_capture(lin.macro.folded, lin.cfg.k, M,
                                           dev, stream)
-            elif lin.mode == "kernel" and first:
-                dscim_fused.prepare_capture(first, M, lin.cfg, stream)
+            elif lin.mode == "kernel":
+                ws = first or _per_call_weights(cfg, st["params"],
+                                                lin.group_k, par)
+                dscim_fused.prepare_capture(ws, M, lin.cfg, stream)
         cache = st["cache"]
         if "k_pages" in cache:
             cfg = uses[0][0]
@@ -655,6 +719,36 @@ def _prepare_fn(st: dict, uses, par=None):
                 cache["page_table"].shape[1], cache["pos"].device, stream)
 
     return prepare
+
+
+def _per_call_weights(cfg: ArchConfig, params, group_k, par=None) -> list:
+    """The prepared weights a step on float params (``serve_batch(
+    prepare=False)``) makes at each call, one layer's of each matrix, as
+    the kernel sees them: on a mesh, this rank's N-slice
+    (``dscim_fused_mvm_sharded``).  ``prepare_capture`` launches the fused
+    MVM on each shape before the capture."""
+    if par is not None:
+        params = _whole_for_prepare(cfg, params, par)
+    layer0 = map_params(lambda _, a: a[:1] if isinstance(a, torch.Tensor)
+                        and a.ndim >= 3 else a, params)
+    out = []
+
+    def visit(_, qw):
+        if not isinstance(qw, QuantizedLinearWeight):
+            return qw
+        if qw.stack:
+            qw = qw[(0,) * len(qw.stack)]
+        if par is not None and qw.n % par.tp_size == 0:
+            from .sharding import qweight_specs, shard_for
+            qw = shard_for(par.rank_coords,
+                           qweight_specs(qw, par.tp_axis, par.sizes), qw)
+            qw = QuantizedLinearWeight(qw.q.contiguous(),
+                                       qw.scale.contiguous(), qw.k_orig,
+                                       qw.group_k)
+        out.append(qw)
+        return qw
+    map_params(visit, prepare_dscim_params(layer0, cfg, group_k=group_k))
+    return out
 
 
 def _uses(cfg: ArchConfig, B: int, spec):

@@ -21,7 +21,8 @@ self-speculative decoding).
 Serving under a mesh (``par``, a ``parallel.ParallelCtx``, to
 ``prefill``, ``decode`` and ``decode_multi``): SPMD over
 ``torch.distributed``, params placed by ``launch/sharding.py``; see
-``prefill``.  Training under a mesh is ROADMAP A13b.
+``prefill``.  Training under a mesh runs ``forward`` on whole gathered
+leaves (launch/steps.py ``make_train_step(par=)``).
 
 Salts: layer ``li`` owns the salt space ``8*li`` (MLP or shared-expert
 sites 0..2, attention 4..7) and the head takes ``8*n_layers``, as in the

@@ -14,6 +14,14 @@ reference's leaves.
 returns the same trees (the reference returns new ones): the caller
 holds one copy of each, and every scalar stays on the device, so an
 update waits on nothing on the host.
+
+Under a mesh (launch/steps.py ``make_train_step(par=)``) a parameter is a
+``parallel.Sharded`` piece: ``init`` gives it moments that mirror the
+piece (``Sharded`` of the same spec), and ``update`` takes this rank's
+gradient pieces (plain tensors) with the global norm of the whole
+gradients passed in as ``gnorm``, since a piece's norm is not the
+clip's.  The update is elementwise, so a piece updates to the bits of
+its part of the whole.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ from typing import Callable
 
 import torch
 
+from ..parallel import Sharded
 from ..tree import leaves
 
 __all__ = ["AdamW", "cosine_schedule", "linear_warmup", "global_norm"]
@@ -31,9 +40,19 @@ F32 = torch.float32
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    sq = [torch.sum(torch.square(x.to(F32))) for x in leaves(tree)]
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares
+    (whole leaves: a ``Sharded`` piece's norm is not the leaf's)."""
+    sq = []
+    for x in leaves(tree):
+        if isinstance(x, Sharded):
+            raise TypeError("global_norm of a placed piece; pass the whole "
+                            "gradients' norm (AdamW.update gnorm=)")
+        sq.append(torch.sum(torch.square(x.to(F32))))
     return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+def _local(x) -> torch.Tensor:
+    return x.local if isinstance(x, Sharded) else x
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int,
@@ -67,27 +86,32 @@ class AdamW:
     clip_norm: float = 1.0
 
     def init(self, params):
-        """Zero f32 moments shaped as ``params`` and ``count`` 0 on their
-        device."""
+        """Zero f32 moments shaped as ``params`` (a ``Sharded`` piece's
+        mirror its piece) and ``count`` 0 on their device."""
         def zeros(t):
             if isinstance(t, dict):
                 return {k: zeros(v) for k, v in t.items()}
+            if isinstance(t, Sharded):
+                return Sharded(zeros(t.local), t.spec, t.shape)
             return torch.zeros(t.shape, dtype=F32, device=t.device)
-        dev = next(iter(leaves(params))).device
+        dev = _local(next(iter(leaves(params)))).device
         return {"m": zeros(params), "v": zeros(params),
                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
     @torch.no_grad()
-    def update(self, params, grads, state, step=None):
+    def update(self, params, grads, state, step=None, gnorm=None):
         """One step, in place: returns (params, state, the gradients'
         global norm before clipping).  ``grads`` is consumed (scaled in
-        place where it is f32)."""
+        place where it is f32); under a mesh it holds this rank's pieces
+        and ``gnorm`` the whole gradients' global norm (computed here from
+        ``grads`` when None)."""
         count = state["count"]
         count.add_(1)
         step = count if step is None else step
         lr = self.lr(step) if callable(self.lr) else self.lr
 
-        gnorm = global_norm(grads)
+        if gnorm is None:
+            gnorm = global_norm(grads)
         scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
         c = count.to(F32)
         b1, b2 = self.b1, self.b2
@@ -95,6 +119,7 @@ class AdamW:
         bc2 = 1 - b2 ** c
         for p, g, m, v in zip(leaves(params), leaves(grads),
                               leaves(state["m"]), leaves(state["v"])):
+            p, g, m, v = _local(p), _local(g), _local(m), _local(v)
             g = g.to(F32).mul_(scale)
             m.mul_(b1).add_(g, alpha=1 - b1)
             v.mul_(b2).addcmul_(g, g, value=1 - b2)

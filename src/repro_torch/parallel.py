@@ -1,11 +1,13 @@
-"""Parallelism context threaded through the serving path (port of
-``repro/parallel.py`` on ``torch.distributed``).
+"""Parallelism context threaded through the serving and training paths
+(port of ``repro/parallel.py`` on ``torch.distributed``).
 
-The port serves under a mesh as SPMD with one process a device: every
-rank runs the same program on the same inputs and returns the same
-tokens.  ``ParallelCtx`` carries the ``DeviceMesh`` (dims ``("data",
-"model")``), the axis conventions and this rank's coordinates, and holds
-every collective that serving under a mesh issues, in one place:
+The port serves and trains under a mesh as SPMD with one process a
+device: every rank runs the same program on the same inputs and returns
+the same tokens (or losses).  ``ParallelCtx`` carries the ``DeviceMesh``
+(dims ``("data", "model")``, or ``("pod", "data", "model")`` for the
+multi-pod mesh, whose ``pod`` axis is data-parallel), the axis
+conventions and this rank's coordinates, and holds every collective
+that serving and training under a mesh issue, in one place:
 
 * ``all_gather``: a tensor's pieces along one dim, concatenated in mesh
   order (the reference's ``all_gather(..., tiled=True)``) over one or more
@@ -13,7 +15,15 @@ every collective that serving under a mesh issues, in one place:
   columns, a DP-sharded batch;
 * ``all_to_all``: the MoE's expert exchange over the ``model`` axis (the
   reference's ``all_to_all(..., tiled=True)``);
-* ``all_reduce_mean``: the MoE aux averaged over the mesh.
+* ``all_reduce_mean``: the MoE aux averaged over the mesh;
+* ``psum`` / ``pmax``: a sum or a max over one named axis (the
+  reference's ``psum`` / ``pmax``: the train step's gradient mean over
+  the DP axes, ``optim/compression.py compressed_psum_tree``), and
+  ``agree``, a flag raised on any rank raised on every rank (the train
+  loop's failover decision);
+* ``ppermute``: each rank's tensor handed to the next rank along an axis
+  (the reference's ring ``ppermute``: ``launch/pipeline.py``'s stage
+  hand-off), and ``broadcast`` from one coordinate of an axis.
 
 Each is issued whatever the axis size (a size-1 group copies), so a mesh
 of one rank runs the collectives it would run on many.  On NCCL they can
@@ -25,7 +35,7 @@ collective first, ``warm_up``); a gloo group cannot be captured
 ``launch/sharding.py``: the local tensor (or prepared weight) and the
 spec of the whole leaf, a tuple with an entry per dim, ``None`` or the
 tuple of mesh axes that dim is split over.  ``ParallelCtx.sp`` (the
-sequence-parallel residual stream) is not ported (ROADMAP A13b).
+sequence-parallel residual stream) is not ported (ROADMAP A13c).
 
 ``None`` in place of a ``ParallelCtx`` everywhere means one device.
 """
@@ -182,6 +192,66 @@ class ParallelCtx:
         for a in self.sizes:
             dist.all_reduce(out, group=self.group(a))
         return out / math.prod(self.sizes.values())
+
+    def psum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum of ``t`` over the ranks of ``axis`` (a new tensor)."""
+        out = t.clone()
+        dist.all_reduce(out, group=self.group(axis))
+        return out
+
+    def pmax(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The elementwise max of ``t`` over the ranks of ``axis``."""
+        out = t.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group(axis))
+        return out
+
+    def agree(self, flags) -> list[bool]:
+        """Each of ``flags`` (bools) true on every rank where it is true
+        on any: a max over every axis, so every rank takes the same
+        decision (one small collective; reading it waits for the
+        device)."""
+        dev = "cuda" if self.backend == "nccl" else "cpu"
+        t = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int32,
+                         device=dev)
+        for a in self.sizes:
+            t = self.pmax(t, a)
+        return [bool(x) for x in t.tolist()]
+
+    def ppermute(self, t: torch.Tensor, axis: str, shift: int = 1
+                 ) -> torch.Tensor:
+        """``t`` sent to the rank ``shift`` further along ``axis`` (a
+        ring: the last wraps to the first); returns what the rank
+        ``shift`` before sent here.  One ``all_to_all_single`` whose only
+        non-empty piece goes to that rank, so a size-1 axis sends to
+        itself (gloo has no send to one's own rank)."""
+        n, c = self.sizes[axis], self.coords[axis]
+        x = t.contiguous().reshape(1, -1)
+        ins, outs = [0] * n, [0] * n
+        ins[(c + shift) % n] = 1
+        outs[(c - shift) % n] = 1
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, output_split_sizes=outs,
+                               input_split_sizes=ins,
+                               group=self.group(axis))
+        return out.reshape(t.shape)
+
+    def broadcast(self, t: torch.Tensor, axis: str, src: int
+                  ) -> torch.Tensor:
+        """The tensor of coordinate ``src`` along ``axis``, on every rank
+        of the axis (``t`` is written in place on the others)."""
+        group = self.group(axis)
+        dist.broadcast(t, group=group,
+                       src=dist.get_global_rank(group, src))
+        return t
+
+    def barrier(self) -> None:
+        """Every rank of the mesh has reached this point (a sum of one
+        element over every axis)."""
+        dev = "cuda" if self.backend == "nccl" else "cpu"
+        t = torch.zeros((1,), device=dev)
+        for a in self.sizes:
+            t = self.psum(t, a)
+        t.tolist()
 
     def gather_spec(self, t: torch.Tensor, spec: tuple, only=None):
         """``t`` (a piece placed by ``spec``) made whole along every dim

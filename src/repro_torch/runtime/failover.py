@@ -157,6 +157,10 @@ class FailureInjector:
                    weight_flips=weight_flips, macro_fault_at=macro_at,
                    macro_fault=macro_fault or "stuck:5:24.0")
 
+    def due(self, step: int) -> bool:
+        """Whether ``maybe_fail(step)`` would raise (nothing fired)."""
+        return step in self.fail_at and step not in self.fired
+
     def maybe_fail(self, step: int):
         if step in self.fail_at and step not in self.fired:
             self.fired.add(step)

@@ -149,7 +149,7 @@ def mesh_refusals(*, deadline_s=None, watchdog=None, integrity="off",
     """The scheduler's knobs refused under a mesh, where every rank must
     take every host decision the same way: wall-clock deadlines and the
     hang watchdog (a rank's own clock), integrity checks and weight
-    flips (they address one device's whole planes).  ROADMAP A13b."""
+    flips (they address one device's whole planes).  ROADMAP A13c."""
     why = []
     if deadline_s is not None:
         why.append("deadline_s")
@@ -162,7 +162,7 @@ def mesh_refusals(*, deadline_s=None, watchdog=None, integrity="off",
     if why:
         raise ValueError(f"{', '.join(why)} under a mesh: each rank would "
                          "decide alone or address its own planes (ROADMAP "
-                         "A13b); serve them on one device")
+                         "A13c); serve them on one device")
 
 
 def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,

@@ -56,6 +56,12 @@ class Watchdog:
                 self._hang.set()
                 self._armed.clear()
 
+    @property
+    def hung(self) -> bool:
+        """Whether a hang was flagged: the next ``step()`` raises
+        ``StepHang``."""
+        return self._hang.is_set()
+
     # -- per-step API ---------------------------------------------------------
     def step(self):
         """Context manager wrapping one training step."""

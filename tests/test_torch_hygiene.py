@@ -1,8 +1,9 @@
-"""The port stands alone: no file of ``src/repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, importing the serving
-and training entry points pulls no JAX in, and entry points (serving,
-the router, the HTTP server, the load test, training) refuse to run on
-the CPU unless asked to."""
+"""The port stands alone: no file of ``src/repro_torch`` (nor the port's
+examples, ``examples/*_torch.py``, nor ``chip_smoke.py``) imports JAX or
+the JAX package, importing the serving and training entry points pulls
+no JAX in, and entry points (serving, the router, the HTTP server, the
+load test, training, the pipeline's dry run, the examples) refuse to run
+on the CPU unless asked to."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -14,8 +15,9 @@ import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + EXAMPLES + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path: Path):
@@ -55,7 +57,9 @@ def test_serve_import_pulls_no_jax():
     "repro_torch.data.synthetic, repro_torch.data.pipeline",
     "repro_torch.checkpoint.checkpointer, repro_torch.tree",
     "repro_torch.parallel, repro_torch.launch.mesh, "
-    "repro_torch.launch.sharding"])
+    "repro_torch.launch.sharding",
+    "repro_torch.runtime.elastic, repro_torch.launch.pipeline, "
+    "repro_torch.core.quant, repro_torch.core.qweights"])
 def test_train_import_pulls_no_jax(modules):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = (f"import sys, {modules}; "
@@ -157,6 +161,28 @@ def test_router_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
             main(argv)
     assert loadtest.main(["--smoke", "--reduced", "--requests", "6",
                           "--device", "cpu"]) == 0
+
+
+def test_examples_and_dryrun_need_cuda_unless_cpu_is_asked(monkeypatch):
+    """The two examples and ``pp_dryrun`` refuse to run without CUDA
+    unless the CPU is asked for."""
+    import importlib.util
+    from repro_torch.launch.pipeline import pp_dryrun
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for path in EXAMPLES:
+        if path.name == "train_lm_torch.py":
+            continue
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main([])
+
+    class Pod2:
+        sizes = {"pod": 2, "data": 1, "model": 1}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pp_dryrun(par=Pod2())
 
 
 def test_kernel_wrappers_refuse_other_devices():

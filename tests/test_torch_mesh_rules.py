@@ -4,7 +4,7 @@ on a JAX ``AbstractMesh`` of the same sizes, a bare axis name of a
 ``PartitionSpec`` read as a 1-tuple), the cut of a rank's piece and
 ``params_from_jax(par=)``, ``parallel_ctx_from_spec``'s errors, the
 refusals of the families and knobs a mesh does not serve (ROADMAP
-A13b), and the serving CLI under ``torchrun --nproc-per-node 2 --mesh
+A13c), and the serving CLI under ``torchrun --nproc-per-node 2 --mesh
 model=2`` on the CPU."""
 import pytest
 
@@ -212,12 +212,15 @@ def test_mesh_spec_errors(tmp_path):
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
 def test_recurrent_families_refuse_a_mesh(arch):
     from repro_torch.launch.serve import main
-    from repro_torch.launch.steps import make_generate_fn
+    from repro_torch.launch.steps import make_generate_fn, make_train_step
+    from repro_torch.optim.adamw import AdamW
     par, _ = _ctxs(("data", "model"), (1, 2))
     cfg = get_arch(arch).reduced()
-    with pytest.raises(ValueError, match="A13b"):
+    with pytest.raises(ValueError, match="A13c"):
         make_generate_fn(cfg, 4, par=par)
-    with pytest.raises(ValueError, match="A13b"):
+    with pytest.raises(ValueError, match="A13c"):
+        make_train_step(cfg, AdamW(), "cpu", par)
+    with pytest.raises(ValueError, match="A13c"):
         main(["--arch", arch, "--reduced", "--device", "cpu", "--mesh",
               "model=2"])
 

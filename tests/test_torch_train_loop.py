@@ -23,7 +23,9 @@ CPU:
 * ``TrainLoop`` on the CPU (reduced olmo-1b, 20 steps of 8 x 64): the
   loss falls; a failure injected after the step-10 checkpoint replays
   every loss bitwise the clean run's; a second loop resumes at the saved
-  step; ``--mesh`` other than ``off`` raises (ROADMAP A13).
+  step; a mesh without a joined process group, and the recurrent
+  families under a mesh, raise (training under a mesh:
+  tests/test_torch_train_mesh.py).
 """
 import pytest
 
@@ -48,6 +50,7 @@ from repro_torch.data.pipeline import DataPipeline  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.optim import adamw, compression  # noqa: E402
+from repro_torch.runtime.elastic import mesh_from_spec  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 
 F32_RTOL = 2e-7
@@ -275,9 +278,9 @@ def test_train_loop_learns_replays_and_resumes(tmp_path):
 
 def test_train_refuses_a_mesh():
     cfg = get_arch("olmo-1b").reduced()
-    with pytest.raises(ValueError, match="A13"):
-        train.TrainLoop(cfg, steps=2, batch=2, seq=8, mesh="d1x1",
-                        device="cpu")
-    with pytest.raises(ValueError, match="A13"):
-        train.main(["--reduced", "--steps", "1", "--mesh", "d1x1",
-                    "--device", "cpu"])
+    with pytest.raises(ValueError, match="no process group"):
+        train.TrainLoop(cfg, steps=2, batch=2, seq=8,
+                        mesh=mesh_from_spec("d1x1"), device="cpu")
+    with pytest.raises(ValueError, match="A13c"):
+        train.main(["--arch", "zamba2-7b", "--reduced", "--steps", "1",
+                    "--mesh", "d1x1", "--device", "cpu"])
