@@ -46,14 +46,15 @@ In order it
    fused-MVM launches (draft and verify apart) and paged-attention
    launches those of the windows replayed, as the profiler sees them; the
    self-draft probe ``SELF_DSCIM`` must accept every draft; it prints
-   tok/s of 5 requests in turns with the plain graph path, one window's
+   tok/s of 3 requests in turns with the plain graph path, one window's
    device time, the capture time, accepted tokens per verify, and whether
    the verify forward's ops give a row the same bits at B*(k+1) rows as
    at B (and each way's time); then serves ``bitmatmul``, ``statistical``
    and ``paper_inject`` (``modes``, full depth), each graph bitwise its
    eager loop, ``bitmatmul`` bitwise ``lut`` with its count-kernel
    launches counted, the noise modes' logit RMSE against ``exact``
-   printed; serves the main path under a mesh (``mesh``, ``mesh_phase``):
+   printed; serves the main path under a mesh (``mesh``, ``mesh_phase``,
+   run after ``recurrent_family`` below, whose tokens its leg (e) holds):
    (a) under ``parallel_ctx_from_spec("model=1")`` over NCCL at world 1,
    the decode step and its collectives captured, tokens bitwise the main
    path's, launches counted, one decode step's device time beside the
@@ -65,7 +66,17 @@ In order it
    (``chip_smoke.py --mesh-rank``): which collectives gloo carries for
    CUDA tensors, then qwen3 at full width cut to ``MESH_D_LAYERS`` layers
    at model=2, eagerly (a gloo group cannot be captured), both ranks'
-   tokens bitwise one process's; serves the continuous queue with requests 1-6 sharing
+   tokens bitwise one process's; (e) rwkv6-7b and zamba2-7b at their
+   published width and depth under model=1 over NCCL, the decode step
+   captured: tokens bitwise the unsharded request's and the
+   ``recurrent_family`` phase's, no kernel launched, a decode step's
+   device ms beside the unsharded step's in turns, peak memory; (f) the
+   continuous queue with ``integrity='verify'``, a ``deadline_s`` per
+   request, the hang watchdog (one hang), the accuracy monitor and one
+   weight flip, on one device and under model=1 over NCCL: outputs,
+   statuses, replays and integrity records equal, the queue's other
+   requests bitwise the ``continuous`` phase's, kernels 1 and 2 counted
+   under the mesh (``launches_mesh_knobs``); serves the continuous queue with requests 1-6 sharing
    request 0's first 48 tokens through the prefix cache, ``'cold'`` and
    ``'on'`` (``prefix``): warm tokens bitwise cold, the hit counters, 224
    of 512 prefill positions computed, the extend steps' fused-MVM and
@@ -192,7 +203,11 @@ In order it
    pod=2 bitwise its host re-statement; (e) ``examples/
    serve_dscim_torch.py --kv int8`` at its reduced config, prepared and
    ``--no-prepare``, kernels 1 and 2 counted; (f) ``fp8_cast`` and
-   ``fp8_to_int8_aligned`` on the card bitwise the CPU's;
+   ``fp8_to_int8_aligned`` on the card bitwise the CPU's; (g) the train
+   phase's granite-moe-1b-a400m (its experts with expert parallelism),
+   rwkv6-7b and zamba2-7b runs under ``REPRO_MESH=d1x1`` over NCCL at
+   world 1, their losses bitwise the train phase's, step device ms and
+   peak memory beside them;
 7. computes Table I through the card (``table1``): for all 12 presets the
    counts of ``DSCIMMacro.rmse``'s operands through the count kernel must
    equal the LUT's, and the RMSE must equal the JAX reference's;
@@ -209,7 +224,9 @@ power limit, and as its last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -354,6 +371,10 @@ TABLE1_RTOL = 1e-5
 # the host), each rank given this long
 MESH_N_SLICES, MESH_B_SLICES = 4, 2
 MESH_D_LAYERS, MESH_D_TOKENS, MESH_D_TIMEOUT_S = 2, 4, 240
+# leg (f): the accuracy monitor's exact probe every this many segments, at
+# this margin over the moment bound (full width's healthy dscim1/L256
+# drift reads 5.1 bounds, C6, so the default 3 would trip a healthy slot)
+MESH_F_PROBE, MESH_F_MARGIN = 2, 10.0
 # train_mesh phase: (a) the train phase's olmo-1b run under REPRO_MESH
 # d1x1 over NCCL at world 1, TM_A_STEPS steps from the seed (losses
 # bitwise the train phase's first ones, every step before its
@@ -387,6 +408,10 @@ TM_LOSS_RTOL = 1e-3
 TM_GNORM_RTOL = 1e-3
 TM_UPDATE_RTOL = 5e-2
 TM_EXAMPLE_TOKENS = 12       # serve_dscim_torch.py's default --tokens
+# (g) the other families under d1x1 against the train phase's unsharded
+# runs: a mesh of one rank with expert parallelism over one rank computes
+# what one device does, up to the f32 order of its sums
+TM_G_RTOL = 1e-5
 
 
 def _log(msg: str) -> None:
@@ -438,13 +463,37 @@ def ptxas_summary(names) -> dict:
     raises unless flash attention holds HMMA, the int8 GEMM IMMA and the
     fused DS-CIM MVM and the count kernel BMMA (their b1 counts), each
     with LDGSTS (the kernels run on the tensor cores, fed by cp.async)."""
-    import re
     import shutil
+    import tempfile
 
     from repro_torch.kernels import build
     cuobjdump = shutil.which("cuobjdump") or next(
         (str(p) for p in (Path(build._nvcc()).parent / "cuobjdump",)
          if p.exists()), None)
+    # every library's SASS dumped at once (one cuobjdump each, in
+    # parallel, into a file of its own), read below in order
+    dumps = {}
+    for name in names:
+        if cuobjdump and build._target(name).exists():
+            f = tempfile.TemporaryFile(mode="w+")
+            dumps[name] = (subprocess.Popen(
+                [cuobjdump, "-sass", str(build._target(name))], stdout=f,
+                stderr=subprocess.DEVNULL), f)
+    try:
+        return _ptxas_rows(names, dumps)
+    finally:
+        for p, f in dumps.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+
+
+def _ptxas_rows(names, dumps) -> dict:
+    """``ptxas_summary``'s reading of each build log and SASS dump."""
+    import re
+
+    from repro_torch.kernels import build
     out = {}
     for name in names:
         so = build._target(name)
@@ -478,10 +527,11 @@ def ptxas_summary(names) -> dict:
                  f"spill {r.get('spill_stores')}/{r.get('spill_loads')} B, "
                  f"static smem {r.get('static_smem')} B")
         sass = None
-        if cuobjdump and so.exists():
-            text = subprocess.run([cuobjdump, "-sass", str(so)],
-                                  capture_output=True, text=True,
-                                  timeout=300).stdout
+        if name in dumps:
+            p, f = dumps[name]
+            p.wait(timeout=300)
+            f.seek(0)
+            text = f.read()
             sass = {op: len(re.findall(rf"\b{op}\b", text))
                     for op in ("HMMA", "IMMA", "BMMA", "LDGSTS", "LDSM")}
             _log(f"sass {name}: {sass}")
@@ -1723,7 +1773,7 @@ def spec_phase(torch, cfg, served, prompts, plain_toks):
     replays are those of a whole number R >= max(windows) of windows, and
     the profiler sees as many kernel calls; the self-draft probe
     (``SELF_DSCIM`` verified by itself) accepts every draft.  Prints
-    tok/s of 5 requests in turns with the plain graph path, one window's
+    tok/s of 3 requests in turns with the plain graph path, one window's
     device time, the capture time and accepted tokens per verify, and
     the batch-invariance probe of ``_batch_invariance``."""
     import numpy as np
@@ -1819,7 +1869,7 @@ def spec_phase(torch, cfg, served, prompts, plain_toks):
                               SPEC)
     st = runner.st
     runs = {"plain": [], "spec": []}
-    for name in ("plain", "spec", "spec", "plain") * 2 + ("plain", "spec"):
+    for name in ("plain", "spec", "spec", "plain", "plain", "spec"):
         tt = {}
         serve_batch(cfg_ds, served, prompts, TOKENS, timings=tt,
                     spec=SPEC if name == "spec" else None, **kw)
@@ -1850,7 +1900,8 @@ def spec_phase(torch, cfg, served, prompts, plain_toks):
     res = {n: {"tok_s": v, "tok_s_median": float(np.median(v)),
                "tok_s_range": [min(v), max(v)]} for n, v in runs.items()}
     acc = float((ss["emitted"] - 1).sum() / max(int(ss["windows"].sum()), 1))
-    _log(f"spec vs plain graph, 5 requests each in turns: spec "
+    _log(f"spec vs plain graph, {len(runs['spec'])} requests each in "
+         f"turns: spec "
          f"{res['spec']['tok_s_median']:.1f} tok/s (range "
          f"{res['spec']['tok_s_range'][0]:.1f}-"
          f"{res['spec']['tok_s_range'][1]:.1f}), plain "
@@ -2431,7 +2482,7 @@ def _recurrent_extras(torch, cfg_ds, served, prompts, toks):
     kv_bytes = nbytes.pop("k", 0) + nbytes.pop("v", 0)
     state_bytes = sum(nbytes.values())
     step_bytes = _step_bytes(served) + 2 * state_bytes + kv_bytes
-    res = {"ragged_budgets": list(REC_BUDGETS),
+    res = {"tokens": toks.tolist(), "ragged_budgets": list(REC_BUDGETS),
            "state_bytes_per_slot": state_bytes // BATCH,
            "kv_bytes_per_slot": kv_bytes // BATCH,
            "step_bytes": step_bytes,
@@ -3580,10 +3631,7 @@ def _mesh_world1(torch, cfg, served, prompts, plain_toks):
     over NCCL at world 1, the decode step (and its collectives) captured:
     tokens bitwise the main path's, launches counted over the replays, one
     decode step's device time beside the unsharded step's, in turns."""
-    import tempfile
-
     import numpy as np
-    import torch.distributed as dist
 
     from repro_torch.kernels import dscim_fused, paged_attention
     from repro_torch.launch.mesh import parallel_ctx_from_spec
@@ -3592,9 +3640,7 @@ def _mesh_world1(torch, cfg, served, prompts, plain_toks):
 
     cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
     dev = torch.device("cuda", 0)
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
-                                rank=0, world_size=1)
+    with _nccl_world1():
         try:
             par = parallel_ctx_from_spec("model=1")
             if not par.capturable:
@@ -3677,7 +3723,6 @@ def _mesh_world1(torch, cfg, served, prompts, plain_toks):
                     "profiled_step": prof, "tokens_bitwise_main_path": True}
         finally:
             runners = None
-            dist.destroy_process_group()
 
 
 def _mesh_fused_shards(torch, cfg, served):
@@ -3901,16 +3946,264 @@ def _mesh_gloo(torch):
     return leg
 
 
-def mesh_phase(torch, cfg, served, prompts, plain_toks):
+@contextlib.contextmanager
+def _nccl_world1():
+    """A one-rank NCCL process group over a ``file://`` store, destroyed
+    after."""
+    import tempfile
+
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def _mesh_recurrent(torch, rec_tokens):
+    """Leg (e): REC_SERVED (rwkv6-7b and zamba2-7b at their published width
+    and depth, ``dscim='off'``, the float cache) under
+    ``parallel_ctx_from_spec('model=1')`` over NCCL at world 1, the
+    decode step and its collectives captured: the tokens bitwise the
+    unsharded request's and the ``recurrent_family`` phase's
+    (``rec_tokens``, when that phase ran), no launch of the six kernels,
+    one decode step's device ms beside the unsharded step's in turns, and
+    each request's peak memory."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import parallel_ctx_from_spec
+    from repro_torch.launch.serve import (clear_graphs, prepare_params,
+                                          serve_batch)
+    from repro_torch.launch.steps import _generate_runner
+    from repro_torch.models.registry import get_model
+
+    dev = torch.device("cuda", 0)
+    counters = _all_counters()
+    kw = dict(kv="float", page_size=PAGE)
+    out = {}
+    with _nccl_world1():
+        par = parallel_ctx_from_spec("model=1")
+        for name, layers in REC_SERVED:
+            cfg = get_arch(name)
+            if layers is not None:
+                cfg = dataclasses.replace(cfg, n_layers=layers)
+            cfg_ds = dataclasses.replace(cfg, dscim="off")
+            clear_graphs()
+            torch.cuda.empty_cache()
+            served = prepare_params(cfg_ds, get_model(cfg).init_params(cfg,
+                                                                       0))
+            placed = prepare_params(cfg_ds, served, par=par)
+            prompts = np.random.default_rng(0).integers(0, cfg.vocab,
+                                                        (BATCH, PROMPT))
+            toks, peak, capture_s = {}, {}, {}
+            for tag, p, extra in (("unsharded", served, {}),
+                                  ("model=1", placed, {"par": par})):
+                warm = {}
+                serve_batch(cfg_ds, p, prompts, TOKENS, timings=warm, **kw,
+                            **extra)
+                if "capture_s" not in warm:
+                    raise AssertionError(f"mesh (e) {name} {tag}: no graph")
+                capture_s[tag] = warm["capture_s"]
+                for c in counters.values():
+                    c.reset()
+                torch.cuda.reset_peak_memory_stats()
+                toks[tag], _ = serve_batch(cfg_ds, p, prompts, TOKENS, **kw,
+                                           **extra)
+                peak[tag] = torch.cuda.max_memory_allocated()
+                if any(c.count for c in counters.values()):
+                    raise AssertionError(f"mesh (e) {name} {tag} launched "
+                                         f"{[c.count for c in counters.values()]}")
+            want = toks["unsharded"] if rec_tokens is None \
+                else np.asarray(rec_tokens[name])
+            if not (np.array_equal(toks["model=1"], toks["unsharded"])
+                    and np.array_equal(toks["unsharded"], want)):
+                raise AssertionError(f"mesh (e) {name}: model=1 tokens "
+                                     "differ from the unsharded ones")
+            runners = {tag: _generate_runner(
+                cfg_ds, BATCH, PROMPT, TOKENS, "float", PAGE, None, "greedy",
+                False, dev, None, *p) for tag, p in (("unsharded", ()),
+                                                     ("model=1", (par,)))}
+            params = {"unsharded": served, "model=1": placed}
+            step_ms = {tag: [] for tag in runners}
+            for tag in ("unsharded", "model=1") * 3:
+                st = runners[tag].st
+
+                def reset():
+                    st["params"] = params[tag]
+                    st["cache"]["pos"].fill_(PROMPT + TOKENS // 2)
+                    st["i"].fill_(TOKENS // 2)
+                step_ms[tag].append(_decode_step_ms(
+                    torch, runners[tag].step.graph.replay, reset))
+                st["params"] = None
+            med = {k: float(np.median(v)) for k, v in step_ms.items()}
+            out[name] = {"layers": cfg.n_layers, "tokens_bitwise": True,
+                         "recurrent_family_tokens": rec_tokens is not None,
+                         "decode_step_ms": step_ms,
+                         "decode_step_ms_median": med,
+                         "peak_memory_bytes": peak,
+                         "capture_s": capture_s}
+            _log(f"mesh (e) {name} ({cfg.n_layers} layers, d "
+                 f"{cfg.d_model}) under model=1 over NCCL, graph: tokens "
+                 f"bitwise the unsharded request's"
+                 + (" and the recurrent_family phase's" if rec_tokens
+                    is not None else "")
+                 + f", no kernel launched; decode step {med['model=1']:.4f} "
+                 f"ms device median (unsharded {med['unsharded']:.4f} ms), "
+                 f"runs {step_ms}; peak memory "
+                 f"{peak['model=1'] / 2**30:.2f} GiB (unsharded "
+                 f"{peak['unsharded'] / 2**30:.2f})")
+            runners = st = params = served = placed = None
+            clear_graphs()
+            torch.cuda.empty_cache()
+    return out
+
+
+def _hang_at(at: int):
+    """A hang watchdog (``runtime/watchdog.py Watchdog``) that flags a
+    hang before its ``at``-th step, once."""
+    from repro_torch.runtime.watchdog import Watchdog
+
+    class HangAt(Watchdog):
+        n = 0
+
+        def step(self, par=None):
+            self.n += 1
+            if self.n == at:
+                self._hang.set()
+            return super().step(par)
+    return HangAt(hang_timeout=600.0)
+
+
+def _mesh_knobs(torch, cfg, served, cb_outs):
+    """Leg (f): the continuous phase's queue at ``kernel:dscim1:256``, int8
+    KV, with ``integrity='verify'``, a ``deadline_s`` per request (request
+    0's expires at the first boundary after its admission), the hang
+    watchdog (a hang flagged before the third segment: one replay), the
+    accuracy monitor (an exact probe every MESH_F_PROBE segments) and one
+    weight flip (an int8 element of layer 0's first w_up plane at segment
+    1: found, repaired, replayed; the monitor at MESH_F_MARGIN), served
+    on one device and under
+    ``parallel_ctx_from_spec('model=1')`` over NCCL at world 1: outputs,
+    statuses, replays, quarantines and the integrity record equal;
+    requests 1-7 bitwise the continuous phase's outputs and request 0 a
+    prefix of its; the two kernels' launches under the mesh counted; the
+    shared prepared planes digest as before."""
+    import numpy as np
+
+    from repro_torch.core.qweights import weight_plane_digests
+    from repro_torch.launch.mesh import parallel_ctx_from_spec
+    from repro_torch.launch.serve import prepare_params, serve_continuous
+    from repro_torch.runtime.failover import FailureInjector
+    from repro_torch.runtime.serving import watchdog_for_spec
+
+    if cb_outs is None:
+        raise AssertionError("no continuous outputs to hold leg (f) to")
+    cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
+    prompts, budgets = _cb_queue(cfg)
+    R = len(budgets)
+    deadlines = np.full(R, 1e6)
+    deadlines[0] = 1e-6
+    digests0 = weight_plane_digests(served).cpu().numpy()
+    res = {}
+    with _nccl_world1():
+        par = parallel_ctx_from_spec("model=1")
+        placed = prepare_params(cfg_ds, served, par=par)
+        for tag, p, extra in (("one_device", served, {}),
+                              ("model=1", placed, {"par": par})):
+            wd = _hang_at(3)
+            monitor = watchdog_for_spec(DSCIM, margin=MESH_F_MARGIN,
+                                        probe_every=MESH_F_PROBE)
+            inj = FailureInjector(weight_flips={
+                1: (("layers/mlp/w_up", "q", 2026, 0x10),)})
+            c0 = _counts()
+            try:
+                outs, st = serve_continuous(
+                    cfg_ds, p, prompts, int(budgets.max()), slots=BATCH,
+                    seg_len=CB_SEG, max_new=budgets, kv="int8",
+                    page_size=PAGE, eos_id=-1, deadline_s=deadlines,
+                    watchdog=wd, monitor=monitor, injector=inj,
+                    snapshot_every=1, integrity="verify", log=_log, **extra)
+            finally:
+                wd.close()
+            c1 = _counts()
+            ig = {k: v for k, v in st["integrity"].items()
+                  if k != "scrub_time_s"}
+            res[tag] = {"outs": [o.tolist() for o in outs],
+                        "status": st["status"], "replays": st["replays"],
+                        "quarantined": st["quarantined"],
+                        "probes": st["probes"],
+                        "probe_trips": st["probe_trips"], "integrity": ig,
+                        "wall_s": st["wall_s"],
+                        "launches": {"dscim_fused_mvm":
+                                     c1["fused"] - c0["fused"],
+                                     "paged_attention_decode":
+                                     c1["paged"] - c0["paged"]}}
+    one, mesh = res["one_device"], res["model=1"]
+    same = {k: one[k] == mesh[k] for k in ("outs", "status", "replays",
+                                           "quarantined", "probes",
+                                           "probe_trips", "integrity")}
+    n0 = len(mesh["outs"][0])
+    checks = {
+        "mesh equals one device": all(same.values()),
+        "request 0 cancelled, a prefix of its continuous output":
+        mesh["status"][0] == "deadline" and 0 < n0 < budgets[0]
+        and mesh["outs"][0] == cb_outs[0][:n0].tolist(),
+        "requests 1-7 bitwise the continuous phase": all(
+            mesh["outs"][r] == cb_outs[r].tolist() for r in range(1, R))
+        and mesh["status"][1:] == ["ok"] * (R - 1),
+        "the hang and the flip replayed": mesh["replays"] == 2,
+        "the flip found at its plane and repaired":
+        mesh["integrity"]["weight_mismatches"] == 1
+        and mesh["integrity"]["weight_repairs"] == 1
+        and mesh["integrity"]["detections"] == [
+            {"kind": "weight", "coords": [("layers/mlp/w_up", "q")]}],
+        "probed, no trip": mesh["probes"] > 0 and mesh["probe_trips"] == 0,
+        "kernels 1 and 2 launched under the mesh":
+        all(v > 0 for v in mesh["launches"].values()),
+        "the shared planes digest as before": bool(np.array_equal(
+            weight_plane_digests(served).cpu().numpy(), digests0)),
+    }
+    _log(f"mesh (f) the continuous queue with integrity verify, deadline_s, "
+         f"the hang watchdog, the monitor and a weight flip, one device and "
+         f"model=1 over NCCL: statuses {mesh['status']}, replays "
+         f"{mesh['replays']}, probes {mesh['probes']} (trips "
+         f"{mesh['probe_trips']}), integrity {mesh['integrity']}, launches "
+         f"under the mesh {mesh['launches']} (one device "
+         f"{one['launches']}), wall s {mesh['wall_s']:.3f} (one device "
+         f"{one['wall_s']:.3f}); checks {checks}; equal by key {same}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"mesh (f): {failed}")
+    return {"checks": checks, "launches": mesh["launches"],
+            "one_device_launches": one["launches"],
+            **{k: mesh[k] for k in ("status", "replays", "probes",
+                                    "integrity", "wall_s")},
+            "one_device_wall_s": one["wall_s"]}
+
+
+def mesh_phase(torch, cfg, served, prompts, plain_toks, cb_outs=None,
+               rec_tokens=None):
     """The serving path under a mesh (``mesh``): legs (a) NCCL world 1 at
     full width, captured; (b) kernel 1 and (c) kernel 2 per shard; (d)
-    two ranks on the one card over gloo."""
+    two ranks on the one card over gloo; (e) the recurrent families under
+    model=1 at full width, captured; (f) the scheduler's knobs on the
+    continuous queue under model=1."""
     t0 = time.perf_counter()
-    out = {"nccl_world1": _mesh_world1(torch, cfg, served, prompts,
-                                       plain_toks),
-           "fused_shards": _mesh_fused_shards(torch, cfg, served),
-           "paged_shards": _mesh_paged_shards(torch, cfg),
-           "gloo_two_ranks": _mesh_gloo(torch)}
+    out = {}
+    for name, fn, args in (
+            ("nccl_world1", _mesh_world1,
+             (torch, cfg, served, prompts, plain_toks)),
+            ("fused_shards", _mesh_fused_shards, (torch, cfg, served)),
+            ("paged_shards", _mesh_paged_shards, (torch, cfg)),
+            ("gloo_two_ranks", _mesh_gloo, (torch,)),
+            ("knobs", _mesh_knobs, (torch, cfg, served, cb_outs)),
+            ("recurrent", _mesh_recurrent, (torch, rec_tokens))):
+        t1 = time.perf_counter()
+        out[name] = fn(*args)
+        _log(f"mesh {name}: {time.perf_counter() - t1:.1f} s")
     out["s"] = time.perf_counter() - t0
     return out
 
@@ -3955,10 +4248,8 @@ def _train_mesh_world1(torch, train_res):
     six kernels, step device ms beside the unsharded step's, peak
     memory."""
     import os
-    import tempfile
 
     import numpy as np
-    import torch.distributed as dist
 
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import TrainLoop
@@ -3969,9 +4260,7 @@ def _train_mesh_world1(torch, train_res):
     cfg = get_arch(TRAIN_ARCH)
     counters = _all_counters()
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
-                                rank=0, world_size=1)
+    with _nccl_world1():
         try:
             os.environ["REPRO_MESH"] = "d1x1"
             loop = TrainLoop(cfg, steps=TM_A_STEPS, batch=TRAIN_BATCH,
@@ -3989,7 +4278,6 @@ def _train_mesh_world1(torch, train_res):
             step_ms = timer.ms()
         finally:
             os.environ.pop("REPRO_MESH", None)
-            dist.destroy_process_group()
     losses = _losses(loop.history)
     want = train_res["losses"][:TM_A_STEPS]
     unsharded = train_res["step_ms"][:TM_A_STEPS]
@@ -4013,6 +4301,81 @@ def _train_mesh_world1(torch, train_res):
     if any(launches.values()):
         raise AssertionError(f"the mesh train path launched {launches}")
     return res
+
+
+def _train_mesh_others(torch, train_res):
+    """Leg (g): TRAIN_OTHERS (granite-moe-1b-a400m at full width and
+    depth, its experts with expert parallelism; rwkv6-7b and zamba2-7b cut
+    as the train phase cuts them) through ``TrainLoop`` under
+    ``REPRO_MESH=d1x1`` over NCCL at world 1, TRAIN_OTHER_STEPS steps of
+    TRAIN_BATCH x the train phase's sequence: the losses bitwise the train
+    phase's runs of the same configs (the same seed, data and learning
+    rates), or within TM_G_RTOL where they are not; no launch of the six
+    kernels; step device ms beside the unsharded steps', peak memory."""
+    import os
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.runtime.elastic import mesh_from_env
+
+    others = (train_res or {}).get("others")
+    if not others:
+        raise AssertionError("no train phase runs of the other families to "
+                             "hold leg (g) to")
+    counters = _all_counters()
+    out = {}
+    with _nccl_world1():
+        os.environ["REPRO_MESH"] = "d1x1"
+        try:
+            for name, _, seq in TRAIN_OTHERS:
+                want = others[name]
+                cfg = dataclasses.replace(get_arch(name),
+                                          n_layers=want["layers"])
+                gc.collect()
+                torch.cuda.empty_cache()
+                loop = TrainLoop(cfg, steps=TRAIN_OTHER_STEPS,
+                                 batch=TRAIN_BATCH, seq=seq, lr=TRAIN_LR,
+                                 mesh=mesh_from_env(), log=_log)
+                loop.step_fn = timer = _StepTimer(torch, loop.step_fn)
+                for c in counters.values():
+                    c.reset()
+                torch.cuda.reset_peak_memory_stats()
+                loop.run()
+                peak = torch.cuda.max_memory_allocated()
+                launches = {k: c.count for k, c in counters.items()}
+                losses = _losses(loop.history)
+                rel = [abs(a - b) / abs(b) for a, b in
+                       zip(losses, want["losses"])]
+                out[name] = {"layers": cfg.n_layers, "seq": seq,
+                             "losses": losses,
+                             "unsharded_losses": want["losses"],
+                             "bitwise": losses == want["losses"],
+                             "relative": rel, "step_ms": timer.ms(),
+                             "unsharded_step_ms": want["step_ms"],
+                             "peak_memory_bytes": peak,
+                             "unsharded_peak_memory_bytes":
+                             want["peak_memory_bytes"],
+                             "launches": launches}
+                del loop
+                _log(f"train_mesh (g) {name} ({cfg.n_layers} layers, "
+                     f"{TRAIN_BATCH} x {seq}) under d1x1 over NCCL at world "
+                     f"1: losses {losses} (unsharded {want['losses']}: "
+                     f"bitwise {out[name]['bitwise']}, relative {rel}); "
+                     f"step device ms "
+                     f"{[round(x, 1) for x in out[name]['step_ms']]} "
+                     f"(unsharded "
+                     f"{[round(x, 1) for x in want['step_ms']]}); peak "
+                     f"memory {peak / 2**30:.2f} GiB (unsharded "
+                     f"{want['peak_memory_bytes'] / 2**30:.2f})")
+                if max(rel) > TM_G_RTOL or any(launches.values()):
+                    raise AssertionError(f"train_mesh (g) {name}: losses "
+                                         f"{rel} off, launches {launches}")
+        finally:
+            os.environ.pop("REPRO_MESH", None)
+    torch.cuda.empty_cache()
+    return {"archs": out}
 
 
 def _with_grad_norms(step_fn, out: list):
@@ -4410,13 +4773,16 @@ def _fp8_on_card(torch):
 def train_mesh_phase(torch, train_res):
     """Phase train_mesh: training under a mesh and the paper-facing
     surface on the card: legs (a) NCCL world 1 at full width, (b)-(d) two
-    gloo ranks, (e) the serving example, (f) FP8."""
+    gloo ranks, (e) the serving example, (f) FP8, (g) the other families
+    under d1x1 (the MoE with expert parallelism)."""
     out = {}
     for name, fn, args in (("nccl_world1", _train_mesh_world1,
                             (torch, train_res)),
                            ("gloo_two_ranks", _train_mesh_gloo, (torch,)),
                            ("serve_example", _serve_example, (torch,)),
-                           ("fp8", _fp8_on_card, (torch,))):
+                           ("fp8", _fp8_on_card, (torch,)),
+                           ("others_world1", _train_mesh_others,
+                            (torch, train_res))):
         t0 = time.perf_counter()
         out[name] = fn(*args)
         out[name]["s"] = time.perf_counter() - t0
@@ -4450,7 +4816,8 @@ def phase_alone(torch, name: str) -> int:
         served = prepare_params(cfg_ds, lm.init_params(cfg, 0))
         toks, _ = serve_batch(cfg_ds, served, prompts, TOKENS, kv="int8",
                               page_size=PAGE)
-        fn, args = mesh_phase, (torch, cfg, served, prompts, toks)
+        _, cb_outs = continuous(torch, cfg, served)
+        fn, args = mesh_phase, (torch, cfg, served, prompts, toks, cb_outs)
     elif name == "train_mesh":
         from repro_torch.launch.train import TrainLoop
         loop = TrainLoop(get_arch(TRAIN_ARCH), steps=TM_A_STEPS,
@@ -4463,6 +4830,8 @@ def phase_alone(torch, name: str) -> int:
                  "peak_memory_bytes": torch.cuda.max_memory_allocated()}
         del loop
         torch.cuda.empty_cache()
+        train["others"] = {name: _train_other(torch, name, cut, seq)
+                           for name, cut, seq in TRAIN_OTHERS}
         fn, args = train_mesh_phase, (torch, train)
     else:
         print(f"chip_smoke: --phase {name!r}: want mesh or train_mesh",
@@ -4563,9 +4932,6 @@ def main(argv) -> int:
     spec = phase("spec", spec_phase, torch, cfg, served, prompts,
                  e2e.get("tokens"))
     modes = phase("modes", modes_phase, torch, cfg, served, prompts)
-    mesh = phase("mesh", mesh_phase, torch, cfg, served, prompts,
-                 e2e.get("tokens"))
-    del served
     df = phase("dense_family", dense_family, torch)
     df_fused = [phase(f"dense_family_fused {name}", check_family_fused,
                       torch, "dense_family", name) for name in DF_ARCHS]
@@ -4583,6 +4949,12 @@ def main(argv) -> int:
     cycle = phase("cycle_oracle", check_cycle_oracle, torch)
     _log(f"moe_family phases: {time.perf_counter() - t_moe:.1f} s")
     rec = phase("recurrent_family", recurrent_family, torch)
+    # after recurrent_family: leg (e) holds its tokens
+    mesh = phase("mesh", mesh_phase, torch, cfg, served, prompts,
+                 e2e.get("tokens"), cb_outs,
+                 None if rec is None else {
+                     n: r["tokens"] for n, r in rec["served"].items()})
+    del served
     counts = launches or {"dscim_fused_mvm": None,
                           "paged_attention_decode": None}
     kernels = [phase("dscim_fused", check_fused, torch, cfg, params, counts),
@@ -4614,6 +4986,8 @@ def main(argv) -> int:
             if entry is not None:
                 entry["launches_mesh"] = \
                     mesh["nccl_world1"]["launches"][name]
+                entry["launches_mesh_knobs"] = \
+                    mesh["knobs"]["launches"][name]
     for extra, name in ((spec, "launches_spec"), (pfx, "launches_prefix")):
         if extra is None:
             continue
@@ -4632,7 +5006,11 @@ def main(argv) -> int:
                          ops_launches) or [None, None]
         kernels.append(phase("flash_attention", check_flash, torch, ops_in,
                              ops_out, ops_launches))
-    del ops_in, ops_out
+    # the main path's f32 weights are done with: the training phases' cut
+    # configs fill the card (train_mesh (g) gathers a second f32 copy)
+    del ops_in, ops_out, params
+    gc.collect()
+    torch.cuda.empty_cache()
     if modes is not None and kernels[3] is not None:
         kernels[3]["launches_modes_bitmatmul"] = \
             modes["bitmatmul_count_launches"]
@@ -4655,7 +5033,9 @@ def main(argv) -> int:
                 name = entry["name"]
                 entry["launches_train_mesh"] = \
                     tmesh["nccl_world1"]["launches"][name] \
-                    + tmesh["gloo_two_ranks"]["launches"][name]
+                    + tmesh["gloo_two_ranks"]["launches"][name] \
+                    + sum(r["launches"][name] for r in
+                          tmesh["others_world1"]["archs"].values())
                 entry["launches_serve_example"] = \
                     tmesh["serve_example"]["launches"].get(name, 0)
     t1 = phase("table1", table1, torch)

@@ -32,7 +32,8 @@ __all__ = ["QuantizedLinearWeight", "prepare_linear_weight",
            "dequantize_linear_weight", "dscim_patterns", "ties_head",
            "prepare_dscim_params", "split_dscim_mode", "map_params",
            "ELIGIBLE_PATTERNS", "ATTN_PATTERNS", "plane_digest",
-           "iter_qweight_planes", "weight_plane_index",
+           "iter_qweight_planes", "qweight_plane_pieces",
+           "weight_plane_index",
            "weight_plane_digests", "golden_weight_copy",
            "restore_weight_plane", "qweight_replicated_specs"]
 
@@ -197,12 +198,43 @@ def _sorted_leaves(tree, path: str = ""):
 def iter_qweight_planes(params):
     """(path, 'q'|'scale', tensor) for every prepared weight of
     ``params``, in the reference's order: the canonical plane order of
-    digest sweeps, golden copies and mismatch attribution."""
+    digest sweeps, golden copies and mismatch attribution.  A placed
+    weight (``parallel.Sharded``) gives this rank's pieces of its planes
+    (``qweight_plane_pieces`` says where they lie in the whole)."""
+    from ..parallel import Sharded
     out = []
     for p, leaf in _sorted_leaves(params):
+        if isinstance(leaf, Sharded):
+            leaf = leaf.local
         if isinstance(leaf, QuantizedLinearWeight):
             out.append((p, "q", leaf.q))
             out.append((p, "scale", leaf.scale))
+    return out
+
+
+def qweight_plane_pieces(params, par) -> dict:
+    """{(path, 'q'|'scale'): (this rank's piece, the whole plane's
+    shape, the piece's first index on each dim)} under the mesh ``par``
+    (a whole plane's piece is itself): where an element of the whole
+    plane lies in this rank's piece (runtime/failover.py's weight
+    flips)."""
+    from ..parallel import Sharded
+    out = {}
+    for p, leaf in _sorted_leaves(params):
+        spec = None
+        if isinstance(leaf, Sharded):
+            leaf, spec = leaf.local, leaf.spec
+        if not isinstance(leaf, QuantizedLinearWeight):
+            continue
+        specs = {"q": spec, "scale": None if spec is None
+                 else (*spec[:-3], None, spec[-1])}
+        for which, t in (("q", leaf.q), ("scale", leaf.scale)):
+            whole, start = list(t.shape), [0] * t.ndim
+            for d, axes in enumerate(specs[which] or ()):
+                if axes:
+                    i, n = par.index(axes)
+                    whole[d], start[d] = t.shape[d] * n, t.shape[d] * i
+            out[(p, which)] = (t, tuple(whole), tuple(start))
     return out
 
 
@@ -223,7 +255,8 @@ def weight_plane_digests(params) -> torch.Tensor:
 def golden_weight_copy(params) -> dict:
     """Host golden copy of every prepared plane and its digest vector:
     ``{"index", "digests" (np.int64), "planes": {(path, which): CPU
-    tensor}}``, the repair's source of truth."""
+    tensor}}``, the repair's source of truth; of this rank's pieces for
+    placed params (each rank keeps the copy of what it holds)."""
     planes = {(p, which): x.to("cpu", copy=True)
               for p, which, x in iter_qweight_planes(params)}
     return {"index": weight_plane_index(params),

@@ -41,8 +41,11 @@ process a device, every rank the same program:
 (launch/mesh.py ``init_distributed``: NCCL on CUDA, device ``LOCAL_RANK``;
 gloo with ``--device cpu``).  Prepared weights split N over ``model``, the
 fused MVM and the paged read run placed on the mesh, the MoE experts with
-expert parallelism; the tokens are those of one device.  Only rank 0
-prints.
+expert parallelism, the RWKV6 and Mamba2 scans on this rank's heads and
+batch slice; the tokens are those of one device.  ``--continuous`` takes
+``--integrity`` and ``--sampled-chaos`` under a mesh; the three drills
+(``--chaos``, ``--integrity-drill``, ``--prefix-drill``) run on one
+device, as the reference runs them.  Only rank 0 prints.
 """
 from __future__ import annotations
 
@@ -286,10 +289,12 @@ def serve_continuous(cfg, params, prompts, n_tokens: int, *,
     ``prepare_params``; ``device``: CUDA unless 'cpu' is asked for.
 
     ``par``: serve under that mesh, every rank running the same scheduler
-    on the same queue and returning the same outputs.  The knobs whose
-    decisions a rank takes alone (``deadline_s``'s and a ``watchdog``'s
-    wall clocks) or that address one device's planes (``integrity``, the
-    injector's weight flips) are refused under a mesh (ROADMAP A13c)."""
+    on the same queue and returning the same outputs.  The host decisions
+    a rank could take alone are taken together: ``deadline_s`` expiries
+    by the first rank's clock, a ``watchdog``'s hang on any rank agreed
+    over the mesh; ``integrity`` digests each rank's pieces and pages and
+    agrees the findings, named as one device names them; an injector's
+    weight flip hits the rank whose piece holds its element."""
     from ..runtime.serving import serve_continuous_ft
     _check_kv(cfg, kv)
     dev = resolve_device(device)
@@ -462,15 +467,14 @@ def main(argv=None):
         return _run(args, resolve_device(args.device), None)
     from .mesh import init_distributed, parallel_ctx_from_spec, \
         parse_mesh_spec
-    from .steps import check_mesh
     parse_mesh_spec(args.mesh)
-    check_mesh(get_arch(args.arch))
-    drills = [f for f in ("chaos", "integrity_drill", "prefix_drill",
-                          "sampled_chaos") if getattr(args, f)]
-    if drills or args.integrity != "off":
-        raise ValueError(f"--mesh serves --continuous and one-shot batches; "
-                         f"{drills or ['--integrity']} run on one device "
-                         "(ROADMAP A13c)")
+    drills = [f"--{f.replace('_', '-')}" for f in
+              ("chaos", "integrity_drill", "prefix_drill") if getattr(args, f)]
+    if drills:
+        raise ValueError(f"{', '.join(drills)} run on one device, as the "
+                         "reference runs its drills: drop --mesh (it serves "
+                         "--continuous, with --integrity and "
+                         "--sampled-chaos, and one-shot batches)")
     import os
     import sys
 

@@ -24,11 +24,15 @@ is a 1-tuple here).  The rules are the reference's, name-based over the
 becomes a ``parallel.Sharded`` (its piece and the spec), the rest stay as
 they are; ``to_shardings`` does the same by a spec tree (the training
 state: ``opt_state_specs``, AdamW's moments placed as the params).  The
-port's serving keeps the KV cache whole on every rank (its float math
+port's serving keeps the KV caches whole on every rank (its float math
 is the single-device math, and the paged read cuts the batch
-itself: ``kernels/paged_attention.py paged_attention_decode_sharded``);
-``cache_partition`` and ``batch_specs`` are the reference's rules, kept
-for the mesh the cache would take.
+itself: ``kernels/paged_attention.py paged_attention_decode_sharded``).
+The recurrent states are pieces where the scans are cut: RWKV6's WKV
+matrices by ``cache_partition``'s ``wkv`` rule (rows over DP, heads over
+TP: ``layers/rwkv6.py wkv_axes``), Mamba2's h by its rows only (the SSD
+scan is cut by rows, as the reference pins it: ``layers/mamba2.py``);
+the token-shift and conv tails stay whole (every rank computes them).
+``cache_partition`` and ``batch_specs`` are the reference's rules.
 """
 from __future__ import annotations
 

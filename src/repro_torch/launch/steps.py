@@ -108,15 +108,18 @@ def _check_train(cfg: ArchConfig):
                          "modes is ROADMAP A15b")
 
 
-def _forward(model, params, cfg: ArchConfig, batch, dev):
+def _forward(model, params, cfg: ArchConfig, batch, dev, par=None):
     """``model.forward`` on the batch's inputs, moved to ``dev``:
-    ``tokens`` (B, S), or ``embeds`` (B, S, D) for a stub frontend."""
+    ``tokens`` (B, S), or ``embeds`` (B, S, D) for a stub frontend;
+    ``par``: the train step's view of its mesh."""
+    kw = {} if par is None else {"par": par}
     if cfg.stub_frontend:
         return model.forward(params, cfg, None,
                              embeds=torch.as_tensor(batch["embeds"],
-                                                    device=dev))
+                                                    device=dev), **kw)
     return model.forward(params, cfg,
-                         torch.as_tensor(batch["tokens"], device=dev).long())
+                         torch.as_tensor(batch["tokens"], device=dev).long(),
+                         **kw)
 
 
 def _labels(batch, dev) -> torch.Tensor:
@@ -141,15 +144,16 @@ def make_train_step(cfg: ArchConfig, opt, device=None, par=None):
     the whole batch where it does not divide), averages the loss and the
     whole gradients over the DP axes, takes the clip's global norm of
     that mean (the same on every rank) and updates this rank's pieces.
-    With no DP split (``model=N``) this is the one-device step bitwise.
-    The MoE experts run on whole gathered weights, not with expert
-    parallelism (its ``all_to_all`` has no backward: ROADMAP A13c); the
-    RWKV6 and hybrid families are refused (``check_mesh``)."""
+    The MoE experts run with expert parallelism, as the reference's mesh
+    step runs them: each rank gathers its own experts over FSDP only and
+    keeps their gradients, and the RWKV6 scan runs on this rank's heads.
+    With no DP split (``model=N``) this is the one-device step bitwise,
+    but for an MoE config with N > 1 (its aux is the mean of each
+    sequence slice's, as the reference's)."""
     _check_train(cfg)
     model = get_model(cfg)
     dev = resolve_device(device)
     if par is not None:
-        check_mesh(cfg)
         return _mesh_train_step(cfg, opt, model, dev, par)
 
     def train_step(params, opt_state, batch):
@@ -168,15 +172,22 @@ def make_train_step(cfg: ArchConfig, opt, device=None, par=None):
 
 
 def _mesh_train_step(cfg: ArchConfig, opt, model, dev, par):
-    """``make_train_step``'s step under the mesh ``par`` (ZeRO-3)."""
-    from ..optim.adamw import global_norm
+    """``make_train_step``'s step under the mesh ``par`` (ZeRO-3; the MoE
+    experts with expert parallelism)."""
+    import torch.distributed as dist
+
     from ..parallel import Sharded
     from .sharding import shard_for
+    view = par.train_view
+    fsdp = par.dp_axes[-1:]
+    tp = par.tp_axis
 
-    def dp_mean(t):
+    def dp_mean_(t):
+        """``t`` (a fresh gradient) averaged over the DP axes in place: no
+        second copy of the gradients at the step's peak."""
         for a in par.dp_axes:
-            t = par.psum(t, a)
-        return t / par.dp_size
+            dist.all_reduce(t, group=par.group(a))
+        return t.div_(par.dp_size)
 
     def local(batch):
         out = {}
@@ -186,24 +197,50 @@ def _mesh_train_step(cfg: ArchConfig, opt, model, dev, par):
                     torch.as_tensor(batch[k], device=dev))[0]
         return out
 
+    def own(path, p):
+        """A MoE expert leaf split over ``model``: this rank keeps its
+        experts (gathered over FSDP only) and their gradients."""
+        return isinstance(p, Sharded) and "moe/experts" in path \
+            and p.spec[-3] == (tp,)
+
+    def fsdp_dims(spec, keep):
+        """``spec`` with only (``keep``) or all but (not ``keep``) its
+        FSDP dims: an expert's piece cut over FSDP from its gathered
+        gradient, or the spec of the gathered expert."""
+        return tuple(a if bool(a and set(a) <= set(fsdp)) == keep else None
+                     for a in spec)
+
     def train_step(params, opt_state, batch):
         placed = leaves(params)
+        mine = leaves(map_params(own, params))
         with torch.no_grad():
-            flat = [par.whole(p) for p in placed]
+            flat = [par.gather_spec(p.local, p.spec, only=fsdp)[0] if m
+                    else par.whole(p) for p, m in zip(placed, mine)]
         flat = [w.detach().requires_grad_(True) for w in flat]
+        model_leaves = [Sharded(w, fsdp_dims(p.spec, False), p.shape)
+                        if m else w for w, p, m in zip(flat, placed, mine)]
         part = local(batch)
-        logits, aux = _forward(model, unflatten(params, flat), cfg, part,
-                               dev)
+        logits, aux = _forward(model, unflatten(params, model_leaves), cfg,
+                               part, dev, view)
         loss = lm.lm_loss(logits, _labels(part, dev)) + AUX_WEIGHT * aux
         grads = torch.autograd.grad(loss, flat, materialize_grads=True)
-        del logits, flat
+        del logits, flat, model_leaves
         with torch.no_grad():
-            grads = [dp_mean(g) for g in grads]
-            loss = dp_mean(loss.detach())
-            gnorm = global_norm(unflatten(params, grads))
-            pieces = [shard_for(par.rank_coords, p.spec, g)
-                      if isinstance(p, Sharded) else g
-                      for p, g in zip(placed, grads)]
+            grads = [dp_mean_(g) for g in grads]
+            loss = dp_mean_(loss.detach().clone())
+            # the clip's norm: every whole leaf once, and the experts'
+            # squares summed over the ranks that hold them
+            sq = [torch.sum(torch.square(g.to(torch.float32)))
+                  for g in grads]
+            if any(mine):
+                ex = par.psum(torch.stack([q for q, m in zip(sq, mine)
+                                           if m]), tp)
+                it = iter(ex.unbind(0))
+                sq = [next(it) if m else q for q, m in zip(sq, mine)]
+            gnorm = torch.sqrt(torch.sum(torch.stack(sq)))
+            pieces = [g if not isinstance(p, Sharded) else shard_for(
+                par.rank_coords, fsdp_dims(p.spec, True) if m else p.spec, g)
+                for p, g, m in zip(placed, grads, mine)]
         params, opt_state, gnorm = opt.update(
             params, unflatten(params, pieces), opt_state, gnorm=gnorm)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
@@ -226,21 +263,9 @@ def make_eval_step(cfg: ArchConfig, device=None):
     return eval_step
 
 
-def check_mesh(cfg: ArchConfig) -> None:
-    """Meshes serve and train the attention families only: the RWKV6 and
-    hybrid families' placement (their ``shard_fn``) is ROADMAP A13c."""
-    if cfg.family not in ATTENTION_FAMILIES:
-        raise ValueError(f"{cfg.name}: serving or training the "
-                         f"{cfg.family!r} family under a mesh is ROADMAP "
-                         "A13c; run it on one device")
-
-
-def _mesh_kw(cfg: ArchConfig, par) -> dict:
-    """The model's ``par`` keyword, checked: {} on one device."""
-    if par is None:
-        return {}
-    check_mesh(cfg)
-    return {"par": par}
+def _mesh_kw(par) -> dict:
+    """The model's ``par`` keyword: {} on one device."""
+    return {} if par is None else {"par": par}
 
 
 def make_prefill_step(cfg: ArchConfig, capacity: int | None = None,
@@ -249,7 +274,7 @@ def make_prefill_step(cfg: ArchConfig, capacity: int | None = None,
     model's ``prefill`` of ``batch["tokens"]`` (or ``embeds``) with a
     cache of ``capacity`` positions; ``par``: under that mesh."""
     model = get_model(cfg)
-    kw = _mesh_kw(cfg, par)
+    kw = _mesh_kw(par)
 
     def prefill_step(params, batch):
         if cfg.stub_frontend:
@@ -267,7 +292,7 @@ def make_decode_step(cfg: ArchConfig, return_logits: bool = False,
     of ``batch["token"]`` (or ``embed``), the cache updated in place;
     ``par``: under that mesh."""
     model = get_model(cfg)
-    kw = _mesh_kw(cfg, par)
+    kw = _mesh_kw(par)
 
     def decode_step(params, batch, cache):
         if cfg.stub_frontend:
@@ -304,7 +329,8 @@ def prepare_serving_params(cfg: ArchConfig, params, par=None, *,
     with the host golden copy and digest vector of every prepared plane
     (core/qweights.py ``golden_weight_copy``, the integrity layer's
     repair source), taken here where the planes are good by
-    construction; None for 'off'/'float'.
+    construction; None for 'off'/'float'.  Under a mesh the copy is of
+    this rank's pieces.
 
     ``par``: the prepared params placed on that mesh
     (launch/sharding.py ``shard_params``: prepared weights N over
@@ -315,7 +341,6 @@ def prepare_serving_params(cfg: ArchConfig, params, par=None, *,
     pass through as they are."""
     spec = getattr(cfg, "dscim", "off")
     _check_dscim(cfg)
-    _mesh_kw(cfg, par)
     if split_dscim_mode(spec)[0] in ("off", "float"):
         prepared = params
     else:
@@ -326,9 +351,6 @@ def prepare_serving_params(cfg: ArchConfig, params, par=None, *,
                                         group_k=lin.group_k if lin else 128)
     if par is not None:
         from .sharding import shard_params
-        if golden:
-            raise ValueError("integrity golden copies are per device; "
-                             "serving them under a mesh is ROADMAP A13c")
         prepared = shard_params(prepared, par)
     if split_dscim_mode(spec)[0] in ("off", "float"):
         return (prepared, None) if golden else prepared
@@ -529,7 +551,7 @@ def _make_step(cfg: ArchConfig, st: dict, nxt, *, masked: bool, eos: int,
     including the prefill token).  Unmasked is the fixed-length loop.
     Nothing reads back to the host.  ``par``: decode under that mesh."""
     decode = get_model(cfg).decode
-    kw = _mesh_kw(cfg, par)
+    kw = _mesh_kw(par)
 
     def step():
         params = st["params"]
@@ -762,13 +784,14 @@ def _uses(cfg: ArchConfig, B: int, spec):
 
 def _static_cache(cfg: ArchConfig, B: int, capacity: int, kv: str,
                   page_size: int, n_pages: int | None, device,
-                  integrity: bool = False):
+                  integrity: bool = False, par=None):
     """An empty cache of the requested layout (the runners' and the serve
     state's static buffers); ``integrity`` adds the int8 pool's digest
-    plane."""
+    plane; ``par``: a recurrent family's state pieces on that mesh."""
     from ..core.kvcache import init_paged_cache, n_pages_for
     if cfg.family not in ATTENTION_FAMILIES:      # the family's own state
-        return get_model(cfg).cache_specs(cfg, B, capacity, device=device)
+        return get_model(cfg).cache_specs(cfg, B, capacity, device=device,
+                                          **_mesh_kw(par))
     if kv == "float":
         shape = (cfg.n_layers, B, capacity, cfg.n_kv, cfg.head_dim)
         cdt = lm.DTYPES[cfg.cache_dtype]
@@ -809,7 +832,7 @@ class _GenerateRunner:
             "max_new": torch.zeros((B,), **i32),
             "i": torch.zeros((1,), dtype=torch.int64, device=dev),
             "cache": _static_cache(cfg, B, S + n_tokens + self.k, kv,
-                                   page_size, None, dev),
+                                   page_size, None, dev, par=par),
             "seed": torch.zeros((1,), dtype=torch.int64, device=dev),
             "stream": torch.arange(B, dtype=torch.int64, device=dev)}
         if sp:
@@ -901,7 +924,7 @@ class _GenerateRunner:
     def _prefill(self, params, tokens):
         B, S = tokens.shape
         cfg, n = self.cfg, self.n_tokens + self.k
-        kw = _mesh_kw(cfg, self.par)
+        kw = _mesh_kw(self.par)
         if self.kv == "float":
             return get_model(cfg).prefill(params, cfg, tokens,
                                           capacity=S + n, **kw)
@@ -981,7 +1004,6 @@ def make_generate_fn(cfg: ArchConfig, n_tokens: int = 16, *,
     (``generate.last_graph`` is False and ``generate.eager_reason`` says
     why)."""
     _check_kv(cfg, kv)
-    _mesh_kw(cfg, par)
     _make_sampler(sample)                   # reject a bad spec up front
     if trace_logits and eos_id is not None:
         raise ValueError("trace_logits is a fixed-length-loop feature")
@@ -1075,7 +1097,7 @@ def make_admit_fn(cfg: ArchConfig, *, eos_id: int | None = None,
     ``par``: the prefill under that mesh."""
     nxt = _next_fn(_make_sampler(sample))
     eos = -1 if eos_id is None else eos_id
-    kw = _mesh_kw(cfg, par)
+    kw = _mesh_kw(par)
 
     @torch.no_grad()
     def admit(params, state, prompt, slot: int, page_ids, max_new: int):
@@ -1172,7 +1194,6 @@ def make_segment_fn(cfg: ArchConfig, seg_len: int = SEG_LEN, *,
     sp = _parse_spec(spec)
     if sp:
         _check_spec(cfg)
-    _mesh_kw(cfg, par)
     box = {"bindings": 0}
 
     k = sp[1] if sp else 0
@@ -1314,7 +1335,6 @@ def make_extend_fn(cfg: ArchConfig, chunk_len: int, *,
     (eagerly over gloo on CUDA)."""
     from ..kernels import build
     _check_spec(cfg)
-    _mesh_kw(cfg, par)
     nxt = _next_fn(_make_sampler(sample))
     eos = -1 if eos_id is None else eos_id
     box = {"bindings": 0}
@@ -1432,7 +1452,6 @@ def make_probe_fn(cfg_ref: ArchConfig, *, graph: bool = True, par=None):
     ``probe.runs["bindings"]`` counts its bindings.  Nothing reads back
     to the host.  ``par``: the probe under that mesh (eagerly over gloo
     on CUDA)."""
-    _mesh_kw(cfg_ref, par)
     box = {"bindings": 0}
 
     @torch.no_grad()

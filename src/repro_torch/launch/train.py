@@ -45,7 +45,7 @@ from ..runtime.failover import (FailureInjector, SimulatedHardwareFailure,
 from ..runtime.watchdog import StepHang, Watchdog
 from .mesh import make_parallel_ctx
 from .sharding import shard_params
-from .steps import check_mesh, make_train_step
+from .steps import make_train_step
 
 __all__ = ["TrainLoop", "main"]
 
@@ -68,7 +68,6 @@ class TrainLoop:
         self.par = None
         if mesh is not None and not (isinstance(mesh, str)
                                      and mesh == "off"):
-            check_mesh(cfg)
             self.par = make_parallel_ctx(mesh)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -213,7 +212,6 @@ def main(argv=None):
 
     from ..runtime.elastic import mesh_from_env
     from .mesh import init_distributed
-    check_mesh(cfg)
     dev = init_distributed(args.device)
     try:
         os.environ["REPRO_MESH"] = args.mesh

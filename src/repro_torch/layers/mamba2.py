@@ -12,6 +12,12 @@ with more than one chunk, a chunk's intermediates are recomputed in the
 backward pass (the reference's ``jax.checkpoint`` of the chunk body).  A
 depthwise causal conv (kernel 4) precedes x/B/C; decode (chunk 1)
 carries the conv tail and h.  Used by the zamba2-7b hybrid config.
+
+Under a mesh (``par``, a ``parallel.ParallelCtx``) the SSD chunk streams
+run on this rank's batch rows over the DP axes, where they divide, as
+the reference's ``shard_fn`` pins them (batch only); the rank's h is that
+piece, and the rows are gathered after the scan.  The projections and
+the conv run on every row on every rank (whole gathered weights).
 """
 from __future__ import annotations
 
@@ -28,15 +34,17 @@ CONV_K = 4
 
 def init_mamba2_state(batch: int, d_model: int, head_dim: int = 64,
                       ssm_state: int = 64, expand: int = 1,
-                      dtype=torch.float32, device=None):
+                      dtype=torch.float32, device=None, par=None):
     """The zero state of one layer: the conv tail (B, K-1, d_in + 2N) and
-    h (B, H, P, N) f32."""
+    h (B, H, P, N) f32; under the mesh ``par`` this rank's rows of h."""
     d_in = expand * d_model
     H = d_in // head_dim
+    b = batch if par is None else \
+        batch // par.index(par.batch_axes(batch))[1]
     return {
         "conv": torch.zeros((batch, CONV_K - 1, d_in + 2 * ssm_state),
                             dtype=dtype, device=device),
-        "h": torch.zeros((batch, H, head_dim, ssm_state),
+        "h": torch.zeros((b, H, head_dim, ssm_state),
                          dtype=torch.float32, device=device),
     }
 
@@ -77,11 +85,13 @@ def _ssd_chunk(h0, x, Bm, Cm, lw, dt):
     return h1, y
 
 
-def mamba2_block(params, x, state, head_dim: int = 64, chunk: int = 64):
+def mamba2_block(params, x, state, head_dim: int = 64, chunk: int = 64,
+                 par=None):
     """x (B,S,D) -> (out (B,S,D), new_state); ``state`` is the layer's
-    (``init_mamba2_state``), the ssm state width is ``wB``'s.  The chunk
-    must divide S (the reference's assert); the state tensors returned
-    are new."""
+    (``init_mamba2_state``, with ``par``), the ssm state width is
+    ``wB``'s.  The chunk must divide S (the reference's assert); the
+    state tensors returned are new.  ``par``: the scan on this rank's
+    rows (module docstring)."""
     B, S, D = x.shape
     d_in = params["wx"].shape[1]
     ssm_state = params["wB"].shape[1]
@@ -104,14 +114,21 @@ def mamba2_block(params, x, state, head_dim: int = 64, chunk: int = 64):
         raise ValueError(f"the SSD chunk {c} must divide the sequence "
                          f"length {S}")
     xh = xb.reshape(B, S, H, head_dim).to(f32)
-    Bf, Cf = Bm.to(f32), Cm.to(f32)
+    rows = None if par is None else par.batch_axes(B)
+
+    def cut(t):                        # this rank's rows
+        return t if rows is None else par.split(t, rows, 0)
+    xs, Bf, Cf, lws, dts = (cut(t) for t in (xh, Bm.to(f32), Cm.to(f32),
+                                            lw, dt))
     h, ys = state["h"], []
     for j in range(0, S, c):
-        h, y = remat(_ssd_chunk, h, xh[:, j:j + c], Bf[:, j:j + c],
-                     Cf[:, j:j + c], lw[:, j:j + c], dt[:, j:j + c],
+        h, y = remat(_ssd_chunk, h, xs[:, j:j + c], Bf[:, j:j + c],
+                     Cf[:, j:j + c], lws[:, j:j + c], dts[:, j:j + c],
                      on=S > c)
         ys.append(y)
     y = torch.cat(ys, dim=1)
+    if rows is not None:
+        y = par.all_gather(y, rows, 0)
     y = y + params["D"][None, None, :, None] * xh
     y = y.reshape(B, S, d_in).to(x.dtype)
     y = rmsnorm(y * F.silu(z), params["norm"]).to(x.dtype)

@@ -31,7 +31,9 @@ sequence (all of it when S does not divide, as at decode), fills its
 counts it per shard, sends each expert's rows to the rank that holds the
 expert (``all_to_all``), runs its E / ep experts, sends the outputs back
 (``all_to_all``) and combines; the sequence and the batch are then
-gathered.  The aux is averaged over the mesh."""
+gathered.  The aux is averaged over the mesh.  Every collective here has
+a backward (``parallel.py``), so the train step runs the experts with
+expert parallelism too."""
 from __future__ import annotations
 
 import torch
@@ -142,14 +144,19 @@ def _experts(params, xt: torch.Tensor, ids, weights, top_k: int,
 def _routed_ep(params, x: torch.Tensor, top_k: int, capacity_factor: float,
                par):
     """``moe_routed`` with expert parallelism (module docstring): (out
-    (B, S, D), keep of this rank's tokens, aux averaged over the mesh)."""
+    (B, S, D), keep of this rank's tokens, aux averaged over the mesh).
+    Differentiable: the slices, the exchanges and the gathers are the
+    autograd collectives of ``parallel.py``, the router's gradient is
+    summed over ``model`` (each rank routes its own slice of the
+    sequence) and the experts' gradients stay with the rank that holds
+    them."""
     from ..parallel import Sharded
     tp = par.tp_axis
     ep = par.tp_size
     E = params["router"].shape[-1]
     if E % ep:
         raise ValueError(f"{E} experts do not split over {tp}={ep}")
-    fsdp = (par.dp_axes[-1],)
+    fsdp = par.dp_axes[-1:]
     we = {}
     for name, w in params["experts"].items():
         if not isinstance(w, Sharded) or w.spec[-3] != (tp,):
@@ -157,15 +164,19 @@ def _routed_ep(params, x: torch.Tensor, top_k: int, capacity_factor: float,
                              f"{name} placed with its expert dim over {tp} "
                              "(launch/sharding.py)")
         we[name] = par.gather_spec(w.local, w.spec, only=fsdp)[0]
-    xb, b = par.batch_slice(x)
+    b = par.batch_axes(x.shape[0])
+    xb = par.split(x, b, 0)
     B, S, D = xb.shape
     split_seq = ep > 1 and S % ep == 0
+    if ep > 1 and not split_seq and torch.is_grad_enabled():
+        # every rank would route the same tokens and the experts would
+        # take ep copies of their gradients
+        raise ValueError(f"training with expert parallelism splits the "
+                         f"sequence over {tp}: {S} does not divide by {ep}")
     if split_seq:
-        s_loc = S // ep
-        r = par.coords[tp]
-        xb = xb[:, r * s_loc:(r + 1) * s_loc]
+        xb = par.split(xb, tp, 1)
     xt = xb.reshape(-1, D)
-    probs = _router_probs(xt, params["router"])
+    probs = _router_probs(xt, par.sum_grad(params["router"], tp))
     ids, weights = _pick(probs, top_k)
 
     def ffn(buf):                                # (E, C, D) on every rank
@@ -177,8 +188,7 @@ def _routed_ep(params, x: torch.Tensor, top_k: int, capacity_factor: float,
     out = out_t.reshape(B, -1, D)
     if split_seq:
         out = par.all_gather(out, tp, 1)
-    if b:
-        out = par.all_gather(out, b, 0)
+    out = par.all_gather(out, b, 0)
     aux = par.all_reduce_mean(load_balance_aux(probs, ids))
     return out, keep, aux
 
@@ -227,8 +237,12 @@ def moe_with_aux(params, x: torch.Tensor, *, top_k: int,
     adds its gradient into distinct rows, or adds zeros (a dropped
     entry), except for a token's k copies, which ``F.embedding``'s
     backward sums in one fixed order: the gradients are the same bits
-    from run to run.  ``par``: expert parallelism (forward only), the
-    aux averaged over the mesh."""
+    from run to run.  ``par``: expert parallelism, the aux averaged over
+    the mesh; under the train step's view of the mesh
+    (``ParallelCtx.train_view``: the batch is this rank's DP slice) the
+    experts are the rank's own, gathered over FSDP by the step, and
+    each rank's gradients are those of its slice of the sequence and of
+    its experts (launch/steps.py ``_mesh_train_step``)."""
     if par is not None:
         out, _, aux = _routed_ep(params, x, top_k, capacity_factor, par)
         return _add_shared(params, x, out, has_shared, linear, salt), aux

@@ -13,6 +13,15 @@ is carried from chunk to chunk by a Python loop.  Under autograd a
 chunk's intermediates are recomputed in the backward pass (the
 reference's ``remat_chunk``).  Decode is the same block at chunk 1.  The
 state is (B, H, dk, dv) whatever the sequence length.
+
+Under a mesh (``par``, a ``parallel.ParallelCtx``) the WKV scan runs on
+this rank's heads (over ``model``) and batch rows (over the DP axes),
+as the reference's ``shard_fn`` pins its chunk streams
+(``P(None, dp, None, tp, None)``), where they divide (``wkv_axes``); the
+rank's WKV state is that piece (launch/sharding.py's rule for ``wkv``)
+and the heads and rows are gathered before ``ln_x``.  Every head's scan
+is independent of the others, so the float path is one device's bits.
+The projections run on whole gathered weights (ZeRO-3) on every rank.
 """
 from __future__ import annotations
 
@@ -22,8 +31,8 @@ import torch.nn.functional as F
 from .norms import rmsnorm
 from .remat import remat
 
-__all__ = ["init_rwkv6_state", "wkv6", "rwkv6_block", "rwkv6_decode",
-           "LORA_R", "DECAY_CLIP"]
+__all__ = ["init_rwkv6_state", "wkv6", "wkv_axes", "rwkv6_block",
+           "rwkv6_decode", "LORA_R", "DECAY_CLIP"]
 
 LORA_R = 32
 # |log w| per step is clipped to DECAY_CLIP: the per-step decay stays
@@ -32,15 +41,30 @@ LORA_R = 32
 DECAY_CLIP = 4.0
 
 
+def wkv_axes(par, batch: int, n_heads: int):
+    """(the DP axes the WKV scan's rows are cut over, the axis its heads
+    are cut over) under the mesh ``par``, each None where it does not
+    divide (or, for the rows, where the batch is the rank's slice
+    already: ``ParallelCtx.local_batch``)."""
+    if par is None:
+        return None, None
+    heads = (par.tp_axis,) if n_heads % par.tp_size == 0 else None
+    return par.batch_axes(batch), heads
+
+
 def init_rwkv6_state(batch: int, d_model: int, head_dim: int = 64,
-                     dtype=torch.float32, device=None):
+                     dtype=torch.float32, device=None, par=None):
     """The zero state of one layer: the token-shift tails (B, D) and the
-    WKV matrices (B, H, dk, dv) f32."""
+    WKV matrices (B, H, dk, dv) f32; under the mesh ``par`` this rank's
+    piece of the WKV matrices (``wkv_axes``)."""
     H = d_model // head_dim
+    rows, heads = wkv_axes(par, batch, H)
+    b = batch if par is None else batch // par.index(rows)[1]
+    h = H if par is None else H // par.index(heads)[1]
     return {
         "x_att": torch.zeros((batch, d_model), dtype=dtype, device=device),
         "x_ffn": torch.zeros((batch, d_model), dtype=dtype, device=device),
-        "wkv": torch.zeros((batch, H, head_dim, head_dim),
+        "wkv": torch.zeros((b, h, head_dim, head_dim),
                            dtype=torch.float32, device=device),
     }
 
@@ -106,12 +130,15 @@ def wkv6(r, k, v, lw, u, state, chunk: int = 32):
     return torch.cat(outs, dim=1), state
 
 
-def rwkv6_block(params, x_res, state, head_dim: int = 64, chunk: int = 32):
+def rwkv6_block(params, x_res, state, head_dim: int = 64, chunk: int = 32,
+                par=None):
     """Full RWKV6 layer: x = x + time_mix(ln1(x)); x = x + channel_mix(ln2(x)).
 
     x_res (B,S,D) is the residual stream, ``state`` the layer's
-    (``init_rwkv6_state``).  Returns (new_residual, new_state), the state
-    tensors new (the caller copies them where they must live)."""
+    (``init_rwkv6_state``, with ``par``).  Returns (new_residual,
+    new_state), the state tensors new (the caller copies them where they
+    must live).  ``par``: the scan on this rank's heads and rows (module
+    docstring)."""
     B, S, D = x_res.shape
     H = D // head_dim
 
@@ -130,9 +157,18 @@ def rwkv6_block(params, x_res, state, head_dim: int = 64, chunk: int = 32):
     k = (xk @ params["wk"]).reshape(B, S, H, head_dim)
     v = (xv @ params["wv"]).reshape(B, S, H, head_dim)
     g = F.silu(xg @ params["wg"])
-    out, wkv_state = wkv6(r.to(f32), k.to(f32), v.to(f32),
-                          lw.reshape(B, S, H, head_dim),
-                          params["u"].to(f32), state["wkv"], chunk)
+    rows, heads = wkv_axes(par, B, H)
+
+    def cut(t):                        # (B, S, H, d) -> this rank's piece
+        return t if par is None else par.split(par.split(t, rows, 0),
+                                               heads, 2)
+    u = params["u"].to(f32)
+    out, wkv_state = wkv6(cut(r.to(f32)), cut(k.to(f32)), cut(v.to(f32)),
+                          cut(lw.reshape(B, S, H, head_dim)),
+                          u if par is None else par.split(u, heads, 0),
+                          state["wkv"], chunk)
+    if par is not None:
+        out = par.all_gather(par.all_gather(out, heads, 2), rows, 0)
     out = rmsnorm(out.reshape(B, S, D), params["ln_x"]).to(x.dtype)
     res = x_res + (out * g) @ params["wo"]
 

@@ -22,7 +22,8 @@ Serving under a mesh (``par``, a ``parallel.ParallelCtx``, to
 ``prefill``, ``decode`` and ``decode_multi``): SPMD over
 ``torch.distributed``, params placed by ``launch/sharding.py``; see
 ``prefill``.  Training under a mesh runs ``forward`` on whole gathered
-leaves (launch/steps.py ``make_train_step(par=)``).
+leaves, the MoE experts with expert parallelism on this rank's experts
+(launch/steps.py ``make_train_step(par=)``).
 
 Salts: layer ``li`` owns the salt space ``8*li`` (MLP or shared-expert
 sites 0..2, attention 4..7) and the head takes ``8*n_layers``, as in the
@@ -268,6 +269,9 @@ def unstack(tree, n: int) -> list:
         return [{k: subs[k][i] for k in tree} for i in range(n)]
     if isinstance(tree, torch.Tensor):
         return list(tree.unbind(0))
+    if isinstance(tree, Sharded) and isinstance(tree.local, torch.Tensor):
+        return [Sharded(t, tree.spec[1:], tree.shape[1:])
+                for t in unstack(tree.local, n)]
     return [tree[i] for i in range(n)]
 
 
@@ -373,11 +377,12 @@ def embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.embedding(tokens, params["embed"])
 
 
-def _train_layer(cfg: ArchConfig, li: int, positions, x, lp):
+def _train_layer(cfg: ArchConfig, li: int, par, positions, x, lp):
     """Layer ``li`` of ``forward`` (the reference's ``_block_apply``
     without a cache): (x, the layer's MoE aux, None for a dense config).
     The layer's weights are cast to the compute dtype here, inside the
-    rematerialized body, as the reference casts them."""
+    rematerialized body, as the reference casts them.  ``par``: the MoE
+    block with expert parallelism."""
     lp = _cast(lp, x.dtype)
     h, _ = attention(lp["attn"], _norm(cfg, x, lp["ln1"]), cfg, positions,
                      cfg.q_chunk, linear=_alin(cfg), salt=8 * li)
@@ -387,14 +392,14 @@ def _train_layer(cfg: ArchConfig, li: int, positions, x, lp):
         h, aux = moe_layer.moe_with_aux(
             lp["moe"], hn, top_k=cfg.moe_topk,
             capacity_factor=cfg.moe_capacity, has_shared=cfg.moe_shared > 0,
-            linear=_lin(cfg), salt=8 * li)
+            linear=_lin(cfg), salt=8 * li, par=par)
         return x + h, aux
     return x + mlp(lp["mlp"], hn, cfg.mlp_kind, linear=_lin(cfg),
                    salt=8 * li), None
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor | None, *,
-            embeds: torch.Tensor | None = None):
+            embeds: torch.Tensor | None = None, par=None):
     """Training and scoring forward over whole sequences: tokens (B, S),
     or for a stub-frontend config ``tokens=None`` and ``embeds`` (B, S,
     D) -> (logits (B, S, Vp) f32, aux 0-d f32), aux the MoE load-balance
@@ -402,15 +407,18 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor | None, *,
     rematerialized in the backward pass when ``cfg.remat`` (the
     reference's per-layer ``jax.checkpoint``).  Nothing is written in
     place, so autograd can differentiate it; the serving paths (prefill,
-    decode) are separate."""
+    decode) are separate.  ``par``: the train step's view of its mesh
+    (``ParallelCtx.train_view``): the leaves are whole but the MoE
+    experts' (this rank's, ``Sharded`` over ``model``), which run with
+    expert parallelism."""
     dt = DTYPES[cfg.compute_dtype]
     x = _inputs(cfg, tokens, embeds, dt, lambda t: embed(params, t))
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
-        x, a = remat(functools.partial(_train_layer, cfg, li), positions, x,
-                     lp, on=cfg.remat)
+        x, a = remat(functools.partial(_train_layer, cfg, li, par),
+                     positions, x, lp, on=cfg.remat)
         if a is not None:
             aux = aux + a
     x = _norm(cfg, x, params["final_norm"])

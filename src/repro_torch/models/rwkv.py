@@ -7,6 +7,13 @@ is the per-layer recurrent state, stacked on axis 0 (token-shift tails
 and WKV matrices), whose size does not depend on the sequence length.
 The model is served in float only: the reference prepares no DS-CIM
 weights for this family and pages no cache.
+
+Under a mesh (``par``, a ``parallel.ParallelCtx``, to ``forward``,
+``prefill`` and ``decode``): every float leaf is gathered whole before
+use (ZeRO-3) and each layer's WKV scan runs on this rank's heads and
+rows (layers/rwkv6.py); the state's WKV matrices are this rank's piece
+(``cache_specs(par=)``, launch/sharding.py's rule), the token-shift
+tails whole.  Inputs and logits are whole on every rank.
 """
 from __future__ import annotations
 
@@ -17,8 +24,8 @@ from ..device import resolve_device
 from ..layers.norms import rmsnorm
 from ..layers.remat import remat
 from ..layers.rwkv6 import LORA_R, init_rwkv6_state, rwkv6_block
-from .lm import (DTYPES, _cast, _embed_prompt, _layer, embed, generator,
-                 unstack)
+from .lm import (DTYPES, _cast, _embed_prompt, _full, _layer, _whole, embed,
+                 generator, unstack)
 
 __all__ = ["init_params", "cast_layers", "forward", "prefill", "decode",
            "cache_specs"]
@@ -74,44 +81,49 @@ def cast_layers(params, dtype: torch.dtype):
                 lm_head=params["lm_head"].to(dtype))
 
 
-def _head(params, cfg: ArchConfig, x):
+def _head(params, cfg: ArchConfig, x, par=None):
     """Final norm and head of (B, 1, D) -> (B, Vp) f32."""
     x = rmsnorm(x, params["final_norm"])
-    return (x @ params["lm_head"].to(x.dtype)).to(torch.float32)[:, 0]
+    return (x @ _full(params["lm_head"], par).to(x.dtype)).to(
+        torch.float32)[:, 0]
 
 
-def cache_specs(cfg: ArchConfig, batch: int, seq: int, device="meta"):
+def cache_specs(cfg: ArchConfig, batch: int, seq: int, device="meta",
+                par=None):
     """The serving state of ``batch`` rows, whatever ``seq``: the
     reference's shapes and dtypes as zero tensors on ``device`` (``meta``:
-    shapes and dtypes only)."""
-    L, D, hd = cfg.n_layers, cfg.d_model, cfg.ssm_head_dim
-    f32 = dict(dtype=torch.float32, device=device)
-    return {"states": {
-                "x_att": torch.zeros((L, batch, D), **f32),
-                "x_ffn": torch.zeros((L, batch, D), **f32),
-                "wkv": torch.zeros((L, batch, D // hd, hd, hd), **f32)},
+    shapes and dtypes only); under the mesh ``par`` the WKV matrices are
+    this rank's piece."""
+    L = cfg.n_layers
+    one = init_rwkv6_state(batch, cfg.d_model, cfg.ssm_head_dim,
+                           device=device, par=par)
+    return {"states": {k: torch.zeros((L, *v.shape), dtype=v.dtype,
+                                      device=device)
+                       for k, v in one.items()},
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _train_layer(cfg: ArchConfig, zero, x, lp):
+def _train_layer(cfg: ArchConfig, par, zero, x, lp):
     """One layer of ``forward`` from the zero state (its weights cast to
     the compute dtype inside the rematerialized body)."""
     return rwkv6_block(_cast(lp, x.dtype), x, zero, cfg.ssm_head_dim,
-                       cfg.scan_chunk)[0]
+                       cfg.scan_chunk, par)[0]
 
 
-def forward(params, cfg: ArchConfig, tokens: torch.Tensor):
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor, par=None):
     """Training and scoring forward: tokens (B, S), S a multiple of
     ``scan_chunk`` or shorter -> (logits (B, S, Vp) f32, aux 0), every
     layer from the zero state, rematerialized in the backward pass when
     ``cfg.remat``.  Out of place (prefill and decode are the serving
-    paths, which write the state)."""
+    paths, which write the state).  ``par``: the train step's view of
+    its mesh (whole leaves; each layer's scan on this rank's heads)."""
     dt = DTYPES[cfg.compute_dtype]
     x = rmsnorm(embed(params, tokens).to(dt), params["ln_in"])
     B, _, D = x.shape
-    zero = init_rwkv6_state(B, D, cfg.ssm_head_dim, device=x.device)
+    zero = init_rwkv6_state(B, D, cfg.ssm_head_dim, device=x.device,
+                            par=par)
     for lp in unstack(params["layers"], cfg.n_layers):
-        x = remat(_train_layer, cfg, zero, x, lp, on=cfg.remat)
+        x = remat(_train_layer, cfg, par, zero, x, lp, on=cfg.remat)
     x = rmsnorm(x, params["final_norm"])
     logits = (x @ params["lm_head"].to(dt)).to(torch.float32)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -119,41 +131,46 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor):
 
 @torch.no_grad()
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
-            capacity: int | None = None):
+            capacity: int | None = None, par=None):
     """Forward over the prompt (B, S), S a multiple of ``scan_chunk`` or
     shorter -> (last-token logits (B, Vp) f32, {"states": the layers'
     states stacked on axis 0, "pos": S}).  ``capacity`` has no effect:
-    the state does not depend on the sequence length."""
+    the state does not depend on the sequence length.  ``par``: under
+    that mesh (module docstring)."""
     dt = DTYPES[cfg.compute_dtype]
-    x = rmsnorm(_embed_prompt(params, tokens).to(dt), params["ln_in"])
+    x = rmsnorm(_embed_prompt(params, tokens, par).to(dt), params["ln_in"])
     B, S, D = x.shape
-    zero = init_rwkv6_state(B, D, cfg.ssm_head_dim, device=x.device)
+    zero = init_rwkv6_state(B, D, cfg.ssm_head_dim, device=x.device,
+                            par=par)
     states = []
     for li in range(cfg.n_layers):
-        lp = _cast(_layer(params["layers"], li), dt)
-        x, st = rwkv6_block(lp, x, zero, cfg.ssm_head_dim, cfg.scan_chunk)
+        lp = _cast(_whole(_layer(params["layers"], li), par), dt)
+        x, st = rwkv6_block(lp, x, zero, cfg.ssm_head_dim, cfg.scan_chunk,
+                            par)
         states.append(st)
     stacked = {k: torch.stack([st[k] for st in states]) for k in zero}
     pos = torch.tensor(S, dtype=torch.int32, device=x.device)
-    return _head(params, cfg, x[:, -1:]), {"states": stacked, "pos": pos}
+    return _head(params, cfg, x[:, -1:], par), {"states": stacked,
+                                                "pos": pos}
 
 
 @torch.no_grad()
 def decode(params, cfg: ArchConfig, token: torch.Tensor, cache,
-           done: torch.Tensor | None = None):
+           done: torch.Tensor | None = None, par=None):
     """One-token decode, token (B,) -> (logits (B, Vp) f32, cache).  The
     state tensors and ``pos`` are updated in place, so the step can be
     captured in a CUDA graph.  ``done`` is ignored, as the reference's
     state update ignores it: a finished row's state moves on, and its
-    tokens are ``PAD_ID`` whatever it holds."""
+    tokens are ``PAD_ID`` whatever it holds.  ``par``: under that mesh."""
     dt = DTYPES[cfg.compute_dtype]
-    x = rmsnorm(params["embed"][token][:, None].to(dt), params["ln_in"])
+    x = rmsnorm(_full(params["embed"], par)[token][:, None].to(dt),
+                params["ln_in"])
     states = cache["states"]
     for li in range(cfg.n_layers):
-        lp = _cast(_layer(params["layers"], li), dt)
+        lp = _cast(_whole(_layer(params["layers"], li), par), dt)
         st = {k: v[li] for k, v in states.items()}
-        x, new = rwkv6_block(lp, x, st, cfg.ssm_head_dim, chunk=1)
+        x, new = rwkv6_block(lp, x, st, cfg.ssm_head_dim, chunk=1, par=par)
         for k, v in new.items():
             st[k].copy_(v)
     cache["pos"].add_(1)
-    return _head(params, cfg, x), cache
+    return _head(params, cfg, x, par), cache

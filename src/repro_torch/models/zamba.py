@@ -12,6 +12,15 @@ cache per application of the shared block, (n_blocks, B, T, KV, HD);
 (``forward`` included) plus ``cache_specs``.  The model is served in
 float only: the reference prepares no DS-CIM weights for this family and
 pages no cache.
+
+Under a mesh (``par``, a ``parallel.ParallelCtx``, to ``forward``,
+``prefill`` and ``decode``): every float leaf is gathered whole before
+use (ZeRO-3), each Mamba2 layer's SSD scan runs on this rank's batch
+rows (layers/mamba2.py) and the shared attention runs as the dense
+family's does under a mesh (whole weights, the dense K/V caches whole
+on every rank).  The Mamba2 h states are this rank's rows
+(``cache_specs(par=)``), the conv tails whole.  Inputs and logits are
+whole on every rank.
 """
 from __future__ import annotations
 
@@ -23,8 +32,8 @@ from ..layers.attention import attention, decode_attention
 from ..layers.mamba2 import CONV_K, init_mamba2_state, mamba2_block
 from ..layers.norms import rmsnorm
 from ..layers.remat import remat
-from .lm import (DTYPES, _cast, _embed_prompt, _layer, embed, generator,
-                 unstack)
+from .lm import (DTYPES, _cast, _embed_prompt, _full, _layer, _whole, embed,
+                 generator, unstack)
 
 __all__ = ["init_params", "cast_layers", "forward", "prefill", "decode",
            "cache_specs"]
@@ -93,60 +102,63 @@ def cast_layers(params, dtype: torch.dtype):
                 lm_head=params["lm_head"].to(dtype))
 
 
-def _head(params, cfg: ArchConfig, x):
+def _head(params, cfg: ArchConfig, x, par=None):
     """Final norm and head of (B, 1, D) -> (B, Vp) f32."""
     x = rmsnorm(x, params["final_norm"])
-    return (x @ params["lm_head"].to(x.dtype)).to(torch.float32)[:, 0]
+    return (x @ _full(params["lm_head"], par).to(x.dtype)).to(
+        torch.float32)[:, 0]
 
 
-def cache_specs(cfg: ArchConfig, batch: int, seq: int, device="meta"):
+def cache_specs(cfg: ArchConfig, batch: int, seq: int, device="meta",
+                par=None):
     """The serving cache of ``batch`` rows and ``seq`` positions: the
     reference's shapes and dtypes as zero tensors on ``device``
-    (``meta``: shapes and dtypes only)."""
+    (``meta``: shapes and dtypes only); under the mesh ``par`` the h
+    states are this rank's rows."""
     nb, mpb = _n_blocks(cfg), cfg.mamba_per_block
-    d_in, N, hd = cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim
-    f32 = dict(dtype=torch.float32, device=device)
     kv = (nb, batch, seq, cfg.n_kv, cfg.head_dim)
     cdt = DTYPES[cfg.cache_dtype]
-    return {"mamba": {
-                "conv": torch.zeros((nb, mpb, batch, CONV_K - 1,
-                                     d_in + 2 * N), **f32),
-                "h": torch.zeros((nb, mpb, batch, d_in // hd, hd, N),
-                                 **f32)},
+    one = init_mamba2_state(batch, cfg.d_model, cfg.ssm_head_dim,
+                            cfg.ssm_state, device=device, par=par)
+    return {"mamba": {k: torch.zeros((nb, mpb, *v.shape), dtype=v.dtype,
+                                     device=device)
+                      for k, v in one.items()},
             "k": torch.zeros(kv, dtype=cdt, device=device),
             "v": torch.zeros(kv, dtype=cdt, device=device),
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _train_block(cfg: ArchConfig, positions, zero, shared, shared_ln, x,
-                 blk):
+def _train_block(cfg: ArchConfig, par, positions, zero, shared, shared_ln,
+                 x, blk):
     """One super-block of ``forward``: its Mamba2 layers from the zero
     state, then the shared attention (the block's weights cast to the
     compute dtype inside the rematerialized body)."""
     blk = _cast(blk, x.dtype)
     for lp in unstack(blk, cfg.mamba_per_block):
         h, _ = mamba2_block(lp["mamba"], rmsnorm(x, lp["ln"]), zero,
-                            cfg.ssm_head_dim, cfg.scan_chunk)
+                            cfg.ssm_head_dim, cfg.scan_chunk, par)
         x = x + h
     h, _ = attention(shared, rmsnorm(x, shared_ln), cfg, positions,
                      cfg.q_chunk)
     return x + h
 
 
-def forward(params, cfg: ArchConfig, tokens: torch.Tensor):
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor, par=None):
     """Training and scoring forward: tokens (B, S) -> (logits (B, S, Vp)
     f32, aux 0), every Mamba2 layer from the zero state, each super-block
     rematerialized in the backward pass when ``cfg.remat``.  Out of place
-    (prefill and decode are the serving paths, which write the cache)."""
+    (prefill and decode are the serving paths, which write the cache).
+    ``par``: the train step's view of its mesh (whole leaves, the batch
+    this rank's slice already)."""
     dt = DTYPES[cfg.compute_dtype]
     x = embed(params, tokens).to(dt)
     B, S, D = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     shared = _cast(params["shared_attn"], dt)
     zero = init_mamba2_state(B, D, cfg.ssm_head_dim, cfg.ssm_state,
-                             device=x.device)
+                             device=x.device, par=par)
     for blk in unstack(params["blocks"], _n_blocks(cfg)):
-        x = remat(_train_block, cfg, positions, zero, shared,
+        x = remat(_train_block, cfg, par, positions, zero, shared,
                   params["shared_ln"], x, blk, on=cfg.remat)
     x = rmsnorm(x, params["final_norm"])
     logits = (x @ params["lm_head"].to(dt)).to(torch.float32)
@@ -155,27 +167,28 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor):
 
 @torch.no_grad()
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
-            capacity: int | None = None):
+            capacity: int | None = None, par=None):
     """Forward over the prompt (B, S) -> (last-token logits (B, Vp) f32,
     cache) with K/V (n_blocks, B, T, KV, HD), T = ``capacity`` (>= S,
     default S), and ``pos`` S.  S must be a multiple of ``scan_chunk``
-    and ``q_chunk`` or shorter than them."""
+    and ``q_chunk`` or shorter than them.  ``par``: under that mesh
+    (module docstring)."""
     dt = DTYPES[cfg.compute_dtype]
     cdt = DTYPES[cfg.cache_dtype]
     nb, mpb = _n_blocks(cfg), cfg.mamba_per_block
-    x = _embed_prompt(params, tokens).to(dt)
+    x = _embed_prompt(params, tokens, par).to(dt)
     B, S, D = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
-    shared = _cast(params["shared_attn"], dt)
+    shared = _cast(_whole(params["shared_attn"], par), dt)
     zero = init_mamba2_state(B, D, cfg.ssm_head_dim, cfg.ssm_state,
-                             device=x.device)
+                             device=x.device, par=par)
     states, ks, vs = [], [], []
     for bi in range(nb):
-        blk = _cast(_layer(params["blocks"], bi), dt)
+        blk = _cast(_whole(_layer(params["blocks"], bi), par), dt)
         for mi in range(mpb):
             lp = _layer(blk, mi)
             h, st = mamba2_block(lp["mamba"], rmsnorm(x, lp["ln"]), zero,
-                                 cfg.ssm_head_dim, cfg.scan_chunk)
+                                 cfg.ssm_head_dim, cfg.scan_chunk, par)
             x = x + h
             states.append(st)
         h, (k, v) = attention(shared, rmsnorm(x, params["shared_ln"]), cfg,
@@ -191,36 +204,36 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
     mamba = {k: torch.stack([st[k] for st in states]).reshape(
                  nb, mpb, *zero[k].shape) for k in zero}
     pos = torch.tensor(S, dtype=torch.int32, device=x.device)
-    return _head(params, cfg, x[:, -1:]), {"mamba": mamba, "k": ks,
-                                           "v": vs, "pos": pos}
+    return _head(params, cfg, x[:, -1:], par), {"mamba": mamba, "k": ks,
+                                                "v": vs, "pos": pos}
 
 
 @torch.no_grad()
 def decode(params, cfg: ArchConfig, token: torch.Tensor, cache,
-           done: torch.Tensor | None = None):
+           done: torch.Tensor | None = None, par=None):
     """One-token decode, token (B,) -> (logits (B, Vp) f32, cache).  The
     Mamba2 states, the K/V caches and ``pos`` are updated in place, so
     the step can be captured in a CUDA graph.  ``done`` is ignored, as
     the reference's decode ignores it: every row writes at ``pos``, which
     advances for all, and a finished row's tokens are ``PAD_ID``
-    whatever it holds."""
+    whatever it holds.  ``par``: under that mesh."""
     dt = DTYPES[cfg.compute_dtype]
     nb, mpb = _n_blocks(cfg), cfg.mamba_per_block
-    x = params["embed"][token][:, None].to(dt)
+    x = _full(params["embed"], par)[token][:, None].to(dt)
     pos = cache["pos"].expand(x.shape[0])        # one position, every row
-    shared = _cast(params["shared_attn"], dt)
+    shared = _cast(_whole(params["shared_attn"], par), dt)
     states = cache["mamba"]
     for bi in range(nb):
-        blk = _cast(_layer(params["blocks"], bi), dt)
+        blk = _cast(_whole(_layer(params["blocks"], bi), par), dt)
         for mi in range(mpb):
             lp = _layer(blk, mi)
             st = {k: v[bi, mi] for k, v in states.items()}
             h, new = mamba2_block(lp["mamba"], rmsnorm(x, lp["ln"]), st,
-                                  cfg.ssm_head_dim, chunk=1)
+                                  cfg.ssm_head_dim, chunk=1, par=par)
             x = x + h
             for k, v in new.items():
                 st[k].copy_(v)
         x = x + decode_attention(shared, rmsnorm(x, params["shared_ln"]),
                                  cache["k"][bi], cache["v"][bi], pos, cfg)
     cache["pos"].add_(1)
-    return _head(params, cfg, x), cache
+    return _head(params, cfg, x, par), cache

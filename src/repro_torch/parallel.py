@@ -12,10 +12,15 @@ that serving and training under a mesh issue, in one place:
 * ``all_gather``: a tensor's pieces along one dim, concatenated in mesh
   order (the reference's ``all_gather(..., tiled=True)``) over one or more
   axes; the shards of a weight (``Sharded``), the N-sharded fused MVM's
-  columns, a DP-sharded batch;
+  columns, a DP-sharded batch, the MoE's sequence slices and the
+  recurrent scans' head and batch slices;
+* ``split``: this rank's slice of a tensor every rank holds whole (the
+  inverse of ``all_gather``);
 * ``all_to_all``: the MoE's expert exchange over the ``model`` axis (the
   reference's ``all_to_all(..., tiled=True)``);
 * ``all_reduce_mean``: the MoE aux averaged over the mesh;
+* ``sum_grad``: a whole tensor read by this rank's slice of the work
+  (the MoE router's weight), whose gradient is summed over an axis;
 * ``psum`` / ``pmax``: a sum or a max over one named axis (the
   reference's ``psum`` / ``pmax``: the train step's gradient mean over
   the DP axes, ``optim/compression.py compressed_psum_tree``), and
@@ -26,7 +31,22 @@ that serving and training under a mesh issue, in one place:
   hand-off), and ``broadcast`` from one coordinate of an axis.
 
 Each is issued whatever the axis size (a size-1 group copies), so a mesh
-of one rank runs the collectives it would run on many.  On NCCL they can
+of one rank runs the collectives it would run on many.
+
+Autograd sees ``all_gather``, ``split``, ``all_to_all``,
+``all_reduce_mean`` and ``sum_grad`` (the train step's expert
+parallelism and head-sliced scans).  The rule of their backwards is the
+train step's (launch/steps.py ``_mesh_train_step``): a tensor every rank
+of the ``model`` axis holds whole holds there the whole gradient of this
+rank's DP-slice loss, and the gradients are averaged over the DP axes
+after the backward.  So an ``all_gather``'s consumers are replicated
+over its axes and its backward is this rank's slice of the incoming
+gradient (a reduce-scatter would multiply it by the axis size);
+``split``'s backward gathers the slices; an ``all_to_all``'s is the
+inverse exchange; ``sum_grad``'s sums the gradient over its axis; and
+the mean's backward is the DP-axes sum of the incoming gradient over
+the mesh's rank count (its consumers are the DP slices' losses, which
+the step then averages).  On NCCL they can
 be captured in a CUDA graph (the communicators are set up by one eager
 collective first, ``warm_up``); a gloo group cannot be captured
 (``capturable``).
@@ -35,7 +55,8 @@ collective first, ``warm_up``); a gloo group cannot be captured
 ``launch/sharding.py``: the local tensor (or prepared weight) and the
 spec of the whole leaf, a tuple with an entry per dim, ``None`` or the
 tuple of mesh axes that dim is split over.  ``ParallelCtx.sp`` (the
-sequence-parallel residual stream) is not ported (ROADMAP A13c).
+sequence-parallel residual stream, a sharding constraint only the
+reference's HLO tools set) is not ported (ROADMAP A16b).
 
 ``None`` in place of a ``ParallelCtx`` everywhere means one device.
 """
@@ -45,6 +66,7 @@ import dataclasses
 import functools
 import math
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -87,14 +109,101 @@ def is_prepared(w) -> bool:
     return isinstance(w, QuantizedLinearWeight)
 
 
+class _AllGather(torch.autograd.Function):
+    """``ParallelCtx.all_gather`` under autograd: the backward is this
+    rank's slice of the incoming gradient (consumers replicated over the
+    axes)."""
+
+    @staticmethod
+    def forward(ctx, t, par, axes, dim):
+        ctx.par, ctx.axes, ctx.dim = par, axes, dim
+        for a in reversed(axes):                 # the minor axis first
+            t = par._gather1(t, a, dim)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.par._slice(g, ctx.axes, ctx.dim), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    """``ParallelCtx.split``: the forward slices, the backward gathers."""
+
+    @staticmethod
+    def forward(ctx, t, par, axes, dim):
+        ctx.par, ctx.axes, ctx.dim = par, axes, dim
+        return par._slice(t, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllGather.apply(g, ctx.par, ctx.axes, ctx.dim), None, \
+            None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``ParallelCtx.all_to_all``: the backward is the inverse exchange
+    (split and concat dims swapped)."""
+
+    @staticmethod
+    def forward(ctx, t, par, axis, split_dim, concat_dim):
+        ctx.par, ctx.axis = par, axis
+        ctx.dims = (split_dim, concat_dim)
+        return par._all_to_all(t, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (_AllToAll.apply(g, ctx.par, ctx.axis, concat_dim,
+                                split_dim), None, None, None, None)
+
+
+class _MeanAll(torch.autograd.Function):
+    """``ParallelCtx.all_reduce_mean``: the backward is the DP-axes sum
+    of the incoming gradient over the rank count (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, t, par):
+        ctx.par = par
+        out = t.clone()
+        for a in par.sizes:
+            dist.all_reduce(out, group=par.group(a))
+        return out / math.prod(par.sizes.values())
+
+    @staticmethod
+    def backward(ctx, g):
+        par = ctx.par
+        g = g.clone()
+        for a in par.dp_axes:
+            dist.all_reduce(g, group=par.group(a))
+        return g / math.prod(par.sizes.values()), None
+
+
+class _SumGrad(torch.autograd.Function):
+    """``ParallelCtx.sum_grad``: the identity, whose backward sums the
+    gradient over one axis."""
+
+    @staticmethod
+    def forward(ctx, t, par, axis):
+        ctx.par, ctx.axis = par, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.par.psum(g, ctx.axis), None, None
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class ParallelCtx:
     """The mesh a serving run is placed on.  ``eq=False``: a context
     hashes by identity, so the operators cached per context
-    (models/lm.py ``_linear_for``) are made once a mesh."""
+    (models/lm.py ``_linear_for``) are made once a mesh.
+    ``local_batch``: the inputs a model is given are this rank's DP
+    slice already (the train step's view, ``train_view``), so no layer
+    cuts the batch again."""
     mesh: object                 # torch.distributed.device_mesh.DeviceMesh
     dp_axes: tuple = ("data",)
     tp_axis: str = "model"
+    local_batch: bool = False
 
     @functools.cached_property
     def sizes(self) -> dict:
@@ -133,9 +242,10 @@ class ParallelCtx:
 
     def index(self, axes) -> tuple[int, int]:
         """(this rank's index, the count of pieces) of a dim split over
-        ``axes``, the first axis major (a PartitionSpec's order)."""
+        ``axes``, the first axis major (a PartitionSpec's order); (0, 1)
+        for None."""
         i, n = 0, 1
-        for a in axes:
+        for a in axes or ():
             i, n = i * self.sizes[a] + self.coords[a], n * self.sizes[a]
         return i, n
 
@@ -158,20 +268,49 @@ class ParallelCtx:
 
     def all_gather(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
         """The whole of ``t`` along ``dim``, split over ``axes`` (a name or
-        a tuple, the first major): pieces concatenated in mesh order."""
+        a tuple, the first major; None or () returns ``t``): pieces
+        concatenated in mesh order.  Under autograd its backward is this
+        rank's slice of the gradient."""
+        if not axes:
+            return t
         if isinstance(axes, str):
             axes = (axes,)
-        dim %= t.ndim
-        for a in reversed(tuple(axes)):          # the minor axis first
-            t = self._gather1(t, a, dim)
-        return t
+        return _AllGather.apply(t, self, tuple(axes), dim % t.ndim)
+
+    def _slice(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        i, n = self.index(axes)
+        b = t.shape[dim] // n
+        return t.narrow(dim, i * b, b)
+
+    def split(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """This rank's slice of ``t`` (whole on every rank) along ``dim``
+        split over ``axes`` (None or () returns ``t``); under autograd its
+        backward gathers the slices' gradients."""
+        if not axes:
+            return t
+        if isinstance(axes, str):
+            axes = (axes,)
+        if t.shape[dim] % self.index(axes)[1]:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                             f"over {axes}")
+        return _Split.apply(t, self, tuple(axes), dim % t.ndim)
+
+    def sum_grad(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """``t`` itself, whose gradient is summed over ``axis`` in the
+        backward: a whole tensor each rank of the axis reads with its own
+        slice of the work."""
+        return _SumGrad.apply(t, self, axis)
 
     def all_to_all(self, t: torch.Tensor, axis: str, split_dim: int,
                    concat_dim: int) -> torch.Tensor:
         """The reference's tiled ``all_to_all``: ``t`` is cut into
         ``size`` pieces along ``split_dim``, piece j goes to rank j of the
         ``axis`` group, and the pieces received are concatenated along
-        ``concat_dim`` in rank order."""
+        ``concat_dim`` in rank order.  Under autograd its backward is the
+        inverse exchange."""
+        return _AllToAll.apply(t, self, axis, split_dim, concat_dim)
+
+    def _all_to_all(self, t, axis, split_dim, concat_dim):
         n = self.sizes[axis]
         shp = list(t.shape)
         x = t.movedim(split_dim, 0)
@@ -187,11 +326,9 @@ class ParallelCtx:
         return out.reshape(shp).contiguous()
 
     def all_reduce_mean(self, t: torch.Tensor) -> torch.Tensor:
-        """The mean of ``t`` over every rank of the mesh."""
-        out = t.clone()
-        for a in self.sizes:
-            dist.all_reduce(out, group=self.group(a))
-        return out / math.prod(self.sizes.values())
+        """The mean of ``t`` over every rank of the mesh (its backward:
+        the module docstring's rule)."""
+        return _MeanAll.apply(t, self)
 
     def psum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """The sum of ``t`` over the ranks of ``axis`` (a new tensor)."""
@@ -205,17 +342,28 @@ class ParallelCtx:
         dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group(axis))
         return out
 
-    def agree(self, flags) -> list[bool]:
-        """Each of ``flags`` (bools) true on every rank where it is true
-        on any: a max over every axis, so every rank takes the same
-        decision (one small collective; reading it waits for the
-        device)."""
+    def _flags(self, flags) -> torch.Tensor:
         dev = "cuda" if self.backend == "nccl" else "cpu"
-        t = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int32,
-                         device=dev)
+        return torch.as_tensor(np.asarray(flags, np.int32), device=dev)
+
+    def agree(self, flags) -> np.ndarray:
+        """``flags`` (bools, any shape) true on every rank where they are
+        true on any: a max over every axis, so every rank takes the same
+        decision (one small collective; reading it waits for the
+        device).  A bool array of the flags' shape."""
+        t = self._flags(flags)
         for a in self.sizes:
             t = self.pmax(t, a)
-        return [bool(x) for x in t.tolist()]
+        return t.cpu().numpy().astype(bool)
+
+    def from_first(self, flags) -> np.ndarray:
+        """The flags (bools, any shape) of the mesh's first rank, on every
+        rank: a host decision read from one clock (the scheduler's
+        wall-clock deadlines)."""
+        t = self._flags(flags)
+        for a in self.sizes:
+            t = self.broadcast(t, a, 0)
+        return t.cpu().numpy().astype(bool)
 
     def ppermute(self, t: torch.Tensor, axis: str, shift: int = 1
                  ) -> torch.Tensor:
@@ -285,6 +433,13 @@ class ParallelCtx:
         s, _ = self.gather_spec(qw.scale, sspec)
         return QuantizedLinearWeight(q, s, qw.k_orig, qw.group_k)
 
+    def batch_axes(self, B: int):
+        """The DP axes a batch of ``B`` rows is cut over inside a model:
+        None when it does not divide, or under ``local_batch``."""
+        if self.local_batch or not self.dp_axes or B % self.dp_size:
+            return None
+        return tuple(self.dp_axes)
+
     def batch_slice(self, t: torch.Tensor, axes=None):
         """This rank's rows of ``t``'s leading dim over the DP axes, and
         the axes it was cut over (None, and ``t`` whole, when the dim does
@@ -295,6 +450,13 @@ class ParallelCtx:
             return t, None
         b = t.shape[0] // n
         return t[i * b:(i + 1) * b], axes
+
+    @functools.cached_property
+    def train_view(self) -> "ParallelCtx":
+        """This mesh as the train step's model sees it: the batch is this
+        rank's DP slice already (``local_batch``)."""
+        return self if self.local_batch else dataclasses.replace(
+            self, local_batch=True)
 
     def warm_up(self, device) -> None:
         """One eager collective on every group of the mesh: NCCL sets up a

@@ -16,7 +16,9 @@ again from that segment boundary, up to ``max_restarts`` times.
   element) so the affected request is known whatever page ids the
   allocator gave; each fires once (a transient upset);
 * ``weight_flips`` — bit upsets in prepared weight planes, addressed by
-  the plane's path string and a flat offset; each fires once;
+  the plane's path string and a flat offset into the whole plane (under
+  a mesh the rank whose piece holds the element flips it); each fires
+  once;
 * ``macro_fault_at`` — a persistent stuck-at fault of the DS-CIM macro:
   from that segment on ``serving_fault(seg)`` returns ``macro_fault``
   (a ``cfg.dscim_fault`` spec, models/lm.py ``_parse_fault``) and the
@@ -196,12 +198,18 @@ class FailureInjector:
             affected.append(slot)
         return cache, affected
 
-    def corrupt_weights(self, segment: int, params):
+    def corrupt_weights(self, segment: int, params, par=None):
         """Apply this segment's due prepared-weight flips in place, once
-        each; the flat offset is unravelled against the live plane's
-        shape.  Returns (params, [(path, which), ...] hit)."""
-        from ..core.qweights import iter_qweight_planes
-        planes = {(p, w): x for p, w, x in iter_qweight_planes(params)}
+        each; the flat offset is unravelled against the whole plane's
+        shape.  Under the mesh ``par`` the params are this rank's pieces:
+        the rank whose piece holds the element flips it, the others
+        nothing.  Returns (params, [(path, which), ...] hit here)."""
+        from ..core.qweights import iter_qweight_planes, qweight_plane_pieces
+        if par is None:
+            planes = {(p, w): (x, tuple(x.shape), (0,) * x.ndim)
+                      for p, w, x in iter_qweight_planes(params)}
+        else:
+            planes = qweight_plane_pieces(params, par)
         hit = []
         for flip in self.weight_flips.get(segment, ()):
             key = ("wflip", segment, flip)
@@ -209,11 +217,14 @@ class FailureInjector:
                 continue
             self.fired.add(key)
             path, which, offset, mask = flip
-            t = planes.get((path, which))
-            if t is None:
+            if (path, which) not in planes:
                 continue
-            flip_bits(t, np.unravel_index(offset % t.numel(), t.shape), mask)
-            hit.append((path, which))
+            t, whole, start = planes[(path, which)]
+            idx = np.unravel_index(offset % int(np.prod(whole)), whole)
+            local = [int(i) - s for i, s in zip(idx, start)]
+            if all(0 <= i < n for i, n in zip(local, t.shape)):
+                flip_bits(t, tuple(local), mask)
+                hit.append((path, which))
         return params, hit
 
 

@@ -22,6 +22,15 @@ the plain path unchanged), 'verify' (every segment boundary) or
 scheduler's host books, so a snapshot-restore replay keeps the record of
 what was found.  The sweeps run on the planes' device; only the mismatch
 flags come back to the host.
+
+Under a mesh (``par``) each rank keeps the golden copy of its own
+pieces of the prepared planes and digests its pieces and the page pool
+it holds (whole on every rank in the port); the mismatch flags are
+agreed over the mesh (a max), so every rank names the same detections
+in whole-model terms, (path, 'q'|'scale') and (layer, physical page), as
+one device names them, and the counts count whole planes.  A rank
+repairs the pieces it found corrupted; the repair's check is agreed
+too.
 """
 from __future__ import annotations
 
@@ -54,11 +63,14 @@ class IntegrityEngine:
     """Segment-boundary verifier and repair bookkeeping.  ``golden`` is
     the blob of ``prepare_serving_params(..., golden=True)`` (None, or an
     empty index, when the model has no prepared planes: weight checks
-    then pass trivially)."""
+    then pass trivially).  ``par``: the mesh the params and the pool are
+    placed on (the golden copy of this rank's pieces)."""
 
-    def __init__(self, golden, *, period: int):
+    def __init__(self, golden, *, period: int, par=None):
         self.period = int(period)
+        self.par = par
         self.golden = golden
+        self._mine = None      # this rank's mismatches at the last check
         self.index = list(golden["index"]) if golden else []
         self.ref_digests = (np.asarray(golden["digests"], np.int64)
                             if golden else np.zeros((0,), np.int64))
@@ -92,6 +104,8 @@ class IntegrityEngine:
                              cache["k_scale"], cache["v_scale"])
         bad = ((cur != cache[CHECKSUM_KEY]) & torch.as_tensor(
             mask, device=cur.device)[None, :]).cpu().numpy()
+        if self.par is not None:
+            bad = self.par.agree(bad)
         self.counters["checks"] += 1
         self.counters["pages_verified"] += int(mask.sum()) * bad.shape[0]
         self.counters["scrub_time_s"] += time.perf_counter() - t0
@@ -101,21 +115,28 @@ class IntegrityEngine:
             self.detections.append({"kind": "page", "coords": coords})
         return coords
 
-    def _digests(self, params) -> np.ndarray:
+    def _mismatch(self, params) -> np.ndarray:
+        """(n_planes,) bool: this rank's pieces that digest off their
+        golden digests."""
         from ..core.qweights import weight_plane_digests
-        return weight_plane_digests(params).cpu().numpy()
+        return weight_plane_digests(params).cpu().numpy() \
+            != self.ref_digests
+
+    def _agreed(self, mine: np.ndarray) -> np.ndarray:
+        return mine if self.par is None else self.par.agree(mine)
 
     def check_weights(self, params) -> list:
         """Digest every prepared plane again, return the mismatching
-        (path, 'q'|'scale') pairs."""
+        (path, 'q'|'scale') pairs (under a mesh those of any rank's
+        piece)."""
         if not self.index:
             return []
         t0 = time.perf_counter()
-        cur = self._digests(params)
+        self._mine = self._mismatch(params)
+        flags = self._agreed(self._mine)
         self.counters["weight_planes_verified"] += len(self.index)
         self.counters["scrub_time_s"] += time.perf_counter() - t0
-        bad = [self.index[i] for i in
-               np.nonzero(cur != self.ref_digests)[0].tolist()]
+        bad = [self.index[i] for i in np.nonzero(flags)[0].tolist()]
         if bad:
             self.counters["weight_mismatches"] += len(bad)
             self.detections.append({"kind": "weight", "coords": list(bad)})
@@ -123,14 +144,17 @@ class IntegrityEngine:
 
     def repair_weights(self, params, planes):
         """Copy each corrupted plane's golden bytes back into its live
-        tensor; the planes then digest clean, which is checked (a repair
-        that does not verify would be a silent double fault).  Returns
-        ``params`` (the same tree)."""
+        tensor (under a mesh: each rank its own pieces that the last
+        check found off); the planes then digest clean, which is checked
+        (a repair that does not verify would be a silent double fault).
+        Returns ``params`` (the same tree)."""
         from ..core.qweights import restore_weight_plane
         for path, which in planes:
-            restore_weight_plane(params, path, which, self.golden)
+            i = self.index.index((path, which))
+            if self._mine is None or self._mine[i]:
+                restore_weight_plane(params, path, which, self.golden)
             self.counters["weight_repairs"] += 1
-        if (self._digests(params) != self.ref_digests).any():
+        if self._agreed(self._mismatch(params)).any():
             raise RuntimeError("integrity: weight repair failed to verify")
         return params
 

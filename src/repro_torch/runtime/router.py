@@ -60,9 +60,11 @@ What the port does differently:
 * ``par`` (a ``ParallelCtx``): the reference's mesh serving, SPMD: every
   rank runs its own router on the same submissions, which must reach
   every rank at the same rounds (e.g. all submitted before ``start()``),
-  and streams the same tokens.  ``deadline_s``, integrity checks and
-  weight flips are refused under a mesh
-  (``runtime/serving.py mesh_refusals``).
+  and streams the same tokens.  Wall-clock deadlines are read from the
+  first rank's clock (``ParallelCtx.from_first``); integrity checks
+  digest each rank's pieces and agree the findings
+  (runtime/integrity.py); a weight flip hits the rank whose piece holds
+  its element (runtime/failover.py).
 """
 from __future__ import annotations
 
@@ -84,7 +86,7 @@ from ..launch.steps import (_check_kv, _parse_spec, init_serve_state,
 from .failover import (IntegrityReplay, SimulatedHardwareFailure,
                        restore_into, to_host)
 from .integrity import IntegrityEngine, parse_integrity
-from .serving import _escalate, exact_probe_spec, mesh_refusals
+from .serving import _escalate, exact_probe_spec
 from .watchdog import StepHang
 
 __all__ = ["Router", "RequestHandle", "RouterResult", "Refused",
@@ -228,8 +230,6 @@ class Router:
                  prefix_cache: bool = False, resume: dict | None = None,
                  device=None, log=print, par=None):
         _check_kv(cfg, kv)
-        if par is not None:
-            mesh_refusals(integrity=integrity, injector=injector)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.par = par
@@ -282,7 +282,7 @@ class Router:
             # repairs restore the planes in place: self.params keeps its
             # binding
             self._integrity = IntegrityEngine(
-                golden_weight_copy(self.params), period=period)
+                golden_weight_copy(self.params), period=period, par=par)
         self._state = init_serve_state(cfg, slots, self.capacity, kv=kv,
                                        page_size=page_size, n_pages=n_pages,
                                        seed=rng_seed, integrity=period > 0,
@@ -400,8 +400,6 @@ class Router:
         call (queue time counts); ``deadline_steps`` at admission.
         ``priority`` orders admission only (higher first, FIFO within a
         class): the router never preempts a live slot."""
-        if self.par is not None and deadline_s is not None:
-            mesh_refusals(deadline_s=deadline_s)
         if self._draining:
             self._host["counters"]["refused_draining"] += 1
             raise Refused("draining")
@@ -842,8 +840,15 @@ class Router:
             if rid >= 0 and h["slot_phase"][b] == "decode" and done_h[b]:
                 self._free_slot(b)
                 self._finish(rid, STATUS_OK)
-        for rid in list(h["status"]):                  # deadline sweep
-            if self._expired(rid, now):
+        rids = list(h["status"])
+        expired = [self._expired(rid, now) for rid in rids]
+        if self.par is not None and any(
+                self._requests[rid].deadline_s for rid in rids):
+            # wall budgets by the first rank's clock: every rank cancels
+            # the same requests at the same round
+            expired = self.par.from_first(expired)
+        for rid, gone in zip(rids, expired):           # deadline sweep
+            if gone:
                 self._release(rid, STATUS_DEADLINE)
                 h["counters"]["deadline_cancelled"] += 1
         if self._draining:
@@ -880,7 +885,7 @@ class Router:
                 if rid >= 0 and rid not in self._corrupted:
                     self._corrupted.append(rid)
         if self.injector is not None and self.injector.weight_flips:
-            self.injector.corrupt_weights(seg, self.params)
+            self.injector.corrupt_weights(seg, self.params, self.par)
         if self._integrity is not None and self._integrity.due(seg):
             self._check_integrity()
         segment = self._steps_for(self._fault_now)[0]

@@ -62,6 +62,17 @@ The fault handling acts only between segments, on the host:
 Greedy and sampled decoding replay bit for bit through eviction and
 failover: draws are keyed by (seed, the request's stream, its emitted
 count), all of which survive both.
+
+Under a mesh (``par``) every rank runs this scheduler on the same queue
+and takes every host decision the same way: the ``deadline_s`` expiries
+are read from the first rank's clock and broadcast
+(``ParallelCtx.from_first``), a hang on any rank raises ``StepHang`` on
+every rank (``Watchdog.step(par)``), the integrity sweeps agree their
+findings over the mesh and name them as one device does
+(runtime/integrity.py), and an injector's weight flip hits the rank that
+holds its element (runtime/failover.py); the page flips, the snapshots
+and the monitor's probes are every rank's own, on state every rank holds
+whole.
 """
 from __future__ import annotations
 
@@ -79,7 +90,7 @@ from .watchdog import AccuracyWatchdog
 __all__ = ["STATUS_OK", "STATUS_DEADLINE", "serve_continuous_ft",
            "next_ladder_spec", "exact_probe_spec", "watchdog_for_spec",
            "chaos_drill", "integrity_drill", "integrity_scenario",
-           "prefix_drill", "mesh_refusals"]
+           "prefix_drill"]
 
 STATUS_OK = "ok"
 STATUS_DEADLINE = "deadline"
@@ -144,27 +155,6 @@ def _req_array(x, R, dtype, name):
     return arr
 
 
-def mesh_refusals(*, deadline_s=None, watchdog=None, integrity="off",
-                  injector=None):
-    """The scheduler's knobs refused under a mesh, where every rank must
-    take every host decision the same way: wall-clock deadlines and the
-    hang watchdog (a rank's own clock), integrity checks and weight
-    flips (they address one device's whole planes).  ROADMAP A13c."""
-    why = []
-    if deadline_s is not None:
-        why.append("deadline_s")
-    if watchdog is not None:
-        why.append("watchdog")
-    if integrity not in ("off", "", None):
-        why.append("integrity")
-    if injector is not None and getattr(injector, "weight_flips", None):
-        why.append("injector weight_flips")
-    if why:
-        raise ValueError(f"{', '.join(why)} under a mesh: each rank would "
-                         "decide alone or address its own planes (ROADMAP "
-                         "A13c); serve them on one device")
-
-
 def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
                         slots: int = 4, seg_len: int = 4, max_new=None,
                         eos_id: int | None = None, sample: str = "greedy",
@@ -216,9 +206,6 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
 
     prompts = np.asarray(prompts)
     R, S = prompts.shape
-    if par is not None:
-        mesh_refusals(deadline_s=deadline_s, watchdog=watchdog,
-                      integrity=integrity, injector=injector)
     budgets = np.full((R,), n_tokens, np.int32) if max_new is None \
         else _req_array(max_new, R, np.int32, "max_new")
     if not (budgets >= 1).all():
@@ -267,7 +254,7 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
     pfx0 = PrefixCache(alloc0, page_size) if use_prefix else None
     # repairs restore the planes in place, so the engine outlives restarts
     engine = IntegrityEngine(golden_weight_copy(params),
-                             period=integrity_period) \
+                             period=integrity_period, par=par) \
         if integrity_period > 0 else None
     host0 = {
         "slot_req": [-1] * slots, "slot_pages": [None] * slots,
@@ -507,8 +494,13 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
                     free_slot(b)
                     host["status"][r] = STATUS_OK
             if dl_steps is not None or dl_secs is not None:
+                expired = [_expired(host, r, now) for r in range(R)]
+                if par is not None and dl_secs is not None:
+                    # wall budgets by the first rank's clock: every rank
+                    # cancels the same requests at the same boundary
+                    expired = par.from_first(expired)
                 for r in range(R):                 # deadline sweep
-                    if not _expired(host, r, now):
+                    if not expired[r]:
                         continue
                     host["status"][r] = STATUS_DEADLINE
                     host["counters"]["deadline_cancelled"] += 1
@@ -611,7 +603,7 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
                     if r >= 0 and r not in host["corrupted"]:
                         host["corrupted"].append(r)
             if injector is not None and injector.weight_flips:
-                injector.corrupt_weights(seg, params)
+                injector.corrupt_weights(seg, params, par)
             if engine is not None and engine.due(seg):
                 # faults injected at this boundary land before the check,
                 # so a flip due the segment a check runs is caught before
@@ -653,7 +645,7 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
                 if reprobe and lg_exact is not None:
                     # a repair must never read as drift: probe again
                     lg_exact = _probe()
-            ctx = watchdog.step() if watchdog is not None \
+            ctx = watchdog.step(par) if watchdog is not None \
                 else contextlib.nullcontext()
             with ctx:
                 _, toks, lives, aux = segment(params, state)

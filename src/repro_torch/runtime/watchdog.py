@@ -7,7 +7,11 @@ Python and numpy, nothing of it runs on the card).
 reported to ``on_straggler``); no step completion within
 ``hang_timeout`` seconds raises ``StepHang`` at the next step, which the
 scheduler's failover loop (runtime/failover.py) turns into a
-snapshot-restore replay.
+snapshot-restore replay.  Under a mesh the hang is agreed: ``step(par)``
+raises ``StepHang`` on every rank when any rank's watchdog flagged one,
+so no rank enters the step's collectives while another restores (the
+train loop agrees it with the injector's failure in one collective,
+launch/train.py ``TrainLoop._maybe_fail``).
 
 ``AccuracyWatchdog`` is the DS-CIM estimator's health check: every
 ``probe_every`` segments the fault-tolerant scheduler
@@ -63,14 +67,19 @@ class Watchdog:
         return self._hang.is_set()
 
     # -- per-step API ---------------------------------------------------------
-    def step(self):
-        """Context manager wrapping one training step."""
+    def step(self, par=None):
+        """Context manager wrapping one step.  ``par`` (a
+        ``ParallelCtx``): the hang flag is agreed over the mesh first (a
+        collective every rank enters)."""
         wd = self
 
         class _Ctx:
             def __enter__(self):
-                if wd._hang.is_set():
-                    raise StepHang("previous step exceeded hang_timeout")
+                hung = wd.hung if par is None else par.agree([wd.hung])[0]
+                if hung:
+                    raise StepHang("previous step exceeded hang_timeout"
+                                   + ("" if wd.hung else " on another "
+                                      "rank"))
                 wd._armed.set()
                 self.t0 = time.monotonic()
                 return self

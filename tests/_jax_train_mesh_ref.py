@@ -1,15 +1,28 @@
-"""The JAX reference's side of tests/test_torch_train_mesh.py, run once in
-a subprocess with 8 fake host devices:
+"""The JAX reference's side of the port's mesh tests, run once a test
+module in a subprocess with 8 fake host devices:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
-        python tests/_jax_train_mesh_ref.py IN OUT
+        python tests/_jax_train_mesh_ref.py IN OUT [PARTS]
 
-reads the inputs pickled in IN and pickles to OUT: the 2x2 mesh train
-step's metrics (``tests/test_launch_dist.py::test_tiny_distributed_
-train_step_compiles_and_runs``, on the shared params and batch, for each
-reduced config) and the single-device step's; ``compressed_psum_tree``
-and ``pipeline_forward`` under ``shard_map`` over pod=2; and
-``mesh_from_env`` for the reference test's specs.
+reads the inputs pickled in IN and pickles to OUT a dict of the PARTS
+asked for (comma-separated; default ``train,psum,pipe,elastic``, those
+of tests/test_torch_train_mesh.py):
+
+* ``train``: the 2x2 mesh train step's metrics
+  (``tests/test_launch_dist.py::test_tiny_distributed_train_step_
+  compiles_and_runs``, on the shared params and batch, for each reduced
+  config) and the single-device step's; ``train_mesh``: the mesh step's
+  alone; ``train12``: the mesh step's under a 1x2 mesh (``model=2``);
+* ``psum`` / ``pipe``: ``compressed_psum_tree`` and ``pipeline_forward``
+  under ``shard_map`` over pod=2; ``elastic``: ``mesh_from_env`` for the
+  reference test's specs;
+* ``serve``: ``serve_batch`` of each config of ``inp['serve_params']``
+  under the 2x2 mesh (tests/test_torch_mesh_recurrent.py);
+* ``knobs``: ``serve_continuous`` of the reduced qwen3 at
+  ``kernel:dscim1:256``, int8 KV, under the 2x2 mesh with integrity
+  'verify', a ``deadline_s`` per request, a hang before the third step
+  and the sampled injector of tests/_torch_mesh_rank.py
+  (tests/test_torch_mesh.py).
 """
 import os
 import pickle
@@ -33,18 +46,21 @@ from repro.parallel import shard_map
 from repro.runtime.elastic import mesh_from_env
 
 
-def train(inp):
-    """{arch: (one-device metrics, 2x2 metrics)}, each (loss, grad norm)
-    of one step."""
+def train(inp, shape=(2, 2), one=True):
+    """{arch: (one-device metrics, mesh metrics)}, each (loss, grad norm)
+    of one step; the mesh ``make_debug_mesh(*shape)``; the one-device
+    metrics None unless ``one``."""
     out = {}
     for arch, p in inp["params"].items():
         cfg = ARCHS[arch].reduced()
         opt = AdamW(lr=1e-3)
         params = jax.tree.map(jnp.asarray, p)
         batch = {k: jnp.asarray(v) for k, v in inp["batch"].items()}
-        ref_step = jax.jit(make_train_step(cfg, None, opt))
-        _, _, m_ref = ref_step(params, opt.init(params), batch)
-        mesh = make_debug_mesh(2, 2)
+        m_ref = None
+        if one:
+            ref_step = jax.jit(make_train_step(cfg, None, opt))
+            _, _, m_ref = ref_step(params, opt.init(params), batch)
+        mesh = make_debug_mesh(*shape)
         par = make_parallel_ctx(mesh)
         specs = param_specs(cfg, par, params)
         psh = to_shardings(mesh, specs)
@@ -56,7 +72,8 @@ def train(inp):
         _, _, m = step(jax.device_put(params, psh),
                        jax.device_put(opt.init(params), osh),
                        jax.device_put(batch, bsh))
-        out[arch] = tuple((float(x["loss"]), float(x["grad_norm"]))
+        out[arch] = tuple(None if x is None else
+                          (float(x["loss"]), float(x["grad_norm"]))
                           for x in (m_ref, m))
     return out
 
@@ -120,12 +137,78 @@ def elastic():
     return out
 
 
+def serve(inp):
+    """{arch: (tokens, prefill logits)} of ``serve_batch`` under the 2x2
+    mesh."""
+    from repro.launch.serve import serve_batch
+    par = make_parallel_ctx(make_debug_mesh(2, 2))
+    out = {}
+    for arch, p in inp["serve_params"].items():
+        toks, logits = serve_batch(ARCHS[arch].reduced(), p,
+                                   inp["prompts"].astype(np.int32),
+                                   inp["serve_tokens"], par=par)
+        out[arch] = (np.asarray(toks), np.asarray(logits[0]))
+    return out
+
+
+def knobs(inp):
+    """(outputs, statuses, replays, integrity record) of the knobs' run
+    under the 2x2 mesh (tests/_torch_mesh_rank.py ``knob_run``)."""
+    import dataclasses
+
+    from repro.launch.serve import serve_continuous
+    from repro.runtime.failover import FailureInjector
+    from repro.runtime.watchdog import Watchdog
+
+    class HangAt(Watchdog):
+        def __init__(self, at):
+            super().__init__(hang_timeout=600.0)
+            self.at, self.n = at, 0
+
+        def step(self):
+            self.n += 1
+            if self.n == self.at:
+                self._hang.set()
+            return super().step()
+
+    cfg = dataclasses.replace(ARCHS["qwen3-0.6b"].reduced(),
+                              dscim="kernel:dscim1:256")
+    inj = FailureInjector.sampled(
+        inp["knob_seed"], segments=6, slots=4, n_layers=2, page_size=4,
+        n_kv=2, head_dim=16, device_losses=0, flips=1,
+        weight_paths=("layers/mlp/w_up",), weight_flip_count=1)
+    wd = HangAt(3)
+    try:
+        outs, st = serve_continuous(
+            cfg, inp["qwen_params"], inp["knob_prompts"], 6, slots=4,
+            seg_len=2, max_new=inp["knob_budgets"], eos_id=-1, kv="int8",
+            page_size=4, deadline_s=inp["knob_deadlines"], watchdog=wd,
+            injector=inj, snapshot_every=1, integrity="verify",
+            par=make_parallel_ctx(make_debug_mesh(2, 2)),
+            log=lambda *a: None)
+    finally:
+        wd.close()
+    ig = {k: v for k, v in st["integrity"].items() if k != "scrub_time_s"}
+    ig["detections"] = [{"kind": d["kind"], "coords": [
+        tuple(int(v) if not isinstance(v, str) else v for v in c)
+        for c in d["coords"]]} for d in ig["detections"]]
+    return ([np.asarray(o) for o in outs], list(st["status"]),
+            st["replays"], ig)
+
+
+PARTS = {"train": train,
+         "train12": lambda inp: train(inp, (1, 2), one=False),
+         "train_mesh": lambda inp: train(inp, one=False),
+         "psum": compressed, "pipe": pipeline,
+         "elastic": lambda inp: elastic(), "serve": serve, "knobs": knobs}
+
+
 def main(argv):
-    src, dst = argv
+    src, dst = argv[:2]
+    parts = argv[2] if len(argv) > 2 else "train,psum,pipe,elastic"
     with open(src, "rb") as f:
         inp = pickle.load(f)
-    res = {"train": train(inp), "psum": compressed(inp),
-           "pipe": pipeline(inp), "elastic": elastic()}
+    res = {name: PARTS[name](inp) for name in parts.split(",")}
     with open(dst, "wb") as f:
         pickle.dump(res, f)
 

@@ -29,6 +29,8 @@ from repro_torch.kernels.paged_attention import (
 from repro_torch.launch.mesh import parallel_ctx_from_spec
 from repro_torch.launch.serve import serve_batch, serve_continuous
 from repro_torch.launch.sharding import place_leaf
+from repro_torch.runtime.failover import FailureInjector
+from repro_torch.runtime.watchdog import Watchdog
 
 
 def job_mvm(par, inp):
@@ -139,8 +141,10 @@ def job_continuous(par, inp):
     return [np.asarray(o) for o in outs]
 
 
-def run_router(cfg, params, reqs, **kw):
-    """Every request submitted before ``start()``, drained: the tokens."""
+def run_router(cfg, params, reqs, record=False, **kw):
+    """Every request submitted before ``start()``, drained: the statuses
+    and tokens, and with ``record`` the replays and the integrity
+    record."""
     from repro_torch.runtime.router import Router
 
     async def run():
@@ -151,7 +155,13 @@ def run_router(cfg, params, reqs, **kw):
         await r.start()
         res = await asyncio.gather(*[h.result() for h in hs])
         await r.close()
-        return [(x.status, list(x.tokens)) for x in res]
+        out = [(x.status, list(x.tokens)) for x in res]
+        if not record:
+            return out
+        st = r.stats()
+        ig = {k: v for k, v in st["integrity"].items()
+              if k != "scrub_time_s"}
+        return out, st["replays"], ig
     return asyncio.run(run())
 
 
@@ -161,10 +171,79 @@ def job_router(par, inp):
     return run_router(cfg, params, inp["router_reqs"], par=par)
 
 
+class HangAt(Watchdog):
+    """A hang watchdog that flags a hang before its ``at``-th step, once,
+    where ``hangs`` (one rank of a mesh, or the one device)."""
+
+    def __init__(self, at: int, hangs: bool):
+        super().__init__(hang_timeout=600.0)
+        self.at, self.hangs, self.n = at, hangs, 0
+
+    def step(self, par=None):
+        self.n += 1
+        if self.hangs and self.n == self.at:
+            self._hang.set()
+        return super().step(par)
+
+
+def knob_injector(cls, inp):
+    """The knobs' sampled fault schedule (one weight flip, one page flip,
+    no device loss) from ``cls`` (either package's ``FailureInjector``)."""
+    return cls.sampled(inp["knob_seed"], segments=6, slots=4, n_layers=2,
+                       page_size=4, n_kv=2, head_dim=16, device_losses=0,
+                       flips=1, weight_paths=("layers/mlp/w_up",),
+                       weight_flip_count=1)
+
+
+def knob_run(cfg, params, inp, par=None, hangs=True):
+    """serve_continuous of the knobs' queue: integrity 'verify', a
+    deadline_s per request, the hang watchdog (a hang before its 3rd
+    step where ``hangs``) and the sampled injector, a snapshot every
+    segment: (outputs, statuses, replays, integrity record)."""
+    wd = HangAt(3, hangs)
+    try:
+        outs, st = serve_continuous(
+            cfg, params, inp["knob_prompts"], 6, slots=4, seg_len=2,
+            max_new=inp["knob_budgets"], eos_id=-1, kv="int8", page_size=4,
+            deadline_s=inp["knob_deadlines"], watchdog=wd,
+            injector=knob_injector(FailureInjector, inp), snapshot_every=1,
+            integrity="verify", device="cpu", log=lambda *a: None, par=par)
+    finally:
+        wd.close()
+    ig = dict(st["integrity"])
+    ig.pop("scrub_time_s")
+    ig["detections"] = [{"kind": d["kind"], "coords": [
+        tuple(int(v) if not isinstance(v, str) else v for v in c)
+        for c in d["coords"]]} for d in ig["detections"]]
+    return ([np.asarray(o) for o in outs], st["status"], st["replays"], ig)
+
+
+def job_knobs(par, inp):
+    """``knob_run`` under the mesh, the hang on rank 1 alone."""
+    cfg = _qwen(inp)
+    params = params_from_jax(inp["qwen_params"], device="cpu", par=par)
+    return knob_run(cfg, params, inp, par, hangs=dist.get_rank() == 1)
+
+
+def job_router_knobs(par, inp):
+    """The router with integrity 'verify' and a weight flip at segment 1
+    (repaired, then replayed from the verified snapshot)."""
+    cfg = _qwen(inp)
+    params = params_from_jax(inp["qwen_params"], device="cpu", par=par)
+    return run_router(cfg, params, inp["router_reqs"], record=True, par=par,
+                      **router_knobs())
+
+
+def router_knobs() -> dict:
+    return dict(integrity="verify", injector=FailureInjector(
+        weight_flips={1: (("layers/mlp/w_up", "q", 4099, 0x10),)}))
+
+
 JOBS = {"mvm": job_mvm, "mvm4": job_mvm4, "paged": job_paged,
         "serve": job_serve,
         "moe": job_moe, "ep": job_ep, "continuous": job_continuous,
-        "router": job_router}
+        "router": job_router, "knobs": job_knobs,
+        "router_knobs": job_router_knobs}
 
 
 def main(argv):

@@ -87,6 +87,75 @@ def job_train_2x2_no_aux(inp):
                       archs=("granite-moe-1b-a400m",))
 
 
+def job_train_tp_no_aux(inp):
+    """The granite train steps under model=2 with the MoE aux's weight
+    0."""
+    with mock.patch.object(steps, "AUX_WEIGHT", 0.0):
+        return _train(make_parallel_ctx(make_debug_mesh(1, 2)), inp,
+                      archs=("granite-moe-1b-a400m",))
+
+
+RECURRENT = ("rwkv6-7b", "zamba2-7b")
+
+
+def job_rec_tp(inp):
+    """The recurrent families under model=2: serve_batch (tokens and
+    prefill logits) and the train steps."""
+    return _recurrent(make_parallel_ctx(make_debug_mesh(1, 2)), inp)
+
+
+def job_rec_2x2(inp):
+    """``job_rec_tp`` under data=2,model=2."""
+    return _recurrent(make_parallel_ctx(make_debug_mesh(2, 2)), inp)
+
+
+def _recurrent(par, inp):
+    from repro_torch.launch.serve import serve_batch
+    out = {"train": _train(par, inp, archs=RECURRENT)}
+    for arch in RECURRENT:
+        cfg = get_arch(arch).reduced()
+        params = params_from_jax(inp["params"][arch], device="cpu", par=par)
+        toks, logits = serve_batch(cfg, params, inp["prompts"],
+                                   inp["serve_tokens"], device="cpu",
+                                   par=par)
+        out[arch] = (toks, logits[0])
+    return out
+
+
+def job_collectives(inp):
+    """The autograd collectives over ``model`` (data=2,model=2), each
+    beside the one-process composition it stands for, on the same
+    seeded inputs: (gradients under the mesh, the composition's)."""
+    par = make_parallel_ctx(make_debug_mesh(2, 2))
+    i, n = par.coords["model"], par.sizes["model"]
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((n * 3, 5), generator=g)
+    w = torch.randn((n * 3, 5), generator=g)
+    ts = torch.randn((n, n * 2, 3), generator=g)     # every rank's input
+    ws = torch.randn((n, 2, n * 3), generator=g)     # every rank's weight
+    out = {}
+    # all_gather, consumers replicated: the loss of the whole
+    piece = x[i * 3:(i + 1) * 3].clone().requires_grad_(True)
+    (par.all_gather(piece, "model", 0) * w).sum().backward()
+    whole = x.clone().requires_grad_(True)
+    (whole * w).sum().backward()
+    out["all_gather"] = (piece.grad.numpy(),
+                         whole.grad[i * 3:(i + 1) * 3].numpy())
+    # split: each rank's slice of a whole tensor
+    xs = x.clone().requires_grad_(True)
+    (par.split(xs, "model", 0) * w[i * 3:(i + 1) * 3]).sum().backward()
+    out["split"] = (xs.grad.numpy(), whole.grad.numpy())
+    # all_to_all: each rank's loss of what it received, summed
+    t = ts[i].clone().requires_grad_(True)
+    (par.all_to_all(t, "model", 0, 1) * ws[i]).sum().backward()
+    tt = ts.clone().requires_grad_(True)
+    loss = sum((torch.cat([tt[j][r * 2:(r + 1) * 2] for j in range(n)], 1)
+                * ws[r]).sum() for r in range(n))
+    loss.backward()
+    out["all_to_all"] = (t.grad.numpy(), tt.grad[i].numpy())
+    return out
+
+
 def _loop(mesh, ckpt, fail_at=()):
     cfg = get_arch("olmo-1b").reduced()
     return TrainLoop(cfg, steps=6, batch=4, seq=16, ckpt_dir=ckpt, lr=1e-3,
@@ -183,6 +252,8 @@ def job_pipe(inp):
 
 JOBS = {"train_tp": job_train_tp, "train_2x2": job_train_2x2,
         "train_2x2_no_aux": job_train_2x2_no_aux,
+        "train_tp_no_aux": job_train_tp_no_aux, "rec_tp": job_rec_tp,
+        "rec_2x2": job_rec_2x2, "collectives": job_collectives,
         "loop": job_loop, "elastic": job_elastic, "psum": job_psum,
         "pipe": job_pipe}
 

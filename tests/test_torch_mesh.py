@@ -23,6 +23,18 @@ rendezvous fails its test.  Two groups run at once: two ranks serve
 * ``serve_continuous`` and the ``Router`` under ``model=2``: every
   request's tokens bitwise their one-device runs; greedy spec decoding
   (``spec='dscim2:2'``) under a mesh bitwise the plain tokens;
+* the scheduler's knobs under ``model=2`` (``tests/_torch_mesh_rank.py
+  knob_run``): ``serve_continuous`` with integrity 'verify', a
+  ``deadline_s`` per request (one expires at its first boundary), the
+  hang watchdog (a hang flagged on rank 1 alone, replayed on every
+  rank) and a sampled injector whose weight flip lands on one rank's
+  piece and whose page flip lands in a live page: outputs, statuses,
+  replays and the integrity record equal the port's one-device run (its
+  one device hanging at the same step) and the reference's run on its
+  2x2 mesh (one JAX subprocess with 8 fake host devices,
+  ``tests/_jax_train_mesh_ref.py``); the ``Router`` with integrity
+  'verify' and a weight flip: statuses, tokens, replays and record equal
+  one device's;
 * every rank returns the same results.
 """
 import pytest
@@ -50,8 +62,9 @@ from repro_torch.models import lm  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "_torch_mesh_rank.py"
+JAX_REF = ROOT / "tests" / "_jax_train_mesh_ref.py"
 SPAWN_TIMEOUT_S = 150
-MESHES = {"model=2": (2, "mvm,serve,continuous,router"),
+MESHES = {"model=2": (2, "mvm,serve,continuous,router,knobs,router_knobs"),
           "data=2,model=2": (4, "mvm,mvm4,paged,serve,moe,ep")}
 # the fused MVM's meshes: (the group that runs it, its job)
 MVM_MESHES = {"model=2": ("model=2", "mvm"),
@@ -111,6 +124,14 @@ def _inputs():
         "cb_prompts": rng.integers(0, vocab, (6, 8)).astype(np.int32),
         "cb_budgets": np.asarray((6, 2, 5, 3, 6, 4), np.int32),
         "router_reqs": reqs,
+        # the knobs' queue: request 3's wall budget expires at the first
+        # boundary after its admission; seed 27's schedule flips a scale
+        # element of layers/mlp/w_up at segment 3 and an int8 v page of
+        # slot 2 at segment 1
+        "knob_prompts": rng.integers(0, vocab, (6, 8)).astype(np.int32),
+        "knob_budgets": np.asarray((6, 3, 5, 6, 4, 6), np.int32),
+        "knob_deadlines": np.asarray((1e6, 1e6, 1e6, 1e-6, 1e6, 1e6)),
+        "knob_seed": 27,
     }
 
 
@@ -131,6 +152,12 @@ def _spawn(tmp: Path, inp: dict):
              str(d / "store"), spec, jobs, str(src), str(d / f"r{r}.pkl")],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), d / f"r{r}.pkl") for r in range(world)]
+    jenv = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    procs["jax"] = [(subprocess.Popen(
+        [sys.executable, str(JAX_REF), str(src), str(tmp / "ref.pkl"),
+         "knobs"], env=jenv, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True), tmp / "ref.pkl")]
     return procs, time.monotonic() + SPAWN_TIMEOUT_S
 
 
@@ -168,7 +195,7 @@ def _collect(procs, deadline) -> dict:
 @pytest.fixture(scope="module")
 def mesh(tmp_path_factory):
     """(inputs, the ranks' results, one-device results of the port and
-    the reference)."""
+    the reference, the reference's 2x2 results)."""
     inp = _inputs()
     procs, deadline = _spawn(tmp_path_factory.mktemp("mesh"), inp)
     jcfg = dataclasses.replace(jget_arch("qwen3-0.6b").reduced(),
@@ -192,11 +219,16 @@ def mesh(tmp_path_factory):
         cfg, tp, inp["cb_prompts"], 6, slots=4, seg_len=2,
         max_new=inp["cb_budgets"], kv="int8", page_size=4, device="cpu",
         log=lambda *a: None)
-    one["router"] = _worker_module().run_router(cfg, tp, inp["router_reqs"])
+    worker = _worker_module()
+    one["router"] = worker.run_router(cfg, tp, inp["router_reqs"])
+    one["knobs"] = worker.knob_run(cfg, tp, inp)
+    one["router_knobs"] = worker.run_router(
+        cfg, tp, inp["router_reqs"], record=True, **worker.router_knobs())
     ref_ep, _ = moe_local(inp["ep_params"], inp["ep_x"], top_k=2,
                           capacity_factor=8.0, has_shared=True)
     one["ep"] = np.asarray(ref_ep)
-    return inp, _collect(procs, deadline), one
+    runs = _collect(procs, deadline)
+    return inp, runs, one, runs.pop("jax")[0]
 
 
 def _same_on_every_rank(ranks, job):
@@ -208,7 +240,7 @@ def _same_on_every_rank(ranks, job):
 
 @pytest.mark.parametrize("spec", list(MVM_MESHES))
 def test_sharded_fused_mvm_bitwise(mesh, spec):
-    _, runs, _ = mesh
+    _, runs, _, _ = mesh
     group, job = MVM_MESHES[spec]
     for ref, got, got_b in _same_on_every_rank(runs[group], job):
         np.testing.assert_array_equal(got, ref)
@@ -216,7 +248,7 @@ def test_sharded_fused_mvm_bitwise(mesh, spec):
 
 
 def test_sharded_paged_read_bitwise(mesh):
-    _, runs, _ = mesh
+    _, runs, _, _ = mesh
     ref, got = _same_on_every_rank(runs["data=2,model=2"], "paged")
     np.testing.assert_array_equal(got, ref)
 
@@ -224,7 +256,7 @@ def test_sharded_paged_read_bitwise(mesh):
 @pytest.mark.parametrize("spec", ["model=2", "data=2,model=2"])
 @pytest.mark.parametrize("kv", ["float", "int8"])
 def test_serve_batch_under_mesh(mesh, spec, kv):
-    _, runs, one = mesh
+    _, runs, one, _ = mesh
     jt, jl, tt, tl = one[kv]
     toks, logits, graph = _same_on_every_rank(runs[spec], "serve")[kv]
     assert graph is False                  # no CUDA graph on the CPU
@@ -237,13 +269,13 @@ def test_serve_batch_under_mesh(mesh, spec, kv):
 
 @pytest.mark.parametrize("spec", ["model=2", "data=2,model=2"])
 def test_spec_under_mesh_bitwise_plain(mesh, spec):
-    _, runs, _ = mesh
+    _, runs, _, _ = mesh
     res = _same_on_every_rank(runs[spec], "serve")
     np.testing.assert_array_equal(res["spec"], res["int8"][0])
 
 
 def test_moe_expert_parallel_matches_local(mesh):
-    _, runs, one = mesh
+    _, runs, one, _ = mesh
     ref, got, ref_aux, aux = _same_on_every_rank(runs["data=2,model=2"],
                                                  "ep")
     np.testing.assert_allclose(got, ref, atol=2e-5, rtol=0)
@@ -252,14 +284,14 @@ def test_moe_expert_parallel_matches_local(mesh):
 
 
 def test_moe_serve_under_mesh(mesh):
-    _, runs, one = mesh
+    _, runs, one, _ = mesh
     toks, _, spec = _same_on_every_rank(runs["data=2,model=2"], "moe")
     np.testing.assert_array_equal(toks, one["moe"])
     np.testing.assert_array_equal(spec, toks)
 
 
 def test_continuous_under_mesh(mesh):
-    _, runs, one = mesh
+    _, runs, one, _ = mesh
     outs = _same_on_every_rank(runs["model=2"], "continuous")
     assert len(outs) == len(one["continuous"])
     for a, b in zip(outs, one["continuous"]):
@@ -267,7 +299,37 @@ def test_continuous_under_mesh(mesh):
 
 
 def test_router_under_mesh(mesh):
-    _, runs, one = mesh
+    _, runs, one, _ = mesh
     got = _same_on_every_rank(runs["model=2"], "router")
     assert got == one["router"]
     assert all(status == "ok" for status, _ in got)
+
+
+def test_knobs_under_mesh(mesh):
+    _, runs, one, ref = mesh
+    outs, status, replays, ig = _same_on_every_rank(runs["model=2"], "knobs")
+    want_o, want_s, want_r, want_ig = one["knobs"]
+    ref_o, ref_s, ref_r, ref_ig = ref["knobs"]
+    assert status == want_s == ref_s
+    assert status.count("deadline") == 1 and status[3] == "deadline"
+    # the hang on rank 1 alone replayed every rank once, the weight flip
+    # once more (a decode ran since the last sweep)
+    assert replays == want_r == ref_r == 2
+    for a, b, c in zip(outs, want_o, ref_o):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    assert ig == want_ig
+    assert ig["page_mismatches"] == ig["weight_mismatches"] == 1
+    for key in ref_ig:
+        assert ig[key] == ref_ig[key], key
+
+
+def test_router_integrity_under_mesh(mesh):
+    _, runs, one, _ = mesh
+    got = _same_on_every_rank(runs["model=2"], "router_knobs")
+    res, replays, ig = got
+    assert got == one["router_knobs"]
+    assert all(status == "ok" for status, _ in res)
+    assert res == one["router"]             # the flip is invisible
+    assert replays == ig["replays"] == 1
+    assert ig["weight_mismatches"] == ig["weight_repairs"] == 1

@@ -2,10 +2,12 @@
 (``repro_torch/launch/sharding.py`` against ``repro/launch/sharding.py``
 on a JAX ``AbstractMesh`` of the same sizes, a bare axis name of a
 ``PartitionSpec`` read as a 1-tuple), the cut of a rank's piece and
-``params_from_jax(par=)``, ``parallel_ctx_from_spec``'s errors, the
-refusals of the families and knobs a mesh does not serve (ROADMAP
-A13c), and the serving CLI under ``torchrun --nproc-per-node 2 --mesh
-model=2`` on the CPU."""
+``params_from_jax(par=)``, ``parallel_ctx_from_spec``'s errors, what a
+mesh still refuses (the recurrent families' int8 KV, DS-CIM and
+continuous batching, as on one device; the three drills), the
+recurrent state's pieces against the reference's cache rule, and the
+serving CLI under ``torchrun --nproc-per-node 2 --mesh model=2`` on the
+CPU, one-shot and ``--continuous --integrity verify --sampled-chaos``."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -211,25 +213,62 @@ def test_mesh_spec_errors(tmp_path):
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
 def test_recurrent_families_refuse_a_mesh(arch):
-    from repro_torch.launch.serve import main
+    """A mesh serves and trains the recurrent families; it refuses them
+    what one device refuses (the int8 KV cache, DS-CIM, continuous
+    batching), and their state pieces follow the reference's cache rule
+    (the WKV matrices' rows and heads, the Mamba2 h's rows; the port
+    keeps h's heads and the conv tails whole, its SSD scan being cut by
+    rows only, as the reference pins it)."""
+    from repro_torch.launch.serve import main, serve_continuous
     from repro_torch.launch.steps import make_generate_fn, make_train_step
+    from repro_torch.models.registry import get_model
     from repro_torch.optim.adamw import AdamW
-    par, _ = _ctxs(("data", "model"), (1, 2))
     cfg = get_arch(arch).reduced()
-    with pytest.raises(ValueError, match="A13c"):
+    params = get_model(cfg).init_params(cfg, 0, device="cpu")
+    for coord in ((0, 1), (1, 0)):
+        par, jpar = _ctxs(("data", "model"), (2, 2), coord)
         make_generate_fn(cfg, 4, par=par)
-    with pytest.raises(ValueError, match="A13c"):
         make_train_step(cfg, AdamW(), "cpu", par)
-    with pytest.raises(ValueError, match="A13c"):
+        with pytest.raises(ValueError, match="attention-family"):
+            make_generate_fn(cfg, 4, kv="int8", par=par)
+        with pytest.raises(ValueError, match="attention-family"):
+            make_generate_fn(dataclasses.replace(
+                cfg, dscim="kernel:dscim1:256"), 4, par=par)
+        with pytest.raises(ValueError, match="attention-family"):
+            serve_continuous(cfg, params, np.zeros((1, 4), np.int32), 2,
+                             device="cpu", par=par)
+        got = get_model(cfg).cache_specs(cfg, 4, 8, par=par)
+        whole = get_model(cfg).cache_specs(cfg, 4, 8)
+        jcfg = jget_arch(arch).reduced()
+        rule = jsharding.cache_partition(
+            jcfg, jpar, jget_model(jcfg).cache_specs(jcfg, 4, 8))
+        key = ("states", "wkv") if arch == "rwkv6-7b" else ("mamba", "h")
+        spec = tuple(_norm(e) for e in rule[key[0]][key[1]])
+        if arch == "zamba2-7b":
+            spec = spec[:3] + (None,) * 3          # rows only
+        want = sharding.shard_for(par.rank_coords, spec,
+                                  whole[key[0]][key[1]])
+        assert tuple(got[key[0]][key[1]].shape) == tuple(want.shape)
+        assert any(spec)
+    # the CLI goes on to join the group torchrun describes
+    with pytest.raises(RuntimeError, match="RANK is not set"):
         main(["--arch", arch, "--reduced", "--device", "cpu", "--mesh",
               "model=2"])
 
 
 def test_knobs_refused_under_a_mesh():
-    from repro_torch.runtime.serving import mesh_refusals
-    with pytest.raises(ValueError, match="deadline_s, integrity"):
-        mesh_refusals(deadline_s=[1.0], integrity="verify")
-    mesh_refusals()
+    """Under ``--mesh`` the CLI refuses the three drills alone, which run
+    on one device as the reference runs them; ``--integrity`` and
+    ``--sampled-chaos`` go on to join the group torchrun describes."""
+    from repro_torch.launch.serve import main
+    base = ["--reduced", "--device", "cpu", "--mesh", "model=2"]
+    for drill in ("--chaos", "--integrity-drill", "--prefix-drill"):
+        with pytest.raises(ValueError, match=f"{drill} run on one device"):
+            main(base + [drill])
+    with pytest.raises(RuntimeError, match="RANK is not set"):
+        main(base + ["--continuous", "--kv", "int8", "--dscim",
+                     "kernel:dscim1:256", "--integrity", "verify",
+                     "--sampled-chaos"])
 
 
 def test_cli_under_torchrun(tmp_path):
@@ -247,3 +286,27 @@ def test_cli_under_torchrun(tmp_path):
     # rank 0 alone prints: one line for 'off', one for the DS-CIM run
     assert len(lines) == 2, r.stdout
     assert all("under mesh model=2" in ln for ln in lines), lines
+
+
+def test_cli_knobs_under_torchrun(tmp_path):
+    """``--mesh model=2 --continuous`` with ``--integrity verify`` and
+    ``--sampled-chaos`` (a device loss, page flips and a weight flip)
+    under torchrun: rank 0 alone prints each run's line, every request
+    served and the flips' findings counted."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               TMPDIR=str(tmp_path))
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.serve",
+         "--mesh", "model=2", "--device", "cpu", "--reduced", "--dscim",
+         "kernel:dscim1:256", "--kv", "int8", "--continuous", "--batch",
+         "2", "--requests", "4", "--prompt-len", "4", "--tokens", "4",
+         "--page-size", "4", "--integrity", "verify", "--sampled-chaos",
+         "--chaos-seed", "3"],
+        env=env, capture_output=True, text=True, timeout=150)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    lines = [ln for ln in r.stdout.splitlines()
+             if ln.startswith("[serve-cb]")]
+    assert len(lines) == 2, r.stdout
+    assert all("under mesh model=2" in ln and "integrity: " in ln
+               and "replays" in ln for ln in lines), lines

@@ -23,9 +23,10 @@ CPU:
 * ``TrainLoop`` on the CPU (reduced olmo-1b, 20 steps of 8 x 64): the
   loss falls; a failure injected after the step-10 checkpoint replays
   every loss bitwise the clean run's; a second loop resumes at the saved
-  step; a mesh without a joined process group, and the recurrent
-  families under a mesh, raise (training under a mesh:
-  tests/test_torch_train_mesh.py).
+  step; a mesh without a joined process group raises, and the train
+  CLI's ``--mesh`` takes the recurrent families on to ``torchrun``'s
+  group (training under a mesh: tests/test_torch_train_mesh.py and
+  tests/test_torch_mesh_recurrent.py).
 """
 import pytest
 
@@ -281,6 +282,8 @@ def test_train_refuses_a_mesh():
     with pytest.raises(ValueError, match="no process group"):
         train.TrainLoop(cfg, steps=2, batch=2, seq=8,
                         mesh=mesh_from_spec("d1x1"), device="cpu")
-    with pytest.raises(ValueError, match="A13c"):
+    # a recurrent family under a mesh goes on to join the group torchrun
+    # describes (tests/test_torch_mesh_recurrent.py trains it there)
+    with pytest.raises(RuntimeError, match="RANK is not set"):
         train.main(["--arch", "zamba2-7b", "--reduced", "--steps", "1",
                     "--mesh", "d1x1", "--device", "cpu"])
