@@ -2,7 +2,7 @@
 """GPU smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phase mesh|train_mesh    # that phase alone
+    python3 chip_smoke.py --phase mesh|train_mesh|tune    # that phase alone
 
 Needs one NVIDIA GPU with ``nvcc`` (sm_90a); exits non-zero without one.
 In order it
@@ -208,6 +208,23 @@ In order it
    rwkv6-7b and zamba2-7b runs under ``REPRO_MESH=d1x1`` over NCCL at
    world 1, their losses bitwise the train phase's, step device ms and
    peak memory beside them;
+   the tile autotuner and the paged read pin (``tune``, ``tune_phase``,
+   run after ``mesh``; ``--phase tune`` alone): (a) every candidate tile
+   of kernel 1 (kernels/autotune.py) at the main path's decode shapes
+   (M = 4: w_gate, w_down, the head) and at M = 256, (b) of kernels 5/6
+   at (4, 1024, 3072) and (256, 1024, 3072), (c) of kernel 2 at the main
+   path's shape and at 2048 tokens, each bitwise rule -1, with each
+   candidate's device ms, the winner's and the rule's; (d) the main path
+   under ``REPRO_DSCIM_TUNE`` from an empty cache that
+   ``REPRO_AUTOTUNE_CACHE`` names (``chiprun_out/autotune_cache.json``):
+   tokens bitwise untuned, the sweep's seconds, then from that file and
+   from the packaged cache with no sweep; (e) ``paged_attn='jnp'`` (no
+   paged launch) in the reference's CI A/B (the float reduced
+   qwen3-0.6b: tokens equal to the kernel read's, logit drift at most
+   ``TUNE_DRIFT_MAX``) and on the main path (agreement and drift
+   printed), 'kernel' bitwise 'auto';
+   (f, ``tune_dryrun``, after ``train``) launch/dryrun.py's prediction of
+   the train run's peak and argument bytes beside its measured peak;
 7. computes Table I through the card (``table1``): for all 12 presets the
    counts of ``DSCIMMacro.rmse``'s operands through the count kernel must
    equal the LUT's, and the RMSE must equal the JAX reference's;
@@ -2161,8 +2178,8 @@ def dense_family(torch):
     mp = n_pages_for(S + T, PAGE)
     errs = []
 
-    def held(*args):
-        got = pa.paged_attention_decode(*args)
+    def held(*args, **kw):
+        got = pa.paged_attention_decode(*args, **kw)
         errs.append(_check_close(f"dense_family {DF_STUB} paged decode "
                                  f"call {len(errs)}", got,
                                  pa.paged_read_plain(*args), PAGED_RTOL))
@@ -4790,14 +4807,381 @@ def train_mesh_phase(torch, train_res):
     return out
 
 
+# ---------------------------------------------------------------------------
+# tune: the tile autotuner (kernels/autotune.py) and the paged read pin
+# ---------------------------------------------------------------------------
+
+TUNE_PREFILL_M = BATCH * PROMPT  # leg (a)'s and (b)'s prefill rows
+TUNE_LONG_POS = LONG_POS         # leg (c)'s long context
+TUNE_DRIFT_MAX = 1e-5            # leg (e): the reference's CI bound
+
+
+def _tile_sweep(torch, name, run, cands, reps, time_fn=None):
+    """Every candidate tile of one kernel at one shape against rule -1:
+    ``run(tile)`` launches it (None: the rule) and returns its output,
+    which must be bitwise the rule's; each candidate's device ms
+    (``time_fn(tile)`` where given, else ``run`` timed), the winner's and
+    the rule's."""
+    want = run(None).clone()
+    torch.cuda.synchronize()
+    timed = time_fn or (lambda c: _cuda_ms(lambda: run(c), reps))
+    rows = []
+    for c in cands:
+        try:
+            got = run(c)
+            torch.cuda.synchronize()
+        except (RuntimeError, ValueError) as e:   # a tile this shape refuses
+            rows.append({"tile": list(c), "skipped": str(e)[:120]})
+            continue
+        if not torch.equal(got, want):
+            raise AssertionError(f"tune {name} tile {c}: not bitwise the "
+                                 f"rule's output (max diff "
+                                 f"{(got - want).abs().max()})")
+        rows.append({"tile": list(c), "ms": timed(c)})
+    ok = [r for r in rows if "ms" in r]
+    if not ok:
+        raise AssertionError(f"tune {name}: no candidate launched")
+    win = min(ok, key=lambda r: r["ms"])
+    rule_ms = timed(None)
+    _log(f"tune {name}: {len(ok)}/{len(rows)} candidates bitwise rule -1; "
+         + ", ".join(f"{tuple(r['tile'])} "
+                     + (f"{r['ms']:.4f}" if "ms" in r else "skipped")
+                     for r in rows)
+         + f" ms; winner {tuple(win['tile'])} {win['ms']:.4f} ms, rule -1 "
+         f"{rule_ms:.4f} ms")
+    return {"shape": name, "rule_ms": rule_ms, "winner": win["tile"],
+            "winner_ms": win["ms"], "candidates": rows}
+
+
+def _tune_fused(torch, cfg, served):
+    """Leg (a): kernel 1 at dscim1/L256 on the main path's decode shapes
+    (M = BATCH: w_gate 1024->3072, w_down 3072->1024 in bf16, the head in
+    f32, timed over every layer's weight as the path meets them) and one
+    prefill shape (M = TUNE_PREFILL_M on w_gate)."""
+    from repro_torch.kernels import autotune, build, dscim_fused
+    from repro_torch.models.lm import _linear_for
+
+    dcfg = _linear_for(DSCIM).cfg
+    timing = build.LaunchCounter("tune timing, not counted")
+    mlp = served["layers"]["mlp"]
+    L = cfg.n_layers
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    out = []
+    for site, ws, xdt, m in (
+            ("w_gate", [mlp["w_gate"][i] for i in range(L)],
+             torch.bfloat16, BATCH),
+            ("w_down", [mlp["w_down"][i] for i in range(L)],
+             torch.bfloat16, BATCH),
+            ("lm_head", [served["lm_head"]], torch.float32, BATCH),
+            ("w_gate", [mlp["w_gate"][i] for i in range(L)],
+             torch.bfloat16, TUNE_PREFILL_M)):
+        x = torch.randn((m, ws[0].k_orig), generator=gen,
+                        device="cuda").to(xdt)
+
+        def tile(c, m=m):
+            return -1 if c is None else autotune.fused_tile_index(m, c)
+
+        def run(c, x=x, w=ws[0], tile=tile):
+            return dscim_fused._launch_kernel(x, w, dcfg, tile(c),
+                                              timing)[0]
+
+        def time_fn(c, x=x, ws=ws, tile=tile, m=m):
+            return _cuda_ms(lambda: [dscim_fused._launch_kernel(
+                x, w, dcfg, tile(c), timing) for w in ws],
+                5 if m > BATCH else 20) / len(ws)
+        out.append(_tile_sweep(
+            torch, f"dscim_fused {site} M={m} K={ws[0].k_orig} "
+                   f"N={ws[0].n} {str(xdt).removeprefix('torch.')}",
+            run, autotune.fused_candidates(m, ws[0].nw), 0, time_fn))
+    return out
+
+
+def _tune_counts(torch):
+    """Leg (b): kernels 5 (blocked tables) and 6 (all-L tables) at
+    dscim1/L256, (BATCH, 1024, 3072) and (TUNE_PREFILL_M, 1024, 3072)."""
+    from repro_torch.core.seed_search import calibrated_config
+    from repro_torch.kernels import autotune, build, dscim_mvm, ops
+    from repro_torch.kernels import dscim_mvm_blocked as blocked
+
+    cfg = calibrated_config("dscim1", 256, "paper")
+    timing = build.LaunchCounter("tune timing, not counted")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    tables = {"dscim_counts_blocked": blocked.count_tables(cfg, "cuda"),
+              "dscim_counts": dscim_mvm.point_tables(
+                  *ops.fold_constants(cfg), cfg.k, "cuda")}
+    out = {name: [] for name in tables}
+    for M in (BATCH, TUNE_PREFILL_M):
+        x = torch.randint(-128, 128, (M, 1024), generator=gen,
+                          device="cuda").to(torch.int8)
+        w = torch.randint(-128, 128, (1024, 3072), generator=gen,
+                          device="cuda").to(torch.int8)
+        for name, (ta, tb) in tables.items():
+            def run(c, ta=ta, tb=tb):
+                return dscim_mvm.launch_counts(
+                    x, w, ta, tb, cfg.k, timing,
+                    -1 if c is None else autotune.mvm_tile_index(c))
+            out[name].append(_tile_sweep(
+                torch, f"{name} M={M} K=1024 N=3072", run, autotune.MVM_TILES,
+                20 if M > 16 else 50))
+    return out
+
+
+def _tune_paged(torch, cfg):
+    """Leg (c): kernel 2 at the main path's shape (pos PROMPT + TOKENS - 1)
+    and at TUNE_LONG_POS, every (gh, qp) candidate."""
+    from repro_torch.kernels import autotune, build
+    from repro_torch.kernels import paged_attention as pa
+
+    timing = build.LaunchCounter("tune timing, not counted")
+    KV, HD = cfg.n_kv, cfg.head_dim
+    R = cfg.q_heads // KV
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    out = []
+    for pos in (PROMPT + TOKENS - 1, TUNE_LONG_POS):
+        MP = pos // PAGE + 1
+        P = BATCH * MP
+        args = (torch.randn((BATCH, KV, R, HD), generator=gen,
+                            device="cuda"),
+                *(torch.randint(-127, 128, (P, PAGE, KV, HD), generator=gen,
+                                device="cuda").to(torch.int8)
+                  for _ in range(2)),
+                *(torch.rand((P, KV), generator=gen, device="cuda") * 0.02
+                  for _ in range(2)),
+                *(torch.randn((BATCH, PAGE, KV, HD), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(2)),
+                torch.randperm(P, generator=gen, device="cuda").reshape(
+                    BATCH, MP).to(torch.int32),
+                torch.full((BATCH,), pos, dtype=torch.int32, device="cuda"))
+
+        def run(c, args=args):
+            return pa._launch_kernel(*args, tile=c, counter=timing)
+        out.append(_tile_sweep(
+            torch, f"paged_attention B={BATCH} KV={KV} n_rep={R} HD={HD} "
+                   f"ps={PAGE} pos={pos}", run,
+            autotune.paged_attn_candidates(KV, R), 50))
+    return out
+
+
+@contextlib.contextmanager
+def _env(**kv):
+    """Environment variables set (a value) or unset (None) inside."""
+    import os
+    old = {k: os.environ.get(k) for k in kv}
+    try:
+        for k, v in kv.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _tune_main_path(torch, cfg, served, prompts, plain_toks):
+    """Leg (d): the main path under REPRO_DSCIM_TUNE from an empty cache
+    that REPRO_AUTOTUNE_CACHE names (the packaged cache set aside): tokens
+    bitwise the untuned run's, the sweep's seconds; again from that file
+    (no sweep); then from the packaged cache alone (no sweep)."""
+    import numpy as np
+
+    from repro_torch.kernels import autotune
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import clear_graphs
+
+    cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
+    path = ROOT / "chiprun_out" / "autotune_cache.json"
+    path.parent.mkdir(exist_ok=True)
+    path.unlink(missing_ok=True)
+    packaged = autotune.DEFAULT_CACHE
+    legs = {}
+
+    def leg(name):
+        autotune.clear()
+        clear_graphs()
+        sweeps, sweep_s = autotune.STATS["sweeps"], autotune.STATS["sweep_s"]
+        t0 = time.perf_counter()
+        toks = serve_batch(cfg_ds, served, prompts, TOKENS, kv="int8",
+                           page_size=PAGE)[0]
+        torch.cuda.synchronize()
+        res = {"sweeps": autotune.STATS["sweeps"] - sweeps,
+               "sweep_s": autotune.STATS["sweep_s"] - sweep_s,
+               "request_s": time.perf_counter() - t0,
+               "tokens_bitwise_untuned": bool(np.array_equal(toks,
+                                                             plain_toks))}
+        legs[name] = res
+        _log(f"tune main path, {name}: {res['sweeps']} sweeps in "
+             f"{res['sweep_s']:.2f} s, request {res['request_s']:.2f} s, "
+             f"tokens bitwise untuned: {res['tokens_bitwise_untuned']}")
+        if not res["tokens_bitwise_untuned"]:
+            raise AssertionError(f"tune main path {name}: tokens differ "
+                                 "from the untuned run's")
+        return res
+
+    try:
+        with _env(REPRO_DSCIM_TUNE="1", REPRO_AUTOTUNE_CACHE=str(path)):
+            autotune.DEFAULT_CACHE = None
+            if leg("empty cache")["sweeps"] == 0:
+                raise AssertionError("tune from an empty cache swept nothing")
+            if leg("env cache")["sweeps"]:
+                raise AssertionError("tune from the written cache swept")
+            autotune.DEFAULT_CACHE = packaged
+        with _env(REPRO_DSCIM_TUNE="1", REPRO_AUTOTUNE_CACHE=None):
+            if leg("packaged cache")["sweeps"]:
+                raise AssertionError("tune from the packaged cache swept "
+                                     f"({packaged})")
+    finally:
+        autotune.DEFAULT_CACHE = packaged
+        autotune.clear()
+        clear_graphs()
+    legs["cache_file"] = str(path.relative_to(ROOT))
+    with open(path) as f:
+        legs["keys"] = len(json.load(f))
+    return legs
+
+
+def _pin_runs(torch, cfg, params, prompts, n, pins, **kw):
+    """{pin: (tokens, the logit trace, paged-attention launches)} of one
+    ``serve_batch`` request at each ``paged_attn`` pin."""
+    import numpy as np
+
+    from repro_torch.kernels import paged_attention
+    from repro_torch.launch.serve import serve_batch
+
+    runs = {}
+    for pin in pins:
+        paged_attention.LAUNCHES.reset()
+        toks, trace = serve_batch(cfg, params, prompts, n, kv="int8",
+                                  trace_logits=True, paged_attn=pin, **kw)
+        runs[pin] = (toks, np.stack(trace), paged_attention.LAUNCHES.count)
+    return runs
+
+
+def _tune_paged_pin(torch, cfg, served, prompts):
+    """Leg (e), the paged read pin on the card.  (e1) the reference's CI
+    A/B (tools/bench_regression.py: the float reduced qwen3-0.6b, int8
+    KV, page 4, 4 prompts of 16, 16 tokens, weights quantized per call):
+    ``paged_attn='jnp'`` (the plain read, no paged launch) gives the
+    kernel read's tokens at a logit drift of at most TUNE_DRIFT_MAX.
+    (e2) the main path (``DSCIM``): 'kernel' bitwise 'auto', 'jnp' with no
+    paged launch; its tokens and drift against the kernel read are
+    printed, not held: the estimator quantizes every MLP input to int8,
+    so a last-bit difference of the read can move a value a whole
+    quantization step."""
+    import numpy as np
+
+    from repro_torch.launch.serve import logit_drift_rmse
+    from repro_torch.models import lm
+
+    red = cfg.reduced()
+    params = lm.init_params(red, 0, device="cuda")
+    ab_prompts = np.random.default_rng(0).integers(0, red.vocab, (4, 16))
+    ab = _pin_runs(torch, red, params, ab_prompts, TOKENS, ("kernel", "jnp"),
+                   page_size=4, prepare=False)
+    (tk, lk, nk), (tj, lj, nj) = ab["kernel"], ab["jnp"]
+    res = {"ab": {"jnp_tokens_equal": bool(np.array_equal(tk, tj)),
+                  "logit_drift_rmse": logit_drift_rmse(tk, tj, list(lk),
+                                                       list(lj)),
+                  "drift_max": TUNE_DRIFT_MAX,
+                  "paged_launches": {"kernel": nk, "jnp": nj}}}
+    main = _pin_runs(torch, dataclasses.replace(cfg, dscim=DSCIM), served,
+                     prompts, TOKENS, ("kernel", "auto", "jnp"),
+                     page_size=PAGE)
+    (tk, lk, nk), (ta, la, na), (tj, lj, nj) = (main[p] for p in
+                                                 ("kernel", "auto", "jnp"))
+    res["main_path"] = {
+        "kernel_bitwise_auto": bool(np.array_equal(tk, ta)
+                                    and np.array_equal(lk, la)),
+        "jnp_token_agreement": float((tk == tj).mean()),
+        "jnp_logit_drift_rmse": logit_drift_rmse(tk, tj, list(lk),
+                                                 list(lj)),
+        "paged_launches": {"kernel": nk, "auto": na, "jnp": nj}}
+    a, m = res["ab"], res["main_path"]
+    _log(f"tune paged pin, the reference's A/B (reduced, float): jnp tokens "
+         f"equal {a['jnp_tokens_equal']}, logit drift RMSE "
+         f"{a['logit_drift_rmse']:.3e} (max {TUNE_DRIFT_MAX:g}), paged "
+         f"launches {a['paged_launches']}")
+    _log(f"tune paged pin, the main path ({DSCIM}): kernel == auto bitwise "
+         f"{m['kernel_bitwise_auto']}; jnp token agreement "
+         f"{m['jnp_token_agreement']:.3f}, logit drift RMSE "
+         f"{m['jnp_logit_drift_rmse']:.3e} (int8 activations: not held); "
+         f"paged launches {m['paged_launches']}")
+    if not a["jnp_tokens_equal"] or not a["logit_drift_rmse"] \
+            <= TUNE_DRIFT_MAX or nj or a["paged_launches"]["jnp"] \
+            or not a["paged_launches"]["kernel"]:
+        raise AssertionError(f"paged_attn='jnp' A/B: {a}")
+    if not m["kernel_bitwise_auto"] or nk != na or not nk:
+        raise AssertionError(f"paged_attn='kernel' vs 'auto': {m}")
+    return res
+
+
+def tune_phase(torch, cfg, served, prompts, plain_toks):
+    """Phase tune, legs (a)-(e): every candidate tile of kernels 1, 5/6
+    and 2 bitwise rule -1 with its device ms; the main path under the
+    tuner (bitwise untuned; a cached rerun sweeps nothing); the paged
+    read pin's A/B.  Leg (f) (``tune_dryrun``) runs after the train
+    phase, whose peak it is printed beside."""
+    from repro_torch.kernels import autotune
+    res = {"fused": _tune_fused(torch, cfg, served),
+           "counts": _tune_counts(torch),
+           "paged": _tune_paged(torch, cfg),
+           "main_path": _tune_main_path(torch, cfg, served, prompts,
+                                        plain_toks),
+           "paged_pin": _tune_paged_pin(torch, cfg, served, prompts),
+           "sweep_launches": autotune.SWEEP_LAUNCHES.count}
+    return res
+
+
+def tune_dryrun(torch, train):
+    """Phase tune, leg (f): the dry run (launch/dryrun.py, meta tensors,
+    a 1 x 1 stand-in mesh) of the train phase's run, TRAIN_ARCH at
+    TRAIN_BATCH x TRAIN_SEQ: its predicted peak and argument bytes beside
+    the train phase's measured ``max_memory_allocated``.  Prints; asserts
+    nothing."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import Shape
+    from repro_torch.launch import dryrun
+
+    name = f"train_{TRAIN_BATCH}x{TRAIN_SEQ}"
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), shapes=(
+        Shape(name, TRAIN_SEQ, TRAIN_BATCH, "train"),))
+    t0 = time.perf_counter()
+    _, arg_bytes, cm = dryrun.run_cell(
+        cfg, name, dryrun.stand_in((1, 1), ("data", "model")))
+    measured = None if train is None else train.get("peak_memory_bytes")
+    res = {"arch": TRAIN_ARCH, "shape": name, "mesh": "1x1 stand-in",
+           "argument_bytes": arg_bytes,
+           "predicted_peak_bytes": arg_bytes + cm.cost.peak_bytes,
+           "measured_peak_bytes": measured,
+           "dryrun_s": time.perf_counter() - t0}
+    _log(f"tune dry run {TRAIN_ARCH} {name}: argument "
+         f"{arg_bytes / 2**30:.2f} GiB, predicted peak "
+         f"{res['predicted_peak_bytes'] / 2**30:.2f} GiB; the train "
+         "phase's max_memory_allocated "
+         + (f"{measured / 2**30:.2f} GiB" if measured is not None
+            else "not measured in this run")
+         + f" ({res['dryrun_s']:.1f} s)")
+    return res
+
+
 def phase_alone(torch, name: str) -> int:
-    """``chip_smoke.py --phase mesh|train_mesh``: one phase alone, for
+    """``chip_smoke.py --phase mesh|train_mesh|tune``: one phase alone, for
     iterating on the card without the whole run.  Builds the fused-MVM
     and paged-attention kernels, makes what the phase takes from earlier
     phases (``mesh``: qwen3-0.6b prepared once and its tokens served
     one-shot on the int8 cache; ``train_mesh``: olmo-1b trained unsharded
-    for TM_A_STEPS steps, as the train phase's first steps), runs the
-    phase and prints its result as one JSON line; 1 if it failed."""
+    for TM_A_STEPS steps, as the train phase's first steps; ``tune``: the
+    count kernel too, and the ``mesh`` phase's served tokens, with leg
+    (f) run without the train phase's measured peak), runs the phase and
+    prints its result as one JSON line; 1 if it failed."""
     import numpy as np
 
     from repro_torch.configs import get_arch
@@ -4818,6 +5202,23 @@ def phase_alone(torch, name: str) -> int:
                               page_size=PAGE)
         _, cb_outs = continuous(torch, cfg, served)
         fn, args = mesh_phase, (torch, cfg, served, prompts, toks, cb_outs)
+    elif name == "tune":
+        from repro_torch.launch.serve import prepare_params, serve_batch
+        from repro_torch.models import lm
+        build.build(("dscim_counts",))
+        cfg = get_arch("qwen3-0.6b")
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab,
+                                                    (BATCH, PROMPT))
+        cfg_ds = dataclasses.replace(cfg, dscim=DSCIM)
+        served = prepare_params(cfg_ds, lm.init_params(cfg, 0))
+        toks, _ = serve_batch(cfg_ds, served, prompts, TOKENS, kv="int8",
+                              page_size=PAGE)
+
+        def fn(*args):
+            out = tune_phase(*args)
+            out["dryrun"] = tune_dryrun(torch, None)
+            return out
+        args = (torch, cfg, served, prompts, toks)
     elif name == "train_mesh":
         from repro_torch.launch.train import TrainLoop
         loop = TrainLoop(get_arch(TRAIN_ARCH), steps=TM_A_STEPS,
@@ -4834,7 +5235,8 @@ def phase_alone(torch, name: str) -> int:
                            for name, cut, seq in TRAIN_OTHERS}
         fn, args = train_mesh_phase, (torch, train)
     else:
-        print(f"chip_smoke: --phase {name!r}: want mesh or train_mesh",
+        print(f"chip_smoke: --phase {name!r}: want mesh, train_mesh or "
+              "tune",
               file=sys.stderr)
         return 1
     t0 = time.perf_counter()
@@ -4954,6 +5356,8 @@ def main(argv) -> int:
                  e2e.get("tokens"), cb_outs,
                  None if rec is None else {
                      n: r["tokens"] for n, r in rec["served"].items()})
+    tune = phase("tune", tune_phase, torch, cfg, served, prompts,
+                 e2e.get("tokens"))
     del served
     counts = launches or {"dscim_fused_mvm": None,
                           "paged_attention_decode": None}
@@ -5026,6 +5430,7 @@ def main(argv) -> int:
         for entry in kernels:
             if entry is not None:
                 entry["launches_train"] = train["launches"][entry["name"]]
+    tune_f = phase("tune_dryrun", tune_dryrun, torch, train)
     tmesh = phase("train_mesh", train_mesh_phase, torch, train)
     if tmesh is not None:
         for entry in kernels:
@@ -5038,6 +5443,14 @@ def main(argv) -> int:
                           tmesh["others_world1"]["archs"].values())
                 entry["launches_serve_example"] = \
                     tmesh["serve_example"]["launches"].get(name, 0)
+    if tune is not None:
+        by_name = {"dscim_fused_mvm": tune["fused"],
+                   "paged_attention_decode": tune["paged"],
+                   **tune["counts"]}
+        for entry in kernels:
+            if entry is not None and entry["name"] in by_name:
+                entry["tune"] = by_name[entry["name"]]
+        tune["dryrun"] = tune_f
     t1 = phase("table1", table1, torch)
     drift = phase("reduced_gpu_vs_cpu", check_reduced, torch)
     print(json.dumps({"kernels": kernels, "card": smi[0] if smi else None,
@@ -5049,7 +5462,7 @@ def main(argv) -> int:
                       "integrity": integ, "router": rt, "mesh": mesh,
                       "dense_family": df, "moe_family": moe_fam,
                       "recurrent_family": rec, "train": train,
-                      "train_mesh": tmesh,
+                      "train_mesh": tmesh, "tune": tune,
                       "prefill_logit_rmse_vs_off": e2e.get("logit_rmse"),
                       "reduced_gpu_vs_cpu_drift": drift,
                       "table1_rmse_pct": t1,

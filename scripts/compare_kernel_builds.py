@@ -16,7 +16,9 @@ The old sources are built with ``build.NVCC_FLAGS`` into
 ``src/repro_torch/kernels/_build/compare/`` and bound with the wrappers'
 own argument types, or, for the fused MVM and paged attention, with the
 C interface of the source (the one before the redesign took quantized
-activations; the one before split-KV had no scratch arguments); the
+activations; the one before split-KV had no scratch arguments; the ones
+before the tile autotuner took no tile argument, which the current
+ones are called with at -1, the kernels' rule); the
 current ones are the wrappers' own libraries (``build.bind``).  At each of
 ``chip_smoke.py``'s flash, int8 and count shapes (the counts for both of
 its presets, on the blocked tables), the main path's fused-MVM shapes (28
@@ -55,6 +57,11 @@ OLD_FUSED_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
 OLD_PAGED_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                       + [ctypes.c_float, ctypes.c_void_p])
+# what the C entries that take a tile argument (kernels/autotune.py) have
+# in their signatures, and that argument's place in the wrappers' argtypes
+TILED = {"dscim_fused": ("int tile, void* stream", -2),
+         "paged_attention": ("int gh, float scale", 19),
+         "dscim_counts": ("int W, int tile", -2)}
 FUSED_SITES = (("w_gate", 1024, 3072, "bfloat16", 28),
                ("w_down", 3072, 1024, "bfloat16", 28),
                ("lm_head", 1024, 151936, "float32", 1))
@@ -101,9 +108,23 @@ def old_build(csrc: Path, out: Path, names) -> dict:
     for name in names:
         fn = getattr(ctypes.CDLL(str(sos[name])), f"{name}_launch")
         fn.restype = ctypes.c_int
-        fn.argtypes = interfaces[name]
+        types = list(interfaces[name])
+        fn.tiled = name in TILED and TILED[name][0] in text[name]
+        if name in TILED and not fn.tiled and types == list(
+                {"dscim_fused": df.ARGTYPES, "paged_attention": pa.ARGTYPES,
+                 "dscim_counts": dm.ARGTYPES}[name]):
+            del types[TILED[name][1]]          # the untiled interface
+        fn.argtypes = types
+        fn.new = interfaces[name] is not OLD_FUSED_ARGTYPES and \
+            interfaces[name] is not OLD_PAGED_ARGTYPES
         fns[name] = fn
     return fns
+
+
+def _tile_arg(fn, rule) -> tuple:
+    """The tile argument a build's entry takes: ``rule`` where it takes
+    one, else nothing."""
+    return (rule,) if getattr(fn, "tiled", False) else ()
 
 
 def call_flash(torch, fn, q, k, v):
@@ -156,7 +177,8 @@ def call_fused(torch, fn, x, qw, cfg, xq=None, sx=None):
                 out.data_ptr(), scratch.data_ptr(), counters.data_ptr(), M,
                 qw.n, K, qw.nw, qw.g, cfg.k, cfg.group, cfg.sbits,
                 df._copy_width(qw.q), scale, c1, wconst,
-                df._CLAMP_EPS[x.dtype], df.RECIP_127[x.dtype], stream)
+                df._CLAMP_EPS[x.dtype], df.RECIP_127[x.dtype],
+                *_tile_arg(fn, -1), stream)
     else:
         rc = fn(xq.data_ptr(), sx.data_ptr(), qw.q.data_ptr(),
                 qw.scale.data_ptr(), ta.data_ptr(), tb.data_ptr(),
@@ -183,7 +205,8 @@ def call_paged(torch, fn, new, args):
         part = torch.empty(B * KV * runs * R * (HD + 2), device=q.device)
         counters = build.tile_counters(q.device, stream, B * KV)
         rc = fn(*ptrs, part.data_ptr(), counters.data_ptr(), B, KV, R, HD,
-                ps, MP, int(HD % 16 == 0), HD ** -0.5, stream)
+                ps, MP, int(HD % 16 == 0), *_tile_arg(fn, 1), HD ** -0.5,
+                stream)
     else:
         rc = fn(*ptrs, B, KV, R, HD, ps, MP, HD ** -0.5, stream)
     if rc != 0:
@@ -199,7 +222,7 @@ def call_counts(torch, fn, x, w, ta, tb, k):
     G, S, W = ta.shape
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     rc = fn(x.data_ptr(), w.data_ptr(), ta.data_ptr(), tb.data_ptr(),
-            out.data_ptr(), M, K, N, k, G, S, W,
+            out.data_ptr(), M, K, N, k, G, S, W, *_tile_arg(fn, -1),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"counts launch failed: {rc}")
@@ -343,7 +366,9 @@ def main() -> int:
     builds = {"old": old,
               "current": {n: build.bind(n, f"{n}_launch", argtypes[n])
                           for n in names}}
-    is_new = {b: {n: builds[b][n].argtypes == argtypes[n] for n in names}
+    for n, fn in builds["current"].items():
+        fn.tiled = n in TILED
+    is_new = {b: {n: getattr(builds[b][n], "new", True) for n in names}
               for b in builds}
     order = ["old", "current", "current", "old"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -49,6 +49,16 @@ from .seed_search import calibrated_config
 
 __all__ = ["DSCIMLinear", "make_linear", "MODES"]
 
+
+def _env_tune() -> bool:
+    """The ``REPRO_DSCIM_TUNE`` knob, read at call time (when a step is
+    built and captured: a CUDA graph replays the tiles it was captured
+    with).  ``DSCIMLinear`` instances are cached per config behind
+    models/lm.py ``_linear_for``, so a read at construction would freeze
+    the knob's first value for the process."""
+    import os
+    return os.environ.get("REPRO_DSCIM_TUNE", "") not in ("", "0")
+
 Mode = Literal["float", "exact", "lut", "bitmatmul", "kernel", "statistical",
                "paper_inject"]
 MODES = ("float", "exact", "lut", "bitmatmul", "kernel", "statistical",
@@ -66,6 +76,10 @@ class DSCIMLinear:
     cfg: DSCIMConfig
     mode: Mode = "lut"
     group_k: int | None = 128
+    # 'kernel' and 'bitmatmul' on the card: the tile autotuner's winners
+    # (kernels/autotune.py; the same bits), also under REPRO_DSCIM_TUNE;
+    # a no-op on the CPU, whose plain versions have no tiles
+    tune: bool = False
     seed: int = 0                   # base of the noise key
     # the mesh a serving run is placed on (parallel.ParallelCtx), or None:
     # 'kernel' routes through the sharded fused MVM, the other modes make
@@ -124,7 +138,9 @@ class DSCIMLinear:
             counts = [self.macro.counts_lut(x2[:, u], w2[u])
                       for u in range(nw)]
         else:                                          # bitmatmul
-            counts = [self.macro.counts_kernel(x2[:, u].contiguous(), w2[u])
+            tune = self.tune or _env_tune()
+            counts = [self.macro.counts_kernel(x2[:, u].contiguous(), w2[u],
+                                               tune=tune)
                       for u in range(nw)]
         return torch.stack([self.macro.mvm_from_counts(x2[:, u], w2[u], c)
                             for u, c in enumerate(counts)], dim=1)
@@ -142,7 +158,8 @@ class DSCIMLinear:
                     w = qw = prepare_linear_weight(w, self.group_k)
                 self._check_prepared(x, qw)
                 return dscim_fused_mvm_sharded(
-                    x, w, self.cfg, self.par, batch_axes=self.par.dp_axes)
+                    x, w, self.cfg, self.par, batch_axes=self.par.dp_axes,
+                    tune=self.tune or _env_tune())
             w = self.par.whole_qweight(w)
         prepared = isinstance(w, QuantizedLinearWeight)
         if self.mode == "float":
@@ -152,10 +169,12 @@ class DSCIMLinear:
         if self.mode == "kernel":
             from ..kernels.dscim_fused import (dscim_fused_mvm,
                                                dscim_fused_mvm_prepared)
+            tune = self.tune or _env_tune()
             if prepared:
                 self._check_prepared(x, w)
-                return dscim_fused_mvm_prepared(x, w, self.cfg)
-            return dscim_fused_mvm(x, w, self.cfg, group_k=self.group_k)
+                return dscim_fused_mvm_prepared(x, w, self.cfg, tune=tune)
+            return dscim_fused_mvm(x, w, self.cfg, group_k=self.group_k,
+                                   tune=tune)
         lead = x.shape[:-1]
         K = x.shape[-1]
         xf = x.reshape(-1, K)
@@ -196,11 +215,14 @@ class DSCIMLinear:
 
 def make_linear(variant: str = "dscim1", length: int = 256,
                 mode: Mode = "lut", calib: str = "paper", *,
-                par=None) -> DSCIMLinear:
+                par=None, tune: bool = False) -> DSCIMLinear:
     """Calibrated DS-CIM1/2 linear ('paper' or 'opt' point sets); ``par``
-    places it on a mesh (``DSCIMLinear.par``)."""
+    places it on a mesh (``DSCIMLinear.par``); ``tune`` (or
+    ``REPRO_DSCIM_TUNE``) takes the tile autotuner's winners on the card
+    (``DSCIMLinear.tune``): with the packaged cache a lookup, not a
+    sweep, at the main path's decode shapes."""
     if variant not in ("dscim1", "dscim2"):
         raise ValueError(variant)
     return DSCIMLinear(calibrated_config(variant, length, calib), mode,
-                       par=par)
+                       tune=tune, par=par)
 

@@ -155,13 +155,14 @@ class DSCIMMacro:
         counts = dscim_counts_plain(x_i8, w_i8, *self.folded, self.cfg.k)
         return counts.to(torch.int32)
 
-    def counts_kernel(self, x_i8: torch.Tensor, w_i8: torch.Tensor
-                      ) -> torch.Tensor:
+    def counts_kernel(self, x_i8: torch.Tensor, w_i8: torch.Tensor, *,
+                      tune: bool = False) -> torch.Tensor:
         """The count kernel's counts (M, N) f32 on the macro's points
         (``kernels/dscim_mvm.py dscim_counts``: the CUDA kernel on the
-        card, its plain version on the CPU)."""
+        card, its plain version on the CPU; ``tune``: the tile
+        autotuner's winner on the card)."""
         return dscim_counts(x_i8, w_i8, *self.folded, k=self.cfg.k,
-                            length=self.cfg.length)
+                            length=self.cfg.length, tune=tune)
 
     def counts_cycle(self, x_i8: torch.Tensor, w_i8: torch.Tensor
                      ) -> torch.Tensor:

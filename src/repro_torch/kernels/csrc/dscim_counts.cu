@@ -494,21 +494,40 @@ int launch(Params p, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// Up to M = 8, and wherever the wide tile's shared memory does not hold
-// the tables: 128 columns x 8 rows (one n8 tile) a block of 4 warps;
-// else 256 x 128, 16 warps of 64 x 32: the wide tile halves the
-// activation lookups of a 128 x 128 one, and 16 warps of 128 registers
-// hide the lookups' latency better than four of 64 x 64 (over 200
-// registers)
+// The tiles (the order of kernels/autotune.py MVM_TILES: columns x rows
+// a block, warps): 0 128 x 8 (4 warps), 1 256 x 128 (16 warps of 64 x
+// 32), 2 128 x 32 (8), 3 256 x 32 (8), 4 128 x 64 (8), 5 128 x 16 (4).
+// A tile whose shared memory does not hold the tables returns -1.  The
+// counts are integers below 2^24, exact in f32 in any order of the K
+// slices' adds: every tile gives the same bits.
 template <int LW>
-int run_rows(const Params& p, cudaStream_t st) {
-  if (p.M <= 8 || smem_bytes(p, 256, 128) > (size_t)kMaxSmem)
-    return launch<2, 1, 4, 1, LW>(p, st);
-  return launch<4, 4, 4, 4, LW>(p, st);
+int run_tile(const Params& p, int tile, cudaStream_t st) {
+  switch (tile) {
+    case 0: return launch<2, 1, 4, 1, LW>(p, st);
+    case 1: return launch<4, 4, 4, 4, LW>(p, st);
+    case 2: return launch<2, 2, 4, 2, LW>(p, st);
+    case 3: return launch<4, 2, 4, 2, LW>(p, st);
+    case 4: return launch<2, 4, 4, 2, LW>(p, st);
+    case 5: return launch<2, 2, 4, 1, LW>(p, st);
+    default: return -1;
+  }
 }
 
-int run(const Params& p, cudaStream_t st) {
-  return p.W == 1 ? run_rows<0>(p, st) : run_rows<-1>(p, st);
+// The rule (tile -1): up to M = 8, and wherever the wide tile's shared
+// memory does not hold the tables, 128 columns x 8 rows (one n8 tile) a
+// block of 4 warps; else 256 x 128, 16 warps of 64 x 32: the wide tile
+// halves the activation lookups of a 128 x 128 one, and 16 warps of 128
+// registers hide the lookups' latency better than four of 64 x 64 (over
+// 200 registers)
+template <int LW>
+int run_rows(const Params& p, int tile, cudaStream_t st) {
+  if (tile < 0)
+    tile = (p.M <= 8 || smem_bytes(p, 256, 128) > (size_t)kMaxSmem) ? 0 : 1;
+  return run_tile<LW>(p, tile, st);
+}
+
+int run(const Params& p, int tile, cudaStream_t st) {
+  return p.W == 1 ? run_rows<0>(p, tile, st) : run_rows<-1>(p, tile, st);
 }
 
 int setup(Params& p, int M, int K, int N, int k, int G, int S, int W) {
@@ -532,12 +551,13 @@ int setup(Params& p, int M, int K, int N, int k, int G, int S, int W) {
 
 }  // namespace
 
-// Returns a cudaError_t value (0 = launched).  -1: arguments the kernel
-// does not take (checked again here; the Python wrapper checks first).
+// tile: the block tile (run_tile; -1 the rule).  Returns a cudaError_t
+// value (0 = launched).  -1: arguments or a tile the kernel does not take
+// (checked again here; the Python wrapper checks first).
 extern "C" int dscim_counts_launch(const void* x, const void* w,
                                    const void* ta, const void* tb, void* out,
                                    int M, int K, int N, int k, int G, int S,
-                                   int W, void* stream) {
+                                   int W, int tile, void* stream) {
   Params p = {};
   if (setup(p, M, K, N, k, G, S, W) != 0) return -1;
   p.x = static_cast<const int8_t*>(x);
@@ -552,5 +572,5 @@ extern "C" int dscim_counts_launch(const void* x, const void* w,
           : (K % 4 == 0 && p.R % 4 == 0 && xa % 4 == 0) ? 2 : 0;
   p.vt = ((reinterpret_cast<uintptr_t>(ta) | reinterpret_cast<uintptr_t>(tb))
           % 16 == 0) ? 16 : 4;
-  return run(p, static_cast<cudaStream_t>(stream));
+  return run(p, tile, static_cast<cudaStream_t>(stream));
 }

@@ -648,30 +648,63 @@ int quantize(const Params& p, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// The MVM after the quantize kernel.  Decode (M <= 16, NT 8-row tiles):
-// where the windows are split, 16 columns a warp (64 a tile, many
-// blocks); else 32 a warp (128 a tile, fewer instructions a weight byte).
-// Prefill (M > 16): 64 rows x 64 columns a block, 16 rows a warp.
-template <int NT>
-int decode(const Params& p, cudaStream_t st) {
-  return split_windows(p.M, p.N, p.nw)
-             ? launch_mvm<1, NT, 4, 1, true, 4>(p, st)
-             : launch_mvm<2, NT, 4, 1, false, 3>(p, st);
+// The MVM after the quantize kernel, at a tile of the tables below (the
+// order of kernels/autotune.py FUSED_DECODE_TILES / FUSED_PREFILL_TILES)
+// or, at tile -1, by the fixed rule.  Decode (M <= 16, NT 8-row tiles):
+// the rule splits the windows where split_windows says so, 16 columns a
+// warp (64 a tile, many blocks), else 32 a warp (128 a tile, fewer
+// instructions a weight byte).  Prefill (M > 16): 64 rows a block, 16 a
+// warp, 64 columns by the rule.  Every tile adds the same window terms in
+// the same order (the header): the tile changes the time, not the bits.
+constexpr int kDecodeTiles = 9;
+constexpr int kPrefillTiles = 5;
+
+int rule_tile(int M, int N, int nw) {
+  const bool split = split_windows(M, N, nw);
+  return M <= 16 ? (split ? 0 : 3) : (split ? 0 : 1);
 }
 
-int prefill(const Params& p, cudaStream_t st) {
-  return split_windows(p.M, p.N, p.nw)
-             ? launch_mvm<4, 2, 1, 4, true, 3>(p, st)
-             : launch_mvm<4, 2, 1, 4, false, 3>(p, st);
+// Whether tile t (>= 0) of M's table splits the windows over blocks.
+bool tile_splits(int M, int t) { return M <= 16 ? t < 3 : t == 0; }
+
+bool tile_ok(int M, int t) {
+  return t >= 0 && t < (M <= 16 ? kDecodeTiles : kPrefillTiles);
+}
+
+template <int NT>
+int decode(const Params& p, int tile, cudaStream_t st) {
+  switch (tile) {
+    case 0: return launch_mvm<1, NT, 4, 1, true, 4>(p, st);
+    case 1: return launch_mvm<1, NT, 4, 1, true, 3>(p, st);
+    case 2: return launch_mvm<1, NT, 4, 1, true, 2>(p, st);
+    case 3: return launch_mvm<2, NT, 4, 1, false, 3>(p, st);
+    case 4: return launch_mvm<2, NT, 4, 1, false, 4>(p, st);
+    case 5: return launch_mvm<2, NT, 4, 1, false, 2>(p, st);
+    case 6: return launch_mvm<1, NT, 4, 1, false, 3>(p, st);
+    case 7: return launch_mvm<1, NT, 4, 1, false, 4>(p, st);
+    case 8: return launch_mvm<1, NT, 4, 1, false, 2>(p, st);
+    default: return -1;
+  }
+}
+
+int prefill(const Params& p, int tile, cudaStream_t st) {
+  switch (tile) {
+    case 0: return launch_mvm<4, 2, 1, 4, true, 3>(p, st);
+    case 1: return launch_mvm<4, 2, 1, 4, false, 3>(p, st);
+    case 2: return launch_mvm<2, 2, 1, 4, false, 3>(p, st);
+    case 3: return launch_mvm<4, 2, 1, 4, false, 4>(p, st);
+    case 4: return launch_mvm<2, 2, 1, 4, false, 4>(p, st);
+    default: return -1;
+  }
 }
 
 template <typename T>
-int run(const Params& p, cudaStream_t st) {
+int run(const Params& p, int tile, cudaStream_t st) {
   const int rc = quantize<T>(p, st);
   if (rc != 0) return rc;
-  if (p.M <= 8) return decode<1>(p, st);
-  if (p.M <= 16) return decode<2>(p, st);
-  return prefill(p, st);
+  if (p.M <= 8) return decode<1>(p, tile, st);
+  if (p.M <= 16) return decode<2>(p, tile, st);
+  return prefill(p, tile, st);
 }
 
 // scratch layout, 16-byte aligned pieces: xq (M, nw*g) int8, sx (M, nw)
@@ -684,20 +717,32 @@ long long scalar_bytes(int M, int nw) { return (12LL * M * nw + 15) / 16 * 16; }
 
 }  // namespace
 
-// Tile counters dscim_fused_launch needs: one per output tile where the
-// windows are split over blocks, else none.
-extern "C" int dscim_fused_counters(int M, int N, int nw) {
-  if (M <= 0 || N <= 0 || nw <= 0 || !split_windows(M, N, nw)) return 0;
-  // split only below the SM count, so the product stays small
+// The tile a launch takes: tile (>= 0) of M's table, or -1 for the rule;
+// -2 for an index past the table.
+static int resolve_tile(int M, int N, int nw, int tile) {
+  if (tile < 0) return rule_tile(M, N, nw);
+  return tile_ok(M, tile) ? tile : -2;
+}
+
+// Tile counters dscim_fused_launch needs at this tile (-1: the rule's):
+// one per output tile where the windows are split over blocks, else none.
+extern "C" int dscim_fused_counters(int M, int N, int nw, int tile) {
+  if (M <= 0 || N <= 0 || nw <= 0) return 0;
+  const int t = resolve_tile(M, N, nw, tile);
+  if (t < 0 || !tile_splits(M, t)) return 0;
   return ((N + kSplitNC - 1) / kSplitNC)
          * ((M + rows_per_block(M) - 1) / rows_per_block(M));
 }
 
-// Bytes of scratch dscim_fused_launch needs (-1: a shape it does not take).
-extern "C" int dscim_fused_scratch_bytes(int M, int N, int nw, int g) {
+// Bytes of scratch dscim_fused_launch needs at this tile (-1: the rule's;
+// the result -1: a shape or tile it does not take).
+extern "C" int dscim_fused_scratch_bytes(int M, int N, int nw, int g,
+                                         int tile) {
   if (M <= 0 || N <= 0 || nw <= 0 || g <= 0) return -1;
+  const int t = resolve_tile(M, N, nw, tile);
+  if (t < 0) return -1;
   long long b = xq_bytes(M, nw, g) + scalar_bytes(M, nw);
-  if (split_windows(M, N, nw)) {
+  if (tile_splits(M, t)) {
     const int chunk = (nw + kMaxChunks - 1) / kMaxChunks;
     const int nchunk = (nw + chunk - 1) / chunk;
     const int MT = rows_per_block(M);
@@ -707,7 +752,8 @@ extern "C" int dscim_fused_scratch_bytes(int M, int N, int nw, int g) {
   return b < (1LL << 31) ? (int)b : -1;
 }
 
-// x_dtype: 0 f32, 1 bf16, 2 f16.  vec: the widest copy (16, 4 or 1 bytes)
+// x_dtype: 0 f32, 1 bf16, 2 f16.  tile: the MVM's tile (-1 the rule;
+// scratch and counters sized for the same tile).  vec: the widest copy (16, 4 or 1 bytes)
 // that wq's base and row pitch allow.  scratch (16-byte aligned, of
 // dscim_fused_scratch_bytes) holds what the quantize kernel hands the MVM
 // and, where the windows are split over blocks, the staged partials;
@@ -723,13 +769,15 @@ extern "C" int dscim_fused_launch(const void* x, int x_dtype, const void* wq,
                                   int g, int k, int G, int S, int vec,
                                   float scale, float c1,
                                   float wconst, float eps, float recip,
-                                  void* stream) {
+                                  int tile, void* stream) {
   if (G * S > kMaxTab || M <= 0 || N <= 0 || nw <= 0 || g <= 0 || K <= 0 ||
       K > nw * g || (long long)nw * g - K >= g)
     return -1;
   if (vec != 16 && vec != 4 && vec != 1) return -1;
   if ((M + 15) / 16 > 65535 || (long long)M * nw > (1LL << 31) - 1024)
     return -1;
+  const int t = resolve_tile(M, N, nw, tile);
+  if (t < 0) return -1;
   Params p;
   p.x = x;
   p.wq = static_cast<const int8_t*>(wq);
@@ -753,9 +801,9 @@ extern "C" int dscim_fused_launch(const void* x, int x_dtype, const void* wq,
   p.scale = scale; p.c1 = c1; p.wconst = wconst; p.eps = eps; p.recip = recip;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (x_dtype) {
-    case 0: return run<float>(p, st);
-    case 1: return run<__nv_bfloat16>(p, st);
-    case 2: return run<__half>(p, st);
+    case 0: return run<float>(p, t, st);
+    case 1: return run<__nv_bfloat16>(p, t, st);
+    case 2: return run<__half>(p, t, st);
     default: return -1;
   }
 }

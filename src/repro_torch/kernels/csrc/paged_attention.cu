@@ -101,16 +101,18 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                "l"(gmem));
 }
 
-__global__ void __launch_bounds__(kThreads)
-paged_split_kernel(const float* __restrict__ q, const int8_t* __restrict__ kp,
-                   const int8_t* __restrict__ vp, const float* __restrict__ ks,
-                   const float* __restrict__ vs,
-                   const __nv_bfloat16* __restrict__ kt,
-                   const __nv_bfloat16* __restrict__ vt,
-                   const int* __restrict__ table, const int* __restrict__ pos,
-                   float* __restrict__ out, float* __restrict__ part,
-                   int* __restrict__ counters, int KV, int R, int HD, int ps,
-                   int MP, int TS, int kb, int nsmax, int vec16, float scale) {
+// One (run, kv head g, slot) of the walk: the block's whole work at one
+// head per block; a block of gh heads runs it for each of its heads in
+// turn, so every head's arithmetic is the same whatever gh.
+__device__ __forceinline__ void
+paged_head(const float* __restrict__ q, const int8_t* __restrict__ kp,
+           const int8_t* __restrict__ vp, const float* __restrict__ ks,
+           const float* __restrict__ vs, const __nv_bfloat16* __restrict__ kt,
+           const __nv_bfloat16* __restrict__ vt,
+           const int* __restrict__ table, const int* __restrict__ pos,
+           float* __restrict__ out, float* __restrict__ part,
+           int* __restrict__ counters, int KV, int R, int HD, int ps, int MP,
+           int TS, int kb, int nsmax, int vec16, float scale, int g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // TS: tokens of the longest run any slot may have (shared memory);
   // kb: bytes of the K rows, which the grouped P.V sums reuse
@@ -134,7 +136,7 @@ paged_split_kernel(const float* __restrict__ q, const int8_t* __restrict__ kp,
   float* pv_s = reinterpret_cast<float*>(k8_s);
   __shared__ int last_s;
 
-  const int sp = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  const int sp = blockIdx.x, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int p = pos[b];
   const int tailj = p / ps;
@@ -433,6 +435,26 @@ paged_split_kernel(const float* __restrict__ q, const int8_t* __restrict__ kp,
   if (tid == 0) counters[bg] = 0;
 }
 
+// gh kv heads a block (blockIdx.y * gh ..), one after another.
+__global__ void __launch_bounds__(kThreads)
+paged_split_kernel(const float* __restrict__ q, const int8_t* __restrict__ kp,
+                   const int8_t* __restrict__ vp, const float* __restrict__ ks,
+                   const float* __restrict__ vs,
+                   const __nv_bfloat16* __restrict__ kt,
+                   const __nv_bfloat16* __restrict__ vt,
+                   const int* __restrict__ table, const int* __restrict__ pos,
+                   float* __restrict__ out, float* __restrict__ part,
+                   int* __restrict__ counters, int KV, int R, int HD, int ps,
+                   int MP, int TS, int kb, int nsmax, int vec16, float scale,
+                   int gh) {
+  for (int i = 0; i < gh; ++i) {
+    paged_head(q, kp, vp, ks, vs, kt, vt, table, pos, out, part, counters,
+               KV, R, HD, ps, MP, TS, kb, nsmax, vec16, scale,
+               blockIdx.y * gh + i);
+    __syncthreads();                 // the next head reuses shared memory
+  }
+}
+
 }  // namespace
 
 // The most split-KV runs any slot of a table with MP pages of ps tokens
@@ -451,6 +473,8 @@ extern "C" int paged_attention_max_runs(int ps, int MP) {
 // then each run's (m, l)); out and part 16-byte aligned; counters: B*KV int32,
 // zero before the first launch (each launch leaves them zero).  vec16: HD
 // is a multiple of 16 and the page and tail bases are 16-byte aligned.
+// gh: kv heads a block takes, a divisor of KV (1 is the rule; every gh
+// gives the same bits, kernels/autotune.py).
 // Returns a cudaError_t value (0 = launched), -1 for arguments the kernel
 // does not take.
 extern "C" int paged_attention_launch(const void* q, const void* kp,
@@ -460,8 +484,9 @@ extern "C" int paged_attention_launch(const void* q, const void* kp,
                                       const void* pos, void* out, void* part,
                                       void* counters, int B, int KV, int R,
                                       int HD, int ps, int MP, int vec16,
-                                      float scale, void* stream) {
+                                      int gh, float scale, void* stream) {
   if (B <= 0 || KV <= 0 || R <= 0 || HD <= 0 || ps <= 0 || MP <= 0) return -1;
+  if (gh <= 0 || KV % gh != 0) return -1;
   if (KV > 65535 || B > 65535) return -1;
   const int nsmax = paged_attention_max_runs(ps, MP);
   const int TS = run_pages(MP, ps) * ps;   // the longest run: at MP pages
@@ -482,7 +507,7 @@ extern "C" int paged_attention_launch(const void* q, const void* kp,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid(nsmax, KV, B);
+  dim3 grid(nsmax, KV / gh, B);
   paged_split_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const int8_t*>(kp),
       static_cast<const int8_t*>(vp), static_cast<const float*>(ks),
@@ -490,6 +515,6 @@ extern "C" int paged_attention_launch(const void* q, const void* kp,
       static_cast<const __nv_bfloat16*>(vt), static_cast<const int*>(table),
       static_cast<const int*>(pos), static_cast<float*>(out),
       static_cast<float*>(part), static_cast<int*>(counters), KV, R, HD, ps,
-      MP, TS, kb, nsmax, vec16, scale);
+      MP, TS, kb, nsmax, vec16, scale, gh);
   return static_cast<int>(cudaGetLastError());
 }

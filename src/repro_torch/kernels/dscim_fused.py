@@ -26,6 +26,9 @@ window by window and in N chunks (a one-shot expansion at the head's
 shape, K=1024, N=152064, pmax=18, would need about 11 GB).  Float outputs
 agree with the reference to f32 summation-order rounding.
 
+``tune=True`` (every entry) takes the tile autotuner's winner on the card
+(kernels/autotune.py), bitwise the untuned output.
+
 ``dscim_fused_mvm_sharded`` places the kernel on a mesh (a rank's N
 columns and DP batch slice, then gathers): no other kernel, bitwise the
 call on one device.
@@ -173,26 +176,30 @@ def dscim_fused_mvm_plain(xq: torch.Tensor, sx: torch.Tensor,
 
 # dscim_fused_launch(x, x_dtype, wq, sw, ta, tb, out, scratch, counters, M,
 #                    N, K, nw, g, k, G, S, vec, scale, c1, wconst, eps, recip,
-#                    stream)
+#                    tile, stream)
 ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
-            + [ctypes.c_int] * 9 + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 9 + [ctypes.c_float] * 5
+            + [ctypes.c_int, ctypes.c_void_p])
 X_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # quantize_int8's eps as ``clamp_min`` sees it in each dtype (0 in f16)
 _CLAMP_EPS = {dt: float(torch.tensor(1e-8).to(dt)) for dt in X_DTYPES}
 
 
 @functools.lru_cache(maxsize=256)
-def _launch_sizes(M: int, N: int, nw: int, g: int) -> tuple[int, int]:
-    """(scratch bytes, tile counters) the C call needs for this shape: the
-    quantized activations and, where it splits the windows over blocks,
-    the staged partials and a counter per output tile."""
+def _launch_sizes(M: int, N: int, nw: int, g: int, tile: int = -1
+                  ) -> tuple[int, int]:
+    """(scratch bytes, tile counters) the C call needs for this shape at
+    ``tile`` (-1: the kernel's rule): the quantized activations and,
+    where the tile splits the windows over blocks, the staged partials
+    and a counter per output tile."""
     n = build.bind("dscim_fused", "dscim_fused_scratch_bytes",
-                   [ctypes.c_int] * 4)(M, N, nw, g)
+                   [ctypes.c_int] * 5)(M, N, nw, g, tile)
     if n < 0:
         raise ValueError(f"dscim_fused kernel: shape M={M} N={N} nw={nw} "
-                         f"g={g} too large for its scratch")
+                         f"g={g} at tile {tile} too large for its scratch "
+                         "or a tile past its table")
     tiles = build.bind("dscim_fused", "dscim_fused_counters",
-                       [ctypes.c_int] * 3)(M, N, nw)
+                       [ctypes.c_int] * 4)(M, N, nw, tile)
     return n, tiles
 
 
@@ -207,12 +214,15 @@ def _copy_width(wq: torch.Tensor) -> int:
 
 
 def _launch_kernel(x: torch.Tensor, qw: QuantizedLinearWeight,
-                   cfg: DSCIMConfig):
+                   cfg: DSCIMConfig, tile: int = -1, counter=None):
     """``csrc/dscim_fused.cu`` from one C call: x (M, K) f32/bf16/f16 on
     the card + prepared weight -> (out (M, N) f32, xq (M, nw, g) int8,
     sx (M, nw) f32).  Its quantize kernel quantizes the activations per
     (row, window) bitwise as ``quantize_activations_windowed`` into xq and
-    sx, which the MVM kernel then reads."""
+    sx, which the MVM kernel then reads.  ``tile``: the MVM's tile index
+    (kernels/autotune.py; -1 the kernel's rule).  The launch counts on
+    ``counter`` where given (the tuner's sweeps), else on ``LAUNCHES``
+    and the estimator's share."""
     M, K = x.shape
     nw, g, N = qw.nw, qw.g, qw.n
     if x.dtype not in X_DTYPES or not x.is_contiguous():
@@ -227,7 +237,7 @@ def _launch_kernel(x: torch.Tensor, qw: QuantizedLinearWeight,
         raise ValueError(f"k={cfg.k}: count tables larger than the kernel's")
     ta, tb = _device_mask_tables(cfg, x.device)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    nbytes, tiles = _launch_sizes(M, N, nw, g)
+    nbytes, tiles = _launch_sizes(M, N, nw, g, tile)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     scale, c1, wconst = _estimator_constants(cfg, g)
     fn = build.bind("dscim_fused", "dscim_fused_launch", ARGTYPES)
@@ -237,11 +247,14 @@ def _launch_kernel(x: torch.Tensor, qw: QuantizedLinearWeight,
             qw.scale.data_ptr(), ta.data_ptr(), tb.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), counters.data_ptr(), M, N, K, nw, g, cfg.k,
             cfg.group, cfg.sbits, _copy_width(qw.q), scale, c1, wconst,
-            _CLAMP_EPS[x.dtype], RECIP_127[x.dtype], stream)
+            _CLAMP_EPS[x.dtype], RECIP_127[x.dtype], tile, stream)
     if rc != 0:
         raise RuntimeError(f"dscim_fused kernel launch failed: error {rc}")
-    LAUNCHES.count += 1
-    launches_for(cfg).count += 1
+    if counter is not None:
+        counter.count += 1
+    else:
+        LAUNCHES.count += 1
+        launches_for(cfg).count += 1
     # the C side's scratch layout: xq, padded to 16 bytes, then sx
     xq_bytes = -(-M * nw * g // 16) * 16
     xq = scratch[:M * nw * g].view(torch.int8).reshape(M, nw, g)
@@ -249,40 +262,59 @@ def _launch_kernel(x: torch.Tensor, qw: QuantizedLinearWeight,
     return out, xq, sx.reshape(M, nw)
 
 
-def prepare_capture(weights, M: int, cfg: DSCIMConfig, stream) -> None:
+_PREPARE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _tile(M: int, qw: QuantizedLinearWeight, cfg: DSCIMConfig, dtype,
+          tune: bool) -> int:
+    """The C entry's tile index for a call: the tuner's winner under
+    ``tune`` (a sweep where no cache holds the key), else -1."""
+    if not tune:
+        return -1
+    from . import autotune
+    return autotune.fused_tile_index(
+        M, autotune.fused_tiles(M, qw, cfg, dtype))
+
+
+def prepare_capture(weights, M: int, cfg: DSCIMConfig, stream,
+                    tune: bool = False) -> None:
     """Everything the wrapper makes at first use, made before a CUDA graph
     capture on ``stream`` that calls it with M rows on each prepared
     weight in ``weights`` (one layer's weight per shape suffices): the
-    library built and bound, the count tables on the device, the
-    stream's tile counters sized for the largest call, and one launch per
-    weight shape on zero activations (the kernels' first-launch path:
-    module load, shared-memory attributes, the SM count)."""
+    library built and bound, the count tables on the device, under
+    ``tune`` the tuner's winner of each shape (a sweep where no cache
+    holds it: timing is impossible inside a capture), the stream's tile
+    counters sized for the largest call, and one launch per weight shape
+    on zero activations (the kernels' first-launch path: module load,
+    shared-memory attributes, the SM count)."""
     build.load("dscim_fused")
-    seen = set()
-    tiles = 0
-    for qw in weights:
-        tiles = max(tiles, _launch_sizes(M, qw.n, qw.nw, qw.g)[1])
     dev = weights[0].q.device
     _device_mask_tables(cfg, dev)
+    shapes = {}
+    for qw in weights:
+        shapes.setdefault((qw.k_orig, qw.n, qw.nw, qw.g), qw)
+    plan = [(qw, dt, _tile(M, qw, cfg, dt, tune))
+            for qw in shapes.values() for dt in _PREPARE_DTYPES]
+    tiles = max(_launch_sizes(M, qw.n, qw.nw, qw.g, t)[1]
+                for qw, _, t in plan)
     build.tile_counters(dev, stream.cuda_stream, tiles)
     with torch.cuda.stream(stream):
-        for qw in weights:
-            shape = (qw.k_orig, qw.n, qw.nw, qw.g)
-            if shape in seen:
-                continue
-            seen.add(shape)
-            for dt in (torch.float32, torch.bfloat16):
-                _launch_kernel(torch.zeros((M, qw.k_orig), dtype=dt,
-                                           device=dev), qw, cfg)
+        for qw, dt, t in plan:
+            _launch_kernel(torch.zeros((M, qw.k_orig), dtype=dt,
+                                       device=dev), qw, cfg, t)
 
 
 def dscim_fused_mvm_prepared(x: torch.Tensor, qw: QuantizedLinearWeight,
-                             cfg: DSCIMConfig) -> torch.Tensor:
+                             cfg: DSCIMConfig, *, tune: bool = False
+                             ) -> torch.Tensor:
     """Fused DS-CIM linear: x (..., K) float + prepared weight ->
     (..., N) f32.  Leading dims fold into the kernel's M rows.  Only the
     activations are quantized per call: on the card by the kernel's own
     quantize kernel (two device launches from one C call), on the
-    CPU by ``quantize_activations_windowed`` before the plain version."""
+    CPU by ``quantize_activations_windowed`` before the plain version.
+    ``tune``: on the card, the tile autotuner's winner for this shape
+    (kernels/autotune.py; bitwise the untuned output); on the CPU a
+    no-op (the plain version has no tiles)."""
     lead = x.shape[:-1]
     K = x.shape[-1]
     if K != qw.k_orig:
@@ -297,21 +329,26 @@ def dscim_fused_mvm_prepared(x: torch.Tensor, qw: QuantizedLinearWeight,
         sx = xq.scale.reshape(q.shape[0], nw).contiguous()
         out = dscim_fused_mvm_plain(q, sx, qw.q, qw.scale, cfg)
     elif x.device.type == "cuda":
-        out = _launch_kernel(x2.contiguous(), qw, cfg)[0]
+        x2 = x2.contiguous()
+        out = _launch_kernel(x2, qw, cfg,
+                             _tile(x2.shape[0], qw, cfg, x2.dtype, tune))[0]
     else:
         raise ValueError(f"no dscim_fused route for device {x.device}")
     return out.reshape(*lead, N)
 
 
 def dscim_fused_mvm(x: torch.Tensor, w: torch.Tensor, cfg: DSCIMConfig, *,
-                    group_k: int | None = 128) -> torch.Tensor:
+                    group_k: int | None = 128, tune: bool = False
+                    ) -> torch.Tensor:
     """Fused DS-CIM linear from float weights: ``prepare_linear_weight``
     + the prepared entry."""
-    return dscim_fused_mvm_prepared(x, prepare_linear_weight(w, group_k), cfg)
+    return dscim_fused_mvm_prepared(x, prepare_linear_weight(w, group_k), cfg,
+                                    tune=tune)
 
 
 def dscim_fused_mvm_sharded(x: torch.Tensor, w, cfg: DSCIMConfig, par, *,
-                            batch_axes: tuple = ()) -> torch.Tensor:
+                            batch_axes: tuple = (), tune: bool = False
+                            ) -> torch.Tensor:
     """The fused MVM placed on a mesh (the reference's
     ``dscim_fused_mvm_sharded``): x (..., K) float, whole on every rank;
     ``w`` a prepared weight, whole or this rank's N-slice
@@ -351,7 +388,7 @@ def dscim_fused_mvm_sharded(x: torch.Tensor, w, cfg: DSCIMConfig, par, *,
     b = None
     if batch_axes and x.ndim >= 2:
         x, b = par.batch_slice(x, batch_axes)
-    out = dscim_fused_mvm_prepared(x, qw, cfg)
+    out = dscim_fused_mvm_prepared(x, qw, cfg, tune=tune)
     if t:
         out = par.all_gather(out, t, out.ndim - 1)
     if b:

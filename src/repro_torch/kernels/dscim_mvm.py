@@ -32,15 +32,15 @@ import torch
 from ..core.remap import point_block
 from . import build
 
-__all__ = ["dscim_counts", "dscim_counts_plain", "points_by_block",
+__all__ = ["dscim_counts", "dscim_counts_plain", "points_by_block", "tuned_launch",
            "count_mask_tables", "point_tables", "launch_counts",
            "prepare_capture", "check_exact_matmuls", "LAUNCHES"]
 
 LAUNCHES = build.LaunchCounter("dscim_counts")
 _PREPARE = build.LaunchCounter("dscim_counts capture preparation")
 BIT_BUDGET = 1 << 26      # plain versions: bit-expansion elements per chunk
-# dscim_counts_launch(x, w, ta, tb, out, M, K, N, k, G, S, W, stream)
-ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# dscim_counts_launch(x, w, ta, tb, out, M, K, N, k, G, S, W, tile, stream)
+ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def check_exact_matmuls(t: torch.Tensor, name: str) -> None:
@@ -131,18 +131,22 @@ def point_tables(cu, lu, cv, lv, k: int, device):
     return tabs
 
 
-def prepare_capture(points, k: int, M: int, device, stream) -> None:
+def prepare_capture(points, k: int, M: int, device, stream,
+                    shapes=((128, 128),), tune: bool = False) -> None:
     """Everything ``dscim_counts`` makes at first use, made before a CUDA
     graph capture on ``stream`` that counts M rows with the folded
     ``points`` (cu, lu, cv, lv): the library built and bound, the mask
-    tables on the device, and one launch on zero operands of one window
-    (module load, the shared-memory attribute)."""
+    tables on the device, and one launch on zero operands of each (K, N)
+    in ``shapes`` (module load, the shared-memory attribute) at the
+    tuner's winner under ``tune`` (swept here where no cache holds it:
+    timing is impossible inside a capture)."""
     build.load("dscim_counts")
     ta, tb = point_tables(*points, k, device)
     with torch.cuda.stream(stream):
-        x = torch.zeros((M, 128), dtype=torch.int8, device=device)
-        w = torch.zeros((128, 128), dtype=torch.int8, device=device)
-        launch_counts(x, w, ta, tb, k, _PREPARE)
+        for K, N in shapes:
+            x = torch.zeros((M, K), dtype=torch.int8, device=device)
+            w = torch.zeros((K, N), dtype=torch.int8, device=device)
+            tuned_launch(x, w, ta, tb, k, _PREPARE, tune)
 
 
 def dscim_counts_plain(x_i8, w_i8, cu, lu, cv, lv, k: int) -> torch.Tensor:
@@ -174,11 +178,12 @@ def dscim_counts_plain(x_i8, w_i8, cu, lu, cv, lv, k: int) -> torch.Tensor:
     return out
 
 
-def launch_counts(x, w, ta, tb, k: int, counter: build.LaunchCounter
-                  ) -> torch.Tensor:
+def launch_counts(x, w, ta, tb, k: int, counter: build.LaunchCounter,
+                  tile: int = -1) -> torch.Tensor:
     """Launch ``csrc/dscim_counts.cu`` on contiguous int8 x (M, K), w (K, N)
-    and int32 (G, S, W) tables on one CUDA device; counts the launch on
-    ``counter``.  Returns (M, N) f32 counts."""
+    and int32 (G, S, W) tables on one CUDA device at block ``tile``
+    (kernels/autotune.py ``MVM_TILES``; -1 the kernel's rule); counts the
+    launch on ``counter``.  Returns (M, N) f32 counts."""
     M, K = x.shape
     N = w.shape[1]
     G, S, W = ta.shape
@@ -199,20 +204,33 @@ def launch_counts(x, w, ta, tb, k: int, counter: build.LaunchCounter
     fn = build.bind("dscim_counts", "dscim_counts_launch", ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), w.data_ptr(), ta.data_ptr(), tb.data_ptr(),
-            out.data_ptr(), M, K, N, k, G, S, W, stream)
+            out.data_ptr(), M, K, N, k, G, S, W, tile, stream)
     if rc == -1:
         raise ValueError(f"dscim_counts kernel does not take k={k}, W={W} "
-                         "(its tables past shared memory)")
+                         f"at tile {tile} (its tables past shared memory)")
     if rc != 0:
         raise RuntimeError(f"dscim_counts kernel launch failed: error {rc}")
     counter.count += 1
     return out
 
 
-def dscim_counts(x_i8, w_i8, cu, lu, cv, lv, *, k: int, length: int
-                 ) -> torch.Tensor:
+def tuned_launch(x, w, ta, tb, k: int, counter: build.LaunchCounter,
+                 tune: bool) -> torch.Tensor:
+    """``launch_counts`` at the tuner's winner under ``tune`` (a sweep
+    where no cache holds the shape), else at the rule."""
+    tile = -1
+    if tune:
+        from . import autotune
+        tile = autotune.mvm_tile_index(autotune.mvm_tiles(x, w, ta, tb, k))
+    return launch_counts(x, w, ta, tb, k, counter, tile)
+
+
+def dscim_counts(x_i8, w_i8, cu, lu, cv, lv, *, k: int, length: int,
+                 tune: bool = False) -> torch.Tensor:
     """OR-accumulated counts (M, N) f32 of int8 x (M, K) and w (K, N) over
-    the L folded points (cu, lu, cv, lv), each (L,) int32."""
+    the L folded points (cu, lu, cv, lv), each (L,) int32.  ``tune``: on
+    the card, the tile autotuner's winner (the same counts); on the CPU
+    a no-op."""
     if any(t.numel() != length for t in (cu, lu, cv, lv)):
         raise ValueError(f"point coordinates must have length {length}")
     x = x_i8.to(torch.int8)
@@ -222,4 +240,5 @@ def dscim_counts(x_i8, w_i8, cu, lu, cv, lv, *, k: int, length: int
     if x.device.type != "cuda":
         raise ValueError(f"no dscim_counts route for device {x.device}")
     ta, tb = point_tables(cu, lu, cv, lv, k, x.device)
-    return launch_counts(x.contiguous(), w.contiguous(), ta, tb, k, LAUNCHES)
+    return tuned_launch(x.contiguous(), w.contiguous(), ta, tb, k, LAUNCHES,
+                        tune)

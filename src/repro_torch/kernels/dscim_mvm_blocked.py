@@ -26,7 +26,7 @@ import torch
 from ..core.macro import DSCIMConfig
 from . import build
 from .dscim_mvm import (BIT_BUDGET, check_exact_matmuls,
-                        count_mask_tables, launch_counts, points_by_block)
+                        count_mask_tables, points_by_block, tuned_launch)
 from .ops import fold_constants
 
 __all__ = ["block_point_tables", "count_tables", "dscim_counts_blocked",
@@ -79,9 +79,12 @@ def dscim_counts_blocked_plain(x_i8, w_i8, cfg: DSCIMConfig) -> torch.Tensor:
     return out
 
 
-def dscim_counts_blocked(x_i8, w_i8, cfg: DSCIMConfig) -> torch.Tensor:
+def dscim_counts_blocked(x_i8, w_i8, cfg: DSCIMConfig, *,
+                         tune: bool = False) -> torch.Tensor:
     """OR-accumulated counts (M, N) f32 of int8 x (M, K) and w (K, N) over
-    each row's own block points (row h -> block h mod G)."""
+    each row's own block points (row h -> block h mod G).  ``tune``: on
+    the card, the tile autotuner's winner (the same counts); on the CPU a
+    no-op."""
     x = x_i8.to(torch.int8)
     w = w_i8.to(torch.int8)
     if x.device.type == "cpu":
@@ -90,5 +93,5 @@ def dscim_counts_blocked(x_i8, w_i8, cfg: DSCIMConfig) -> torch.Tensor:
         raise ValueError(
             f"no dscim_counts_blocked route for device {x.device}")
     ta, tb = count_tables(cfg, x.device)
-    return launch_counts(x.contiguous(), w.contiguous(), ta, tb, cfg.k,
-                         LAUNCHES)
+    return tuned_launch(x.contiguous(), w.contiguous(), ta, tb, cfg.k,
+                        LAUNCHES, tune)

@@ -5,8 +5,8 @@ product it is compared against, and the folded point constants.
 Not ported: ``ON_TPU`` and ``default_bits`` (the TPU dispatch and the
 TPU's bf16 bit-operand policy have no counterpart here: a wrapper's route
 follows its tensors' device), and the Pallas tile arguments ``bm``,
-``bn``, ``bk``, ``bl``, ``interpret`` and ``tune`` (the CUDA kernels pick
-their own tiles; a Hopper autotuner is ROADMAP A16).  Nor is the
+``bn``, ``bk``, ``bl`` and ``interpret`` (the count kernel's tile is
+``tune``'s: kernels/autotune.py picks it on the card).  Nor is the
 reference's K padding: it pads K with x = -128, w = 0 to its tile and then
 cancels what the pad rows add to the correction terms; here nothing is
 padded and the estimate is the unpadded formula of ``ref.py
@@ -68,12 +68,14 @@ def mvm_from_counts(x_i8, w_i8, counts, cfg: DSCIMConfig) -> torch.Tensor:
     return out
 
 
-def dscim_mvm(x_i8, w_i8, cfg: DSCIMConfig) -> torch.Tensor:
+def dscim_mvm(x_i8, w_i8, cfg: DSCIMConfig, *, tune: bool = False
+              ) -> torch.Tensor:
     """DS-CIM psum estimate (M, N) f32 of int8 x (M, K) @ w (K, N), with
     the OR counts over all L points from ``dscim_mvm.dscim_counts`` (the
-    count kernel on CUDA tensors)."""
+    count kernel on CUDA tensors; ``tune``: at the tile autotuner's
+    winner, the same counts)."""
     x = x_i8.to(torch.int8)
     w = w_i8.to(torch.int8)
     counts = dscim_counts(x, w, *fold_constants(cfg), k=cfg.k,
-                          length=cfg.length)
+                          length=cfg.length, tune=tune)
     return mvm_from_counts(x, w, counts, cfg)

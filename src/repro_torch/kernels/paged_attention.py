@@ -19,16 +19,40 @@ gathered.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
 from . import build
 
 __all__ = ["paged_attention_decode", "paged_attention_decode_sharded",
-           "paged_read_plain", "prepare_capture", "LAUNCHES", "NEG_INF"]
+           "paged_read_plain", "prepare_capture", "use_paged_kernel",
+           "LAUNCHES", "NEG_INF"]
 
 NEG_INF = -1e30
 LAUNCHES = build.LaunchCounter("paged_attention_decode")
+_ENV_FLAG = "REPRO_PAGED_ATTN"
+
+
+def use_paged_kernel(paged_attn: str = "auto") -> bool:
+    """The int8 paged read a decode takes: the kernel route
+    (``paged_attention_decode``: the CUDA kernel on the card, its plain
+    version on the CPU) or, False, ``paged_read_plain`` on any device.
+    ``paged_attn``: 'kernel' | 'jnp' pin it (the serving loops' option,
+    ``ArchConfig.paged_attn``); 'auto' follows ``REPRO_PAGED_ATTN=
+    kernel|jnp`` where set, else takes the kernel, for every DS-CIM mode.
+    (The reference's 'auto' takes its jnp gather for the modes other
+    than 'kernel'; the port runs no plain version on a card unless the
+    caller asks for it.)"""
+    if paged_attn == "kernel":
+        return True
+    if paged_attn == "jnp":
+        return False
+    if paged_attn != "auto":
+        raise ValueError(f"paged_attn must be 'auto', 'kernel' or 'jnp', "
+                         f"got {paged_attn!r}")
+    env = os.environ.get(_ENV_FLAG, "").strip().lower()
+    return env not in ("jnp", "gather", "0")
 
 
 def paged_read_plain(q, k_pages, v_pages, k_scale, v_scale, k_tail, v_tail,
@@ -73,11 +97,33 @@ def paged_read_plain(q, k_pages, v_pages, k_scale, v_scale, k_tail, v_tail,
 
 # paged_attention_launch(q, k_pages, v_pages, k_scale, v_scale, k_tail,
 #                        v_tail, page_table, pos, out, part, counters, B, KV,
-#                        R, HD, ps, MP, vec16, scale, stream)
-ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+#                        R, HD, ps, MP, vec16, gh, scale, stream)
+ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
             + [ctypes.c_float, ctypes.c_void_p])
 def _launch_kernel(q, k_pages, v_pages, k_scale, v_scale, k_tail, v_tail,
-                   page_table, pos) -> torch.Tensor:
+                   page_table, pos, tile=None, counter=None) -> torch.Tensor:
+    """The CUDA kernel on one device.  ``tile``: (KV heads a block, q rows
+    padded to) from kernels/autotune.py, or None for the rule (one head a
+    block, the rows unpadded); the padded rows are zeros, and each row's
+    walk is its own, so the rows kept are the rule's bits.  The launch
+    counts on ``counter`` where given (the tuner's sweeps), else on
+    ``LAUNCHES``."""
+    gh, qp = tile if tile is not None else (1, q.shape[2])
+    R = q.shape[2]
+    if qp > R:
+        q = torch.nn.functional.pad(q, (0, 0, 0, qp - R)).contiguous()
+    B, KV, _, HD = q.shape
+    out = _launch(q, k_pages, v_pages, k_scale, v_scale, k_tail, v_tail,
+                  page_table, pos, gh)
+    if counter is not None:
+        counter.count += 1
+    else:
+        LAUNCHES.count += 1
+    return out[:, :, :R] if qp > R else out
+
+
+def _launch(q, k_pages, v_pages, k_scale, v_scale, k_tail, v_tail,
+            page_table, pos, gh: int) -> torch.Tensor:
     B, KV, R, HD = q.shape
     P, ps = k_pages.shape[:2]
     MP = page_table.shape[1]
@@ -110,19 +156,33 @@ def _launch_kernel(q, k_pages, v_pages, k_scale, v_scale, k_tail, v_tail,
             k_scale.data_ptr(), v_scale.data_ptr(), k_tail.data_ptr(),
             v_tail.data_ptr(), page_table.data_ptr(), pos.data_ptr(),
             out.data_ptr(), part.data_ptr(), counters.data_ptr(), B, KV, R,
-            HD, ps, MP, vec16, HD ** -0.5, stream)
+            HD, ps, MP, vec16, gh, HD ** -0.5, stream)
+    if rc == -1:
+        raise ValueError(f"paged attention kernel does not take {gh} kv "
+                         f"heads a block of {KV}, or these shapes")
     if rc != 0:
         raise RuntimeError(f"paged attention kernel launch failed: error {rc}")
-    LAUNCHES.count += 1
     return out
 
 
+def _tile(B: int, KV: int, R: int, HD: int, ps: int, device, tune: bool):
+    """The tuner's (gh, qp) under ``tune`` (a sweep where no cache holds
+    the shape), else None (the rule)."""
+    if not tune:
+        return None
+    from . import autotune
+    return autotune.paged_attn_tiles(B, KV, R, HD, ps, device)
+
+
 def prepare_capture(B: int, KV: int, R: int, HD: int, ps: int, MP: int,
-                    device, stream) -> None:
+                    device, stream, tune: bool = False) -> None:
     """Everything the wrapper makes at first use, made before a CUDA graph
     capture on ``stream`` of calls at these shapes: the library built and
-    bound, the stream's tile counters, and one launch on a zero pool of
-    the same layout (module load, the shared-memory attribute)."""
+    bound, under ``tune`` the tuner's winner (swept here where no cache
+    holds it: timing is impossible inside a capture), the stream's tile
+    counters, and one launch on a zero pool of the same layout (module
+    load, the shared-memory attribute)."""
+    tile = _tile(B, KV, R, HD, ps, device, tune)
     build.tile_counters(device, stream.cuda_stream, B * KV)
     with torch.cuda.stream(stream):
         z = dict(dtype=torch.float32, device=device)
@@ -135,48 +195,59 @@ def prepare_capture(B: int, KV: int, R: int, HD: int, ps: int, MP: int,
                              device=device).reshape(B, MP)
         pos = torch.zeros((B,), dtype=torch.int32, device=device)
         _launch_kernel(torch.zeros((B, KV, R, HD), **z), pages, pages,
-                       scale, scale, tail, tail, table, pos)
+                       scale, scale, tail, tail, table, pos, tile)
 
 
 def paged_attention_decode(q, k_pages, v_pages, k_scale, v_scale,
-                           k_tail, v_tail, page_table, pos) -> torch.Tensor:
+                           k_tail, v_tail, page_table, pos, *,
+                           tune: bool = False) -> torch.Tensor:
     """Single-launch paged decode attention.
 
     q (B, KV, n_rep, HD) f32, the post-RoPE query in kv-major head layout;
     k/v_pages (P, ps, KV, HD) int8; k/v_scale (P, KV) f32; k/v_tail
     (B, ps, KV, HD) bf16, already holding this step's token; page_table
     (B, MP) int32 of physical page ids; pos (B,) int32.  Returns the
-    attended (B, KV, n_rep, HD) f32."""
+    attended (B, KV, n_rep, HD) f32.  ``tune``: on the card, the tile
+    autotuner's (gh, qp) (bitwise the untuned output); on the CPU a
+    no-op."""
     args = (q, k_pages, v_pages, k_scale, v_scale, k_tail, v_tail,
             page_table, pos)
     if q.device.type == "cpu":
         return paged_read_plain(*args)
     if q.device.type == "cuda":
-        return _launch_kernel(*args)
+        B, KV, R, HD = q.shape
+        return _launch_kernel(*args, _tile(B, KV, R, HD, k_pages.shape[1],
+                                           q.device, tune))
     raise ValueError(f"no paged attention route for device {q.device}")
 
 
 def paged_attention_decode_sharded(q, k_pages, v_pages, k_scale, v_scale,
                                    k_tail, v_tail, page_table, pos, *, par,
-                                   dp_axes: tuple = ()) -> torch.Tensor:
+                                   dp_axes: tuple = (), tune: bool = False,
+                                   plain: bool = False) -> torch.Tensor:
     """The paged read placed on a mesh (the reference's
     ``paged_attention_decode_sharded``): the batch-carried operands (q,
     the tails, the page table, pos) are cut to this rank's slots over
     ``dp_axes`` when B divides, the page pool and its scales are read
     whole on every rank (the allocator may grant a slot any physical
     page), and the output is gathered over the DP axes.  Each slot's page
-    walk is its own: the result is bitwise the call on one device."""
+    walk is its own: the result is bitwise the call on one device.
+    ``plain``: each rank reads through ``paged_read_plain`` (the
+    ``paged_attn='jnp'`` pin)."""
     b = None
     if dp_axes:
         i, n = par.index(dp_axes)
         if q.shape[0] % n == 0:
             b = tuple(dp_axes)
+    def read(*args):
+        if plain:
+            return paged_read_plain(*args)
+        return paged_attention_decode(*args, tune=tune)
     if b is None:
-        return paged_attention_decode(q, k_pages, v_pages, k_scale, v_scale,
-                                      k_tail, v_tail, page_table, pos)
+        return read(q, k_pages, v_pages, k_scale, v_scale, k_tail, v_tail,
+                    page_table, pos)
     rows = q.shape[0] // n
     cut = slice(i * rows, (i + 1) * rows)
-    out = paged_attention_decode(q[cut], k_pages, v_pages, k_scale, v_scale,
-                                 k_tail[cut], v_tail[cut], page_table[cut],
-                                 pos[cut])
+    out = read(q[cut], k_pages, v_pages, k_scale, v_scale, k_tail[cut],
+               v_tail[cut], page_table[cut], pos[cut])
     return par.all_gather(out, b, 0)

@@ -26,7 +26,7 @@ from ..parallel import ParallelCtx
 
 __all__ = ["init_distributed", "make_mesh", "make_production_mesh",
            "make_debug_mesh", "make_parallel_ctx", "parallel_ctx_from_spec",
-           "parse_mesh_spec"]
+           "parse_mesh_spec", "PRODUCTION_MESHES"]
 
 
 def init_distributed(device=None) -> torch.device:
@@ -77,12 +77,15 @@ def make_mesh(shape, axes):
     return init_device_mesh(_device_type(), shape, mesh_dim_names=axes)
 
 
+# the reference's production meshes: (shape, axes) by ``multi_pod``
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
 def make_production_mesh(*, multi_pod: bool = False):
     """The reference's production mesh: (data=16, model=16), or with
     ``multi_pod`` (pod=2, data=16, model=16)."""
-    if multi_pod:
-        return make_mesh((2, 16, 16), ("pod", "data", "model"))
-    return make_mesh((16, 16), ("data", "model"))
+    return make_mesh(*PRODUCTION_MESHES[multi_pod])
 
 
 def make_debug_mesh(data: int = 2, model: int = 2, pod: int = 0):
@@ -93,11 +96,12 @@ def make_debug_mesh(data: int = 2, model: int = 2, pod: int = 0):
     return make_mesh((data, model), ("data", "model"))
 
 
-def make_parallel_ctx(mesh) -> ParallelCtx:
+def make_parallel_ctx(mesh, sp: bool = False) -> ParallelCtx:
     """The context of ``mesh``: its 'pod' and 'data' axes are DP, 'model'
-    is TP."""
+    is TP; ``sp``: the sequence-parallel residual stream
+    (``ParallelCtx.sp``, which only the dry run and the profile set)."""
     dp_axes = tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
-    return ParallelCtx(mesh=mesh, dp_axes=dp_axes, tp_axis="model")
+    return ParallelCtx(mesh=mesh, dp_axes=dp_axes, tp_axis="model", sp=sp)
 
 
 def parse_mesh_spec(spec: str) -> dict:

@@ -57,11 +57,12 @@ import numpy as np
 import torch
 
 from ..configs import TOKEN_ARCHS, get_arch
+from ..configs.base import PAGED_ATTN
 from ..core.qweights import map_params
 from ..device import resolve_device
 from ..models import lm
 from ..models.registry import get_model
-from .steps import (_check_kv, clear_graphs, make_generate_fn,
+from .steps import (_check_kv, clear_graphs, make_generate_fn, pin_paged_attn,
                     prepare_serving_params)
 
 __all__ = ["serve_batch", "serve_continuous", "prepare_params",
@@ -114,7 +115,8 @@ def serve_batch(cfg, params, prompts, n_tokens: int, *,
                 scan: bool = True, sample: str = "greedy", rng_seed: int = 0,
                 device=None, timings: dict | None = None,
                 return_cache: bool = False, spec: str | None = None,
-                spec_stats: bool = False, par=None, prepare: bool = True):
+                spec_stats: bool = False, par=None, prepare: bool = True,
+                paged_attn: str = "auto"):
     """prompts (B, S) int -> generated (B, n_tokens) int32 numpy, logits
     list (the per-step trace under ``trace_logits``, else [prefill
     logits]), as numpy f32.
@@ -147,7 +149,14 @@ def serve_batch(cfg, params, prompts, n_tokens: int, *,
     by ``prepare_params(..., par)`` and every rank returns the tokens and
     logits one device would, the same on every rank.  ``prepare=False``:
     the weights stay float and are quantized at every call
-    (``prepare_params``), bitwise the prepared path under f32 compute."""
+    (``prepare_params``), bitwise the prepared path under f32 compute.
+    ``paged_attn``: the ``kv='int8'`` read, 'kernel' (the paged-attention
+    kernel route), 'jnp' (the plain read ``paged_read_plain``, also on
+    the card: the A/B leg) or 'auto' (``REPRO_PAGED_ATTN``, else the
+    kernel); a bad value raises ``ValueError``.  Under
+    ``REPRO_DSCIM_TUNE`` the kernels run at the tile autotuner's winners
+    (kernels/autotune.py), bitwise the untuned tokens."""
+    cfg = pin_paged_attn(cfg, paged_attn)
     _check_kv(cfg, kv)
     dev = resolve_device(device)
 
@@ -203,7 +212,8 @@ def serve_continuous(cfg, params, prompts, n_tokens: int, *,
                      injector=None, snapshot_every: int = 0,
                      max_replays: int = 3, watchdog=None,
                      integrity: str = "off", prefix_cache=False,
-                     device=None, log=print, par=None):
+                     device=None, log=print, par=None,
+                     paged_attn: str = "auto"):
     """Continuous-batching scheduler: serve a queue of R requests through
     ``slots`` persistent decode slots.
 
@@ -294,8 +304,10 @@ def serve_continuous(cfg, params, prompts, n_tokens: int, *,
     by the first rank's clock, a ``watchdog``'s hang on any rank agreed
     over the mesh; ``integrity`` digests each rank's pieces and pages and
     agrees the findings, named as one device names them; an injector's
-    weight flip hits the rank whose piece holds its element."""
+    weight flip hits the rank whose piece holds its element.  ``paged_attn``
+    pins the int8 read, as ``serve_batch``'s."""
     from ..runtime.serving import serve_continuous_ft
+    cfg = pin_paged_attn(cfg, paged_attn)
     _check_kv(cfg, kv)
     dev = resolve_device(device)
     params = prepare_params(cfg, params, dev, par)
@@ -383,6 +395,17 @@ def main(argv=None):
                     help="KV cache layout: dense float or block-paged int8")
     ap.add_argument("--page-size", type=int, default=8,
                     help="tokens per KV page for --kv int8")
+    ap.add_argument("--paged-attn", choices=PAGED_ATTN,
+                    default="auto",
+                    help="--kv int8 read path: the paged-attention kernel "
+                         "route or the plain read (also on the card: the "
+                         "A/B leg); auto = REPRO_PAGED_ATTN, else the "
+                         "kernel")
+    ap.add_argument("--tune", action="store_true",
+                    help="take the kernels' tile autotuner winners "
+                         "(kernels/autotune.py; the packaged cache makes it "
+                         "a lookup at the main path's decode shapes; the "
+                         "same tokens)")
     ap.add_argument("--eos", type=int, default=None, metavar="ID",
                     help="EOS token id: stop once every row has finished")
     ap.add_argument("--host-loop", action="store_true",
@@ -495,6 +518,9 @@ def main(argv=None):
 
 def _run(args, dev, par) -> int:
     """``main`` after the device (and under ``--mesh`` the mesh) is set."""
+    if args.tune:
+        import os
+        os.environ["REPRO_DSCIM_TUNE"] = "1"
     if args.chaos or args.integrity_drill:
         from ..runtime import serving
         drill = serving.chaos_drill if args.chaos \
@@ -550,7 +576,8 @@ def _run(args, dev, par) -> int:
                 device=dev, spec=args.spec if tag != "off" else None,
                 prefix_cache=args.prefix_cache, injector=injector,
                 snapshot_every=1 if injector is not None else 0,
-                integrity=args.integrity, par=par)
+                integrity=args.integrity, par=par,
+                paged_attn=args.paged_attn)
             pages = stats["pages"]
             pf = stats["prefix"]
             ig = stats["integrity"]
@@ -591,7 +618,8 @@ def _run(args, dev, par) -> int:
             c, params, prompts, args.tokens, eos_id=args.eos, kv=args.kv,
             page_size=args.page_size, scan=not args.host_loop,
             sample=sample, device=dev, timings=t, spec=spec,
-            spec_stats=True, par=par, prepare=not args.no_prepare)
+            spec_stats=True, par=par, prepare=not args.no_prepare,
+            paged_attn=args.paged_attn)
         useful = _useful_tokens(toks, args.eos)
         results[tag] = (toks, logits)
         line = (f"[serve] dscim={tag} kv={args.kv} {name} ({mode}): "

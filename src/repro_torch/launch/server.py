@@ -203,6 +203,7 @@ def main(argv=None):
     import dataclasses
 
     from ..configs import CONTINUOUS_ARCHS, get_arch
+    from ..configs.base import PAGED_ATTN
     from ..device import resolve_device
     from ..models import lm
 
@@ -225,6 +226,9 @@ def main(argv=None):
     ap.add_argument("--max-new-cap", type=int, default=64)
     ap.add_argument("--max-queue", type=int, default=64)
     ap.add_argument("--dscim", default="off")
+    ap.add_argument("--paged-attn", choices=PAGED_ATTN,
+                    default="auto",
+                    help="the int8 read path (launch/serve.py --paged-attn)")
     ap.add_argument("--snapshot-every", type=int, default=0, metavar="N",
                     help="failover snapshot cadence in segments (0 = off)")
     ap.add_argument("--device", default=None,
@@ -249,7 +253,8 @@ def main(argv=None):
                         max_prompt=args.max_prompt,
                         max_new_cap=args.max_new_cap,
                         max_queue=args.max_queue,
-                        snapshot_every=args.snapshot_every, device=dev)
+                        snapshot_every=args.snapshot_every, device=dev,
+                        paged_attn=args.paged_attn)
         front = HttpFrontend(router, args.host, args.port)
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGTERM, signal.SIGINT):

@@ -71,6 +71,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core import counter_rng, kvcache
+from ..core.dscim_layer import _env_tune
 from ..core.qweights import (QuantizedLinearWeight, golden_weight_copy,
                              map_params, prepare_dscim_params,
                              split_dscim_mode)
@@ -84,7 +85,7 @@ __all__ = ["make_train_step", "make_eval_step", "make_prefill_step",
            "make_decode_step", "prepare_serving_params", "make_generate_fn",
            "init_serve_state", "make_admit_fn", "make_segment_fn",
            "make_extend_fn", "make_probe_fn", "clear_graphs", "PAD_ID",
-           "AUX_WEIGHT"]
+           "AUX_WEIGHT", "pin_paged_attn"]
 
 PAD_ID = 0          # token written for finished slots
 # the families with an attention KV cache: every serving loop takes them;
@@ -174,8 +175,6 @@ def make_train_step(cfg: ArchConfig, opt, device=None, par=None):
 def _mesh_train_step(cfg: ArchConfig, opt, model, dev, par):
     """``make_train_step``'s step under the mesh ``par`` (ZeRO-3; the MoE
     experts with expert parallelism)."""
-    import torch.distributed as dist
-
     from ..parallel import Sharded
     from .sharding import shard_for
     view = par.train_view
@@ -186,7 +185,7 @@ def _mesh_train_step(cfg: ArchConfig, opt, model, dev, par):
         """``t`` (a fresh gradient) averaged over the DP axes in place: no
         second copy of the gradients at the step's peak."""
         for a in par.dp_axes:
-            dist.all_reduce(t, group=par.group(a))
+            par._all_reduce_(t, a)
         return t.div_(par.dp_size)
 
     def local(batch):
@@ -374,6 +373,29 @@ def _check_kv(cfg: ArchConfig, kv: str):
         raise ValueError(f"{cfg.name} takes embeddings (a stub frontend), "
                          "and the serving loops take token prompts: drive "
                          "models/lm.py prefill(embeds=) / decode(embed=)")
+
+
+def _paged_kernel_flag(paged_attn: str):
+    """'auto' | 'kernel' | 'jnp' -> None (follow ``REPRO_PAGED_ATTN``,
+    else the kernel) | True | False: the int8 read path
+    (kernels/paged_attention.py ``use_paged_kernel``); anything else
+    raises ``ValueError``."""
+    try:
+        return {"auto": None, "kernel": True, "jnp": False}[paged_attn]
+    except KeyError:
+        raise ValueError(f"paged_attn must be 'auto', 'kernel' or 'jnp', "
+                         f"got {paged_attn!r}") from None
+
+
+def pin_paged_attn(cfg: ArchConfig, paged_attn: str) -> ArchConfig:
+    """``cfg`` with its int8 read pinned (``ArchConfig.paged_attn``): the
+    pin is part of the config, so of every step builder's and captured
+    graph's key, and an in-process A/B never replays a graph captured
+    for the other read."""
+    _paged_kernel_flag(paged_attn)
+    if getattr(cfg, "paged_attn", "auto") == paged_attn:
+        return cfg
+    return dataclasses.replace(cfg, paged_attn=paged_attn)
 
 
 def _check_dscim(cfg: ArchConfig):
@@ -698,10 +720,13 @@ def _prepare_fn(st: dict, uses, par=None):
     rows and the verifier's at B and B*(k+1)).  Per estimator mode: the
     fused MVM for every prepared weight shape (``kernel``), the count
     kernel's tables (``bitmatmul``), the count LUT on the device
-    (``lut``); paged attention for an int8 cache, at B rows.  Under a
-    mesh (``par``) the prepared weights are the rank's pieces, and one
-    eager collective on every group of the mesh sets NCCL's communicators
-    up."""
+    (``lut``); paged attention for an int8 cache, at B rows, unless the
+    config pins the plain read (``paged_attn='jnp'``).  Under
+    ``REPRO_DSCIM_TUNE`` (or ``DSCIMLinear.tune``) each kernel's tile
+    autotuner runs here, before the capture (a sweep only where no cache
+    holds the shape).  Under a mesh (``par``) the prepared weights are
+    the rank's pieces, and one eager collective on every group of the
+    mesh sets NCCL's communicators up."""
     from ..kernels import dscim_fused, dscim_mvm, paged_attention
     from ..parallel import Sharded
 
@@ -722,23 +747,30 @@ def _prepare_fn(st: dict, uses, par=None):
             lin = lm._lin(cfg)
             if lin is None:
                 continue
+            tune = lin.tune or _env_tune()
             if lin.mode == "lut":
                 lin.macro.lut_table(dev)
             elif lin.mode == "bitmatmul":
-                dscim_mvm.prepare_capture(lin.macro.folded, lin.cfg.k, M,
-                                          dev, stream)
+                ws = first or _per_call_weights(cfg, st["params"],
+                                                lin.group_k, par)
+                dscim_mvm.prepare_capture(
+                    lin.macro.folded, lin.cfg.k, M, dev, stream,
+                    shapes=sorted({(w.g, w.n) for w in ws}) if tune
+                    else ((128, 128),), tune=tune)
             elif lin.mode == "kernel":
                 ws = first or _per_call_weights(cfg, st["params"],
                                                 lin.group_k, par)
-                dscim_fused.prepare_capture(ws, M, lin.cfg, stream)
+                dscim_fused.prepare_capture(ws, M, lin.cfg, stream, tune)
         cache = st["cache"]
-        if "k_pages" in cache:
-            cfg = uses[0][0]
+        cfg = uses[0][0]
+        if "k_pages" in cache and paged_attention.use_paged_kernel(
+                cfg.paged_attn):
             ps, KV, HD = cache["k_pages"].shape[2:]
             # n_rep of q's padded heads, as the live call derives it
             paged_attention.prepare_capture(
                 st["tok"].shape[0], KV, cfg.q_heads // KV, HD, ps,
-                cache["page_table"].shape[1], cache["pos"].device, stream)
+                cache["page_table"].shape[1], cache["pos"].device, stream,
+                _env_tune())
 
     return prepare
 
@@ -938,9 +970,12 @@ class _GenerateRunner:
 
 @functools.lru_cache(maxsize=8)
 def _generate_runner(cfg, B, S, n_tokens, kv, page_size, eos_id, sample,
-                     trace_logits, device, spec, par=None):
+                     trace_logits, device, spec, par=None, *, tune=False):
     """The one-shot runner of these options, made once.  Callers pass
-    ``par`` only under a mesh, so a runner of one device has one key."""
+    ``par`` only under a mesh and ``tune`` only when set, so a runner of
+    one device has one key.  ``tune`` (``REPRO_DSCIM_TUNE`` when the
+    request came) keys the runner only: its capture preparation runs the
+    tuner, and a graph captured at other tiles is not replayed for it."""
     return _GenerateRunner(cfg, B, S, n_tokens, kv, page_size, eos_id,
                            sample, trace_logits, device, spec, par)
 
@@ -998,6 +1033,8 @@ def make_generate_fn(cfg: ArchConfig, n_tokens: int = 16, *,
     replays it, other tensors capture it again (``clear_graphs`` frees
     the runners).
 
+    ``cfg.paged_attn`` pins the int8 read (``pin_paged_attn``).
+
     ``par``: generation under that mesh (``params`` placed by
     ``prepare_serving_params(..., par)``); every rank returns the same
     tokens.  Over gloo on CUDA the step runs eagerly
@@ -1019,7 +1056,8 @@ def make_generate_fn(cfg: ArchConfig, n_tokens: int = 16, *,
         runner = _generate_runner(cfg, B, S, n_tokens, kv, page_size,
                                   eos_id, sample, trace_logits,
                                   tokens.device, spec,
-                                  *(() if par is None else (par,)))
+                                  *(() if par is None else (par,)),
+                                  **({"tune": True} if _env_tune() else {}))
         captures = runner.step.captures
         why = graph_ok(tokens.device, par)
         graph = scan and why is None

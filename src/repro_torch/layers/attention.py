@@ -15,8 +15,10 @@ from __future__ import annotations
 import torch
 
 from ..core.kvcache import quantize_page
+from ..core.dscim_layer import _env_tune
 from ..kernels.paged_attention import (NEG_INF, paged_attention_decode,
-                                       paged_attention_decode_sharded)
+                                       paged_attention_decode_sharded,
+                                       paged_read_plain, use_paged_kernel)
 from ..parallel import is_prepared
 from .norms import qk_norm
 from .rope import apply_rope, rope_angles
@@ -248,13 +250,17 @@ def flush_plan(page_table, pos, ps: int, done=None):
     return phys, src.any(1), src.to(torch.int32).argmax(1)
 
 
-def _paged_step(view, q, k, v, pos, plan, done=None, par=None):
+def _paged_step(view, q, k, v, pos, plan, done=None, par=None,
+                paged_attn: str = "auto"):
     """One position of paged decode attention, in place on ``view``:
 
     1. the new token k/v (B,1,KV,HD) is written to each slot's tail at
        ``pos % ps``;
     2. the page walk reads pages + tail (``paged_attention_decode``: the
-       CUDA kernel on the card, its plain version on the CPU);
+       CUDA kernel on the card, its plain version on the CPU; under
+       ``REPRO_DSCIM_TUNE`` at the tile autotuner's winner), or where
+       ``paged_attn`` pins 'jnp' (``use_paged_kernel``) the plain read
+       ``paged_read_plain`` on any device;
     3. a tail that just filled is quantized once and flushed to its
        physical page (``plan``: ``flush_plan`` at ``pos``; done slots
        neither write nor flush, and a done slot's stale table row never
@@ -282,11 +288,15 @@ def _paged_step(view, q, k, v, pos, plan, done=None, par=None):
     qf = q[:, 0].to(torch.float32).reshape(B, KV, n_rep, HD).contiguous()
     args = (qf, k_pages, v_pages, k_scale, v_scale, k_tail, v_tail,
             view["page_table"], pos)
-    if par is None:
-        out = paged_attention_decode(*args)
+    kernel = use_paged_kernel(paged_attn)
+    if par is not None:
+        out = paged_attention_decode_sharded(
+            *args, par=par, dp_axes=par.dp_axes, tune=_env_tune(),
+            plain=not kernel)
+    elif kernel:
+        out = paged_attention_decode(*args, tune=_env_tune())
     else:
-        out = paged_attention_decode_sharded(*args, par=par,
-                                             dp_axes=par.dp_axes)
+        out = paged_read_plain(*args)
 
     phys, hit, frm = plan
     for tail, pages, scales in ((k_tail, k_pages, k_scale),
@@ -314,7 +324,8 @@ def decode_attention_paged(params, x, view, cfg, linear=None, salt=None,
     plan = view["flush"] if "flush" in view \
         else flush_plan(view["page_table"], pos, view["k_pages"].shape[1],
                         done)
-    out = _paged_step(view, q, k, v, pos, plan, done, par)
+    out = _paged_step(view, q, k, v, pos, plan, done, par,
+                      getattr(cfg, "paged_attn", "auto"))
     return _mm(out.to(x.dtype), params["wo"], linear, _site(salt, 7))
 
 
@@ -353,7 +364,8 @@ def decode_attention_paged_multi(params, x, view, cfg, linear=None,
         qt, kt = _qk_rope(params, at(q, t), at(k, t), pt[:, None],
                           cfg.head_dim, cfg.rope_theta, cfg.qk_norm)
         vt = at(v, t)
-        outs.append(_paged_step(view, qt, kt, vt, pt, plan, done, par))
+        outs.append(_paged_step(view, qt, kt, vt, pt, plan, done, par,
+                                getattr(cfg, "paged_attn", "auto")))
         wk.append(kt.to(view["k_tail"].dtype))
         wv.append(vt.to(view["v_tail"].dtype))
     out = torch.cat(outs, dim=1).to(x.dtype)

@@ -377,12 +377,26 @@ def embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.embedding(tokens, params["embed"])
 
 
-def _train_layer(cfg: ArchConfig, li: int, par, positions, x, lp):
+def _sp_hold(x, par, sp: bool):
+    """The residual stream between blocks: under ``sp`` this rank's
+    sequence slice over ``model`` (``ParallelCtx.sp``), else ``x``."""
+    return par.split(x, par.tp_axis, 1) if sp else x
+
+
+def _sp_whole(x, par, sp: bool):
+    """The whole sequence a layer needs, from ``_sp_hold``'s slice."""
+    return par.all_gather(x, par.tp_axis, 1) if sp else x
+
+
+def _train_layer(cfg: ArchConfig, li: int, par, sp: bool, positions, x,
+                 lp):
     """Layer ``li`` of ``forward`` (the reference's ``_block_apply``
     without a cache): (x, the layer's MoE aux, None for a dense config).
     The layer's weights are cast to the compute dtype here, inside the
     rematerialized body, as the reference casts them.  ``par``: the MoE
-    block with expert parallelism."""
+    block with expert parallelism; ``sp``: x comes and goes as this
+    rank's sequence slice (``_sp_hold``), gathered whole here."""
+    x = _sp_whole(x, par, sp)
     lp = _cast(lp, x.dtype)
     h, _ = attention(lp["attn"], _norm(cfg, x, lp["ln1"]), cfg, positions,
                      cfg.q_chunk, linear=_alin(cfg), salt=8 * li)
@@ -393,9 +407,9 @@ def _train_layer(cfg: ArchConfig, li: int, par, positions, x, lp):
             lp["moe"], hn, top_k=cfg.moe_topk,
             capacity_factor=cfg.moe_capacity, has_shared=cfg.moe_shared > 0,
             linear=_lin(cfg), salt=8 * li, par=par)
-        return x + h, aux
-    return x + mlp(lp["mlp"], hn, cfg.mlp_kind, linear=_lin(cfg),
-                   salt=8 * li), None
+        return _sp_hold(x + h, par, sp), aux
+    return _sp_hold(x + mlp(lp["mlp"], hn, cfg.mlp_kind, linear=_lin(cfg),
+                            salt=8 * li), par, sp), None
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor | None, *,
@@ -410,17 +424,22 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor | None, *,
     decode) are separate.  ``par``: the train step's view of its mesh
     (``ParallelCtx.train_view``): the leaves are whole but the MoE
     experts' (this rank's, ``Sharded`` over ``model``), which run with
-    expert parallelism."""
+    expert parallelism; under its ``sp`` the residual stream between
+    layers is this rank's sequence slice (``_sp_hold``), bitwise the
+    same logits."""
     dt = DTYPES[cfg.compute_dtype]
     x = _inputs(cfg, tokens, embeds, dt, lambda t: embed(params, t))
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    sp = par is not None and par.sp_on(x.shape[1])
+    x = _sp_hold(x, par, sp)
     for li, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
-        x, a = remat(functools.partial(_train_layer, cfg, li, par),
+        x, a = remat(functools.partial(_train_layer, cfg, li, par, sp),
                      positions, x, lp, on=cfg.remat)
         if a is not None:
             aux = aux + a
+    x = _sp_whole(x, par, sp)
     x = _norm(cfg, x, params["final_norm"])
     return _head(params, cfg, x), aux / cfg.n_layers
 
@@ -457,8 +476,11 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor | None,
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     ks, vs = [], []
+    sp = par is not None and par.sp_on(S)
     for li in range(cfg.n_layers):
         lp = _cast(_whole(_layer(params["layers"], li), par), dt)
+        # ``sp``: held as this rank's sequence slice between layers
+        x = _sp_whole(_sp_hold(x, par, sp), par, sp)
         h, (k, v) = attention(lp["attn"], _norm(cfg, x, lp["ln1"]), cfg,
                               positions, cfg.q_chunk, return_kv=True,
                               linear=_alin(cfg, par),

@@ -24,8 +24,8 @@ from ..device import resolve_device
 from ..layers.norms import rmsnorm
 from ..layers.remat import remat
 from ..layers.rwkv6 import LORA_R, init_rwkv6_state, rwkv6_block
-from .lm import (DTYPES, _cast, _embed_prompt, _full, _layer, _whole, embed,
-                 generator, unstack)
+from .lm import (DTYPES, _cast, _embed_prompt, _full, _layer, _sp_hold,
+                 _sp_whole, _whole, embed, generator, unstack)
 
 __all__ = ["init_params", "cast_layers", "forward", "prefill", "decode",
            "cache_specs"]
@@ -103,11 +103,14 @@ def cache_specs(cfg: ArchConfig, batch: int, seq: int, device="meta",
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _train_layer(cfg: ArchConfig, par, zero, x, lp):
+def _train_layer(cfg: ArchConfig, par, sp: bool, zero, x, lp):
     """One layer of ``forward`` from the zero state (its weights cast to
-    the compute dtype inside the rematerialized body)."""
-    return rwkv6_block(_cast(lp, x.dtype), x, zero, cfg.ssm_head_dim,
-                       cfg.scan_chunk, par)[0]
+    the compute dtype inside the rematerialized body); ``sp``: x comes
+    and goes as this rank's sequence slice (models/lm.py ``_sp_hold``)."""
+    x = _sp_whole(x, par, sp)
+    return _sp_hold(rwkv6_block(_cast(lp, x.dtype), x, zero,
+                                cfg.ssm_head_dim, cfg.scan_chunk, par)[0],
+                    par, sp)
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor, par=None):
@@ -122,9 +125,11 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, par=None):
     B, _, D = x.shape
     zero = init_rwkv6_state(B, D, cfg.ssm_head_dim, device=x.device,
                             par=par)
+    sp = par is not None and par.sp_on(x.shape[1])
+    x = _sp_hold(x, par, sp)
     for lp in unstack(params["layers"], cfg.n_layers):
-        x = remat(_train_layer, cfg, par, zero, x, lp, on=cfg.remat)
-    x = rmsnorm(x, params["final_norm"])
+        x = remat(_train_layer, cfg, par, sp, zero, x, lp, on=cfg.remat)
+    x = rmsnorm(_sp_whole(x, par, sp), params["final_norm"])
     logits = (x @ params["lm_head"].to(dt)).to(torch.float32)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -143,8 +148,10 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
     zero = init_rwkv6_state(B, D, cfg.ssm_head_dim, device=x.device,
                             par=par)
     states = []
+    sp = par is not None and par.sp_on(S)
     for li in range(cfg.n_layers):
         lp = _cast(_whole(_layer(params["layers"], li), par), dt)
+        x = _sp_whole(_sp_hold(x, par, sp), par, sp)
         x, st = rwkv6_block(lp, x, zero, cfg.ssm_head_dim, cfg.scan_chunk,
                             par)
         states.append(st)

@@ -54,9 +54,24 @@ collective first, ``warm_up``); a gloo group cannot be captured
 ``Sharded`` is one rank's piece of a parameter leaf placed by the rules of
 ``launch/sharding.py``: the local tensor (or prepared weight) and the
 spec of the whole leaf, a tuple with an entry per dim, ``None`` or the
-tuple of mesh axes that dim is split over.  ``ParallelCtx.sp`` (the
-sequence-parallel residual stream, a sharding constraint only the
-reference's HLO tools set) is not ported (ROADMAP A16b).
+tuple of mesh axes that dim is split over.
+
+``ParallelCtx.sp``: the sequence-parallel residual stream (the
+reference's sharding constraint): between blocks the models hold the
+residual stream as this rank's sequence slice over ``model`` and gather
+it where a layer needs the whole sequence, so a rematerialized layer
+keeps a 1/tp slice for its backward.  It moves placement, never
+numbers (bitwise ``sp`` off); as in the reference, only the dry run and
+the profile set it (launch/dryrun.py, launch/profile.py).
+
+Every collective is issued from one of five primitives (``_gather1``,
+``_all_to_all``, ``_all_reduce_``, ``ppermute``, ``broadcast``), each of
+which notes its payload with ``_note`` for a cost counter that is
+running (launch/cost.py ``CostMode``): the bytes this rank puts on the
+interconnect (an all-gather's piece, an all-reduce's tensor), over axes
+of more than one rank.  The dry run's stand-in context
+(launch/dryrun.py) overrides the primitives to return tensors of the
+right shapes with no process group.
 
 ``None`` in place of a ``ParallelCtx`` everywhere means one device.
 """
@@ -69,6 +84,7 @@ import math
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 __all__ = ["ParallelCtx", "Sharded", "is_prepared"]
 
@@ -166,7 +182,7 @@ class _MeanAll(torch.autograd.Function):
         ctx.par = par
         out = t.clone()
         for a in par.sizes:
-            dist.all_reduce(out, group=par.group(a))
+            par._all_reduce_(out, a)
         return out / math.prod(par.sizes.values())
 
     @staticmethod
@@ -174,7 +190,7 @@ class _MeanAll(torch.autograd.Function):
         par = ctx.par
         g = g.clone()
         for a in par.dp_axes:
-            dist.all_reduce(g, group=par.group(a))
+            par._all_reduce_(g, a)
         return g / math.prod(par.sizes.values()), None
 
 
@@ -204,6 +220,7 @@ class ParallelCtx:
     dp_axes: tuple = ("data",)
     tp_axis: str = "model"
     local_batch: bool = False
+    sp: bool = False             # sequence-parallel residual stream
 
     @functools.cached_property
     def sizes(self) -> dict:
@@ -240,6 +257,23 @@ class ParallelCtx:
     def group(self, axis: str):
         return self.mesh.get_group(axis)
 
+    def _note(self, kind: str, t: torch.Tensor, axis: str) -> None:
+        """Tell a running cost counter (launch/cost.py) that this rank puts
+        ``t``'s bytes on the interconnect in a ``kind`` collective over
+        ``axis`` (nothing over an axis of one rank)."""
+        if self.sizes[axis] == 1:
+            return
+        for mode in _get_current_dispatch_mode_stack():
+            note = getattr(mode, "note_collective", None)
+            if note is not None:
+                note(kind, t.numel() * t.element_size())
+
+    def sp_on(self, seq: int) -> bool:
+        """Whether the models hold a residual stream of ``seq`` positions
+        as sequence slices (``sp`` and the positions divide over
+        ``model``)."""
+        return self.sp and seq % self.tp_size == 0
+
     def index(self, axes) -> tuple[int, int]:
         """(this rank's index, the count of pieces) of a dim split over
         ``axes``, the first axis major (a PartitionSpec's order); (0, 1)
@@ -252,6 +286,7 @@ class ParallelCtx:
     def _gather1(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         n = self.sizes[axis]
         x = t.contiguous()
+        self._note("all-gather", x, axis)
         group = self.group(axis)
         if self.backend == "nccl":
             out = x.new_empty((n, *x.shape))
@@ -315,8 +350,8 @@ class ParallelCtx:
         shp = list(t.shape)
         x = t.movedim(split_dim, 0)
         x = x.reshape(n, x.shape[0] // n, *x.shape[1:]).contiguous()
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x, group=self.group(axis))
+        self._note("all-to-all", x, axis)
+        out = self._exchange(x, axis)
         # out[j] is rank j's piece with its split_dim in front: put it
         # back in t's layout
         out = out.movedim(1, split_dim + 1)          # (n, *piece)
@@ -330,17 +365,29 @@ class ParallelCtx:
         the module docstring's rule)."""
         return _MeanAll.apply(t, self)
 
+    def _exchange(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``all_to_all_single`` of x (n, ...) over ``axis``: piece j to
+        rank j, piece i from rank i."""
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self.group(axis))
+        return out
+
+    def _all_reduce_(self, t: torch.Tensor, axis: str, op=None
+                     ) -> torch.Tensor:
+        """``t`` reduced over the ranks of ``axis`` in place (a sum, or
+        ``op``); returns ``t``."""
+        self._note("all-reduce", t, axis)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM if op is None else op,
+                        group=self.group(axis))
+        return t
+
     def psum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """The sum of ``t`` over the ranks of ``axis`` (a new tensor)."""
-        out = t.clone()
-        dist.all_reduce(out, group=self.group(axis))
-        return out
+        return self._all_reduce_(t.clone(), axis)
 
     def pmax(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """The elementwise max of ``t`` over the ranks of ``axis``."""
-        out = t.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group(axis))
-        return out
+        return self._all_reduce_(t.clone(), axis, dist.ReduceOp.MAX)
 
     def _flags(self, flags) -> torch.Tensor:
         dev = "cuda" if self.backend == "nccl" else "cpu"
@@ -374,6 +421,7 @@ class ParallelCtx:
         itself (gloo has no send to one's own rank)."""
         n, c = self.sizes[axis], self.coords[axis]
         x = t.contiguous().reshape(1, -1)
+        self._note("collective-permute", x, axis)
         ins, outs = [0] * n, [0] * n
         ins[(c + shift) % n] = 1
         outs[(c - shift) % n] = 1
@@ -387,6 +435,7 @@ class ParallelCtx:
                   ) -> torch.Tensor:
         """The tensor of coordinate ``src`` along ``axis``, on every rank
         of the axis (``t`` is written in place on the others)."""
+        self._note("broadcast", t, axis)
         group = self.group(axis)
         dist.broadcast(t, group=group,
                        src=dist.get_global_rank(group, src))

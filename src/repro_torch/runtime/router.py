@@ -82,7 +82,7 @@ from ..device import resolve_device
 from ..launch.serve import prepare_params
 from ..launch.steps import (_check_kv, _parse_spec, init_serve_state,
                             make_admit_fn, make_extend_fn, make_probe_fn,
-                            make_segment_fn)
+                            make_segment_fn, pin_paged_attn)
 from .failover import (IntegrityReplay, SimulatedHardwareFailure,
                        restore_into, to_host)
 from .integrity import IntegrityEngine, parse_integrity
@@ -228,7 +228,9 @@ class Router:
                  injector=None, snapshot_every: int = 0,
                  max_replays: int = 3, integrity: str = "off",
                  prefix_cache: bool = False, resume: dict | None = None,
-                 device=None, log=print, par=None):
+                 device=None, log=print, par=None,
+                 paged_attn: str = "auto"):
+        cfg = pin_paged_attn(cfg, paged_attn)    # serve_batch's option
         _check_kv(cfg, kv)
         self.device = resolve_device(device)
         self.cfg = cfg

@@ -98,6 +98,61 @@ def job_train_tp_no_aux(inp):
 RECURRENT = ("rwkv6-7b", "zamba2-7b")
 
 
+def job_payload_2x2(inp):
+    """The collective payload by kind (launch/cost.py ``CostMode``) of one
+    olmo-1b train step under data=2,model=2: what the dry run's stand-in
+    mesh must count for the same step."""
+    from repro_torch.launch.cost import CostMode
+    par = make_parallel_ctx(make_debug_mesh(2, 2))
+    cfg = get_arch("olmo-1b").reduced()
+    params = params_from_jax(inp["params"]["olmo-1b"], device="cpu", par=par)
+    opt = AdamW(lr=1e-3)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, "cpu", par)
+    with CostMode() as cm:
+        step(params, state, inp["batch"])
+    return dict(cm.cost.coll_by_kind), cm.cost.coll_ops
+
+
+def job_sp_tp(inp):
+    """Under model=2, with ``ParallelCtx.sp`` off and on: one train step
+    and a prefill of the reduced olmo-1b (the reference's params) and of
+    rwkv6-7b (the port's seeded params), whole results (sp must not move
+    a bit), and the collective payload of olmo-1b's step."""
+    from repro_torch.launch.cost import CostMode
+    from repro_torch.launch.steps import make_prefill_step
+    mesh = make_debug_mesh(1, 2)
+    tokens = torch.as_tensor(inp["batch"]["tokens"], dtype=torch.long)
+    out = {}
+    for sp in (False, True):
+        par = make_parallel_ctx(mesh, sp=sp)
+        res = {}
+        for arch in ("olmo-1b", "rwkv6-7b"):
+            cfg = get_arch(arch).reduced()
+            if arch in inp["params"]:
+                params = params_from_jax(inp["params"][arch], device="cpu",
+                                         par=par)
+            else:
+                params = shard_params(get_model(cfg).init_params(
+                    cfg, 0, device="cpu"), par)
+            logits, cache = make_prefill_step(cfg, par=par)(
+                params, {"tokens": tokens})
+            res[f"prefill {arch}"] = (logits.numpy().copy(),
+                                      _whole(par, cache))
+            opt = AdamW(lr=1e-3)
+            state = opt.init(params)
+            with CostMode() as cm:
+                params, state, m = make_train_step(cfg, opt, "cpu", par)(
+                    params, state, inp["batch"])
+            res[f"train {arch}"] = ((float(m["loss"]),
+                                     float(m["grad_norm"])),
+                                    _whole(par, params), _whole(par, state))
+            if arch == "olmo-1b":
+                out["payload", sp] = dict(cm.cost.coll_by_kind)
+        out[sp] = res
+    return out
+
+
 def job_rec_tp(inp):
     """The recurrent families under model=2: serve_batch (tokens and
     prefill logits) and the train steps."""
@@ -255,7 +310,8 @@ JOBS = {"train_tp": job_train_tp, "train_2x2": job_train_2x2,
         "train_tp_no_aux": job_train_tp_no_aux, "rec_tp": job_rec_tp,
         "rec_2x2": job_rec_2x2, "collectives": job_collectives,
         "loop": job_loop, "elastic": job_elastic, "psum": job_psum,
-        "pipe": job_pipe}
+        "pipe": job_pipe, "payload_2x2": job_payload_2x2,
+        "sp_tp": job_sp_tp}
 
 
 def main(argv):

@@ -441,7 +441,7 @@ def test_count_kernel_refuses_what_it_cannot_take(cuda):
     entry = build.bind("dscim_counts", "dscim_counts_launch",
                        dscim_mvm.ARGTYPES)
     assert entry(x.data_ptr(), w.data_ptr(), tab.data_ptr(), tab.data_ptr(),
-                 out.data_ptr(), 1, K, 1, 3, 64, 32, 8,
+                 out.data_ptr(), 1, K, 1, 3, 64, 32, 8, -1,
                  torch.cuda.current_stream(cuda).cuda_stream) == -1
     assert counter.count == 0
 
@@ -1398,16 +1398,16 @@ def test_stub_config_decodes_on_card(cuda, name, spec, monkeypatch):
 
     held = {"paged": 0, "fused": 0}
 
-    def paged(*a):
-        got = pa.paged_attention_decode(*a)
+    def paged(*a, **kw):
+        got = pa.paged_attention_decode(*a, **kw)
         _close(got, pa.paged_read_plain(*a), 1e-5)
         held["paged"] += 1
         return got
 
     fused_kernel = dscim_fused.dscim_fused_mvm_prepared
 
-    def fused(x, qw, c):
-        got = fused_kernel(x, qw, c)
+    def fused(x, qw, c, **kw):
+        got = fused_kernel(x, qw, c, **kw)
         x2 = x.reshape(-1, x.shape[-1])
         xq = dscim_fused.quantize_activations_windowed(x2, qw.nw, qw.g)
         want = dscim_fused.dscim_fused_mvm_plain(

@@ -62,12 +62,19 @@ the reference's ``init_params`` of the reduced configs and one batch of
   size standing in for the device count;
 * the train CLI (``--mesh d2x2``) and ``examples/serve_dscim_torch.py``
   (``--mesh model=2``) under ``torchrun`` on the CPU: each exits 0 and
-  rank 0 alone prints.
+  rank 0 alone prints;
+* the collective payload by kind (launch/cost.py ``CostMode``) of one
+  olmo-1b train step on the ``data=2,model=2`` group equal to what
+  launch/dryrun.py's stand-in 2x2 mesh counts for it on meta tensors;
+* ``ParallelCtx.sp`` under ``model=2``: olmo-1b's and rwkv6-7b's train
+  step and prefill bitwise ``sp`` off, with more all-gather payload (the
+  residual stream's slices gathered).
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import dataclasses  # noqa: E402
 import os  # noqa: E402
 import pickle  # noqa: E402
 import subprocess  # noqa: E402
@@ -101,8 +108,8 @@ WORKER = ROOT / "tests" / "_torch_train_rank.py"
 JAX_REF = ROOT / "tests" / "_jax_train_mesh_ref.py"
 SPAWN_TIMEOUT_S = 240
 GROUPS = {"data=2,model=2": (4, "train_2x2,train_2x2_no_aux,loop,elastic,"
-                                 "collectives"),
-          "pod=2": (2, "psum,pipe,train_tp,train_tp_no_aux")}
+                                 "collectives,payload_2x2"),
+          "pod=2": (2, "psum,pipe,train_tp,train_tp_no_aux,sp_tp")}
 ARCHS = ("olmo-1b", "granite-moe-1b-a400m")
 TRAIN_STEPS = 2
 DP_RTOL = 1e-5           # loss and gradient norm, f32 order of the sums
@@ -320,6 +327,39 @@ def test_autograd_collectives_match_one_process(runs, op):
     for r in res["data=2,model=2"]:
         got, want = r["collectives"][op]
         np.testing.assert_array_equal(got, want)
+
+
+def test_collective_payload_matches_the_dry_run(runs):
+    """The dry run's stand-in data=2,model=2 mesh (launch/dryrun.py, meta
+    tensors, one process) counts, for the same reduced olmo-1b train
+    step, the collective payload by kind that a real gloo run of the step
+    moves (launch/cost.py ``CostMode`` in rank 0 of the 4-rank group)."""
+    from repro_torch.configs.base import Shape
+    from repro_torch.launch import dryrun
+    _, res, _, _ = runs
+    got, ops = res["data=2,model=2"][0]["payload_2x2"]
+    B, S = 4, 16
+    cfg = dataclasses.replace(get_arch("olmo-1b").reduced(),
+                              shapes=(Shape("t", S, B, "train"),))
+    _, _, cm = dryrun.run_cell(cfg, "t", dryrun.stand_in(
+        (2, 2), ("data", "model")))
+    assert set(got) == {"all-gather", "all-reduce"}
+    assert cm.cost.coll_by_kind == got
+    assert cm.cost.coll_ops == ops
+
+
+def test_sequence_parallel_is_bitwise_sp_off(runs):
+    """``ParallelCtx.sp`` under model=2 (tests/_torch_train_rank.py
+    ``job_sp_tp``): olmo-1b's and rwkv6-7b's train step (loss, norm, the
+    params and AdamW state after it) and prefill bitwise sp off, on both
+    ranks; the residual stream's slices are really gathered (more
+    all-gather payload)."""
+    _, res, _, _ = runs
+    for rank in res["pod=2"]:
+        got = rank["sp_tp"]
+        assert pickle.dumps(got[True]) == pickle.dumps(got[False])
+        on, off = got["payload", True], got["payload", False]
+        assert on["all-gather"] > off["all-gather"]
 
 
 def test_train_loop_replays_a_one_rank_failure_bitwise(runs):
