@@ -2,7 +2,8 @@
 """GPU smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phase mesh|train_mesh|tune    # that phase alone
+    python3 chip_smoke.py --phase mesh|train_mesh|tune|train_dscim
+                                                          # that phase alone
 
 Needs one NVIDIA GPU with ``nvcc`` (sm_90a); exits non-zero without one.
 In order it
@@ -186,7 +187,21 @@ In order it
    cut so the f32 training state fits ``TRAIN_STATE_SHARE`` of the card)
    take ``TRAIN_OTHER_STEPS`` steps each (finite losses; the MoE aux
    finite and positive, a second MoE run bitwise the first); then trains
-   under a mesh and drives the paper-facing surface (``train_mesh``,
+   olmo-1b at its published width and depth through the DS-CIM estimator
+   (``train_dscim``, ``train_dscim_phase``; ``--phase train_dscim``
+   alone) at ``TD_SPEC``: (a) kernel 6 at the step's three window shapes
+   (K = 128; N = d_ff, d_model, vocab_padded) on TD_BATCH x TD_SEQ rows,
+   counts bitwise the plain version's, ms beside plain and bound; (b)
+   one ``make_train_step`` step at TD_PLAIN_BATCH x TD_PLAIN_SEQ, its
+   launches counted (kernel 6 once a window of the forward and of
+   remat's recompute, ``_dscim_windows``; no other kernel), the first loss
+   near ln(vocab), and the loss, gradient norm and every gradient leaf
+   bitwise the same step with the plain counts in kernel 6's place; (c)
+   ``TrainLoop``, TD_STEPS steps of TD_BATCH x TD_SEQ: finite losses,
+   launches counted, step device ms, tokens/s, peak memory, one step
+   profiled (kernel 6's device ms and share of the busy time), then one
+   step through ``TD_EXACT`` (no kernel launched) timed beside it; then
+   trains under a mesh and drives the paper-facing surface (``train_mesh``,
    ``train_mesh_phase``): (a) the olmo-1b run under ``REPRO_MESH=d1x1``
    over NCCL at world 1 (every leaf a placed piece gathered each step),
    its first ``TM_A_STEPS`` losses bitwise the train run's, step device
@@ -277,6 +292,9 @@ SELF_DSCIM = "kernel:dscim2:64"   # its self-draft probe: draft = verifier
 # 16-token request runs about 456,000, and the profiler then drops calls)
 SPEC_PROFILE_TOKENS = 3
 MODES = ("bitmatmul", "statistical", "paper_inject")   # modes phase
+# the modes phase's decode depth: half the main path's TOKENS, so the
+# script's phases stay near their budget (each check holds at any depth)
+MODES_TOKENS = 8
 # prefix phase: requests 1-6 take request 0's first 48 tokens (6 pages)
 PREFIX_SHARED, PREFIX_SHARERS = 48, range(1, 7)
 EVICT_PAGES, EVICT_PRIO_REQ = 20, 2     # faults phase: pool, priority 5
@@ -429,6 +447,25 @@ TM_EXAMPLE_TOKENS = 12       # serve_dscim_torch.py's default --tokens
 # runs: a mesh of one rank with expert parallelism over one rank computes
 # what one device does, up to the f32 order of its sums
 TM_G_RTOL = 1e-5
+# train_dscim phase: olmo-1b at its published width and depth trained
+# through the DS-CIM estimator, TD_SPEC: kernel 6 counts every 128-row
+# window of every MLP matmul and of the head, in the forward and in
+# remat's recompute.  (a) kernel 6 at the three window shapes of the
+# step, M = TD_BATCH x TD_SEQ rows; (b) one step at TD_PLAIN_BATCH x
+# TD_PLAIN_SEQ, bitwise the same step with the plain counts in kernel 6's
+# place (their f32 bit expansion costs 2 M K L N flops a window: about
+# 110 s a step at TD_BATCH x TD_SEQ); (c) TrainLoop, TD_STEPS steps at
+# TD_BATCH x TD_SEQ, then one step through TD_EXACT.  Autograd keeps every
+# window's (M, N) f32 psums for the scales' gradient: at the head 16
+# windows x M x 50304 x 4 B, 13.2 GB at 8 x 512, which leaves the step's
+# reckoned peak near 45 GB (4 x 256 if it passed 60 GB)
+TD_SPEC, TD_EXACT = "bitmatmul:dscim1:256", "exact:dscim1:256"
+TD_BATCH, TD_SEQ, TD_STEPS = TRAIN_BATCH, TRAIN_SEQ, 3
+TD_PLAIN_BATCH, TD_PLAIN_SEQ = 2, 128
+# the first loss against ln(vocab): the estimator's error widens the
+# logits of random weights, so the loss starts further above ln(vocab)
+# than the train phase's float run (which is held within 1.0)
+TD_LOSS_NEAR = 2.0
 
 
 def _log(msg: str) -> None:
@@ -747,10 +784,12 @@ PROFILED_KERNELS = {"fused_mvm": "::fused_kernel<",
 PROFILE_MARGIN_S = 0.1
 
 
-def _profile_request(torch, serve):
+def _profile_request(torch, serve, match=None):
     """Wall time, device busy time (kernel durations summed), idle share,
     kernel count, the costliest kernel names of one ``serve()``, and the
-    calls of each of ``PROFILED_KERNELS`` the device ran."""
+    calls of each of ``PROFILED_KERNELS`` the device ran; with ``match``
+    ({key: a substring of kernel names}) also each key's calls and device
+    ms (``matched``)."""
     import collections
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -772,7 +811,12 @@ def _profile_request(torch, serve):
             by_name[e.name()][1] += (e.end_ns() - e.start_ns()) / 1e6
     busy_ms = sum(ms for _, ms in by_name.values())
     top = sorted(by_name.items(), key=lambda it: -it[1][1])[:8]
-    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+    extra = {} if match is None else {"matched": {
+        k: {"calls": sum(c for n, (c, _) in by_name.items() if pat in n),
+            "device_ms": sum(ms for n, (_, ms) in by_name.items()
+                             if pat in n)}
+        for k, pat in match.items()}}
+    return {**extra, "wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "kernel_launches": sum(c for c, _ in by_name.values()),
             "port_kernel_calls": {
@@ -1944,10 +1988,10 @@ def spec_phase(torch, cfg, served, prompts, plain_toks):
 def modes_phase(torch, cfg, served, prompts):
     """Phase 3e: the DS-CIM linear's other modes (``MODES``) on the main
     path's model (published width and depth) and options, each decode
-    step captured.  Checks: graph == eager loop bitwise
-    (tokens and logit trace) for each; ``bitmatmul``'s tokens and logits
-    bitwise ``lut``'s; the count kernel's launches over the bitmatmul
-    request (one a window: prefill plus the replays).  Prints each mode's
+    step captured, ``MODES_TOKENS`` tokens a request.  Checks: graph ==
+    eager loop bitwise (tokens and logit trace) for each; ``bitmatmul``'s
+    tokens and logits bitwise ``lut``'s; the count kernel's launches over
+    the bitmatmul request (one a window: prefill plus the replays).  Prints each mode's
     capture time and the noise modes' logit RMSE against ``exact``."""
     import numpy as np
 
@@ -1963,13 +2007,15 @@ def modes_phase(torch, cfg, served, prompts):
         if mode == "bitmatmul":
             torch.cuda.synchronize()
             dscim_mvm.LAUNCHES.reset()
-        runs[mode] = serve_batch(c, served, prompts, TOKENS, timings=t, **kw)
+        runs[mode] = serve_batch(c, served, prompts, MODES_TOKENS, timings=t,
+                                 **kw)
         if mode == "bitmatmul":
             launches = dscim_mvm.LAUNCHES.count
         entry = {"capture_s": t.get("capture_s"),
                  "generate_s": t["generate_s"]}
         if mode in MODES:
-            eager = serve_batch(c, served, prompts, TOKENS, scan=False, **kw)
+            eager = serve_batch(c, served, prompts, MODES_TOKENS, scan=False,
+                                **kw)
             if not (np.array_equal(eager[0], runs[mode][0]) and
                     np.array_equal(np.stack(eager[1]),
                                    np.stack(runs[mode][1]))):
@@ -1977,15 +2023,14 @@ def modes_phase(torch, cfg, served, prompts):
             entry["graph_equals_eager"] = True
         out[mode] = entry
         clear_graphs()
-        _log(f"modes {mode}: {TOKENS} tokens in {t['generate_s']:.3f} s "
+        _log(f"modes {mode}: {MODES_TOKENS} tokens in "
+             f"{t['generate_s']:.3f} s "
              f"(capture {t.get('capture_s', 0.0):.3f} s)"
              + (", graph == eager loop bitwise" if mode in MODES else ""))
-    nw = {n: -(-n // 128) for n in (cfg.d_model, cfg.d_ff)}
-    per_fwd = cfg.n_layers * (2 * nw[cfg.d_model] + nw[cfg.d_ff]) \
-        + nw[cfg.d_model]
-    want = per_fwd * TOKENS
+    per_fwd = _dscim_windows(cfg)["forward"]
+    want = per_fwd * MODES_TOKENS
     _log(f"modes bitmatmul: {launches} count-kernel launches (expected "
-         f"{want}: {per_fwd} windows a forward x {TOKENS} forwards)")
+         f"{want}: {per_fwd} windows a forward x {MODES_TOKENS} forwards)")
     if launches != want:
         raise AssertionError(f"bitmatmul launches {launches} != {want}")
     if not (np.array_equal(runs["bitmatmul"][0], runs["lut"][0]) and
@@ -3569,6 +3614,265 @@ def _train_other(torch, name, cut, seq):
         raise AssertionError(f"{name}: aux {out['aux_after']} or a second "
                              "run differs")
     return out
+
+
+class _KeepGrads:
+    """A stand-in optimizer for ``make_train_step``: keeps the gradients it
+    is handed and returns their global norm as AdamW does, updating
+    nothing (a second step starts from the same parameters)."""
+
+    def update(self, params, grads, state, gnorm=None):
+        from repro_torch.optim.adamw import global_norm
+        from repro_torch.tree import leaves
+        self.grads = leaves(grads)
+        return params, state, global_norm(grads)
+
+
+def _dscim_windows(cfg):
+    """Kernel 6's launches in ``bitmatmul`` mode: one a 128-row window of
+    every DS-CIM matmul of a forward (the MLP's and the head's), and in a
+    train step also of each layer's MLP again in remat's recompute."""
+    nw = lambda k: -(-k // 128)                             # noqa: E731
+    mlp = nw(cfg.d_model) * (2 if cfg.mlp_kind == "swiglu" else 1) \
+        + nw(cfg.d_ff)
+    forward = cfg.n_layers * mlp + nw(cfg.d_model)
+    return {"forward": forward,
+            "recompute": cfg.n_layers * mlp if cfg.remat else 0,
+            "step": forward + (cfg.n_layers * mlp if cfg.remat else 0)}
+
+
+def _td_counts(torch, cfg, M):
+    """Leg (a): kernel 6 at the train step's window shapes (K = 128; N =
+    d_ff for w_gate / w_up, d_model for w_down, vocab_padded for the
+    head) on M rows of seeded int8 operands: counts bitwise the plain
+    version's, device ms of the kernel and of the plain version beside
+    the bound.  These calls are not the path's: the leg's launches are
+    counted on a counter of their own."""
+    from repro_torch.core.seed_search import calibrated_config
+    from repro_torch.kernels import build, dscim_mvm, ops
+
+    _, variant, length = TD_SPEC.split(":")
+    dcfg = calibrated_config(variant, int(length))
+    pts = ops.fold_constants(dcfg)
+    tabs = dscim_mvm.point_tables(*pts, dcfg.k, "cuda")
+    timing = build.LaunchCounter("timing, not counted")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for site, N in (("w_gate/w_up", cfg.d_ff), ("w_down", cfg.d_model),
+                    ("head", cfg.vocab_padded)):
+        x = torch.randint(-127, 128, (M, 128), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (128, N), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        got = dscim_mvm.launch_counts(x, w, *tabs, dcfg.k, timing)
+        want = dscim_mvm.dscim_counts_plain(x, w, *pts, dcfg.k)
+        if not torch.equal(got, want):
+            raise AssertionError(f"train_dscim (a) {site}: kernel 6 counts "
+                                 f"differ from the plain version's by "
+                                 f"{(got - want).abs().max()}")
+        nbytes = M * 128 + 128 * N + 4 * M * N + 2 * 4 * tabs[0].numel()
+        bound, by = _bound(nbytes, _count_ops(M, N, 1, 128, dcfg),
+                           B1_OPS_PER_S)
+        row = {"site": site, "M": M, "K": 128, "N": N, "max_abs_err": 0.0,
+               "ms": _cuda_ms(lambda: dscim_mvm.launch_counts(
+                   x, w, *tabs, dcfg.k, timing), reps=10),
+               "plain_ms": _cuda_ms(lambda: dscim_mvm.dscim_counts_plain(
+                   x, w, *pts, dcfg.k), reps=1, warmup=0),
+               "bound_ms": bound, "bound_by": by}
+        rows.append(row)
+        _log(f"train_dscim (a) {site} (M={M}, K=128, N={N}): kernel 6 "
+             f"counts bitwise the plain version's; kernel {row['ms']:.4f} "
+             f"ms, plain {row['plain_ms']:.2f} ms, bound {bound:.5f} ms "
+             f"({by})")
+        del x, w, got, want
+    return rows
+
+
+def _td_step(torch, cfg):
+    """Leg (b): one ``make_train_step`` step of ``cfg`` at TD_PLAIN_BATCH x
+    TD_PLAIN_SEQ with a stand-in optimizer (``_KeepGrads``), the launch
+    counters of the six kernels zeroed just before it and read just after:
+    kernel 6 launched once a window (``_dscim_windows``), no other kernel;
+    the first loss finite and near ln(vocab).  Then the same step with
+    ``core/macro.py``'s ``dscim_counts`` swapped for the plain version
+    (this leg only): the loss, the gradient norm and every gradient leaf
+    bitwise the kernel's (the counts are integers; what follows them is
+    the same arithmetic)."""
+    from unittest import mock
+
+    import numpy as np
+
+    from repro_torch.core import macro
+    from repro_torch.kernels.dscim_mvm import dscim_counts_plain
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+
+    def plain_counts(x, w, cu, lu, cv, lv, *, k, length, tune=False):
+        return dscim_counts_plain(x, w, cu, lu, cv, lv, k)
+
+    params = lm.init_params(cfg, 0)
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, cfg.vocab, (TD_PLAIN_BATCH, TD_PLAIN_SEQ))
+             for k in ("tokens", "labels")}
+    counters = _all_counters()
+    runs = {}
+    for route in ("kernel", "plain"):
+        keep = _KeepGrads()
+        step = make_train_step(cfg, keep, log=_log)
+        with (mock.patch.object(macro, "dscim_counts", plain_counts)
+              if route == "plain" else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            for c in counters.values():
+                c.reset()
+            t0 = time.perf_counter()
+            _, _, m = step(params, None, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runs[route] = {"loss": loss, "grad_norm": gnorm, "wall_s": wall,
+                       "launches": {k: c.count for k, c in
+                                    counters.items()},
+                       "grads": keep.grads}
+        _log(f"train_dscim (b) {route} counts: loss {loss!r}, grad norm "
+             f"{gnorm!r}, {wall:.2f} s, launches {runs[route]['launches']}")
+    k, p = runs["kernel"], runs["plain"]
+    want = _dscim_windows(cfg)
+    launches = k["launches"]
+    if launches["dscim_counts"] != want["step"] or \
+            any(v for n, v in launches.items() if n != "dscim_counts"):
+        raise AssertionError(f"train_dscim (b): launches {launches}, want "
+                             f"{want['step']} of dscim_counts ({want}) and "
+                             "no other")
+    if any(p["launches"].values()):
+        raise AssertionError(f"train_dscim (b): the plain step launched "
+                             f"{p['launches']}")
+    if not math.isfinite(k["loss"]) or \
+            abs(k["loss"] - math.log(cfg.vocab)) > TD_LOSS_NEAR:
+        raise AssertionError(f"train_dscim (b): first loss {k['loss']} not "
+                             f"within {TD_LOSS_NEAR} of ln({cfg.vocab})")
+    same = (k["loss"], k["grad_norm"]) == (p["loss"], p["grad_norm"]) and \
+        all(torch.equal(a, b) for a, b in zip(k["grads"], p["grads"]))
+    _log(f"train_dscim (b): kernel 6 launches a step "
+         f"{launches['dscim_counts']} ({want}); loss, grad norm and every "
+         f"gradient leaf bitwise the plain counts' step: {same}")
+    if not same:
+        raise AssertionError("train_dscim (b): the kernel's step differs "
+                             "from the plain counts' step")
+    return {"batch": TD_PLAIN_BATCH, "seq": TD_PLAIN_SEQ,
+            "expected_launches": want, "launches": launches,
+            **{f"{r}_{key}": runs[r][key] for r in runs
+               for key in ("loss", "grad_norm", "wall_s")},
+            "bitwise_plain": same}
+
+
+def _td_loop(torch, cfg):
+    """Leg (c): TrainLoop through TD_SPEC, TD_STEPS steps of TD_BATCH x
+    TD_SEQ: finite losses, kernel 6's launches TD_STEPS times
+    ``_dscim_windows``, no other kernel; step device ms (median and range
+    after the first), tokens/s, peak memory; one more step under the
+    profiler (kernel 6's device ms and share); then one step through
+    TD_EXACT (finite, no launch of the six kernels), its device ms."""
+    import numpy as np
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import TrainLoop
+
+    counters = _all_counters()
+    loop = TrainLoop(cfg, steps=TD_STEPS, batch=TD_BATCH, seq=TD_SEQ,
+                     lr=TRAIN_LR, log=_log)
+    loop.step_fn = timer = _StepTimer(torch, loop.step_fn)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    state = loop.run()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: c.count for k, c in counters.items()}
+    losses = _losses(loop.history)
+    step_ms = timer.ms()
+    timed = step_ms[1:]
+    med = float(np.median(timed))
+    want = TD_STEPS * _dscim_windows(cfg)["step"]
+    res = {"batch": TD_BATCH, "seq": TD_SEQ, "steps": TD_STEPS,
+           "losses": losses, "launches": launches, "step_ms": step_ms,
+           "step_ms_median": med, "step_ms_range": [min(timed), max(timed)],
+           "tok_s": TD_BATCH * TD_SEQ / (med / 1e3),
+           "peak_memory_bytes": peak}
+    _log(f"train_dscim (c) {TD_SPEC}: losses {losses}; step device ms "
+         f"median {med:.2f} (range {min(timed):.2f}-{max(timed):.2f}, first "
+         f"{step_ms[0]:.1f}), {res['tok_s']:.0f} tokens/s, peak memory "
+         f"{peak / 2**30:.2f} GiB; launches {launches}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_dscim (c): non-finite losses {losses}")
+    if launches["dscim_counts"] != want or \
+            any(v for n, v in launches.items() if n != "dscim_counts"):
+        raise AssertionError(f"train_dscim (c): launches {launches}, want "
+                             f"{want} of dscim_counts and no other")
+    batch = loop.data.batch(TD_BATCH, TD_SEQ, step=TD_STEPS)
+    params, opt = state["params"], state["opt"]
+    step = make_train_step(cfg, loop.opt, log=_log)
+    prof = _profile_request(torch, lambda: step(params, opt, batch),
+                            match={"counts": "counts_kernel<",
+                                   "counts_zero": "zero_kernel"})
+    if prof["device_busy_ms"] <= 0.0:
+        raise AssertionError("train_dscim (c): the profiler saw no device "
+                             "time in a train step")
+    k6 = sum(v["device_ms"] for v in prof["matched"].values())
+    prof["kernel6_ms"] = k6
+    prof["kernel6_share_of_busy"] = k6 / prof["device_busy_ms"]
+    res["step_profile"] = prof
+    _log(f"train_dscim (c): one step under the profiler: "
+         f"{prof['kernel_launches']} kernels, device busy "
+         f"{prof['device_busy_ms']:.2f} ms of {prof['wall_ms_profiled']:.2f}"
+         f" ms (idle {prof['device_idle_share']:.3f}); kernel 6 "
+         f"{k6:.2f} ms in {prof['matched']}: "
+         f"{prof['kernel6_share_of_busy']:.3f} of the busy time")
+    for kn in prof["top_kernels"][:6]:
+        _log(f"  {kn['device_ms']:.2f} ms in {kn['calls']} x {kn['name']}")
+    exact = dataclasses.replace(cfg, dscim=TD_EXACT)
+    estep = _StepTimer(torch, make_train_step(exact, loop.opt, log=_log))
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    _, _, m = estep(params, opt, batch)
+    eloss = float(m["loss"])
+    elaunch = {k: c.count for k, c in counters.items()}
+    res["exact"] = {"loss": eloss, "step_ms": estep.ms()[0],
+                    "launches": elaunch}
+    _log(f"train_dscim (c) {TD_EXACT}: loss {eloss}, step device ms "
+         f"{res['exact']['step_ms']:.2f} (bitmatmul's median {med:.2f}), "
+         f"launches {elaunch}")
+    if not math.isfinite(eloss) or any(elaunch.values()):
+        raise AssertionError(f"train_dscim (c) exact: loss {eloss}, "
+                             f"launches {elaunch}")
+    return res
+
+
+def train_dscim_phase(torch):
+    """Phase train_dscim, training through the DS-CIM estimator on the
+    card: olmo-1b at its published width and depth (bf16 compute, remat)
+    through ``make_train_step`` and ``TrainLoop`` at TD_SPEC, legs (a)
+    kernel 6 at the step's window shapes (``_td_counts``), (b) one step
+    bitwise the plain counts' step, its launches counted (``_td_step``),
+    (c) TrainLoop's steps timed and profiled, and one step through
+    TD_EXACT (``_td_loop``).  Cut: leg (b) runs TD_PLAIN_BATCH x
+    TD_PLAIN_SEQ, not TD_BATCH x TD_SEQ (the plain counts' cost)."""
+    from repro_torch.configs import get_arch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), dscim=TD_SPEC)
+    res = {"arch": TRAIN_ARCH, "spec": TD_SPEC, "remat": cfg.remat,
+           "compute_dtype": cfg.compute_dtype,
+           "windows": _dscim_windows(cfg)}
+    res["kernel6"] = _td_counts(torch, cfg, TD_BATCH * TD_SEQ)
+    res["step"] = _td_step(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["loop"] = _td_loop(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def _train_step_gpu_vs_cpu(torch):
@@ -5173,9 +5477,11 @@ def tune_dryrun(torch, train):
 
 
 def phase_alone(torch, name: str) -> int:
-    """``chip_smoke.py --phase mesh|train_mesh|tune``: one phase alone, for
-    iterating on the card without the whole run.  Builds the fused-MVM
-    and paged-attention kernels, makes what the phase takes from earlier
+    """``chip_smoke.py --phase mesh|train_mesh|tune|train_dscim``: one
+    phase alone, for iterating on the card without the whole run.  Builds
+    the fused-MVM and paged-attention kernels (``train_dscim``: the count
+    kernel only, and it takes nothing from earlier phases), makes what the
+    phase takes from earlier
     phases (``mesh``: qwen3-0.6b prepared once and its tokens served
     one-shot on the int8 cache; ``train_mesh``: olmo-1b trained unsharded
     for TM_A_STEPS steps, as the train phase's first steps; ``tune``: the
@@ -5188,9 +5494,12 @@ def phase_alone(torch, name: str) -> int:
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.build(("dscim_fused", "paged_attention"))
+    build.build(("dscim_counts",) if name == "train_dscim"
+                else ("dscim_fused", "paged_attention"))
     _log(f"built in {time.perf_counter() - t0:.1f} s")
-    if name == "mesh":
+    if name == "train_dscim":
+        fn, args = train_dscim_phase, (torch,)
+    elif name == "mesh":
         from repro_torch.launch.serve import prepare_params, serve_batch
         from repro_torch.models import lm
         cfg = get_arch("qwen3-0.6b")
@@ -5235,9 +5544,8 @@ def phase_alone(torch, name: str) -> int:
                            for name, cut, seq in TRAIN_OTHERS}
         fn, args = train_mesh_phase, (torch, train)
     else:
-        print(f"chip_smoke: --phase {name!r}: want mesh, train_mesh or "
-              "tune",
-              file=sys.stderr)
+        print(f"chip_smoke: --phase {name!r}: want mesh, train_mesh, tune "
+              "or train_dscim", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
     try:
@@ -5430,6 +5738,15 @@ def main(argv) -> int:
         for entry in kernels:
             if entry is not None:
                 entry["launches_train"] = train["launches"][entry["name"]]
+    tdscim = phase("train_dscim", train_dscim_phase, torch)
+    if tdscim is not None:
+        for entry in kernels:
+            if entry is not None:
+                entry["launches_train_dscim"] = {
+                    leg: tdscim[leg]["launches"][entry["name"]]
+                    for leg in ("step", "loop")}
+        if kernels[3] is not None:
+            kernels[3]["train_dscim"] = tdscim["kernel6"]
     tune_f = phase("tune_dryrun", tune_dryrun, torch, train)
     tmesh = phase("train_mesh", train_mesh_phase, torch, train)
     if tmesh is not None:
@@ -5462,6 +5779,7 @@ def main(argv) -> int:
                       "integrity": integ, "router": rt, "mesh": mesh,
                       "dense_family": df, "moe_family": moe_fam,
                       "recurrent_family": rec, "train": train,
+                      "train_dscim": tdscim,
                       "train_mesh": tmesh, "tune": tune,
                       "prefill_logit_rmse_vs_off": e2e.get("logit_rmse"),
                       "reduced_gpu_vs_cpu_drift": drift,

@@ -127,6 +127,12 @@ class DSCIMLinear:
             return fold(self.seed, K, N)
         return fold(self.seed, K, N, salt)
 
+    def _counts(self, x2, w2, tune):
+        """One window's OR counts of int8 x2 (M, g), w2 (g, N)."""
+        if self.mode == "lut":
+            return self.macro.counts_lut(x2, w2)
+        return self.macro.counts_kernel(x2.contiguous(), w2, tune=tune)
+
     def _psums(self, x2, w2, nw: int, g: int) -> torch.Tensor:
         """Per-window psums (M, nw, N) f32 of int8 x2 (M,nw,g), w2
         (nw,g,N)."""
@@ -134,16 +140,38 @@ class DSCIMLinear:
             # int8 x int8 sums are exact in f64 (and in f32 below 2^24)
             return torch.einsum("mug,ugn->mun", x2.double(),
                                 w2.double()).to(torch.float32)
-        if self.mode == "lut":
-            counts = [self.macro.counts_lut(x2[:, u], w2[u])
-                      for u in range(nw)]
-        else:                                          # bitmatmul
-            tune = self.tune or _env_tune()
-            counts = [self.macro.counts_kernel(x2[:, u].contiguous(), w2[u],
-                                               tune=tune)
-                      for u in range(nw)]
+        tune = self.tune or _env_tune()
+        counts = [self._counts(x2[:, u], w2[u], tune) for u in range(nw)]
         return torch.stack([self.macro.mvm_from_counts(x2[:, u], w2[u], c)
                             for u, c in enumerate(counts)], dim=1)
+
+    def _window_psums(self, xq, wq, g: int, key, batched: bool):
+        """Each window's psums (M, N) f32, in window order, of the int8
+        windows xq (M,nw,g), wq (nw,g,N), with ``statistical``'s noise
+        (drawn from ``key``) added.  ``batched`` (nothing tracked): views
+        of ``_psums``' (M, nw, N).  Else one window's are made at a time,
+        so autograd, which keeps each for the scales' gradient, holds no
+        f64 product, stack or count list beside them."""
+        nw = wq.shape[0]
+        if batched:
+            psums = self._psums(xq, wq, nw, g)
+            if self.mode == "statistical":
+                psums = self._errmodel.inject(psums, key, g)
+            yield from psums.unbind(1)
+            return
+        noise = None
+        if self.mode == "statistical":
+            noise = self._errmodel.psum_noise(
+                key, (xq.shape[0], nw, wq.shape[-1]), g, xq.device)
+        tune = self.tune or _env_tune()
+        for u in range(nw):
+            x2, w2 = xq[:, u], wq[u]
+            if self.mode in ("exact", "statistical", "paper_inject"):
+                psum = (x2.double() @ w2.double()).to(torch.float32)
+            else:
+                psum = self.macro.mvm_from_counts(
+                    x2, w2, self._counts(x2, w2, tune))
+            yield psum if noise is None else psum + noise[:, u]
 
     def __call__(self, x: torch.Tensor, w, *, salt=None) -> torch.Tensor:
         """x (..., K) float; w (K, N) float or QuantizedLinearWeight ->
@@ -192,23 +220,24 @@ class DSCIMLinear:
             w2, wscale = wq.q, wq.scale.reshape(nw, N)
         xq = quantize_int8(x3, axis=-1)
         sx = xq.scale.reshape(-1, nw)
-        psum = self._psums(xq.q, w2, nw, g)
-        if self.mode == "statistical":
-            psum = self._errmodel.inject(psum, self._resolve_key(salt, K, N),
-                                         g)
+        key = self._resolve_key(salt, K, N)
+        # all windows at once where autograd keeps nothing of them
+        psums = self._window_psums(
+            xq.q, w2, g, key,
+            batched=not (sx.requires_grad or wscale.requires_grad))
         # dequant and window sum as elementwise ops in window order: each
         # output row depends on its own row only, on any device
-        out = psum[:, 0] * (sx[:, 0, None] * wscale[0])
-        for u in range(1, nw):
-            out = out + psum[:, u] * (sx[:, u, None] * wscale[u])
+        out = None
+        for u, psum in enumerate(psums):
+            term = psum * (sx[:, u, None] * wscale[u])
+            out = term if out is None else out + term
         if self.mode == "paper_inject":
             # Sec. V convention: one 128-row-window error magnitude added
             # per *output* of the MVM result, in float units of the mean
             # window scale
             s = sx.mean(1, keepdim=True) * wscale.mean(0, keepdim=True)
             noise = self._errmodel.inject_paper(
-                torch.zeros_like(out), self._resolve_key(salt, K, N),
-                self.macro.cfg.rows)
+                torch.zeros_like(out), key, self.macro.cfg.rows)
             out = out + noise * s
         return out.reshape(*lead, N).to(torch.float32)
 

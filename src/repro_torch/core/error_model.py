@@ -69,9 +69,17 @@ class ErrorModel:
         """Physical model: k_dim-row accumulation, error mean and variance
         scaling with K.  exact_psum: (..., N) float accumulations over
         k_dim rows; ``key`` names the draw (``counter_rng.normals``)."""
-        z = normals(key, exact_psum.shape, exact_psum.device)
-        return exact_psum + (self.mu1 * k_dim
-                             + float(np.sqrt(self.sig1 ** 2 * k_dim)) * z)
+        return exact_psum + self.psum_noise(key, exact_psum.shape, k_dim,
+                                            exact_psum.device)
+
+    def psum_noise(self, key: int, shape, k_dim: int, device
+                   ) -> torch.Tensor:
+        """``inject``'s additive term of ``shape``: mean ``mu1 * k_dim``,
+        std ``sqrt(k_dim) * sig1``, drawn from ``key``.  A constant to
+        autograd: the noise modes' gradient reaches x and w only through
+        the dequant scales it is multiplied by."""
+        z = normals(key, shape, device)
+        return self.mu1 * k_dim + float(np.sqrt(self.sig1 ** 2 * k_dim)) * z
 
     def relative_moment_bound(self, rows: int = 128) -> float:
         """Expected *relative* per-output psum error of one ``rows``-row

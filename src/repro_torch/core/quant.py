@@ -30,10 +30,20 @@ def quantize_int8(x: torch.Tensor, axis=-1, eps: float = 1e-8
     The scale is ``amax * (1/127)``, an explicit reciprocal multiply, as the
     reference writes it (XLA turns a divide by a constant into exactly that
     inside jitted graphs); ``torch.round`` rounds half to even like
-    ``jnp.round``."""
+    ``jnp.round``.
+
+    Differentiated, it has the reference's gradient: none through ``q``
+    (the int8 cut), and through ``scale`` the rules JAX applies to
+    ``max(abs(x))``: a tied maximum shares the gradient evenly
+    (``torch.amax`` as ``jnp.max``), ``abs`` passes none at 0, and a
+    window whose max is below ``eps`` gets none (one at ``eps`` half)."""
     dims = axis if isinstance(axis, tuple) else (axis,)
     amax = torch.amax(torch.abs(x), dim=dims, keepdim=True)
-    scale = torch.clamp_min(amax, eps) * RECIP_127[x.dtype]
+    # eps as a 0-d CPU tensor in x's dtype, as JAX's weakly typed eps: a
+    # scalar operand on any device (no fill kernel, no copy), and
+    # ``jnp.maximum``'s gradient, half of it at a tie with eps
+    amax = torch.maximum(amax, torch.tensor(eps, dtype=amax.dtype))
+    scale = amax * RECIP_127[x.dtype]
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return QuantizedTensor(q, scale.to(torch.float32), axis)
 

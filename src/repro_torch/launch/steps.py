@@ -6,8 +6,8 @@ continuous-batching pieces ``init_serve_state`` / ``make_admit_fn`` /
 ``make_segment_fn`` / ``make_extend_fn``.
 
 The train step differentiates ``forward`` (models/) with autograd and
-updates in place through ``optim/adamw.py``; it runs eagerly, with
-``dscim`` 'off' or 'float' only (``_check_train``).  Under a mesh
+updates in place through ``optim/adamw.py``; it runs eagerly, through
+every DS-CIM mode but 'kernel' (``_check_train``).  Under a mesh
 (``par``) it is the reference's FSDP/TP step as ZeRO-3: the placed
 leaves are gathered whole outside autograd, each rank runs forward and
 backward on its DP slice of the batch, the whole gradients are averaged
@@ -97,16 +97,29 @@ SEG_LEN = 4         # replays between two host looks at ``done``
 AUX_WEIGHT = 0.01   # MoE load-balance loss weight
 
 
-def _check_train(cfg: ArchConfig):
-    """Training differentiates the float model: a DS-CIM spec other than
-    'off' or 'float' is refused.  A 'kernel:' spec has no gradient (the
-    reference fails there too: a ``pallas_call`` has none); training
-    through the jnp DS-CIM modes waits for ROADMAP A15b."""
-    if split_dscim_mode(cfg.dscim)[0] not in ("off", "float"):
-        raise ValueError(f"training runs at dscim 'off' or 'float', not "
-                         f"{cfg.dscim!r}: the 'kernel' modes have no "
-                         "gradient, and training through the other DS-CIM "
-                         "modes is ROADMAP A15b")
+def _check_train(cfg: ArchConfig, log=print):
+    """What training takes of ``cfg.dscim``, as the reference's
+    ``jax.value_and_grad`` of ``forward`` does.  The attention families
+    train through every DS-CIM mode but 'kernel' ('float', 'exact',
+    'lut', 'bitmatmul', 'statistical', 'paper_inject', with '+attn' and
+    ``dscim_fault``): the gradient reaches x and w through the int8
+    dequant scales only (the psums are integers), as JAX differentiates
+    it.  'kernel' raises ``ValueError``: the fused MVM has no gradient,
+    as the reference's ``pallas_call`` has none.  The RWKV and hybrid
+    families' forward never reads the spec, so they train at 'off'
+    whatever it names (as the reference's), and ``log`` says so once."""
+    mode = split_dscim_mode(cfg.dscim)[0]
+    if mode in ("off", "float"):
+        return
+    if cfg.family not in ATTENTION_FAMILIES:
+        log(f"[train] {cfg.name}: the {cfg.family!r} family's forward does "
+            f"not read dscim={cfg.dscim!r}; it trains as at 'off'")
+        return
+    if mode == "kernel":
+        raise ValueError(f"training cannot run dscim={cfg.dscim!r}: the "
+                         "fused DS-CIM MVM has no gradient (the reference's "
+                         "pallas_call has none); 'bitmatmul' computes the "
+                         "same counts and differentiates")
 
 
 def _forward(model, params, cfg: ArchConfig, batch, dev, par=None):
@@ -127,7 +140,8 @@ def _labels(batch, dev) -> torch.Tensor:
     return torch.as_tensor(batch["labels"], device=dev).long()
 
 
-def make_train_step(cfg: ArchConfig, opt, device=None, par=None):
+def make_train_step(cfg: ArchConfig, opt, device=None, par=None, *,
+                    log=print):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"})`` on ``device`` (CUDA unless the caller asks
     for another; the parameters and the state must live there): the
@@ -136,6 +150,9 @@ def make_train_step(cfg: ArchConfig, opt, device=None, par=None):
     writes the parameters and the state in place.  ``batch`` holds
     ``tokens`` (or ``embeds``) and ``labels`` (B, S), numpy or tensors.
     The metrics stay on the device (reading one waits for the step).
+    ``cfg.dscim``: what ``_check_train`` takes; in 'bitmatmul' every
+    128-row window of a DS-CIM matmul launches the count kernel (forward
+    and remat's recompute), and ``log`` says where a spec is not read.
 
     ``par`` (a ``ParallelCtx``): the params and the AdamW state are placed
     on that mesh (``Sharded`` pieces, launch/sharding.py) and every rank
@@ -151,7 +168,7 @@ def make_train_step(cfg: ArchConfig, opt, device=None, par=None):
     With no DP split (``model=N``) this is the one-device step bitwise,
     but for an MoE config with N > 1 (its aux is the mean of each
     sequence slice's, as the reference's)."""
-    _check_train(cfg)
+    _check_train(cfg, log)
     model = get_model(cfg)
     dev = resolve_device(device)
     if par is not None:

@@ -10,7 +10,11 @@ synthetic bigram corpus (data/synthetic.py), keyed by step, so a restart
 from a checkpoint replays the same batches.  ``--fail-at`` injects a
 simulated hardware failure before those steps: the loop restores the
 latest checkpoint and replays.  Every step is one eager forward and
-backward (``launch/steps.py make_train_step``) at ``dscim="off"``.
+backward (``launch/steps.py make_train_step``) at the config's
+``dscim``: the CLI trains at 'off', as the reference's; a ``TrainLoop``
+given a config with a DS-CIM spec trains through that mode (every mode
+but 'kernel', which has no gradient; the RWKV and hybrid families do not
+read the spec).
 
 ``--mesh pod16x16|pod2x16x16|dNxM`` trains under that mesh, one process
 a device (runtime/elastic.py ``mesh_from_env``; NCCL on CUDA, gloo with
@@ -83,7 +87,8 @@ class TrainLoop:
         self.data = SyntheticLM(cfg.vocab, seed=seed)
         self.seed = seed
         self.history: list[dict] = []
-        self.step_fn = make_train_step(cfg, self.opt, self.device, self.par)
+        self.step_fn = make_train_step(cfg, self.opt, self.device, self.par,
+                                       log=log)
 
     # -- state management ----------------------------------------------------
     def _placed(self, params):

@@ -10,6 +10,7 @@ pickles this rank's results (a dict, job -> numpy results) to OUT.  Only
 the port is imported here: the parent holds the results against one
 device and against the reference.
 """
+import dataclasses
 import os
 import pickle
 import sys
@@ -39,6 +40,7 @@ from repro_torch.tree import leaves
 
 ARCHS = ("olmo-1b", "granite-moe-1b-a400m")
 TRAIN_STEPS = 2
+DSCIM_LUT = "lut:dscim1:256"
 
 
 def _whole(par, tree):
@@ -50,13 +52,13 @@ def _whole(par, tree):
     return tree.detach().numpy().copy()
 
 
-def _train(par, inp, archs=ARCHS):
-    """TRAIN_STEPS steps of each of ``archs`` from the shared params on the
-    shared batch: each step's loss and gradient norm, and the params and
-    AdamW state after the steps, whole."""
+def _train(par, inp, archs=ARCHS, dscim="off"):
+    """TRAIN_STEPS steps of each of ``archs`` (at ``dscim``) from the
+    shared params on the shared batch: each step's loss and gradient
+    norm, and the params and AdamW state after the steps, whole."""
     out = {}
     for arch in archs:
-        cfg = get_arch(arch).reduced()
+        cfg = dataclasses.replace(get_arch(arch).reduced(), dscim=dscim)
         params = params_from_jax(inp["params"][arch], device="cpu", par=par)
         opt = AdamW(lr=1e-3)
         state = opt.init(params)
@@ -72,6 +74,12 @@ def _train(par, inp, archs=ARCHS):
 def job_train_tp(inp):
     """The train steps under model=2 (no DP split)."""
     return _train(make_parallel_ctx(make_debug_mesh(1, 2)), inp)
+
+
+def job_train_tp_lut(inp):
+    """The olmo-1b train steps under model=2 through ``DSCIM_LUT``."""
+    return _train(make_parallel_ctx(make_debug_mesh(1, 2)), inp,
+                  archs=("olmo-1b",), dscim=DSCIM_LUT)
 
 
 def job_train_2x2(inp):
@@ -307,7 +315,8 @@ def job_pipe(inp):
 
 JOBS = {"train_tp": job_train_tp, "train_2x2": job_train_2x2,
         "train_2x2_no_aux": job_train_2x2_no_aux,
-        "train_tp_no_aux": job_train_tp_no_aux, "rec_tp": job_rec_tp,
+        "train_tp_no_aux": job_train_tp_no_aux,
+        "train_tp_lut": job_train_tp_lut, "rec_tp": job_rec_tp,
         "rec_2x2": job_rec_2x2, "collectives": job_collectives,
         "loop": job_loop, "elastic": job_elastic, "psum": job_psum,
         "pipe": job_pipe, "payload_2x2": job_payload_2x2,

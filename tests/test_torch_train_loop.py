@@ -23,8 +23,10 @@ CPU:
 * ``TrainLoop`` on the CPU (reduced olmo-1b, 20 steps of 8 x 64): the
   loss falls; a failure injected after the step-10 checkpoint replays
   every loss bitwise the clean run's; a second loop resumes at the saved
-  step; a mesh without a joined process group raises, and the train
-  CLI's ``--mesh`` takes the recurrent families on to ``torchrun``'s
+  step; through ``statistical:dscim1:256`` (4 steps of 4 x 16) a failure
+  after the step-2 checkpoint replays every loss and the final
+  parameters bitwise; a mesh without a joined process group raises, and
+  the train CLI's ``--mesh`` takes the recurrent families on to ``torchrun``'s
   group (training under a mesh: tests/test_torch_train_mesh.py and
   tests/test_torch_mesh_recurrent.py).
 """
@@ -32,6 +34,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import dataclasses  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 
@@ -251,8 +254,8 @@ def test_checkpoints_cross_both_ways(tmp_path):
 
 # ---------------- the loop ----------------
 
-def _loop(tmp, **kw):
-    cfg = get_arch("olmo-1b").reduced()
+def _loop(tmp, cfg=None, **kw):
+    cfg = cfg or get_arch("olmo-1b").reduced()
     args = dict(steps=20, batch=8, seq=64, ckpt_dir=str(tmp), lr=1e-3,
                 ckpt_every=10, log=lambda *a: None, device="cpu")
     args.update(kw)
@@ -275,6 +278,26 @@ def test_train_loop_learns_replays_and_resumes(tmp_path):
     state = resumed.restore_or_init()
     assert state["step"] == 20
     assert int(state["opt"]["count"]) == 20
+
+
+def test_train_loop_replays_a_noise_mode_bitwise(tmp_path):
+    """Through ``statistical:dscim1:256``: the noise is keyed per call
+    site, so a failure after the step-2 checkpoint replays step 2's loss
+    bitwise, and the run's last state is the clean run's."""
+    cfg = dataclasses.replace(get_arch("olmo-1b").reduced(),
+                              dscim="statistical:dscim1:256")
+    kw = dict(cfg=cfg, steps=4, batch=4, seq=16, ckpt_every=2)
+    clean = _loop(tmp_path / "clean", **kw)
+    want = clean.run()
+    losses = [h["loss"] for h in clean.history]
+    assert all(np.isfinite(losses))
+    faulty = _loop(tmp_path / "faulty", fail_at=(3,), **kw)
+    got = faulty.run()
+    assert [h["step"] for h in faulty.history] == [0, 1, 2, 2, 3]
+    for h in faulty.history:
+        assert h["loss"] == losses[h["step"]]           # bitwise
+    for a, b in zip(leaves(want["params"]), leaves(got["params"])):
+        assert torch.equal(a, b)
 
 
 def test_train_refuses_a_mesh():

@@ -20,6 +20,9 @@ the reference's ``init_params`` of the reduced configs and one batch of
   mesh and its gradient norm within ``EP_REF_RTOL``, and with the aux's
   weight 0 its losses and gradient norms within ``DP_RTOL`` of one
   device (measured bitwise) and its parameters within ``PARAM_ATOL``;
+* ``make_train_step`` under ``model=2`` through ``lut:dscim1:256``
+  (olmo-1b): losses, gradient norms, parameters and AdamW state after two
+  steps bitwise the one-device steps at the same spec;
 * under ``data=2,model=2`` (each rank's half of the batch, the gradients
   averaged over ``data``): each step's loss and gradient norm within
   ``DP_RTOL`` of one device for olmo-1b (f32 sums in another order;
@@ -109,7 +112,8 @@ JAX_REF = ROOT / "tests" / "_jax_train_mesh_ref.py"
 SPAWN_TIMEOUT_S = 240
 GROUPS = {"data=2,model=2": (4, "train_2x2,train_2x2_no_aux,loop,elastic,"
                                  "collectives,payload_2x2"),
-          "pod=2": (2, "psum,pipe,train_tp,train_tp_no_aux,sp_tp")}
+          "pod=2": (2, "psum,pipe,train_tp,train_tp_no_aux,sp_tp,"
+                       "train_tp_lut")}
 ARCHS = ("olmo-1b", "granite-moe-1b-a400m")
 TRAIN_STEPS = 2
 DP_RTOL = 1e-5           # loss and gradient norm, f32 order of the sums
@@ -123,6 +127,7 @@ REF_RTOL = 2e-3          # tests/test_launch_dist.py's own bound
 # measured 1.3e-4 (model=2) and 3.1e-5 (data=2,model=2) off it
 EP_REF_RTOL = 3e-4
 PIPE_ATOL = 1e-6
+DSCIM_LUT = "lut:dscim1:256"     # the model=2 job through a DS-CIM mode
 
 
 def _inputs(tmp: Path) -> dict:
@@ -221,12 +226,12 @@ def _collect(procs, deadline) -> dict:
     return res
 
 
-def _one_device(inp, archs=ARCHS) -> dict:
-    """The port's one-device train steps: {arch: (metrics, params,
-    state)}, as the ranks report theirs."""
+def _one_device(inp, archs=ARCHS, dscim="off") -> dict:
+    """The port's one-device train steps at ``dscim``: {arch: (metrics,
+    params, state)}, as the ranks report theirs."""
     out = {}
     for arch in archs:
-        cfg = get_arch(arch).reduced()
+        cfg = dataclasses.replace(get_arch(arch).reduced(), dscim=dscim)
         params = params_from_jax(inp["params"][arch], device="cpu")
         opt = AdamW(lr=1e-3)
         state = opt.init(params)
@@ -249,6 +254,7 @@ def runs(tmp_path_factory):
     one = _one_device(inp)
     with mock.patch.object(steps, "AUX_WEIGHT", 0.0):
         one["no_aux"] = _one_device(inp, archs=(MOE,))
+    one["lut"] = _one_device(inp, archs=("olmo-1b",), dscim=DSCIM_LUT)
     res = _collect(procs, deadline)
     return inp, res, res.pop("jax")[0], one
 
@@ -291,6 +297,20 @@ def test_train_step_model2_bitwise_one_device(runs, arch):
                                rtol=DP_RTOL, atol=0)
     for g, w in zip(leaves(params), leaves(want_p)):
         np.testing.assert_allclose(g, w, atol=PARAM_ATOL, rtol=0)
+
+
+def test_train_step_model2_through_dscim_bitwise_one_device(runs):
+    """olmo-1b through ``DSCIM_LUT`` under model=2: each rank runs the
+    DS-CIM linear on whole gathered weights and its own rows' scales, so
+    two steps are the one-device steps bitwise."""
+    _, res, _, one = runs
+    metrics, params, state = _same_on_every_rank(res["pod=2"],
+                                                 "train_tp_lut")["olmo-1b"]
+    want_m, want_p, want_s = one["lut"]["olmo-1b"]
+    assert metrics == want_m
+    assert metrics != one["olmo-1b"][0]          # the spec was read
+    _assert_trees_equal(params, want_p)
+    _assert_trees_equal(state, want_s)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
