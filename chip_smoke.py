@@ -2,7 +2,7 @@
 """GPU smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phase mesh|train_mesh|tune|train_dscim
+    python3 chip_smoke.py --phase mesh|train_mesh|tune|train_dscim|paper
                                                           # that phase alone
 
 Needs one NVIDIA GPU with ``nvcc`` (sm_90a); exits non-zero without one.
@@ -240,9 +240,23 @@ In order it
    printed), 'kernel' bitwise 'auto';
    (f, ``tune_dryrun``, after ``train``) launch/dryrun.py's prediction of
    the train run's peak and argument bytes beside its measured peak;
-7. computes Table I through the card (``table1``): for all 12 presets the
-   counts of ``DSCIMMacro.rmse``'s operands through the count kernel must
-   equal the LUT's, and the RMSE must equal the JAX reference's;
+7. runs the paper's experiments and the CI serve smokes through the
+   port's own entry points (``paper``, ``paper_phase``; ``--phase paper``
+   alone): (a) Table I, ``repro_torch.paper.t1_rmse.run()`` at 256
+   columns x 48 vectors, every preset's counts through the count kernel
+   (kernel 6) equal to the LUT's and its RMSE the JAX reference's
+   (``TABLE1_JAX``); (b) Fig. 6(c), ``fig6_sparsity.run()``, its counts
+   from kernel 6 bitwise the LUT's, its rows the reference's
+   (``FIG6_JAX``); (c) Table III with Fig. 4 and the seed search equal to
+   the reference's rows (``T3_JAX``, ``SEEDSEARCH_JAX``); (d)
+   ``examples/cnn_dscim_torch.py`` at 300 steps as a subprocess, 18 rows,
+   float and int8_exact at least ``PAPER_ACC_MIN`` at every K; (e)
+   ``t2_llm.run()``: the trained float loss at most ``PAPER_LOSS_MAX``
+   (the untrained parameters must fail it), the exact row within
+   ``PAPER_EXACT_NEAR``; (f) every non-mesh ``repro_torch.launch.
+   ci_smoke`` preset on the card, rc 0, kernels 1 and 2 counted; every
+   leg's launches of the six kernels go on the ``kernels`` line
+   (``launches_paper``);
 8. serves the reduced qwen3-0.6b (``DSCIM``, int8 KV), rwkv6-7b and
    zamba2-7b (``off``, float cache) configs on the GPU and on the CPU
    (plain versions) and checks that they agree, and takes one train step
@@ -329,8 +343,8 @@ MOE_SERVED = (("granite-moe-1b-a400m", None), ("deepseek-moe-16b", 8))
 # request's budgets
 REC_SERVED = (("rwkv6-7b", None), ("zamba2-7b", None))
 # requests of each loop timed in turns (an eager zamba2-7b request takes
-# about 4.5 s)
-REC_TURNS = 3
+# about 4.5 s; two turns, so the script's phases stay near their budget)
+REC_TURNS = 2
 REC_BUDGETS = (16, 5, 12, 3)
 # kernel 6 against the cycle-level OR-MAC (core/ormac.py): (M, K, N)
 CYCLE_SHAPE = (4, 64, 16)
@@ -400,6 +414,55 @@ TABLE1_JAX = {
     ("dscim2", 256, "opt"): 1.0482831949140168,
 }
 TABLE1_RTOL = 1e-5
+# paper phase: (b) Fig. 6(c) of the JAX reference on the CPU,
+# benchmarks/fig6_sparsity.py run() at its defaults (H 128, L 256, 8
+# trials): (product sparsity, naive OR-MAC error, DS-CIM error %); the
+# DS-CIM error is one f32 estimate a trial (read bitwise on the CPU)
+FIG6_JAX = {
+    "fig6c/level16": (0.999, 0.019731521606445312, 0.08880148260284507),
+    "fig6c/level48": (0.991, 0.12390708923339844, 0.19167357506728183),
+    "fig6c/level96": (0.965, 0.9694957733154297, 0.17068705545943869),
+    "fig6c/level160": (0.902, 5.954809188842773, 0.24147112889273356),
+    "fig6c/level224": (0.807, 17.310136795043945, 0.30971411236063057),
+    "fig6c/level255": (0.75, 23.77507209777832, 0.487914804402153),
+}
+FIG6_RTOL = 1e-6
+# (c) benchmarks/t3_efficiency.py run() (TOPS/W, TOPS/mm2, area mm2) and
+# benchmarks/seedsearch.py run() (best, its RMSE %, the runner-up's) of
+# the JAX reference on the CPU; held to 1e-12 and 1e-9 relative
+T3_JAX = {
+    "t3/dscim1/L64": (2657.016610674063, 472.2682572175862,
+                      0.7737736559999999),
+    "t3/dscim1/L128": (1357.1194852657843, 236.1341286087931,
+                       0.7737736559999999),
+    "t3/dscim1/L256": (685.9461201916131, 118.06706430439655,
+                       0.7737736559999999),
+    "t3/dscim2/L64": (3702.4896947219504, 363.6558387311153, 0.720136536),
+    "t3/dscim2/L128": (1907.2761673121513, 181.82791936555765, 0.720136536),
+    "t3/dscim2/L256": (968.2916447532368, 90.91395968277882, 0.720136536),
+    "fig4/cmr1": (203.2371356926709, 10.575692815623762,
+                  0.38691592799999996),
+    "fig4/cmr4": (726.0602479121371, 40.636254741429674,
+                  0.40278357600000003),
+    "fig4/cmr16": (2034.4635745389903, 140.41797048342954, 0.466254168),
+    "fig4/cmr64": (3702.4896947219504, 363.6558387311153, 0.720136536),
+}
+SEEDSEARCH_JAX = {
+    "seedsearch/dscim1/L64": ("lfsr(su=233,sv=1)", 1.4458102273689097,
+                              1.4911369185789611),
+    "seedsearch/dscim1/L256": ("galois(su=91,sv=1)", 0.6361298084104974,
+                               0.7079318191896236),
+    "seedsearch/dscim2/L64": ("lfsr(su=1,sv=233)", 2.888653195265128,
+                              2.903217279501131),
+    "seedsearch/dscim2/L256": ("lcg(su=1,sv=1)", 1.4245018029918288,
+                               1.6401408392489318),
+}
+# (d) examples/cnn_dscim_torch.py: float and int8_exact accuracy at every
+# K (the reference reads 1.0 on the CPU); the process's limit
+PAPER_EXAMPLE_STEPS, PAPER_ACC_MIN, PAPER_EXAMPLE_TIMEOUT_S = 300, 0.99, 300
+# (e) t2_llm's float loss after training (the reference reads 1.083 on the
+# CPU, ln(128) = 4.85 untrained) and the exact row's distance from it
+PAPER_LOSS_MAX, PAPER_EXACT_NEAR = 1.5, 0.01
 # mesh phase: kernel 1's N-slices and both kernels' batch slices per leg;
 # leg (d)'s two gloo ranks serve qwen3 at full width cut to this depth,
 # this many tokens (each decode step gathers the f32 embedding through
@@ -3262,32 +3325,198 @@ def check_flash(torch, inp, out, launches):
             "calls": calls}
 
 
-def table1(torch):
-    """Phase 7: Table I through the card: each preset's rmse operands go
-    through the count kernel; counts equal to the LUT's, RMSE equal to the
-    JAX reference's to TABLE1_RTOL."""
+def paper_phase(torch):
+    """Phase paper: the paper's experiments through the port's own entry
+    points (``repro_torch.paper``) and the CI serve smokes
+    (``repro_torch.launch.ci_smoke``), on the card.  (a) Table I:
+    ``t1_rmse.run()`` at the reference's defaults, its count-kernel
+    launches counted; each preset's counts through kernel 6 equal the
+    LUT's and its RMSE within TABLE1_RTOL of TABLE1_JAX.  (b) Fig. 6(c):
+    ``fig6_sparsity.run()`` at its defaults, the counts of each kernel 6
+    call bitwise the LUT's, the rows the reference's (FIG6_JAX: naive
+    error and sparsity equal, the DS-CIM error within FIG6_RTOL).  (c)
+    ``t3_efficiency.run()`` and ``seedsearch.run()`` equal to T3_JAX and
+    SEEDSEARCH_JAX.  (d) ``examples/cnn_dscim_torch.py --steps 300`` as a
+    subprocess (started first, read last): rc 0, 18 rows, float and
+    int8_exact at least PAPER_ACC_MIN at every K.  (e) ``t2_llm.run()``
+    at its defaults: the float loss at most PAPER_LOSS_MAX, the exact
+    row's within PAPER_EXACT_NEAR of it; the untrained parameters (the
+    run's step-0 state, which a run at lr 0 keeps) read under 'off' and
+    must fail that bound.  (f) every non-mesh ``ci_smoke`` preset in one
+    in-process call, rc 0, kernels 1 and 2 launched (counted)."""
+    import os
+    import re
+
     from repro_torch.core.macro import DSCIMMacro, rmse_operands
     from repro_torch.core.seed_search import calibrated_config
     from repro_torch.kernels import dscim_mvm
+    from repro_torch.launch import ci_smoke
+    from repro_torch.models.registry import get_model
+    from repro_torch.paper import (fig6_sparsity, seedsearch, t1_rmse,
+                                   t2_llm, t3_efficiency)
 
-    dscim_mvm.LAUNCHES.reset()
-    res = {}
-    for key, want in TABLE1_JAX.items():
-        mac = DSCIMMacro(calibrated_config(*key))
-        x, w = (torch.as_tensor(a, dtype=torch.int32, device="cuda")
-                for a in rmse_operands(mac.cfg.rows, 256, 48, 0, "uniform"))
-        counts = dscim_mvm.dscim_counts(x, w, *mac.folded, k=mac.cfg.k,
-                                        length=mac.cfg.length)
-        lut = mac.counts_lut(x, w)
-        if not torch.equal(counts, lut.to(torch.float32)):
-            raise AssertionError(f"table1 {key}: kernel counts != LUT")
-        got = mac.rmse(n_cols=256, n_vec=48, seed=0, backend="kernel",
-                       device="cuda")["unsigned_fullscale"]
-        res["/".join(map(str, key))] = got
-        _log(f"table1 {key}: RMSE {got:.6f} % (JAX {want:.6f} %)")
-        if abs(got - want) > TABLE1_RTOL * want:
-            raise AssertionError(f"table1 {key}: {got} vs JAX {want}")
-    _log(f"table1: {dscim_mvm.LAUNCHES.count} count-kernel launches")
+    counters = _all_counters()
+    res: dict = {"launches": {}, "leg_s": {}}
+
+    def counted(leg, fn):
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        out = fn()
+        res["leg_s"][leg] = time.perf_counter() - t0
+        res["launches"][leg] = {k: c.count for k, c in counters.items()}
+        return out
+
+    # (d) first: the example's process reaches the card while the legs run
+    example = subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / "cnn_dscim_torch.py"),
+         "--steps", str(PAPER_EXAMPLE_STEPS)],
+        env=dict(os.environ, PYTHONPATH=str(SRC)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    t_example = time.perf_counter()
+    try:
+        # (a) Table I through kernel 6
+        rows = counted("t1_rmse", lambda: t1_rmse.run(device="cuda"))
+        res["t1_rmse"] = rows
+        t1 = {}
+        for key, r in zip(t1_rmse.PRESETS, rows, strict=True):
+            want = TABLE1_JAX[key]
+            mac = DSCIMMacro(calibrated_config(*key))
+            x, w = (torch.as_tensor(a, dtype=torch.int32, device="cuda")
+                    for a in rmse_operands(mac.cfg.rows, 256, 48, 0,
+                                           "uniform"))
+            counts = dscim_mvm.dscim_counts(x, w, *mac.folded, k=mac.cfg.k,
+                                            length=mac.cfg.length)
+            if not torch.equal(counts, mac.counts_lut(x, w).to(
+                    torch.float32)):
+                raise AssertionError(f"paper (a) {key}: kernel counts != "
+                                     "LUT")
+            got = r["rmse_pct"]
+            t1["/".join(map(str, key))] = got
+            _log(f"paper (a) {r['name']}: RMSE {got:.6f} % (JAX "
+                 f"{want:.6f} %, paper {r['paper_pct']} %), bias "
+                 f"{r['bias']:.1f}, {r['us']:.0f} us")
+            if abs(got - want) > TABLE1_RTOL * want:
+                raise AssertionError(f"paper (a) {key}: {got} vs JAX {want}")
+        res["table1_rmse_pct"] = t1
+        n6 = res["launches"]["t1_rmse"]["dscim_counts"]
+        if n6 != len(t1_rmse.PRESETS):
+            raise AssertionError(f"paper (a): {n6} kernel 6 launches, want "
+                                 f"{len(t1_rmse.PRESETS)}")
+
+        # (b) Fig. 6(c): each DS-CIM estimate's counts held to the LUT's
+        seen = []
+        kernel_counts = DSCIMMacro.counts_kernel
+
+        def recorded(self, x, w, **kw):
+            c = kernel_counts(self, x, w, **kw)
+            seen.append((self, x, w, c))
+            return c
+        DSCIMMacro.counts_kernel = recorded
+        try:
+            rows = counted("fig6", lambda: fig6_sparsity.run(device="cuda"))
+        finally:
+            DSCIMMacro.counts_kernel = kernel_counts
+        lut_equal = all(torch.equal(c, mac.counts_lut(x, w).to(c.dtype))
+                        for mac, x, w, c in seen)
+        res["fig6"] = rows
+        worst = 0.0
+        for r in rows:
+            sp, naive, ds = FIG6_JAX[r["name"]]
+            worst = max(worst, abs(r["dscim_err_pct"] - ds) / ds)
+            _log(f"paper (b) {r['name']}: sparsity {r['product_sparsity']}"
+                 f", naive {r['naive_or_err']:.6f} (JAX {naive:.6f}), "
+                 f"DS-CIM {r['dscim_err_pct']:.6f} % (JAX {ds:.6f} %)")
+            if (r["product_sparsity"], r["naive_or_err"]) != (sp, naive) \
+                    or abs(r["dscim_err_pct"] - ds) > FIG6_RTOL * ds:
+                raise AssertionError(f"paper (b) {r} vs JAX "
+                                     f"{FIG6_JAX[r['name']]}")
+        n6 = res["launches"]["fig6"]["dscim_counts"]
+        res["fig6_dscim_max_rel_diff"] = worst
+        _log(f"paper (b): {n6} kernel 6 launches, {len(seen)} estimates, "
+             f"counts bitwise the LUT's: {lut_equal}; DS-CIM error's max "
+             f"relative difference to JAX {worst:.3e}")
+        # one estimate a trial, 8 trials a level (the run's default)
+        if not lut_equal or n6 != len(seen) or n6 != len(rows) * 8:
+            raise AssertionError(f"paper (b): {n6} launches, {len(seen)} "
+                                 f"estimates, LUT equal {lut_equal}")
+
+        # (c) Table III with Fig. 4, and the seed search
+        rows = t3_efficiency.run(device="cuda")
+        res["t3"] = rows
+        for r in rows:
+            want = T3_JAX[r["name"]]
+            got = (r["tops_w"], r["tops_mm2"], r["area_mm2"])
+            if any(abs(g - w) > 1e-12 * w for g, w in zip(got, want)):
+                raise AssertionError(f"paper (c) {r['name']}: {got} vs "
+                                     f"{want}")
+        rows = seedsearch.run(device="cuda")
+        res["seedsearch"] = rows
+        for r in rows:
+            best, rmse, second = SEEDSEARCH_JAX[r["name"]]
+            if r["best"] != best or abs(r["rmse"] - rmse) > 1e-9 * rmse \
+                    or abs(r["second"] - second) > 1e-9 * second:
+                raise AssertionError(f"paper (c) {r} vs {best}, {rmse}, "
+                                     f"{second}")
+        _log(f"paper (c): Table III / Fig. 4 ({len(res['t3'])} rows) and the "
+             f"seed search ({len(rows)} rows) equal the reference's; DS-CIM2"
+             f"/L64 {res['t3'][3]['tops_w']:.1f} TOPS/W (paper 3566.1)")
+
+        # (e) Table II's LLM rows
+        rows = counted("t2_llm", lambda: t2_llm.run(device="cuda"))
+        res["t2_llm"] = rows
+        for r in rows:
+            _log(f"paper (e) {r['name']}: loss {r['loss']:.4f}, acc "
+                 f"{r['acc']:.4f}, drop {r['delta']:+.4f}")
+        cfg = t2_llm.config()
+        untrained = t2_llm.evaluate(
+            cfg, get_model(cfg).init_params(cfg, 0, device="cuda"), "off",
+            device="cuda")
+        res["t2_untrained_off"] = untrained
+        base, exact = rows[0]["loss"], rows[1]["loss"]
+        _log(f"paper (e): float loss {base:.4f} (bound {PAPER_LOSS_MAX}; "
+             f"untrained {untrained[0]:.4f}, ln(vocab) "
+             f"{math.log(cfg.vocab):.4f}), exact {exact:.4f}")
+        if not base <= PAPER_LOSS_MAX < untrained[0] \
+                or abs(exact - base) > PAPER_EXACT_NEAR:
+            raise AssertionError(f"paper (e): float {base}, exact {exact}, "
+                                 f"untrained {untrained}")
+
+        # (f) the CI serve smokes on the card
+        names = [n for n in ci_smoke.SMOKES if n not in ci_smoke.MESH_SMOKES]
+        rc = counted("serve_smokes", lambda: ci_smoke.run(names))
+        smokes = res["launches"]["serve_smokes"]
+        res["serve_smokes"] = {"names": names, "rc": rc}
+        _log(f"paper (f): {len(names)} serve smokes, rc {rc}, launches "
+             f"{smokes}")
+        if rc or not (smokes["dscim_fused_mvm"]
+                      and smokes["paged_attention_decode"]):
+            raise AssertionError(f"paper (f): rc {rc}, launches {smokes}")
+    finally:
+        try:
+            out, _ = example.communicate(timeout=PAPER_EXAMPLE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            example.kill()
+            out, _ = example.communicate()
+            raise
+    # (d) the example's printout
+    res["example_s"] = time.perf_counter() - t_example
+    acc = {}
+    for m in re.finditer(r"^(t1acc/\S+)\s+([-0-9.]+)\s+([-+0-9.]+)$", out,
+                         re.M):
+        acc[m.group(1)] = float(m.group(2))
+    res["example"] = {"rc": example.returncode, "acc": acc}
+    _log(f"paper (d): examples/cnn_dscim_torch.py --steps "
+         f"{PAPER_EXAMPLE_STEPS}: rc {example.returncode}, {len(acc)} rows "
+         f"({res['example_s']:.1f} s, beside the other legs)")
+    for name, a in acc.items():
+        _log(f"paper (d) {name}: {a:.4f}")
+    exact_rows = [a for n, a in acc.items()
+                  if n.endswith(("/float", "/int8_exact"))]
+    if example.returncode or len(acc) != 18 or len(exact_rows) != 6 \
+            or min(exact_rows) < PAPER_ACC_MIN:
+        raise AssertionError(f"paper (d): rc {example.returncode}, "
+                             f"{acc}\n{out[-3000:]}")
     return res
 
 
@@ -5477,10 +5706,11 @@ def tune_dryrun(torch, train):
 
 
 def phase_alone(torch, name: str) -> int:
-    """``chip_smoke.py --phase mesh|train_mesh|tune|train_dscim``: one
-    phase alone, for iterating on the card without the whole run.  Builds
-    the fused-MVM and paged-attention kernels (``train_dscim``: the count
-    kernel only, and it takes nothing from earlier phases), makes what the
+    """``chip_smoke.py --phase mesh|train_mesh|tune|train_dscim|paper``:
+    one phase alone, for iterating on the card without the whole run.
+    Builds the fused-MVM and paged-attention kernels (``train_dscim``: the
+    count kernel only; ``paper``: all three; neither takes anything from
+    earlier phases), makes what the
     phase takes from earlier
     phases (``mesh``: qwen3-0.6b prepared once and its tokens served
     one-shot on the int8 cache; ``train_mesh``: olmo-1b trained unsharded
@@ -5494,11 +5724,14 @@ def phase_alone(torch, name: str) -> int:
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.build(("dscim_counts",) if name == "train_dscim"
-                else ("dscim_fused", "paged_attention"))
+    build.build({"train_dscim": ("dscim_counts",),
+                 "paper": ("dscim_counts", "dscim_fused", "paged_attention")}
+                .get(name, ("dscim_fused", "paged_attention")))
     _log(f"built in {time.perf_counter() - t0:.1f} s")
     if name == "train_dscim":
         fn, args = train_dscim_phase, (torch,)
+    elif name == "paper":
+        fn, args = paper_phase, (torch,)
     elif name == "mesh":
         from repro_torch.launch.serve import prepare_params, serve_batch
         from repro_torch.models import lm
@@ -5544,8 +5777,8 @@ def phase_alone(torch, name: str) -> int:
                            for name, cut, seq in TRAIN_OTHERS}
         fn, args = train_mesh_phase, (torch, train)
     else:
-        print(f"chip_smoke: --phase {name!r}: want mesh, train_mesh, tune "
-              "or train_dscim", file=sys.stderr)
+        print(f"chip_smoke: --phase {name!r}: want mesh, train_mesh, tune, "
+              "train_dscim or paper", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
     try:
@@ -5768,7 +6001,13 @@ def main(argv) -> int:
             if entry is not None and entry["name"] in by_name:
                 entry["tune"] = by_name[entry["name"]]
         tune["dryrun"] = tune_f
-    t1 = phase("table1", table1, torch)
+    paper = phase("paper", paper_phase, torch)
+    if paper is not None:
+        for entry in kernels:
+            if entry is not None:
+                entry["launches_paper"] = {
+                    leg: n[entry["name"]]
+                    for leg, n in paper["launches"].items()}
     drift = phase("reduced_gpu_vs_cpu", check_reduced, torch)
     print(json.dumps({"kernels": kernels, "card": smi[0] if smi else None,
                       "tok_s": e2e.get("tok_s"),
@@ -5783,7 +6022,8 @@ def main(argv) -> int:
                       "train_mesh": tmesh, "tune": tune,
                       "prefill_logit_rmse_vs_off": e2e.get("logit_rmse"),
                       "reduced_gpu_vs_cpu_drift": drift,
-                      "table1_rmse_pct": t1,
+                      "table1_rmse_pct": paper and paper["table1_rmse_pct"],
+                      "paper": paper,
                       "profile": prof, "ptxas": ptxas,
                       "failed_phases": failures}), flush=True)
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
