@@ -37,10 +37,12 @@ import asyncio
 import contextlib
 import dataclasses
 import time
+from collections.abc import Callable
 
 import numpy as np
 
 from ..configs import CONTINUOUS_ARCHS
+from ..runtime.failover import FailureInjector, SimulatedHardwareFailure
 
 
 def make_trace(seed: int, n: int, *, buckets=(4, 8), max_prompt: int = 12,
@@ -135,9 +137,11 @@ async def _run_leg(cfg, params, trace, *, injector=None, monitor=None,
                     injector=injector, monitor=monitor,
                     snapshot_every=snapshot_every, prefix_cache=prefix_cache,
                     device=device, log=lambda *a: None)
+    recs = [{"status": None, "tokens": []} for _ in trace]
+    if isinstance(injector, LegFailures):
+        injector.out_of_work = lambda: _out_of_work(router, recs)
     await router.start()
     t0 = time.perf_counter()
-    recs = [{"status": None, "tokens": []} for _ in trace]
     await asyncio.gather(*[_client(router, s, t0, r)
                            for s, r in zip(trace, recs)])
     await router.close("drain")
@@ -285,25 +289,90 @@ class LoadShape:
                                           // self.page_size + 1))
 
 
+@dataclasses.dataclass
+class LegFailures(FailureInjector):
+    """A ``FailureInjector`` whose device losses cannot outlive the leg
+    that runs them.  A loss fires at its drawn segment, as the base
+    class's does; but where ``out_of_work()`` says, at a round's start,
+    that no decode segment can follow that round, the earliest loss still
+    drawn for a later segment fires there instead.  ``_run_leg`` binds
+    ``out_of_work`` to the router serving the leg (``_out_of_work``);
+    unbound, this is the base class."""
+    out_of_work: Callable[[], bool] | None = None
+
+    def maybe_fail(self, step: int):
+        super().maybe_fail(step)
+        late = sorted(s for s in self.fail_at
+                      if s > step and s not in self.fired)
+        if late and self.out_of_work is not None and self.out_of_work():
+            self.fired.add(late[0])
+            raise SimulatedHardwareFailure(
+                f"injected fault drawn for segment {late[0]}, fired at "
+                f"segment {step}: the leg runs no segment after it")
+
+
+def _out_of_work(router, recs) -> bool:
+    """Whether the router's round about to start is the last that can
+    hold live work: every request of the trace has reached the router,
+    some request is still open (a loss then still has live work to
+    replay from the last snapshot), and no open request can run a decode
+    segment after this round: each sits in a decode slot that is done,
+    or its client has cancelled it, or it carries a deadline, which this
+    round may end.  A deadline that does not end it makes the loss fire
+    a round early, never too late."""
+    if any("t_submit" not in r for r in recs):
+        return False                      # arrivals still to come
+    h = router._host
+    open_ = list(router._inbox) + [r for r, st in h["status"].items()
+                                   if st is None]
+    if not open_:
+        return False
+    done = router._state["done"].cpu().numpy()
+    for rid in open_:
+        req = router._requests[rid]
+        if req.cancelled or req.deadline_s is not None \
+                or req.deadline_steps is not None:
+            continue
+        b = h["slot_rid"].index(rid) if rid in h["slot_rid"] else -1
+        if b < 0 or h["slot_phase"][b] != "decode" or not done[b]:
+            return False
+    return True
+
+
 def chaos_injector(shape: LoadShape, cfg, plain_segments: int,
-                   chaos_seed: int):
+                   chaos_seed: int) -> LegFailures:
     """The chaos leg's fault schedule: ``FailureInjector.sampled`` over
     ``max(min_fault_segments, fault_span * plain_segments)`` segments,
     with the reference's arguments, so equal inputs give the reference's
-    flips (segment, slot, plane, element, bit).  Which request a flip
+    device losses and flips (segment, slot, plane, element, bit), drawn
+    in its order (the ``--chaos-seed`` contract).  Which request a flip
     hits, and whether it hits a committed page (the flip persists and
     may change that request's tokens) or one a later flush rewrites,
     depends on where the router's arrivals, timed on the wall clock, have
     put each request at that segment, and so does the plain leg's segment
     count: the same seed lands its flips on other requests from run to
-    run, in either package."""
-    from ..runtime.failover import FailureInjector
+    run, in either package.
+
+    The device losses are re-armed against the reference's schedule
+    (``benchmarks/loadtest.py:285`` fires a loss only at its drawn
+    segment).  The chaos leg's own segment count also depends on the
+    host: where its rounds run slowly, the wall-clock arrivals overrun
+    the admission queue, more requests are refused, and the leg runs
+    fewer segments than the plain leg that set the span (14 against
+    16-20 at the smoke shape), so a loss drawn past its end never fired
+    and the leg made no replay.  ``LegFailures`` fires such a loss in the
+    round that harvests the leg's last live segment (``_out_of_work``),
+    so every drawn loss fires, and replays live work, whatever the
+    host's speed.  A loss the leg reaches fires at its drawn segment, as
+    the reference's does."""
     segs = max(shape.min_fault_segments,
                int(plain_segments * shape.fault_span))
-    return FailureInjector.sampled(
+    inj = FailureInjector.sampled(
         chaos_seed, segments=segs, slots=shape.slots, n_layers=cfg.n_layers,
         page_size=shape.page_size, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
         device_losses=shape.device_losses, flips=shape.flips)
+    return LegFailures(**{f.name: getattr(inj, f.name)
+                          for f in dataclasses.fields(inj)})
 
 
 def run_loadtest(smoke: bool = True, *, requests: int | None = None,

@@ -20,8 +20,10 @@ int8 paged read pin (``paged_attn``).
   ``--paged-attn`` / ``--tune`` reaching ``serve_batch``.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 import json  # noqa: E402

@@ -10,8 +10,10 @@ kernel (interpret mode) window by window, bitwise, so a layout error
 shows without a card.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -17,8 +17,10 @@ against the reference's ``scripts/ci_smoke.py``, on the CPU:
 does not call.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import contextlib  # noqa: E402
 import io  # noqa: E402

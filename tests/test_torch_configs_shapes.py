@@ -6,8 +6,10 @@ the reference's, for all ten architectures at full and reduced size:
 reference's ``ShapeDtypeStruct``s.  Exact: all of it is integer
 arithmetic on the configs."""
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 

@@ -20,8 +20,10 @@ serve_continuous``, ``runtime/serving.py``, ``core/kvcache.py``
   ``kernel:dscim1:256`` with the int8 cache).
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 

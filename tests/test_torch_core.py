@@ -2,8 +2,10 @@
 quantizers and prepared weights against the JAX reference, bit for bit
 (the same numpy-seeded inputs go through both packages)."""
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 

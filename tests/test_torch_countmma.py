@@ -14,8 +14,10 @@ names.  The counts must equal the JAX reference's count kernels
 (interpret mode) bitwise, so a layout error shows without a card.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -14,8 +14,10 @@ here skips
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import numpy as np  # noqa: E402
 

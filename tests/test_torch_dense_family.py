@@ -36,8 +36,10 @@ reference's ``init_params``.  Contracts:
   to the reference's (ROADMAP C9).
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 

@@ -20,8 +20,10 @@ the profile (launch/profile.py), at reduced sizes on the CPU:
 tests/test_torch_train_mesh.py, whose rank script counts them.)
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 import json  # noqa: E402

@@ -5,8 +5,10 @@ oracle, at the shapes of the reference's own test (test_kernels.py).
 Contract: atol 3e-5, the reference test's own tolerance (f32 softmax,
 summation order)."""
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

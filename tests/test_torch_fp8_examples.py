@@ -24,8 +24,10 @@ on the CPU against the JAX reference.  Contracts:
   reference example's five lines on the CPU.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import contextlib  # noqa: E402
 import dataclasses  # noqa: E402

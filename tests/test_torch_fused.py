@@ -6,8 +6,10 @@ truncation and leading batch dims.  Contract: identical estimator up to
 f32 summation order, rtol=2e-5, atol=2e-5*max|ref| (the counts themselves
 are exact integers on both sides)."""
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -5,8 +5,10 @@ no JAX in, and entry points (serving, the router, the HTTP server, the
 load test, training, the pipeline's dry run, the examples) refuse to run
 on the CPU unless asked to."""
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import ast  # noqa: E402
 import os  # noqa: E402

@@ -19,8 +19,10 @@ injector's flips in ``runtime/failover.py``, the integrity path of
   equal the reference's, and every request is bitwise the fault-free run.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 

@@ -38,8 +38,10 @@ rendezvous fails its test.  Two groups run at once: two ranks serve
 * every rank returns the same results.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 import importlib.util  # noqa: E402

@@ -30,8 +30,10 @@ batch of 4 x 16 and 4 prompts of 8.  Contracts:
 * every rank returns the same results.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import os  # noqa: E402
 import pickle  # noqa: E402

@@ -9,8 +9,10 @@ recurrent state's pieces against the reference's cache rule, and the
 serving CLI under ``torchrun --nproc-per-node 2 --mesh model=2`` on the
 CPU, one-shot and ``--continuous --integrity verify --sampled-chaos``."""
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 import os  # noqa: E402

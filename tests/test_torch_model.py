@@ -14,8 +14,10 @@ drift RMSE 3.9e-8 with all tokens equal.  The layer tests hold rmsnorm,
 RoPE and the chunked bf16 prefill attention to 1e-5.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 

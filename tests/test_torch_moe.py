@@ -52,8 +52,10 @@ converted from the reference's ``init_params``.  Contracts:
   reference's.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 

@@ -9,8 +9,10 @@ agree to f32 summation order, rtol=2e-5, atol=2e-5*max|ref| (the counts
 are exact integers on both sides, only the f32 correction terms and the
 dequant sums run in another order)."""
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

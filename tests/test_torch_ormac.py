@@ -19,8 +19,10 @@ the same order):
   lengths, signed and unsigned, equals the reference's.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 

@@ -11,8 +11,10 @@
   ``decode_attention_paged`` over a page boundary.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -19,8 +19,10 @@ reference run once per module:
   code 2 and, with no device named on a host without CUDA, fails.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import contextlib  # noqa: E402
 import importlib  # noqa: E402

@@ -20,8 +20,10 @@ the CPU, at a small size, the reference run once per module:
 * ``main()`` prints lines of the reference's names.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import math  # noqa: E402
 

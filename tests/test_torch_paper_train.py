@@ -25,8 +25,10 @@ at a small size (Table I's accuracy rows: test_torch_paper_accuracy.py):
   prints them as the reference's ``main()`` does.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 import math  # noqa: E402

@@ -19,8 +19,10 @@
   tokens and prefix counters; ``prefix_drill`` passes; float KV raises.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 

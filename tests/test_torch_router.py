@@ -19,8 +19,10 @@ on the CPU, at the reduced qwen3-0.6b with the reference's weights
   it).
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import asyncio  # noqa: E402
 import dataclasses  # noqa: E402

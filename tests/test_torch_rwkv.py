@@ -34,8 +34,10 @@ each with the error measured on the CPU:
   the family; a chunk that does not divide S, or one past the f32 bound.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 

@@ -13,8 +13,10 @@ fall back to greedy while healthy rows draw as before, bad specs raise,
 and serving draws the same tokens per seed in every loop.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -17,12 +17,15 @@ test (``repro_torch/launch/loadtest.py``) on the CPU:
   results in ``legs``.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import asyncio  # noqa: E402
 import contextlib  # noqa: E402
 import json  # noqa: E402
+import time  # noqa: E402
 
 import numpy as np  # noqa: E402
 
@@ -211,3 +214,47 @@ def test_loadtest_smoke_holds_its_invariants():
         assert m["statuses"]["ok"] > 0
     assert chaos["replays"] >= 1 and plain["replays"] == 0
     assert "hits=" in rows[2]["derived"]
+
+
+def test_loadtest_chaos_replays_on_a_slow_host(monkeypatch):
+    """ROADMAP C15: the chaos leg's device loss fires however slowly the
+    leg runs.  Each of the chaos leg's router rounds is slowed by 150 ms
+    (the leg then outlasts the trace's 0.2-2.0 s wall deadlines), so the
+    smoke's wall-clock arrivals overrun the admission queue and the leg
+    runs fewer segments than the plain leg that set the schedule's span.
+    Chaos seed 39 draws the one device loss at the span's last segment,
+    past the slowed leg's end, where the reference's schedule fires no
+    loss; the re-armed loss (``loadtest.LegFailures``) still replays,
+    and every request ends terminal with no live page."""
+    from repro_torch.launch.loadtest import run_loadtest
+    from repro_torch.runtime.router import Router
+
+    slow = {"on": False}
+    plain_round = Router._round
+
+    def slow_round(self):
+        if slow["on"]:
+            time.sleep(0.15)
+        return plain_round(self)
+
+    monkeypatch.setattr(Router, "_round", slow_round)
+
+    @contextlib.contextmanager
+    def around(name):
+        slow["on"] = name == "chaos"
+        try:
+            yield
+        finally:
+            slow["on"] = False
+
+    legs = {}
+    _, plain, chaos = run_loadtest(smoke=True, reduced=True, chaos_seed=39,
+                                   device="cpu", log=lambda *a: None,
+                                   around_leg=around, legs=legs)
+    (loss,) = legs["chaos"]["injector"].fail_at
+    assert loss > legs["chaos"]["stats"]["segments"]
+    assert chaos["wall_s"] > 2.0
+    assert chaos["replays"] >= 1 and plain["replays"] == 0
+    for m in (plain, chaos):
+        assert sum(m["statuses"].values()) == m["requests"] == 24
+        assert m["pages"]["live_pages"] == 0

@@ -21,8 +21,10 @@ deadlines, priority eviction, snapshots and failover replay;
   ``deadline_cancelled``) equal the reference's.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 

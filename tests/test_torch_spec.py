@@ -28,8 +28,10 @@ port:
   reference's for ``lut:dscim1:256`` and ``exact:dscim1:256``.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 

@@ -38,8 +38,10 @@ Contracts, each with the error measured on the CPU:
   (tests/test_torch_train_dscim.py holds them against the reference).
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 import functools  # noqa: E402

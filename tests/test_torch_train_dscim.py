@@ -44,8 +44,10 @@ error measured on the CPU:
   output bitwise in every mode, float and prepared weights.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 import functools  # noqa: E402

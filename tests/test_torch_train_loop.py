@@ -31,8 +31,10 @@ CPU:
   tests/test_torch_mesh_recurrent.py).
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 import json  # noqa: E402

@@ -74,8 +74,10 @@ the reference's ``init_params`` of the reduced configs and one batch of
   residual stream's slices gathered).
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 import os  # noqa: E402

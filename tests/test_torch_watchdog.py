@@ -21,8 +21,10 @@ reference with the reference's parameters converted:
   port the requests no fault touched are bitwise the fault-free run.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 

@@ -34,8 +34,10 @@ each with the error measured on the CPU:
   a chunk that does not divide S.
 """
 import pytest
+from _torch_threads import cap_torch_threads
 
 torch = pytest.importorskip("torch")
+cap_torch_threads(torch)
 
 import dataclasses  # noqa: E402
 
