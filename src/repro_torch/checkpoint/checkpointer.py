@@ -27,6 +27,11 @@ in the same format: a checkpoint does not know the mesh it came from.
 the whole leaves and places this rank's pieces where the target's leaf
 is a ``Sharded`` (the reference's reshard on restore): a checkpoint
 saved under one mesh restores under another or on one device.
+
+A leaf restored onto a CUDA device is read from its file in chunks into
+two pinned host buffers, each chunk's copy to the device running while
+the next chunk is read (``_Stager``); the bytes are the file's, so the
+tensors are bitwise those of ``np.load`` and a pageable copy.
 """
 from __future__ import annotations
 
@@ -48,6 +53,88 @@ __all__ = ["Checkpointer"]
 def _host(x: torch.Tensor) -> np.ndarray:
     """A host copy of one leaf, never a view of the caller's memory."""
     return x.detach().to("cpu", copy=True).numpy()
+
+
+STAGE_BYTES = 64 << 20      # each of the two pinned staging buffers
+
+
+def _npy_header(f):
+    """(shape, dtype) of the ``.npy`` file open at its start, leaving it
+    at the first data byte.  ``ValueError`` for a file ``Checkpointer.save``
+    does not write (it ``np.save``s C-contiguous copies of torch tensors):
+    Fortran order, a header version other than 1.0 or 2.0, a non-native
+    or object dtype, a dtype torch lacks."""
+    fmt = np.lib.format
+    version = fmt.read_magic(f)
+    if version == (1, 0):
+        shape, fortran, dtype = fmt.read_array_header_1_0(f)
+    elif version == (2, 0):
+        shape, fortran, dtype = fmt.read_array_header_2_0(f)
+    else:
+        raise ValueError(f"npy header version {version}")
+    if fortran or dtype.hasobject or not dtype.isnative:
+        raise ValueError(f"npy dtype {dtype} (fortran_order={fortran})")
+    try:
+        return shape, torch.from_numpy(np.empty(0, dtype)).dtype
+    except TypeError:
+        raise ValueError(f"npy dtype {dtype} has no torch dtype") from None
+
+
+class _Stager:
+    """Reads ``.npy`` files into device tensors through two host buffers
+    (pinned where the device is CUDA): chunk j is read into buffer j % 2
+    once that buffer's last copy has finished, then copied to the device
+    without blocking, so the next read overlaps the copy."""
+
+    def __init__(self, device, nbytes: int = STAGE_BYTES):
+        self.dev = torch.device(device)
+        cuda = self.dev.type == "cuda"
+        self.bufs = [torch.empty(nbytes, dtype=torch.uint8, pin_memory=cuda)
+                     for _ in range(2)]
+        self.views = [memoryview(b.numpy()) for b in self.bufs]
+        self.events = [None, None]
+        self.turn = 0
+
+    def _wait(self, k):
+        if self.events[k] is not None:
+            self.events[k].synchronize()
+            self.events[k] = None
+
+    def load(self, path: str, shape: tuple):
+        """The array of ``path`` as a tensor on the device; ``ValueError``
+        before any data is read if ``_npy_header`` refuses the file or
+        its shape is not ``shape``."""
+        with open(path, "rb") as f:
+            head = _npy_header(f)
+            if tuple(head[0]) != tuple(shape):
+                raise ValueError(f"shape {head[0]} != expected "
+                                 f"{tuple(shape)}")
+            out = torch.empty(head[0], dtype=head[1], device=self.dev)
+            flat = out.view(-1).view(torch.uint8)
+            total, off = flat.numel(), 0
+            while off < total:
+                k, self.turn = self.turn, self.turn ^ 1
+                n = min(total - off, self.bufs[k].numel())
+                self._wait(k)
+                view, got = self.views[k], 0
+                while got < n:
+                    r = f.readinto(view[got:n])
+                    if not r:
+                        raise ValueError(f"{path}: {total} data bytes "
+                                         f"expected, the file ends at "
+                                         f"{off + got}")
+                    got += r
+                flat[off:off + n].copy_(self.bufs[k][:n], non_blocking=True)
+                if self.dev.type == "cuda":
+                    self.events[k] = torch.cuda.Event()
+                    self.events[k].record()
+                off += n
+        return out
+
+    def finish(self):
+        """Wait for the pending copies (the buffers may then be freed)."""
+        self._wait(0)
+        self._wait(1)
 
 
 class Checkpointer:
@@ -169,21 +256,33 @@ class Checkpointer:
                              f"{manifest['n_leaves']} leaves in {d}, "
                              f"{len(refs)} in the target")
         out = []
+        stager = None
         for i, ref in enumerate(refs):
-            arr = np.load(os.path.join(d, f"arr_{i:05d}.npy"))
+            path = os.path.join(d, f"arr_{i:05d}.npy")
+            dev = device if device is not None else (
+                ref.local.device if isinstance(ref, Sharded) else ref.device)
+            if not isinstance(ref, Sharded) \
+                    and torch.device(dev).type == "cuda":
+                stager = stager or _Stager(dev)
+                try:
+                    out.append(stager.load(path, ref.shape))
+                except ValueError as e:
+                    raise ValueError(f"leaf {i} {e}") from None
+                continue
+            arr = np.load(path)
             if tuple(arr.shape) != tuple(ref.shape):
                 raise ValueError(f"leaf {i} shape {arr.shape} != expected "
                                  f"{tuple(ref.shape)}")
             if isinstance(ref, Sharded):
                 from ..launch.sharding import shard_for, wrap
-                dev = device if device is not None else ref.local.device
                 piece = shard_for(self.par.rank_coords, ref.spec, arr)
                 out.append(wrap(torch.from_numpy(
                     np.ascontiguousarray(piece)).to(dev), ref.spec,
                     ref.shape))
                 continue
-            dev = device if device is not None else ref.device
             out.append(torch.from_numpy(arr).to(dev))
+        if stager is not None:
+            stager.finish()
         return unflatten(target_tree, out), manifest["extras"]
 
     def restore_latest(self, target_tree, device=None):

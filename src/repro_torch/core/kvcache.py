@@ -43,7 +43,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from .digest import M32, fold
+from .digest import M32, fold_sum
 
 __all__ = ["quantize_page", "n_pages_for", "admission_pages",
            "default_page_table", "init_paged_cache", "paged_from_dense",
@@ -84,8 +84,8 @@ def page_checksums(k_pages, v_pages, k_scale, v_scale) -> torch.Tensor:
     int8 planes (L, P, ps, KV, HD) and bitcast f32 scales (L, P, KV) ->
     (L, P), each plane folded with its own odd multiplier (1, 3, 5, 7) and
     the four added mod 2**32, as the reference adds its uint32 sums."""
-    return (fold(k_pages, 2, 1) + fold(v_pages, 2, 3) + fold(k_scale, 2, 5)
-            + fold(v_scale, 2, 7)) & M32
+    return (fold_sum(k_pages, 2, 1) + fold_sum(v_pages, 2, 3)
+            + fold_sum(k_scale, 2, 5) + fold_sum(v_scale, 2, 7)) & M32
 
 
 def _update_page_sums(cache, phys) -> None:

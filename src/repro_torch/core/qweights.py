@@ -25,7 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .digest import fold
+from .digest import M32, fold, fold_sum
 from .quant import quantize_int8
 
 __all__ = ["QuantizedLinearWeight", "prepare_linear_weight",
@@ -249,7 +249,7 @@ def weight_plane_digests(params) -> torch.Tensor:
     planes = iter_qweight_planes(params)
     if not planes:
         return torch.zeros((0,), dtype=torch.int64)
-    return torch.stack([plane_digest(x) for _, _, x in planes])
+    return torch.stack([fold_sum(x, 0, 1) for _, _, x in planes]) & M32
 
 
 def golden_weight_copy(params) -> dict:

@@ -32,9 +32,17 @@ What capture needs, and where it is met:
 * no CUDA call from the collector: a CUDA graph object that dies during
   a capture (an older runner's, held in a reference cycle) resets itself,
   which the driver refuses while a stream captures, and the capture is
-  invalidated; ``capture`` collects first and holds the collector off
-  until the capture ends (a long Python step, a Zamba2 decode, makes
-  enough objects to start a collection);
+  invalidated; ``capture`` holds the collector off until the capture
+  ends (a long Python step, a Zamba2 decode, makes enough objects to
+  start a collection).  It does not collect first: a full collection
+  took 70–140 ms of host time on every capture (an H100's host, the
+  port's heap), where the rest of a capture of the reduced model takes
+  about 10 ms.  No reference cycle holds a serving run's runners (the
+  step functions hold no reference to themselves, the load test's
+  injector is unbound after its leg; ``tests/test_torch_continuous.py``
+  holds it), so their graphs and pools go when the run returns; a graph
+  still left in a cycle is reset by a later collection, outside any
+  capture;
 * memory: what the step allocates during capture (the wrappers' outputs
   and scratch) comes from the graph's private pool, which eager code
   never reuses while the graph lives;
@@ -100,7 +108,6 @@ class CapturedStep:
         graph = torch.cuda.CUDAGraph()
         before = {c: c.count for c in build.COUNTERS}
         collecting = gc.isenabled()
-        gc.collect()
         gc.disable()
         try:
             with torch.cuda.graph(graph, stream=stream):

@@ -146,6 +146,9 @@ async def _run_leg(cfg, params, trace, *, injector=None, monitor=None,
                            for s, r in zip(trace, recs)])
     await router.close("drain")
     wall = time.perf_counter() - t0
+    if isinstance(injector, LegFailures):
+        # unbound, no cycle keeps the router and its graphs' memory pools
+        injector.out_of_work = None
     return recs, router.stats(), wall
 
 

@@ -66,6 +66,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import weakref
 
 import torch
 
@@ -1264,7 +1265,7 @@ def make_segment_fn(cfg: ArchConfig, seg_len: int = SEG_LEN, *,
         pos0 = cache["pos"].clone() if sums else None
         why = graph_ok(run.step.device, par)
         if graph and why is not None and run.step.device.type == "cuda":
-            segment.eager_reason = why
+            me().eager_reason = why
         step = run.step.run if graph and why is None else run.step.step
         for _ in range(seg_len):
             step()
@@ -1277,6 +1278,9 @@ def make_segment_fn(cfg: ArchConfig, seg_len: int = SEG_LEN, *,
 
     segment.runs = box      # the current binding and the count of bindings
     segment.eager_reason = None
+    # no reference from the step to itself: a cycle would keep the runner,
+    # and its graph's memory pool, past the serving run until a collection
+    me = weakref.ref(segment)
     return segment
 
 
@@ -1447,6 +1451,7 @@ class _ProbeRun:
         cache = state["cache"]
         dev = state["tok"].device
         B = state["tok"].shape[0]
+        self.calls = 0
         rows = torch.arange(B, device=dev)
         scratch = dict(cache, pos=torch.empty_like(cache["pos"]))
         paged = "k_pages" in cache
@@ -1501,19 +1506,24 @@ def make_probe_fn(cfg_ref: ArchConfig, *, graph: bool = True, par=None):
     cache: its own ``pos`` and tails, and the live pool, whose one page
     per slot that the step can flush is saved first and written back
     after (the dense layout: the row at ``pos``).  The serve state is
-    bitwise what it was after a probe.  Like a segment, the probe is one
-    captured graph on the card (eager on the CPU, or with
-    ``graph=False``), bound to the state and params it last ran on;
-    ``probe.runs["bindings"]`` counts its bindings.  Nothing reads back
-    to the host.  ``par``: the probe under that mesh (eagerly over gloo
-    on CUDA)."""
+    bitwise what it was after a probe.  The probe is bound to the state
+    and params it last ran on (``probe.runs["bindings"]`` counts its
+    bindings); on the card a binding's first probe steps eagerly and its
+    second captures the step as one graph, which later probes replay
+    (eager on the CPU, or with ``graph=False``).  A probe comes once in
+    ``probe_every`` segments, so a run probed once (a short queue, a new
+    serve state each run) pays no capture, which cost about as much as
+    the run's own segment capture.  Nothing reads back to the host.
+    ``par``: the probe under that mesh (eagerly over gloo on CUDA)."""
     box = {"bindings": 0}
 
     @torch.no_grad()
     def probe(params, state):
         run = _bound_run(box, params, state,
                          lambda: _ProbeRun(cfg_ref, state, params, par))
-        use_graph = graph and graph_ok(run.step.device, par) is None
+        run.calls += 1
+        use_graph = graph and run.calls > 1 \
+            and graph_ok(run.step.device, par) is None
         (run.step.run if use_graph else run.step.step)()
         return run.out.clone()
 

@@ -281,6 +281,52 @@ def test_prepared_params_pass_through_and_runners_release(setup):
     assert _generate_runner.cache_info().currsize == 0
 
 
+RUN_KINDS = {"plain": {}, "monitored": {"snapshot_every": 2},
+             "scrub": {"integrity": "scrub:2"}, "spec": {"spec": "dscim2:4"},
+             "prefix": {"prefix_cache": "on"}}
+
+
+@pytest.mark.parametrize("kind", list(RUN_KINDS))
+def test_continuous_runners_die_with_the_run(setup, monkeypatch, kind):
+    """No reference cycle holds a serving run's step runners: with the
+    collector off, every ``CapturedStep`` the run made (on the card, its
+    graph and the graph's memory pool) is freed when the run returns, as
+    ``launch/graph.py`` captures without collecting first."""
+    import gc
+    import weakref
+
+    from repro_torch.launch import graph
+    from repro_torch.runtime.serving import watchdog_for_spec
+
+    made = []
+    init = graph.CapturedStep.__init__
+
+    def counted(self, *a, **k):
+        init(self, *a, **k)
+        made.append(weakref.ref(self))
+
+    monkeypatch.setattr(graph.CapturedStep, "__init__", counted)
+    _, cfg, _, params = setup
+    spec = "kernel:dscim1:256"
+    cfg = dataclasses.replace(cfg, dscim=spec)
+    kw = dict(RUN_KINDS[kind])
+    if kind == "monitored":
+        kw["monitor"] = watchdog_for_spec(spec, probe_every=1)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (4, 8))
+    if kind == "prefix":
+        prompts[:, :6] = prompts[0, :6]
+    gc.collect()
+    gc.disable()
+    try:
+        serve_continuous(cfg, params, prompts, 6, slots=2, seg_len=2,
+                         kv="int8", page_size=4, eos_id=-1, device="cpu",
+                         **kw)
+        assert made
+        assert [r() for r in made if r() is not None] == []
+    finally:
+        gc.enable()
+
+
 def test_continuous_eos_completion(setup):
     """Requests stop at their first EOS and release the slot."""
     _, cfg, _, params = setup

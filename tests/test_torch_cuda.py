@@ -1077,10 +1077,12 @@ def test_probe_leaves_the_captured_state_unchanged(cuda):
         cfg, dscim=exact_probe_spec(cfg.dscim)), graph=False)(params, state)
     before = {k: v.clone() for k, v in state["cache"].items()}
     scalars = {k: state[k].clone() for k in ("tok", "done", "n_out")}
-    lg = probe(params, state)
-    lg = probe(params, state)                    # a replay
+    lgs = [probe(params, state),                 # eager: the first probe
+           probe(params, state),                 # captures, then replays
+           probe(params, state)]                 # a replay
     torch.cuda.synchronize()
-    assert torch.isfinite(lg).all() and torch.equal(lg, want)
+    for lg in lgs:
+        assert torch.isfinite(lg).all() and torch.equal(lg, want)
     assert probe.runs["bindings"] == 1
     for k, v in before.items():
         assert torch.equal(state["cache"][k], v), k
@@ -1584,3 +1586,27 @@ def test_recurrent_family_graph_matches_eager_on_card(cuda, name):
     c = serve_batch(cfg, host, prompts, 6, device="cpu", trace_logits=True)
     np.testing.assert_array_equal(c[0][:, 0], g[0][:, 0])
     assert logit_drift_rmse(c[0], g[0], c[1], g[1]) <= 1e-3
+
+
+def test_checkpoint_restore_onto_the_card_is_bitwise(cuda, tmp_path):
+    """A restore onto the card (the staged read through pinned buffers,
+    leaves larger than a buffer included) gives the saved tensors
+    bitwise, each on the card in its dtype."""
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.tree import leaves
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"big": torch.randn(checkpointer.STAGE_BYTES // 4 * 2 + 7,
+                               generator=gen, device=cuda),
+            "count": torch.tensor(5, dtype=torch.int64, device=cuda),
+            "w": torch.randint(-128, 128, (33, 17), generator=gen,
+                               device=cuda).to(torch.int8),
+            "empty": torch.zeros((0, 3), device=cuda)}
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, tree, blocking=True)
+    got, _ = ck.restore(1, {k: torch.empty_like(v, device="meta")
+                            for k, v in tree.items()}, device=cuda)
+    for want, have in zip(leaves(tree), leaves(got)):
+        assert have.device.type == "cuda" and have.dtype == want.dtype
+        assert torch.equal(have, want)

@@ -2,8 +2,8 @@
 examples, ``examples/*_torch.py``, nor ``chip_smoke.py``) imports JAX or
 the JAX package, importing the serving and training entry points pulls
 no JAX in, and entry points (serving, the router, the HTTP server, the
-load test, training, the pipeline's dry run, the examples) refuse to run
-on the CPU unless asked to."""
+load test, training, the pipeline's dry run, the examples, the CI
+regression gate) refuse to run on the CPU unless asked to."""
 import pytest
 from _torch_threads import cap_torch_threads
 
@@ -163,6 +163,20 @@ def test_router_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
             main(argv)
     assert loadtest.main(["--smoke", "--reduced", "--requests", "6",
                           "--device", "cpu"]) == 0
+
+
+def test_bench_regression_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    """The CI regression gate refuses to run without CUDA unless the CPU
+    is asked for, before any leg runs."""
+    from repro_torch.launch import bench_regression
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ran = []
+    monkeypatch.setattr(bench_regression, "measure",
+                        lambda *a, **k: ran.append(a))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_regression.main(["--smoke"])
+    assert not ran
 
 
 def test_examples_and_dryrun_need_cuda_unless_cpu_is_asked(monkeypatch):

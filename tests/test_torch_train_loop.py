@@ -210,6 +210,37 @@ def test_checkpoint_round_trip_keep_n_and_mismatch(tmp_path):
         ck.restore(3, bad)
 
 
+def test_staged_read_is_np_load(tmp_path):
+    """The staged read a CUDA restore takes (``checkpointer._Stager``,
+    here through host buffers of 13 bytes so leaves span many chunks)
+    gives ``np.load``'s bits for every dtype the train state holds, 0-d
+    and empty leaves included; a Fortran-order file (which ``save`` never
+    writes) and a shape other than the target's raise before any data is
+    read."""
+    from repro_torch.checkpoint.checkpointer import _Stager
+
+    rng = np.random.default_rng(0)
+    arrays = [rng.standard_normal((37, 5)).astype(np.float32),
+              rng.integers(-2**40, 2**40, 11),
+              rng.integers(-128, 128, (3, 4, 5)).astype(np.int8),
+              np.array(3.5, np.float32), np.zeros((0, 4), np.float32),
+              rng.standard_normal(9)]
+    stager = _Stager("cpu", nbytes=13)
+    for i, a in enumerate(arrays):
+        path = str(tmp_path / f"a{i}.npy")
+        np.save(path, a)
+        got = stager.load(path, a.shape)
+        assert got.dtype == torch.from_numpy(a).dtype
+        assert torch.equal(got, torch.from_numpy(np.load(path)))
+    stager.finish()
+    path = str(tmp_path / "f.npy")
+    np.save(path, np.asfortranarray(rng.standard_normal((3, 4))))
+    with pytest.raises(ValueError, match="fortran_order=True"):
+        stager.load(path, (3, 4))
+    with pytest.raises(ValueError, match="shape"):
+        stager.load(str(tmp_path / "a0.npy"), (5, 37))
+
+
 def test_checkpoint_copies_before_in_place_updates(tmp_path):
     """The tensors are copied to the host inside ``save``: an in-place
     update right after it does not reach the file."""
