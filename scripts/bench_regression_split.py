@@ -90,7 +90,8 @@ def _capture_parts(torch, graph_mod, parts: list):
 def _host_parts(parts: dict):
     """Wrap the integrity layer's and the snapshots' functions so each
     adds its host seconds (its own syncs included) to ``parts`` under its
-    name; a function called inside another is counted in both."""
+    name; a function called inside another is counted in both (a check's
+    ``sweep`` holds both digest sweeps and its one host read)."""
     from repro_torch.core import kvcache, qweights
     from repro_torch.launch import steps
     from repro_torch.runtime import failover, integrity
@@ -113,9 +114,11 @@ def _host_parts(parts: dict):
                         (kvcache, "_update_page_sums"),
                         (steps, "init_serve_state"),
                         (failover, "to_host"),
+                        (integrity.IntegrityEngine, "sweep"),
                         (integrity.IntegrityEngine, "check_pages"),
                         (integrity.IntegrityEngine, "check_weights")):
-        wrap(owner, name)
+        if hasattr(owner, name):      # an older tree lacks some
+            wrap(owner, name)
 
 
 def main(argv=None) -> int:

@@ -1,6 +1,8 @@
 """The integrity layer's uint32 digest, computed in int64 (torch has little
 ``uint32`` arithmetic on CUDA): the shared arithmetic of the reference's
-``kvcache._csum_fold`` and ``qweights.plane_digest``.
+``kvcache._csum_fold`` and ``qweights.plane_digest``.  This is the plain
+version: the CPU's path, and the card's yardstick for the digest kernel
+(``kernels/digest.py``), which is what CUDA tensors go through.
 
 A digest is ``sum_i (2i+1) * GOLD * mult * u32(x_i) mod 2**32`` over a
 flattened array.  Every per-element weight is odd, hence invertible mod

@@ -43,7 +43,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from .digest import M32, fold_sum
+from ..kernels.digest import page_digests, page_refresh
 
 __all__ = ["quantize_page", "n_pages_for", "admission_pages",
            "default_page_table", "init_paged_cache", "paged_from_dense",
@@ -83,9 +83,9 @@ def page_checksums(k_pages, v_pages, k_scale, v_scale) -> torch.Tensor:
     """Per-(layer, page) uint32 digest of the quantized pool, as int64: k/v
     int8 planes (L, P, ps, KV, HD) and bitcast f32 scales (L, P, KV) ->
     (L, P), each plane folded with its own odd multiplier (1, 3, 5, 7) and
-    the four added mod 2**32, as the reference adds its uint32 sums."""
-    return (fold_sum(k_pages, 2, 1) + fold_sum(v_pages, 2, 3)
-            + fold_sum(k_scale, 2, 5) + fold_sum(v_scale, 2, 7)) & M32
+    the four added mod 2**32, as the reference adds its uint32 sums.  One
+    digest launch on CUDA (``kernels/digest.py``)."""
+    return page_digests(k_pages, v_pages, k_scale, v_scale)
 
 
 def _update_page_sums(cache, phys) -> None:
@@ -95,8 +95,8 @@ def _update_page_sums(cache, phys) -> None:
         return
     idx = torch.as_tensor(phys, device=cache["pos"].device).reshape(-1) \
         .long()
-    cache[CHECKSUM_KEY][:, idx] = page_checksums(
-        *(cache[name][:, idx] for name in _PAGE_PLANES))
+    page_digests(*(cache[name] for name in _PAGE_PLANES),
+                 sums=cache[CHECKSUM_KEY], phys=idx)
 
 
 def refresh_page_checksums(cache, pos0, upper, max_span: int) -> None:
@@ -105,27 +105,15 @@ def refresh_page_checksums(cache, pos0, upper, max_span: int) -> None:
     last token index lies in ``[pos0, upper)`` (B,) was filled during the
     step, so its digest is recomputed from the live pool bits.
     ``max_span`` bounds ``upper - pos0`` (sizes the candidate window);
-    empty ranges refresh nothing.  Candidates outside a range write to a
-    scratch column past the pool that is then dropped, and two candidates
-    naming one page carry the same digest (both come from its bits).  No-op
-    without the ``page_sum`` plane."""
+    empty ranges refresh nothing, and two candidates naming one page carry
+    the same digest (both come from its bits).  One digest launch on CUDA
+    (``kernels/digest.py page_refresh``).  No-op without the ``page_sum``
+    plane."""
     if CHECKSUM_KEY not in cache:
         return
-    table = cache["page_table"]
-    mp = table.shape[1]
-    P, ps = cache["k_pages"].shape[1:3]
-    J = max_span // ps + 2
-    js = (pos0 // ps)[:, None].long() + torch.arange(
-        J, dtype=torch.long, device=table.device)[None, :]
-    last_tok = js * ps + (ps - 1)                             # (B, J)
-    hit = (last_tok >= pos0[:, None]) & (last_tok < upper[:, None]) \
-        & (js < mp)
-    phys = torch.gather(table, 1, torch.clamp_max(js, mp - 1)).long()
-    safe = phys.reshape(-1)
-    sums = page_checksums(*(cache[name][:, safe] for name in _PAGE_PLANES))
-    buf = torch.cat([cache[CHECKSUM_KEY], cache[CHECKSUM_KEY][:, :1]], 1)
-    buf[:, torch.where(hit, phys, P).reshape(-1)] = sums
-    cache[CHECKSUM_KEY].copy_(buf[:, :P])
+    page_refresh(*(cache[name] for name in _PAGE_PLANES),
+                 cache[CHECKSUM_KEY], cache["page_table"], pos0, upper,
+                 max_span)
 
 
 def n_pages_for(capacity: int, page_size: int) -> int:

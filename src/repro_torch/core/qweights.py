@@ -25,7 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .digest import M32, fold, fold_sum
+from ..kernels.digest import planes_digest
 from .quant import quantize_int8
 
 __all__ = ["QuantizedLinearWeight", "prepare_linear_weight",
@@ -181,8 +181,9 @@ def prepare_dscim_params(params, cfg, *, group_k: int | None = 128):
 
 def plane_digest(x: torch.Tensor) -> torch.Tensor:
     """The uint32 digest of one plane (core/digest.py, multiplier 1) as an
-    int64 scalar tensor: equal to the reference's ``plane_digest``."""
-    return fold(x, 0, 1)
+    int64 scalar tensor: equal to the reference's ``plane_digest``.  One
+    digest launch on CUDA (``kernels/digest.py``)."""
+    return planes_digest([x.contiguous()])[0]
 
 
 def _sorted_leaves(tree, path: str = ""):
@@ -245,24 +246,81 @@ def weight_plane_index(params):
 
 def weight_plane_digests(params) -> torch.Tensor:
     """(n_planes,) int64 digests in ``weight_plane_index`` order, on the
-    planes' device, each digested plane by plane in chunks."""
-    planes = iter_qweight_planes(params)
-    if not planes:
-        return torch.zeros((0,), dtype=torch.int64)
-    return torch.stack([fold_sum(x, 0, 1) for _, _, x in planes]) & M32
+    planes' device: every plane (this rank's pieces under a mesh) in one
+    digest launch on CUDA (``kernels/digest.py``)."""
+    return planes_digest([x for _, _, x in iter_qweight_planes(params)])
+
+
+STAGE_BYTES = 64 << 20     # each of the golden copy's two pinned buffers
+
+
+def _host_copies(xs) -> list:
+    """A new host tensor equal to each of ``xs``.  The bytes of the CUDA
+    tensors, one after another, go through two pinned staging buffers: a
+    buffer's device-to-host copies (of one plane's chunk or of several
+    small planes) run while the other buffer is copied out, where a copy
+    into pageable memory would go at the driver's staged rate and wait
+    once a plane.  A buffer is refilled only after it was copied out."""
+    outs = [torch.empty(x.shape, dtype=x.dtype) for x in xs]
+    on_card = []
+    for x, o in zip(xs, outs):
+        if x.device.type == "cuda":
+            on_card.append((x.contiguous().reshape(-1).view(torch.uint8),
+                            o.reshape(-1).view(torch.uint8)))
+        else:
+            o.copy_(x)
+    # the bytes cut into buffer-sized batches of (offset, source, target)
+    size = max(1, min(STAGE_BYTES, sum(src.numel() for src, _ in on_card)))
+    batches, cur, fill = [], [], 0
+    for src, dst in on_card:
+        off = 0
+        while off < src.numel():
+            n = min(size - fill, src.numel() - off)
+            cur.append((fill, src[off:off + n], dst[off:off + n]))
+            fill, off = fill + n, off + n
+            if fill == size:
+                batches.append(cur)
+                cur, fill = [], 0
+    if cur:
+        batches.append(cur)
+    bufs = [torch.empty(size, dtype=torch.uint8, pin_memory=True)
+            for _ in range(min(2, len(batches)))]
+    pending = None
+    for i, batch in enumerate(batches):
+        buf = bufs[i % 2]
+        for at, src, _ in batch:
+            buf[at:at + src.numel()].copy_(src, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        if pending is not None:
+            _copy_out(*pending)
+        pending = (buf, ev, batch)
+    if pending is not None:
+        _copy_out(*pending)
+    return outs
+
+
+def _copy_out(buf, ev, batch) -> None:
+    """Once ``ev`` (recorded after ``batch``'s copies into the pinned
+    ``buf``) has passed, copy each piece out to its host target."""
+    ev.synchronize()
+    for at, _, dst in batch:
+        dst.copy_(buf[at:at + dst.numel()])
 
 
 def golden_weight_copy(params) -> dict:
     """Host golden copy of every prepared plane and its digest vector:
     ``{"index", "digests" (np.int64), "planes": {(path, which): CPU
     tensor}}``, the repair's source of truth; of this rank's pieces for
-    placed params (each rank keeps the copy of what it holds)."""
-    planes = {(p, which): x.to("cpu", copy=True)
-              for p, which, x in iter_qweight_planes(params)}
-    return {"index": weight_plane_index(params),
-            "digests": weight_plane_digests(params).cpu().numpy()
-            .astype(np.int64),
-            "planes": planes}
+    placed params (each rank keeps the copy of what it holds).  The
+    digests are one sweep; planes on the card come back through pinned
+    staging buffers (``_host_copies``)."""
+    planes = iter_qweight_planes(params)
+    digests = weight_plane_digests(params).cpu().numpy().astype(np.int64)
+    copies = _host_copies([x for _, _, x in planes])
+    return {"index": weight_plane_index(params), "digests": digests,
+            "planes": {(p, which): c
+                       for (p, which, _), c in zip(planes, copies)}}
 
 
 def restore_weight_plane(params, path: str, which: str, golden):

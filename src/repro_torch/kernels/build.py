@@ -24,7 +24,7 @@ __all__ = ["LaunchCounter", "COUNTERS", "bind", "build", "load",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("dscim_fused", "paged_attention", "dscim_counts", "int8_matmul",
-           "flash_attention")
+           "flash_attention", "digest")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

@@ -20,26 +20,42 @@ Cadence (the scheduler's ``integrity`` option): 'off' (no digest plane,
 the plain path unchanged), 'verify' (every segment boundary) or
 'scrub:<n>' (every n-th).  The counters live on the engine, not in the
 scheduler's host books, so a snapshot-restore replay keeps the record of
-what was found.  The sweeps run on the planes' device; only the mismatch
-flags come back to the host.
+what was found.  The sweeps run on the planes' device, one digest launch
+each on CUDA (``kernels/digest.py``); ``sweep`` reads both sweeps' flags
+and the slots' positions in one device-to-host copy, and a boundary's
+checks apply them (the live mask on the host).
 
 Under a mesh (``par``) each rank keeps the golden copy of its own
 pieces of the prepared planes and digests its pieces and the page pool
 it holds (whole on every rank in the port); the mismatch flags are
-agreed over the mesh (a max), so every rank names the same detections
-in whole-model terms, (path, 'q'|'scale') and (layer, physical page), as
-one device names them, and the counts count whole planes.  A rank
+agreed over the mesh (a max, one collective a sweep), so every rank
+names the same detections in whole-model terms, (path, 'q'|'scale') and
+(layer, physical page), as one device names them, and the counts count
+whole planes.  A rank
 repairs the pieces it found corrupted; the repair's check is agreed
 too.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
-__all__ = ["parse_integrity", "IntegrityEngine"]
+__all__ = ["parse_integrity", "IntegrityEngine", "Sweep"]
+
+
+@dataclasses.dataclass
+class Sweep:
+    """One check's sweeps as the host read them (``IntegrityEngine.
+    sweep``): this rank's weight mismatches, the agreed weight and page
+    flags (the pages' unmasked, (L, P)) and the positions read with
+    them."""
+    mine: np.ndarray
+    weights: np.ndarray
+    pages: np.ndarray
+    pos: np.ndarray | None
 
 
 def parse_integrity(spec: str | None) -> int:
@@ -92,20 +108,54 @@ class IntegrityEngine:
     def due(self, segment: int) -> bool:
         return self.period > 0 and segment % self.period == 0
 
-    def check_pages(self, cache, live_mask) -> list:
-        """Digest the pool again, compare with the stored plane, return the
-        mismatching (layer, physical page) coordinates.  ``live_mask``
-        (n_pages,) bool marks the pages granted AND completely flushed:
-        only those have digests under warranty."""
-        from ..core.kvcache import CHECKSUM_KEY, page_checksums
+    def sweep(self, params=None, cache=None, pos=None) -> Sweep:
+        """Launch the weight sweep (``params``; one digest launch on CUDA)
+        and the page compare (``cache``: every page of the pool, one more),
+        then read their flags and ``pos`` (a device tensor, e.g. the
+        cache's) in one device-to-host copy; under a mesh the flags are
+        agreed in one collective.  The page flags are not masked: a check
+        masks them on the host (``check_pages``)."""
+        from ..core.kvcache import CHECKSUM_KEY, _PAGE_PLANES
+        from ..core.qweights import weight_plane_digests
+        from ..kernels.digest import page_flags
+        t0 = time.perf_counter()
+        parts = []
+        nw = len(self.index) if params is not None else 0
+        if nw:
+            parts.append(weight_plane_digests(params))
+        shape = (0, 0)
+        if cache is not None:
+            flags = page_flags(*(cache[name] for name in _PAGE_PLANES),
+                               cache[CHECKSUM_KEY])
+            shape = tuple(flags.shape)
+            parts.append(flags.reshape(-1))
+        if pos is not None:
+            parts.append(pos.reshape(-1))
+        # one copy (cat promotes the flags and positions to int64)
+        host = torch.cat(parts).cpu().numpy() if parts \
+            else np.zeros((0,), np.int64)
+        mine = host[:nw] != self.ref_digests[:nw]
+        npg = shape[0] * shape[1]
+        flags = np.concatenate([mine, host[nw:nw + npg].astype(bool)])
+        if self.par is not None:
+            flags = self.par.agree(flags)
+        self.counters["scrub_time_s"] += time.perf_counter() - t0
+        return Sweep(mine=mine, weights=flags[:nw],
+                     pages=flags[nw:].reshape(shape),
+                     pos=host[nw + npg:] if pos is not None else None)
+
+    def check_pages(self, cache, live_mask, sweep: Sweep | None = None
+                    ) -> list:
+        """Compare the pool's digests with the stored plane (``sweep``'s,
+        else a page sweep of its own), return the mismatching (layer,
+        physical page) coordinates.  ``live_mask`` (n_pages,) bool marks
+        the pages granted AND completely flushed: only those have digests
+        under warranty."""
+        if sweep is None:
+            sweep = self.sweep(cache=cache)
         t0 = time.perf_counter()
         mask = np.asarray(live_mask, bool)
-        cur = page_checksums(cache["k_pages"], cache["v_pages"],
-                             cache["k_scale"], cache["v_scale"])
-        bad = ((cur != cache[CHECKSUM_KEY]) & torch.as_tensor(
-            mask, device=cur.device)[None, :]).cpu().numpy()
-        if self.par is not None:
-            bad = self.par.agree(bad)
+        bad = sweep.pages & mask[None, :]
         self.counters["checks"] += 1
         self.counters["pages_verified"] += int(mask.sum()) * bad.shape[0]
         self.counters["scrub_time_s"] += time.perf_counter() - t0
@@ -125,18 +175,17 @@ class IntegrityEngine:
     def _agreed(self, mine: np.ndarray) -> np.ndarray:
         return mine if self.par is None else self.par.agree(mine)
 
-    def check_weights(self, params) -> list:
-        """Digest every prepared plane again, return the mismatching
-        (path, 'q'|'scale') pairs (under a mesh those of any rank's
-        piece)."""
+    def check_weights(self, params, sweep: Sweep | None = None) -> list:
+        """The prepared planes that digest off their golden digests
+        (``sweep``'s, else a weight sweep of its own), as (path,
+        'q'|'scale') pairs (under a mesh those of any rank's piece)."""
         if not self.index:
             return []
-        t0 = time.perf_counter()
-        self._mine = self._mismatch(params)
-        flags = self._agreed(self._mine)
+        if sweep is None:
+            sweep = self.sweep(params=params)
+        self._mine = sweep.mine
         self.counters["weight_planes_verified"] += len(self.index)
-        self.counters["scrub_time_s"] += time.perf_counter() - t0
-        bad = [self.index[i] for i in np.nonzero(flags)[0].tolist()]
+        bad = [self.index[i] for i in np.nonzero(sweep.weights)[0].tolist()]
         if bad:
             self.counters["weight_mismatches"] += len(bad)
             self.detections.append({"kind": "weight", "coords": list(bad)})

@@ -791,22 +791,24 @@ class Router:
         weights persist, transient flips fire once, so the replay runs
         clean.  Otherwise this boundary becomes the verified snapshot."""
         h = self._host
-        bad_w = self._integrity.check_weights(self.params)
+        cache = self._state["cache"] if self._alloc is not None else None
+        # both sweeps and the slots' positions in one host read
+        sweep = self._integrity.sweep(
+            self.params, cache, None if cache is None else cache["pos"])
+        bad_w = self._integrity.check_weights(self.params, sweep)
         if bad_w:
             self._integrity.repair_weights(self.params, bad_w)
             self.log(f"[router] integrity: weight plane(s) {bad_w} "
                      "restored from golden copy")
         coords = []
-        if self._alloc is not None:
-            pos_h = self._state["cache"]["pos"].cpu().numpy()
+        if cache is not None:
             live_pages = np.zeros((self._alloc.n_pages,), bool)
             for b in range(self.slots):
                 ids = h["slot_pages"][b]
                 if ids is not None:
-                    for p in ids[:int(pos_h[b]) // self.page_size]:
+                    for p in ids[:int(sweep.pos[b]) // self.page_size]:
                         live_pages[int(p)] = True
-            coords = self._integrity.check_pages(self._state["cache"],
-                                                 live_pages)
+            coords = self._integrity.check_pages(cache, live_pages, sweep)
             if coords:
                 self.log(f"[router] integrity: corrupted page(s) at "
                          f"(layer, page) {coords}")

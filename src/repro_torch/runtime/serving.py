@@ -609,7 +609,10 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
                 # so a flip due the segment a check runs is caught before
                 # any decode reads it
                 reprobe = False
-                bad_w = engine.check_weights(params)
+                # both sweeps and the slots' positions in one host read
+                sweep = engine.sweep(params, state["cache"],
+                                     state["cache"]["pos"])
+                bad_w = engine.check_weights(params, sweep)
                 if bad_w:
                     engine.repair_weights(params, bad_w)
                     log(f"[integrity] weight plane(s) {bad_w} restored "
@@ -627,14 +630,14 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
                 segs_since_wcheck = 0
                 # digests are under warranty only for granted, fully
                 # flushed pages
-                pos_h = state["cache"]["pos"].cpu().numpy()
                 live_pages = np.zeros((alloc.n_pages,), bool)
                 for b in range(slots):
                     ids = host["slot_pages"][b]
                     if ids is not None:
-                        for p in ids[:int(pos_h[b]) // page_size]:
+                        for p in ids[:int(sweep.pos[b]) // page_size]:
                             live_pages[int(p)] = True
-                coords = engine.check_pages(state["cache"], live_pages)
+                coords = engine.check_pages(state["cache"], live_pages,
+                                            sweep)
                 if coords:
                     log(f"[integrity] corrupted page(s) at (layer, page) "
                         f"{coords}")

@@ -1016,8 +1016,10 @@ def test_restores_keep_the_segment_graph(cuda, fault):
 def test_digests_on_card_equal_cpu(cuda, monkeypatch):
     """Page and weight-plane digests computed on the card are bitwise the
     CPU's for the same tensors (negative int8, negative f32 scales, bf16,
-    sums across chunk boundaries)."""
+    sums across chunk boundaries), each sweep one launch of the digest
+    kernel."""
     from repro_torch.core import digest, kvcache, qweights
+    from repro_torch.kernels import digest as kdigest
     from repro_torch.launch.steps import prepare_serving_params
 
     monkeypatch.setattr(digest, "CHUNK", 1000)
@@ -1028,17 +1030,122 @@ def test_digests_on_card_equal_cpu(cuda, monkeypatch):
     pool += [torch.from_numpy(rng.normal(0, 1, (L, P, KV))
                               .astype(np.float32)) for _ in range(2)]
     cpu = kvcache.page_checksums(*pool)
+    n0 = kdigest.LAUNCHES.count
     gpu = kvcache.page_checksums(*(t.to(cuda) for t in pool))
+    assert kdigest.LAUNCHES.count == n0 + 1
     assert torch.equal(gpu.cpu(), cpu)
     x = torch.from_numpy(rng.normal(0, 1, (5, 999)).astype(np.float32)) \
         .to(torch.bfloat16)
+    n0 = kdigest.LAUNCHES.count
     assert int(qweights.plane_digest(x.to(cuda))) \
         == int(qweights.plane_digest(x))
+    assert kdigest.LAUNCHES.count == n0 + 1
     cfg, params, _ = _reduced()
     prep = prepare_serving_params(cfg, params)
     prep_cpu = prepare_serving_params(cfg, _cpu_tree(params))
-    assert torch.equal(qweights.weight_plane_digests(prep).cpu(),
-                       qweights.weight_plane_digests(prep_cpu))
+    n0 = kdigest.LAUNCHES.count
+    got = qweights.weight_plane_digests(prep)
+    assert kdigest.LAUNCHES.count == n0 + 1
+    assert torch.equal(got.cpu(), qweights.weight_plane_digests(prep_cpu))
+
+
+def test_digest_planes_tails_and_offsets_on_card(cuda):
+    """Entry (a) over planes whose bytes are no multiple of 16 and planes
+    that start off a 16-byte boundary (a view one element in), of every
+    dtype the sweeps take, in one launch: bitwise the plain version."""
+    from repro_torch.kernels import digest as kdigest
+
+    rng = np.random.default_rng(12)
+    base = [torch.from_numpy(rng.integers(-128, 128, n).astype(np.int8))
+            for n in (1, 15, 17, 4097, 65537, 200_003)]
+    base += [torch.from_numpy(rng.integers(0, 256, 33).astype(np.uint8)),
+             torch.from_numpy(rng.integers(-2**15, 2**15, 19)
+                              .astype(np.int16)),
+             torch.from_numpy(rng.normal(0, 1, 3).astype(np.float32)),
+             torch.from_numpy(-np.abs(rng.normal(0, 1, 70_001))
+                              .astype(np.float32)),
+             torch.from_numpy(rng.normal(0, 1, 7).astype(np.float32))
+             .to(torch.bfloat16),
+             torch.from_numpy(rng.normal(0, 1, 9).astype(np.float16)),
+             torch.from_numpy(rng.integers(-2**31, 2**31, 5)
+                              .astype(np.int32)),
+             torch.zeros(0, dtype=torch.int8)]
+    xs = base + [x[1:] for x in base if x.numel() > 1]
+    mults = [2 * i + 1 for i in range(len(xs))]
+    want = kdigest.planes_digest_plain(xs, mults)
+    gx = [x.to(cuda) for x in base]
+    gx += [x[1:] for x in gx if x.numel() > 1]
+    n0 = kdigest.LAUNCHES.count
+    got = kdigest.planes_digest(gx, mults)
+    assert kdigest.LAUNCHES.count == n0 + 1
+    assert torch.equal(got.cpu(), want)
+    # the same tensors again (the kept table), then a plane moved
+    assert torch.equal(kdigest.planes_digest(gx, mults).cpu(), want)
+    gx[3] = gx[3].clone()
+    assert torch.equal(kdigest.planes_digest(gx, mults).cpu(), want)
+    with pytest.raises(ValueError, match="digest kernel"):
+        kdigest.planes_digest([torch.zeros(4, dtype=torch.int64,
+                                           device=cuda)])
+    with pytest.raises(ValueError, match="strided"):
+        kdigest.planes_digest([torch.zeros(4, 4, device=cuda).T])
+
+
+@pytest.mark.parametrize("shape", [(3, 7, 8, 2, 64), (2, 5, 3, 1, 5)])
+def test_digest_pages_modes_on_card(cuda, shape):
+    """Entry (b): write mode over every page, over listed pages (one named
+    twice), over a refresh window (hit pages only, a page two slots'
+    candidates name included), and compare mode, each bitwise the plain
+    version on the CPU; then the refresh inside a captured CUDA graph
+    against an eager launch."""
+    from repro_torch.kernels import digest as kdigest
+
+    L, P, ps = shape[:3]
+    rng = np.random.default_rng(13)
+    pool = [torch.from_numpy(rng.integers(-128, 128, shape)
+                             .astype(np.int8)) for _ in range(2)]
+    pool += [torch.from_numpy(-np.abs(rng.normal(0, 1, (L, P, shape[3])))
+                              .astype(np.float32)) for _ in range(2)]
+    gpool = [t.to(cuda) for t in pool]
+    full = kdigest.page_digests(*pool)
+    assert torch.equal(kdigest.page_digests(*gpool).cpu(), full)
+    stale = torch.arange(L * P, dtype=torch.int64).reshape(L, P)
+    phys = torch.tensor([P - 1, 0, P - 1], dtype=torch.int64)
+    want = kdigest.page_digests(*pool, sums=stale.clone(), phys=phys)
+    sums = stale.to(cuda)
+    n0 = kdigest.LAUNCHES.count
+    kdigest.page_digests(*gpool, sums=sums, phys=phys.to(cuda))
+    assert kdigest.LAUNCHES.count == n0 + 1
+    assert torch.equal(sums.cpu(), want)
+    table = torch.tensor([[0, 1, 2], [3, 4, 0]], dtype=torch.int32) % P
+    pos0 = torch.tensor([1, 2 * ps], dtype=torch.int32)
+    upper = torch.tensor([3 * ps, 2 * ps + 1], dtype=torch.int32)
+    win = (table, pos0, upper, 2 * ps)
+    want = kdigest.page_refresh_plain(*pool, stale.clone(), *win)
+    assert not torch.equal(want, stale)
+    sums = stale.to(cuda)
+    gwin = [t.to(cuda) for t in win[:3]] + [win[3]]
+    n0 = kdigest.LAUNCHES.count
+    kdigest.page_refresh(*gpool, sums, *gwin)
+    assert kdigest.LAUNCHES.count == n0 + 1
+    assert torch.equal(sums.cpu(), want)
+    bad = full.clone()
+    bad[0, P - 1] ^= 1
+    bad[L - 1, 0] += 3
+    want_f = kdigest.page_flags(*pool, bad)
+    assert int(want_f.sum()) == 2
+    assert torch.equal(kdigest.page_flags(*gpool, bad.to(cuda)).cpu(),
+                       want_f)
+    # captured: the graph replays the refresh into the same sums
+    captured = stale.to(cuda)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        kdigest.page_refresh(*gpool, captured, *gwin)
+    captured.copy_(stale.to(cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured.cpu(), want)
 
 
 def _cpu_tree(tree):
@@ -1145,9 +1252,9 @@ def test_integrity_drill_on_card_keeps_one_binding(cuda):
 
 def test_integrity_verify_equals_off_on_card(cuda):
     """``integrity='verify'`` serves ``'off'``'s tokens with zero
-    mismatches and launches the same counted kernels: the digests are
-    plain PyTorch ops after the replays, and with integrity off the cache
-    has no digest plane at all."""
+    mismatches and launches the same counted kernels but the digest
+    kernel, which only it launches: with integrity off the cache has no
+    digest plane at all."""
     from repro_torch.kernels import build
     from repro_torch.launch.serve import prepare_params, serve_continuous
 
@@ -1167,6 +1274,9 @@ def test_integrity_verify_equals_off_on_card(cuda):
     verify, n_verify, st = runs["verify"][0]
     for a, b in zip(verify, off):
         np.testing.assert_array_equal(a, b)
+    digests = n_verify.pop("digest")
+    assert digests >= 2 * st["integrity"]["checks"]
+    assert n_off.pop("digest") == n_off2.pop("digest") == 0
     assert n_verify == n_off == n_off2
     assert st["integrity"]["page_mismatches"] == 0
     assert st["integrity"]["checks"] == st["segments"]
