@@ -12,7 +12,8 @@ every variant in turns: ``plain``; ``monitored`` (the watchdog probing
 every 8 segments and a snapshot every 8 boundaries, leg 2's); ``probe``
 and ``snapshot`` alone; ``scrub:2`` (leg 3's).  Each run's wall s (the
 device synchronized before the clock stops) and the parts its stats
-report: the segment captures and their seconds, the probe's bindings,
+report: the segment captures and their seconds (none once the runners
+of these options are kept: ``graph_captures``), the probe's bindings,
 probes and their seconds, snapshots and their seconds, integrity checks
 and their seconds, the host seconds of the integrity layer's and the
 snapshots' functions (``host_s``); on CUDA each run's CUDA graph captures, split into the
@@ -23,6 +24,12 @@ variant's min and median wall s and their ratios to ``plain``'s, and the
 card's name and power limit.  ``--gate-reps N`` also runs the gate's own
 legs 2 and 3 (their estimators: median of 3, interleaved min of 5) N
 times each and prints every ratio.
+
+``--series N`` first serves ``plain`` N times back to back and prints
+each run's wall ms, the CUDA allocator's device allocations and frees
+and the collector's collections by generation during it (``--no-gc``:
+with the collector off), to tell the host's slow and fast spells from
+the program's own work.
 
 ``--src DIR`` imports ``repro_torch`` from ``DIR`` (another checkout's
 ``src``, e.g. the parent commit's from ``git archive``), so two trees are
@@ -134,6 +141,11 @@ def main(argv=None) -> int:
                     help="then run the gate's own legs 2 and 3 "
                          "(repro_torch.launch.bench_regression) this many "
                          "times each, printing each ratio and its runs")
+    ap.add_argument("--series", type=int, default=0,
+                    help="first serve plain this many times back to back, "
+                         "one line a run")
+    ap.add_argument("--no-gc", action="store_true",
+                    help="hold the collector off during --series")
     ap.add_argument("--cprofile", nargs="*", default=[],
                     help="variants to run once more under cProfile, "
                          "printing the 30 costliest functions by "
@@ -189,6 +201,7 @@ def main(argv=None) -> int:
         return {"tree": args.tag, "variant": name, "wall_s": wall,
                 "serve_wall_s": st["wall_s"], "segments": st["segments"],
                 "capture_s": st["capture_s"], "bindings": st["bindings"],
+                "graph_captures": st.get("captures"),
                 "probe_bindings": st["probe_bindings"],
                 "probes": st["probes"], "probe_s": st["probe_s"],
                 "snapshots": st["snapshots"],
@@ -196,6 +209,29 @@ def main(argv=None) -> int:
                 "scrub_time_s": integ.get("scrub_time_s"),
                 "captures": list(parts), "host_s": dict(host)}
 
+    if args.series:
+        import gc
+        run("plain")
+        if args.no_gc:
+            gc.disable()
+        for i in range(args.series):
+            mem0 = torch.cuda.memory_stats(dev) if dev.type == "cuda" \
+                else {}
+            gc0 = [g["collections"] for g in gc.get_stats()]
+            r = run("plain")
+            mem1 = torch.cuda.memory_stats(dev) if dev.type == "cuda" \
+                else {}
+            print(json.dumps({
+                "tree": args.tag, "series": i, "gc": not args.no_gc,
+                "wall_ms": 1e3 * r["wall_s"],
+                "device_allocs": mem1.get("num_device_alloc", 0)
+                - mem0.get("num_device_alloc", 0),
+                "device_frees": mem1.get("num_device_free", 0)
+                - mem0.get("num_device_free", 0),
+                "collections": [b - a for a, b in zip(
+                    gc0, [g["collections"] for g in gc.get_stats()])]}),
+                flush=True)
+        gc.enable()
     for name in variants:
         run(name)
     walls = {name: [] for name in variants}

@@ -40,9 +40,10 @@ What capture needs, and where it is met:
   about 10 ms.  No reference cycle holds a serving run's runners (the
   step functions hold no reference to themselves, the load test's
   injector is unbound after its leg; ``tests/test_torch_continuous.py``
-  holds it), so their graphs and pools go when the run returns; a graph
-  still left in a cycle is reset by a later collection, outside any
-  capture;
+  holds it), so their graphs and pools go when the last holder drops
+  them: the run, or for the runner sets kept across runs
+  (``steps.continuous_runners``) ``clear_graphs``; a graph still left
+  in a cycle is reset by a later collection, outside any capture;
 * memory: what the step allocates during capture (the wrappers' outputs
   and scratch) comes from the graph's private pool, which eager code
   never reuses while the graph lives;

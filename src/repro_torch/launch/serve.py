@@ -62,8 +62,8 @@ from ..core.qweights import map_params
 from ..device import resolve_device
 from ..models import lm
 from ..models.registry import get_model
-from .steps import (_check_kv, clear_graphs, make_generate_fn, pin_paged_attn,
-                    prepare_serving_params)
+from .steps import (_check_kv, _leaves, clear_graphs, make_generate_fn,
+                    pin_paged_attn, prepare_serving_params, serving_planes)
 
 __all__ = ["serve_batch", "serve_continuous", "prepare_params",
            "clear_graphs", "logit_drift_rmse", "main"]
@@ -81,7 +81,7 @@ def _to(params, device):
 
 
 def prepare_params(cfg, params, device=None, par=None, *,
-                   prepare: bool = True):
+                   prepare: bool = True, out: dict | None = None):
     """``params`` as the serving entry points use them: on ``device`` (CUDA
     unless 'cpu' is asked for), DS-CIM-eligible weights quantized once
     into int8 planes (no-op when cfg.dscim is 'off') and the layers cast
@@ -93,17 +93,56 @@ def prepare_params(cfg, params, device=None, par=None, *,
     bound to them (other tensors capture it again).  ``prepare=False``
     keeps the float weights (placed and cast all the same): every DS-CIM
     matmul then quantizes its weight at each call, the reference's
-    ``--no-prepare`` A/B, bitwise the prepared path under f32 compute."""
+    ``--no-prepare`` A/B, bitwise the prepared path under f32 compute.
+
+    ``out`` (one device only; launch/steps.py ``serving_planes``): where
+    preparation makes a tensor (a quantized plane, a cast or moved leaf,
+    not one of ``params``'), its values are copied into ``out``'s tensor
+    at its path if that has its shape, strides, type and device, and the
+    result holds that tensor; else the new tensor is kept in ``out`` for
+    the next call.  A caller that prepares the same raw params for every
+    run so gets them at the same addresses, quantized afresh each time
+    (no in-place edit of a plane, such as an injected flip, outlives the
+    run), and its captured graphs stay bound."""
     dev = resolve_device(device)
+    src = params
     params = _to(params, dev)
     if prepare:
-        out = prepare_serving_params(cfg, params, par)
+        prepared = prepare_serving_params(cfg, params, par)
     elif par is not None:
         from .sharding import shard_params
-        out = shard_params(params, par)
+        prepared = shard_params(params, par)
     else:
-        out = params
-    return get_model(cfg).cast_layers(out, lm.DTYPES[cfg.compute_dtype])
+        prepared = params
+    prepared = get_model(cfg).cast_layers(prepared,
+                                          lm.DTYPES[cfg.compute_dtype])
+    return prepared if out is None else _kept_in(out, src, prepared)
+
+
+def _kept_in(out: dict, src, prepared):
+    """``prepared`` with each tensor that is not one of ``src``'s held in
+    ``out`` (``prepare_params(out=)``)."""
+    from ..core.qweights import QuantizedLinearWeight
+    given = {id(t) for t in _leaves(src)}
+
+    def keep(path, t):
+        if id(t) in given:
+            return t
+        held = out.get(path)
+        if held is not None and (held.shape, held.stride(), held.dtype,
+                                 held.device) == (t.shape, t.stride(),
+                                                  t.dtype, t.device):
+            return held.copy_(t)
+        out[path] = t
+        return t
+
+    def visit(path, a):
+        if isinstance(a, QuantizedLinearWeight):
+            return QuantizedLinearWeight(keep(path + "/q", a.q),
+                                         keep(path + "/scale", a.scale),
+                                         a.k_orig, a.group_k)
+        return keep(path, a) if isinstance(a, torch.Tensor) else a
+    return map_params(visit, prepared)
 
 
 _place = prepare_params
@@ -290,7 +329,16 @@ def serve_continuous(cfg, params, prompts, n_tokens: int, *,
       boundary; a corrupted plane is restored from its golden copy in
       place (with a replay if decodes read it), a corrupted page rewinds
       its owner slot alone (``stats['integrity']``).  Weight flips stay in
-      prepared params passed in when nothing repairs them.
+      prepared params passed in when nothing repairs them; raw params are
+      prepared afresh every run.
+
+    The serve state and the step functions are kept across runs at the
+    same options with their captured graphs (launch/steps.py
+    ``continuous_runners``; ``clear_graphs`` drops them), so a second run
+    captures nothing and is bitwise a first: the state is reset in place,
+    and raw params are quantized into planes kept at fixed addresses
+    (``prepare_params(out=)``).  Prepared params keep the graphs bound
+    while the caller keeps them.
 
     ``spec`` ('<variant>:<k>'): each segment step is a
     draft/verify window, and every slot's capacity and page grant gain k
@@ -310,7 +358,10 @@ def serve_continuous(cfg, params, prompts, n_tokens: int, *,
     cfg = pin_paged_attn(cfg, paged_attn)
     _check_kv(cfg, kv)
     dev = resolve_device(device)
-    params = prepare_params(cfg, params, dev, par)
+    # raw params are quantized afresh into the planes kept for this cfg,
+    # so the kept runners' graphs stay bound to them across runs
+    params = prepare_params(cfg, params, dev, par, out=None if par else
+                            serving_planes(cfg, dev))
     return serve_continuous_ft(
         cfg, params, prompts, n_tokens, slots=slots, seg_len=seg_len,
         max_new=max_new, eos_id=eos_id, sample=sample, kv=kv,

@@ -36,6 +36,10 @@ same step serves:
   persistent serve state, between which ``make_admit_fn`` prefills new
   requests into freed slots, or ``make_extend_fn`` (the prefix cache's
   chunked prefill, one captured graph a chunk) feeds them page by page.
+  ``continuous_runners`` keeps the serve state and these functions per
+  option set across serving runs, as the reference caches its jitted
+  step functions, so a later run replays the graphs an earlier one
+  captured.
 
 Under ``spec='<variant>:<k>'`` (self-speculative decoding, the port of
 ``_parse_spec``, ``_draft_cfg`` and ``_make_spec_window``) the captured
@@ -64,6 +68,8 @@ with gloo on CUDA the step runs eagerly and the builders say so
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import functools
 import weakref
@@ -85,8 +91,9 @@ from .graph import CapturedStep
 __all__ = ["make_train_step", "make_eval_step", "make_prefill_step",
            "make_decode_step", "prepare_serving_params", "make_generate_fn",
            "init_serve_state", "make_admit_fn", "make_segment_fn",
-           "make_extend_fn", "make_probe_fn", "clear_graphs", "PAD_ID",
-           "AUX_WEIGHT", "pin_paged_attn"]
+           "make_extend_fn", "make_probe_fn", "continuous_runners",
+           "serving_planes", "clear_graphs", "PAD_ID", "AUX_WEIGHT",
+           "pin_paged_attn"]
 
 PAD_ID = 0          # token written for finished slots
 # the families with an attention KV cache: every serving loop takes them;
@@ -1097,10 +1104,14 @@ def make_generate_fn(cfg: ArchConfig, n_tokens: int = 16, *,
 
 
 def clear_graphs() -> None:
-    """Drop every one-shot runner: its captured graph, graph memory pool
-    and static buffers.  The next request at any option set captures
+    """Drop every one-shot runner, every continuous-serving runner set
+    (``continuous_runners``) and the planes ``serving_planes`` keeps:
+    their captured graphs, graph memory pools, serve states and static
+    buffers.  The next request or serving run at any option set captures
     again."""
     _generate_runner.cache_clear()
+    _RUNNERS.clear()
+    _PLANES.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -1142,6 +1153,14 @@ def init_serve_state(cfg: ArchConfig, slots: int, capacity: int, *,
             "admitted": 0}
 
 
+# what ``init_serve_state`` fills each plane with; the cache's other
+# planes (the page table, the page digests) are kept as made
+_STATE_FILLS = {"tok": 0, "done": True, "n_out": 0, "max_new": 1,
+                "stream": 0}
+_CACHE_FILLS = {"k": 0, "v": 0, "k_pages": 0, "v_pages": 0, "k_scale": 1,
+                "v_scale": 1, "k_tail": 0, "v_tail": 0, "pos": 0}
+
+
 @functools.lru_cache(maxsize=16)
 def make_admit_fn(cfg: ArchConfig, *, eos_id: int | None = None,
                   sample: str = "greedy", par=None):
@@ -1181,18 +1200,18 @@ def make_admit_fn(cfg: ArchConfig, *, eos_id: int | None = None,
 class _SegmentRun:
     """A segment's static outputs and captured step (a decode step, or
     under ``spec`` a draft/verify window), bound to one serve state and
-    one set of params.  Its outputs have ``seg_len * (k+1)`` rows (k = 0
-    without spec): window w's k+1 positions at rows w*(k+1) + t,
-    chronologically, non-emitted positions dead (``live`` False, token
-    ``PAD_ID``)."""
+    the addresses of one set of params (held only during a call).  Its
+    outputs have ``seg_len * (k+1)`` rows (k = 0 without spec): window
+    w's k+1 positions at rows w*(k+1) + t, chronologically, non-emitted
+    positions dead (``live`` False, token ``PAD_ID``); every segment
+    writes all of them."""
 
-    def __init__(self, cfg, state, params, seg_len, nxt, eos, spec,
-                 par=None):
+    def __init__(self, cfg, state, seg_len, nxt, eos, spec, par=None):
         dev = state["tok"].device
         B = state["tok"].shape[0]
         k = spec[1] if spec else 0
         rows = seg_len * (k + 1)
-        self.st = st = dict(state, params=params)
+        self.st = st = dict(state, params=None)
         st.update(
             i=torch.zeros((1,), dtype=torch.int64, device=dev),
             toks=torch.zeros((rows, B), dtype=torch.int32, device=dev),
@@ -1239,25 +1258,33 @@ def make_segment_fn(cfg: ArchConfig, seg_len: int = SEG_LEN, *,
     ``seg_len``, or under ``spec`` ('<variant>:<k>') ``seg_len * (k+1)``:
     each step is then a draft/verify window, ``aux["logits0"]`` the first
     window's verify logits at position 0.  The captured graph binds the
-    state and the params it last ran on, and is captured again for
-    others; the function holds them (and the graph) until it is dropped,
-    so it is made per serving run and not cached.  ``graph=False`` runs
-    the same step eagerly on CUDA too (the A/B baseline).  ``par``: the
-    step under that mesh; over gloo on CUDA it runs eagerly
+    state's tensors and the addresses of the params it last ran on, and
+    is captured again for others; the function keeps the state's tensors
+    and the graph until it is dropped (the params only during a call).
+    The serving runs keep it with their serve state in a runner set
+    (``continuous_runners``), so its graph is captured once and replayed
+    by every later run at those options.  ``segment.runs`` counts its
+    bindings and captures (``_box``).  ``graph=False`` runs the same
+    step eagerly on CUDA too (the A/B baseline).  ``par``: the step under
+    that mesh; over gloo on CUDA it runs eagerly
     (``segment.eager_reason`` says why)."""
     nxt = _next_fn(_make_sampler(sample))
     eos = -1 if eos_id is None else eos_id
     sp = _parse_spec(spec)
     if sp:
         _check_spec(cfg)
-    box = {"bindings": 0}
+    box = _box()
 
     k = sp[1] if sp else 0
 
     @torch.no_grad()
     def segment(params, state):
         run = _bound_run(box, params, state, lambda: _SegmentRun(
-            cfg, state, params, seg_len, nxt, eos, sp, par))
+            cfg, state, seg_len, nxt, eos, sp, par))
+        with _call(box, run, params):
+            return _segment_call(run, state)
+
+    def _segment_call(run, state):
         st = run.st
         st["i"].zero_()
         cache = state["cache"]
@@ -1284,6 +1311,16 @@ def make_segment_fn(cfg: ArchConfig, seg_len: int = SEG_LEN, *,
     return segment
 
 
+def _box() -> dict:
+    """A step function's record of its runner: ``run`` and its binding
+    ``key``; ``bindings``, the runners made over the function's life;
+    since the last ``_ContinuousRunners.start`` (a serving run's start),
+    ``used`` (the bindings its calls ran under: 1 while the state and the
+    params keep their addresses), ``captures`` and ``capture_s`` (the
+    graphs its calls captured and their seconds)."""
+    return {"bindings": 0, "used": 0, "captures": 0, "capture_s": 0.0}
+
+
 def _bound_run(box: dict, params, state, make):
     """The runner in ``box`` if it is bound to ``params`` and the state's
     tensors, else a new one from ``make()`` (its graph is captured at its
@@ -1293,8 +1330,27 @@ def _bound_run(box: dict, params, state, make):
     run = box.get("run")
     if run is None or box["key"] != key:
         run = make()
-        box.update(run=run, key=key, bindings=box["bindings"] + 1)
+        box.update(run=run, key=key, bindings=box["bindings"] + 1,
+                   used=box["used"] + 1)
+    elif not box["used"]:
+        box["used"] = 1
     return run
+
+
+@contextlib.contextmanager
+def _call(box: dict, run, params):
+    """One call of a bound runner: ``params`` held in its state for the
+    call only, and the capture the call made, if any, added to
+    ``box``."""
+    n = run.step.captures
+    run.st["params"] = params
+    try:
+        yield
+    finally:
+        run.st["params"] = None
+        if run.step.captures != n:
+            box["captures"] += run.step.captures - n
+            box["capture_s"] += run.step.capture_s
 
 
 class _ExtendRun:
@@ -1302,14 +1358,15 @@ class _ExtendRun:
     step.  Its inputs (the chunk's tokens, the slot, the real length, the
     emit flag, the budget and the admission number) and outputs (the
     first token, the chunk's logits) are static tensors of the runner,
-    not of the state, so the segment step's binding never sees them."""
+    not of the state, so the segment step's binding never sees them;
+    every call writes its inputs before the step reads them."""
 
-    def __init__(self, cfg, state, params, chunk_len, nxt, eos,
-                 trace_logits, par=None):
+    def __init__(self, cfg, state, chunk_len, nxt, eos, trace_logits,
+                 par=None):
         dev = state["tok"].device
         B = state["tok"].shape[0]
         i32 = dict(dtype=torch.int32, device=dev)
-        self.st = st = dict(state, params=params)
+        self.st = st = dict(state, params=None)
         st.update(
             x_toks=torch.zeros((1, chunk_len), dtype=torch.long, device=dev),
             x_slot=torch.zeros((1,), dtype=torch.long, device=dev),
@@ -1388,22 +1445,27 @@ def make_extend_fn(cfg: ArchConfig, chunk_len: int, *,
     chunk logits (chunk_len, Vp) f32, pad positions included.
 
     The graph binds the state and the params it last ran on, like
-    ``make_segment_fn``'s; ``extend.runs["bindings"]`` counts its
-    bindings and ``extend.launches`` the kernel launches its calls made
-    (counter name -> launches).  ``par``: the chunk under that mesh
-    (eagerly over gloo on CUDA)."""
+    ``make_segment_fn``'s; ``extend.runs`` counts its bindings and
+    captures (``_box``) and ``extend.launches`` the kernel launches its
+    calls made (counter name -> launches).  ``par``: the chunk under that
+    mesh (eagerly over gloo on CUDA)."""
     from ..kernels import build
     _check_spec(cfg)
     nxt = _next_fn(_make_sampler(sample))
     eos = -1 if eos_id is None else eos_id
-    box = {"bindings": 0}
+    box = _box()
     launches: dict = {}
 
     @torch.no_grad()
     def extend(params, state, toks, slot: int, n_real: int, emit: bool,
                max_new: int):
         run = _bound_run(box, params, state, lambda: _ExtendRun(
-            cfg, state, params, chunk_len, nxt, eos, trace_logits, par))
+            cfg, state, chunk_len, nxt, eos, trace_logits, par))
+        with _call(box, run, params):
+            return _extend_call(run, state, toks, slot, n_real, emit,
+                                max_new)
+
+    def _extend_call(run, state, toks, slot, n_real, emit, max_new):
         st = run.st
         st["x_toks"].copy_(torch.as_tensor(toks).reshape(1, -1))
         st["x_slot"].fill_(int(slot))
@@ -1445,9 +1507,10 @@ def make_extend_fn(cfg: ArchConfig, chunk_len: int, *,
 
 class _ProbeRun:
     """The probe's scratch buffers and captured step, bound to one serve
-    state and one set of params (see ``make_probe_fn``)."""
+    state and the addresses of one set of params, held only during a
+    call (see ``make_probe_fn``)."""
 
-    def __init__(self, cfg, state, params, par=None):
+    def __init__(self, cfg, state, par=None):
         cache = state["cache"]
         dev = state["tok"].device
         B = state["tok"].shape[0]
@@ -1482,18 +1545,19 @@ class _ProbeRun:
                       torch.clamp_max(pos, cache["k"].shape[2] - 1).long())
             for name in names:
                 saved[name].copy_(cache[name][at])
-            logits, _ = lm.decode(params, cfg, state["tok"], scratch,
+            logits, _ = lm.decode(st["params"], cfg, state["tok"], scratch,
                                   done=state["done"], par=par)
             for name in names:
                 cache[name][at] = saved[name]
             out.copy_(logits)
 
-        st = {"params": params, "tok": state["tok"], "cache": cache}
+        self.st = st = {"params": None, "tok": state["tok"], "cache": cache}
         self.step = CapturedStep(step, dev, _prepare_fn(st, [(cfg, B)],
                                                         par))
 
 
-def make_probe_fn(cfg_ref: ArchConfig, *, graph: bool = True, par=None):
+def make_probe_fn(cfg_ref: ArchConfig, *, graph: bool = True, par=None,
+                  eager_first: bool = True):
     """The exact half of the accuracy watchdog's probe (the port of the
     reference's ``make_probe_fn``): one decode of the serve state's
     (token, cache) under ``cfg_ref``, normally the serving spec's
@@ -1507,25 +1571,202 @@ def make_probe_fn(cfg_ref: ArchConfig, *, graph: bool = True, par=None):
     per slot that the step can flush is saved first and written back
     after (the dense layout: the row at ``pos``).  The serve state is
     bitwise what it was after a probe.  The probe is bound to the state
-    and params it last ran on (``probe.runs["bindings"]`` counts its
-    bindings); on the card a binding's first probe steps eagerly and its
-    second captures the step as one graph, which later probes replay
-    (eager on the CPU, or with ``graph=False``).  A probe comes once in
-    ``probe_every`` segments, so a run probed once (a short queue, a new
-    serve state each run) pays no capture, which cost about as much as
-    the run's own segment capture.  Nothing reads back to the host.
-    ``par``: the probe under that mesh (eagerly over gloo on CUDA)."""
-    box = {"bindings": 0}
+    and params it last ran on (``probe.runs`` counts its bindings and
+    captures, ``_box``); on the card a binding's first probe steps
+    eagerly and its second captures the step as one graph, which later
+    probes replay (eager on the CPU, or with ``graph=False``).  A probe
+    comes once in ``probe_every`` segments, so a binding probed once pays
+    no capture, which costs about as much as a segment capture.
+    ``eager_first=False`` captures at a binding's first probe instead:
+    the serving runs' probe is kept with their runner set
+    (``continuous_runners``), so its binding outlives the run, and every
+    later run replays the graph its first probe captured, as the
+    reference's probe is compiled at its first call.  Nothing reads back
+    to the host.  ``par``: the probe under that mesh (eagerly over gloo
+    on CUDA)."""
+    box = _box()
 
     @torch.no_grad()
     def probe(params, state):
         run = _bound_run(box, params, state,
-                         lambda: _ProbeRun(cfg_ref, state, params, par))
+                         lambda: _ProbeRun(cfg_ref, state, par))
         run.calls += 1
-        use_graph = graph and run.calls > 1 \
+        use_graph = graph and (run.calls > 1 or not eager_first) \
             and graph_ok(run.step.device, par) is None
-        (run.step.run if use_graph else run.step.step)()
+        with _call(box, run, params):
+            (run.step.run if use_graph else run.step.step)()
         return run.out.clone()
 
     probe.runs = box
     return probe
+
+
+# ---------------------------------------------------------------------------
+# the continuous scheduler's runners, kept across serving runs
+# ---------------------------------------------------------------------------
+
+class _ContinuousRunners:
+    """The continuous scheduler's runners at one option set: the serve
+    state's tensors (``init_serve_state``), the admit, extend and segment
+    functions of each fault spec in force and the watchdog's probe, and
+    through them their captured graphs, bound to this state and to the
+    params of their last call.  The reference compiles its step functions
+    once per option set (``functools.lru_cache`` around ``jax.jit``);
+    here the graphs bake in addresses, so the state they read is kept
+    with them and ``start`` resets it in place for every run."""
+
+    def __init__(self, cfg, slots, capacity, *, kv, page_size, n_pages,
+                 seg_len, spec, eos_id, sample, integrity, device,
+                 par=None):
+        self.cfg, self.seg_len, self.spec = cfg, seg_len, spec
+        self.eos_id, self.sample, self.par = eos_id, sample, par
+        self.page_size = page_size
+        self.state = init_serve_state(cfg, slots, capacity, kv=kv,
+                                      page_size=page_size, n_pages=n_pages,
+                                      integrity=integrity, device=device)
+        cache = self.state["cache"]
+        # the planes init_serve_state does not fill: kept as made
+        self._made = {name: t.clone() for name, t in cache.items()
+                      if name not in _CACHE_FILLS}
+        self._fns: dict = {}
+        self._probes: dict = {}
+
+    def start(self, seed: int) -> dict:
+        """The serve state as ``init_serve_state(..., seed=seed)`` makes
+        it, written in place (every graph stays bound), and every step
+        function's per-run counts (``_box``, an extend's launches)
+        zeroed."""
+        st = self.state
+        for name, fill in _STATE_FILLS.items():
+            st[name].fill_(fill)
+        st["seed"].fill_(seed)
+        st["admitted"] = 0
+        for name, t in st["cache"].items():
+            if name in _CACHE_FILLS:
+                t.fill_(_CACHE_FILLS[name])
+            else:
+                t.copy_(self._made[name])
+        for fn in self.functions():
+            fn.runs.update(used=0, captures=0, capture_s=0.0)
+            if hasattr(fn, "launches"):          # an extend's, per run
+                fn.launches.clear()
+        return st
+
+    def steps(self, fault: str, prefix: bool):
+        """(admit, extend or None, segment) of ``cfg`` under the macro
+        fault ``fault`` ('' for none); ``prefix``: with the prefix cache's
+        chunked extend (chunk = page size)."""
+        c = dataclasses.replace(self.cfg, dscim_fault=fault) if fault \
+            else self.cfg
+        if fault not in self._fns:
+            self._fns[fault] = [
+                make_admit_fn(c, eos_id=self.eos_id, sample=self.sample,
+                              par=self.par),
+                None,
+                make_segment_fn(c, self.seg_len, eos_id=self.eos_id,
+                                sample=self.sample, spec=self.spec,
+                                par=self.par)]
+        fns = self._fns[fault]
+        if prefix and fns[1] is None:
+            fns[1] = make_extend_fn(c, self.page_size, eos_id=self.eos_id,
+                                    sample=self.sample, par=self.par)
+        return fns[0], (fns[1] if prefix else None), fns[2]
+
+    def probe(self, cfg_ref: ArchConfig):
+        """The watchdog's probe under ``cfg_ref`` (``make_probe_fn``)."""
+        if cfg_ref not in self._probes:
+            # kept with the set: its first probe captures the graph that
+            # this run's and every later run's probes replay
+            self._probes[cfg_ref] = make_probe_fn(
+                cfg_ref, par=self.par, eager_first=self.par is not None)
+        return self._probes[cfg_ref]
+
+    def functions(self):
+        """Every segment, extend and probe function made so far."""
+        for _, ext, seg in self._fns.values():
+            yield seg
+            if ext is not None:
+                yield ext
+        yield from self._probes.values()
+
+    def captured_steps(self):
+        """The ``CapturedStep`` of every runner these functions hold."""
+        for fn in self.functions():
+            run = fn.runs.get("run")
+            if run is not None:
+                yield run.step
+
+
+RUNNER_SETS = 4                # continuous runner sets kept at most
+_RUNNERS: collections.OrderedDict = collections.OrderedDict()
+_PLANES: collections.OrderedDict = collections.OrderedDict()
+
+
+def _device_key(dev) -> torch.device:
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _room(kept: collections.OrderedDict, dev) -> None:
+    """Drop ``kept``'s least recently used entries until one more fits
+    ``RUNNER_SETS``; on CUDA all of them while under a quarter of the
+    card's memory is free (their graph pools and states go with them)."""
+    while len(kept) >= RUNNER_SETS:
+        kept.popitem(last=False)
+    if dev.type == "cuda" and kept:
+        free, total = torch.cuda.mem_get_info(dev)
+        if free < total // 4:
+            kept.clear()
+
+
+def continuous_runners(cfg: ArchConfig, slots: int, capacity: int, *,
+                       kv: str, page_size: int, n_pages: int | None,
+                       seg_len: int, spec: str | None, eos_id: int | None,
+                       sample: str, integrity: bool, device, par=None
+                       ) -> _ContinuousRunners:
+    """The continuous scheduler's runner set for these options (the
+    port's counterpart of the reference's cached ``make_admit_fn``,
+    ``make_segment_fn``, ``make_extend_fn`` and ``make_probe_fn``): made
+    at first use, then kept, so a later serving run at the same options
+    replays the graphs an earlier one captured.  At most ``RUNNER_SETS``
+    are kept, least recently used dropped first (``clear_graphs`` drops
+    them all).  The key is every option the state's shape or a step
+    reads: ``cfg`` (its DS-CIM spec, macro fault and paged read pin
+    included), slots, capacity, ``kv``, page size, pool pages, segment
+    length, ``spec``, ``eos_id``, ``sample``, integrity on or off, the
+    device and ``REPRO_DSCIM_TUNE`` (the tiles a graph was captured at);
+    the seed is reset per run.  Under a mesh (``par``) a new set is made
+    for every run and not kept: every rank would have to keep and drop
+    the same sets, and over gloo the steps run eagerly anyway."""
+    kw = dict(kv=kv, page_size=page_size, n_pages=n_pages, seg_len=seg_len,
+              spec=spec, eos_id=eos_id, sample=sample,
+              integrity=integrity, device=device, par=par)
+    if par is not None:
+        return _ContinuousRunners(cfg, slots, capacity, **kw)
+    dev = _device_key(resolve_device(device))
+    key = (cfg, slots, capacity, kv, page_size, n_pages, seg_len, spec,
+           eos_id, sample, integrity, dev, _env_tune())
+    runners = _RUNNERS.pop(key, None)
+    if runners is None:
+        _room(_RUNNERS, dev)
+        runners = _ContinuousRunners(cfg, slots, capacity, **kw)
+    _RUNNERS[key] = runners
+    return runners
+
+
+def serving_planes(cfg: ArchConfig, device) -> dict:
+    """The prepared planes kept for serving runs of ``cfg`` on ``device``
+    (``prepare_params(out=)``: path -> tensor): a run handed raw params
+    quantizes them afresh into these same tensors, so the runners'
+    graphs stay bound to them.  Kept as ``continuous_runners``' sets
+    are."""
+    dev = _device_key(device)
+    key = (cfg, dev)
+    planes = _PLANES.pop(key, None)
+    if planes is None:
+        _room(_PLANES, dev)
+        planes = {}
+    _PLANES[key] = planes
+    return planes

@@ -178,11 +178,16 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
     ``probe_trips``, ``stragglers``, the allocator's ``pages``, the
     integrity engine's ``integrity`` and the prefix cache's ``prefix``,
     None where off) and the port's: ``capture_s`` and
-    ``extend_capture_s`` (seconds of the segment and extend captures,
-    inside ``wall_s``; 0 without a graph), ``bindings`` (runners made for
-    a new state, params or fault binding, each a capture on the card:
-    {"segment", "extend"}), ``probe_bindings`` (the watchdog probe's),
-    ``extend_launches`` (kernel launches of the extend calls, by
+    ``extend_capture_s`` (seconds of this run's segment and extend
+    captures, inside ``wall_s``; 0 without a graph, and 0 where the run
+    replayed the graphs an earlier run at these options captured:
+    launch/steps.py ``continuous_runners``), ``captures`` (the graphs
+    this run captured: {"segment", "extend", "probe"}), ``bindings``
+    (the bindings of a state, params and fault spec the run's segment and
+    extend steps ran under, each a capture on the card unless an earlier
+    run made it: 1 each while the params keep their addresses, restores
+    included: {"segment", "extend"}), ``probe_bindings`` (the watchdog
+    probe's), ``extend_launches`` (kernel launches of the extend calls, by
     counter), ``snapshots`` ({"count", "snapshot_s",
     "restores", "restore_s"}: host copies of the state and copies back),
     ``probe_s`` (wall seconds of the watchdog's probes, synchronized by
@@ -196,9 +201,7 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
                                 cow_fork, extract_slot_pages,
                                 insert_slot_pages, n_pages_for)
     from ..core.qweights import golden_weight_copy
-    from ..launch.steps import (_parse_spec, init_serve_state,
-                                make_admit_fn, make_extend_fn,
-                                make_probe_fn, make_segment_fn)
+    from ..launch.steps import _parse_spec, continuous_runners
     from .failover import (IntegrityReplay, SimulatedHardwareFailure,
                            restore_into, run_with_failover, to_host)
     from .integrity import IntegrityEngine, parse_integrity
@@ -244,10 +247,13 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
     headroom = max(k_spec, page_size - 1) if use_prefix else k_spec
     capacity = S + int(budgets.max()) + headroom
     mp = n_pages_for(capacity, page_size)
-    state = init_serve_state(cfg, slots, capacity, kv=kv,
-                             page_size=page_size, n_pages=n_pages,
-                             seed=rng_seed, integrity=integrity_period > 0,
-                             device=device)
+    # the serve state and the step functions of these options, kept
+    # across runs with their graphs; the state is reset in place
+    runners = continuous_runners(
+        cfg, slots, capacity, kv=kv, page_size=page_size, n_pages=n_pages,
+        seg_len=seg_len, spec=spec, eos_id=eos_id, sample=sample,
+        integrity=integrity_period > 0, device=device, par=par)
+    state = runners.start(rng_seed)
     dev = state["tok"].device
     alloc0 = PageAllocator(state["cache"]["k_pages"].shape[1]) \
         if kv == "int8" else None
@@ -272,23 +278,15 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
     }
     probe = None
     if monitor is not None and monitor.rel_threshold is not None:
-        probe = make_probe_fn(dataclasses.replace(
-            cfg, dscim=exact_probe_spec(cfg.dscim), dscim_fault=""),
-            par=par)
-    # the step functions of each fault spec in force, made once: their
+        probe = runners.probe(dataclasses.replace(
+            cfg, dscim=exact_probe_spec(cfg.dscim), dscim_fault=""))
+    # the step functions of each fault spec in force this run: their
     # graphs stay bound to the state across restores
     fns: dict = {}
 
     def steps_for(fault: str):
         if fault not in fns:
-            c = dataclasses.replace(cfg, dscim_fault=fault) if fault else cfg
-            fns[fault] = (
-                make_admit_fn(c, eos_id=eos_id, sample=sample, par=par),
-                make_extend_fn(c, page_size, eos_id=eos_id, sample=sample,
-                               par=par)
-                if use_prefix else None,
-                make_segment_fn(c, seg_len, eos_id=eos_id, sample=sample,
-                                spec=spec, par=par))
+            fns[fault] = runners.steps(fault, use_prefix)
         return fns[fault]
 
     steps_for("")
@@ -722,10 +720,6 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
     segs = [f[2] for f in fns.values()]
     exts = [f[1] for f in fns.values() if f[1] is not None]
 
-    def captured(fn):
-        run = fn.runs.get("run")
-        return run.step.capture_s if run is not None else 0.0
-
     ext_launches: dict = {}
     for e in exts:
         for name, n in e.launches.items():
@@ -763,11 +757,14 @@ def serve_continuous_ft(cfg, params, prompts, n_tokens: int, *,
             admit_lat_hit=[t for hit, t in host["admit_lat"] if hit],
             admit_lat_miss=[t for hit, t in host["admit_lat"] if not hit])
             if pfx is not None else None),
-        "capture_s": sum(captured(f) for f in segs),
-        "extend_capture_s": sum(captured(f) for f in exts),
-        "bindings": {"segment": sum(f.runs["bindings"] for f in segs),
-                     "extend": sum(f.runs["bindings"] for f in exts)},
-        "probe_bindings": probe.runs["bindings"] if probe else 0,
+        "capture_s": sum(f.runs["capture_s"] for f in segs),
+        "extend_capture_s": sum(f.runs["capture_s"] for f in exts),
+        "captures": {"segment": sum(f.runs["captures"] for f in segs),
+                     "extend": sum(f.runs["captures"] for f in exts),
+                     "probe": probe.runs["captures"] if probe else 0},
+        "bindings": {"segment": sum(f.runs["used"] for f in segs),
+                     "extend": sum(f.runs["used"] for f in exts)},
+        "probe_bindings": probe.runs["used"] if probe else 0,
         "extend_launches": ext_launches,
         "snapshots": snaps,
         "probe_s": timers["probe_s"],

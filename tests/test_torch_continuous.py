@@ -286,17 +286,46 @@ RUN_KINDS = {"plain": {}, "monitored": {"snapshot_every": 2},
              "prefix": {"prefix_cache": "on"}}
 
 
+def _kept_steps():
+    """Every ``CapturedStep`` the kept continuous runner sets hold."""
+    from repro_torch.launch import steps
+    return [s for r in steps._RUNNERS.values() for s in r.captured_steps()]
+
+
+def _last_runners():
+    """The runner set the last serving run took."""
+    from repro_torch.launch import steps
+    return next(reversed(steps._RUNNERS.values()))
+
+
+def _kind_kw(kind, spec):
+    from repro_torch.runtime.serving import watchdog_for_spec
+    kw = dict(RUN_KINDS[kind])
+    if kind == "monitored":
+        kw["monitor"] = watchdog_for_spec(spec, probe_every=1)
+    return kw
+
+
+def _kind_prompts(cfg, kind, seed):
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab, (4, 8))
+    if kind == "prefix":
+        prompts[:, :6] = prompts[0, :6]
+    return prompts
+
+
 @pytest.mark.parametrize("kind", list(RUN_KINDS))
 def test_continuous_runners_die_with_the_run(setup, monkeypatch, kind):
     """No reference cycle holds a serving run's step runners: with the
-    collector off, every ``CapturedStep`` the run made (on the card, its
-    graph and the graph's memory pool) is freed when the run returns, as
-    ``launch/graph.py`` captures without collecting first."""
+    collector off, every ``CapturedStep`` still alive after a run is one
+    a kept runner set holds (launch/steps.py ``continuous_runners``: the
+    reference's cached step functions), and ``clear_graphs`` frees every
+    one of them (on the card, their graphs and the graphs' memory pools),
+    as ``launch/graph.py`` captures without collecting first."""
     import gc
     import weakref
 
     from repro_torch.launch import graph
-    from repro_torch.runtime.serving import watchdog_for_spec
+    from repro_torch.launch.steps import clear_graphs
 
     made = []
     init = graph.CapturedStep.__init__
@@ -309,22 +338,179 @@ def test_continuous_runners_die_with_the_run(setup, monkeypatch, kind):
     _, cfg, _, params = setup
     spec = "kernel:dscim1:256"
     cfg = dataclasses.replace(cfg, dscim=spec)
-    kw = dict(RUN_KINDS[kind])
-    if kind == "monitored":
-        kw["monitor"] = watchdog_for_spec(spec, probe_every=1)
-    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (4, 8))
-    if kind == "prefix":
-        prompts[:, :6] = prompts[0, :6]
+    clear_graphs()
     gc.collect()
     gc.disable()
     try:
-        serve_continuous(cfg, params, prompts, 6, slots=2, seg_len=2,
-                         kv="int8", page_size=4, eos_id=-1, device="cpu",
-                         **kw)
+        serve_continuous(cfg, params, _kind_prompts(cfg, kind, 0), 6,
+                         slots=2, seg_len=2, kv="int8", page_size=4,
+                         eos_id=-1, device="cpu", **_kind_kw(kind, spec))
         assert made
+        kept = {id(s) for s in _kept_steps()}
+        alive = [r() for r in made if r() is not None]
+        assert alive and all(id(s) in kept for s in alive)
+        del alive
+        clear_graphs()
         assert [r() for r in made if r() is not None] == []
     finally:
         gc.enable()
+
+
+# -- runners kept across runs ----------------------------------------------
+
+REF_SPEC, REF_KV = "kernel:dscim1:256", "int8"
+REF_BUDGETS = np.array([3, 6, 2, 5, 4, 6], np.int32)
+REF_KW = dict(slots=3, seg_len=2, max_new=REF_BUDGETS, eos_id=-1,
+              kv=REF_KV, page_size=4)
+# the stats a run's clock sets (and ``captures``, 0 on the CPU): every
+# other key is held bitwise
+TIMED = {"tok_s", "snapshots", "captures", "admit_lat_hit",
+         "admit_lat_miss"}
+
+
+def _untimed(stats):
+    return {k: _untimed(v) if isinstance(v, dict) else v
+            for k, v in stats.items()
+            if k not in TIMED and not k.endswith("_s")}
+
+
+@pytest.fixture(scope="module")
+def reference_outs(setup):
+    """``test_continuous_matches_reference``'s reference outputs at
+    ``kernel:dscim1:256`` on the int8 cache."""
+    jcfg, cfg, jp, _ = setup
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab, (6, 8))
+    jouts, _ = jserve_continuous(
+        dataclasses.replace(jcfg, dscim=REF_SPEC), jp,
+        prompts.astype(np.int32), 6, log=lambda *_: None, **REF_KW)
+    return prompts, [np.asarray(o) for o in jouts]
+
+
+@pytest.mark.parametrize("given", ["raw", "prepared"])
+def test_second_run_replays_the_kept_runners(setup, reference_outs, given):
+    """Two runs at the same options, handed raw params (quantized afresh
+    into the kept planes) or prepared ones: outputs and stats bitwise
+    each other's and the reference's outputs; the second run takes the
+    first run's runner set, whose segment step binds no more."""
+    from repro_torch.launch.serve import prepare_params
+    from repro_torch.launch.steps import clear_graphs
+
+    _, cfg, _, params = setup
+    cfg = dataclasses.replace(cfg, dscim=REF_SPEC)
+    if given == "prepared":
+        params = prepare_params(cfg, params, "cpu")
+    prompts, want = reference_outs
+    clear_graphs()
+    runs = []
+    for _ in range(2):
+        runs.append(serve_continuous(cfg, params, prompts, 6, device="cpu",
+                                     **REF_KW))
+        seg = _last_runners().steps("", False)[2]
+        runs[-1] += (seg, seg.runs["bindings"])
+    (o1, s1, seg1, b1), (o2, s2, seg2, b2) = runs
+    assert seg1 is seg2 and b1 == b2 == 1
+    for r, (a, b, w) in enumerate(zip(o1, o2, want)):
+        np.testing.assert_array_equal(a, w, err_msg=str(r))
+        np.testing.assert_array_equal(b, w, err_msg=str(r))
+    assert _untimed(s1) == _untimed(s2)
+    assert s1["bindings"] == s2["bindings"] == {"segment": 1, "extend": 0}
+    assert s1["captures"] == s2["captures"] == \
+        {"segment": 0, "extend": 0, "probe": 0}          # no graph on the CPU
+
+
+@pytest.mark.parametrize("kind", list(RUN_KINDS))
+def test_run_after_another_equals_a_fresh_one(setup, kind):
+    """A run of other prompts of the same shape and shorter budgets,
+    after a run at the same options, serves what it serves in a fresh
+    runner set, stats and the whole serve state after it too: the kept
+    state carries nothing from the earlier run (pages and digests, tails
+    and positions, the probe's saved rows, the extend's inputs)."""
+    from repro_torch.launch.steps import clear_graphs
+
+    _, cfg, _, params = setup
+    spec = "kernel:dscim1:256"
+    cfg = dataclasses.replace(cfg, dscim=spec)
+
+    def run(seed):
+        budgets = [6] * 4 if seed == 1 else [6, 2, 3, 1]
+        return serve_continuous(cfg, params, _kind_prompts(cfg, kind, seed),
+                                6, slots=2, seg_len=2, kv="int8",
+                                page_size=4, eos_id=-1, max_new=budgets,
+                                device="cpu", log=lambda *_: None,
+                                **_kind_kw(kind, spec))
+
+    def state():
+        st = _last_runners().state
+        return {k: v.clone() for k, v in
+                list(st["cache"].items()) + list(st.items())
+                if isinstance(v, torch.Tensor)}
+
+    clear_graphs()
+    run(1)
+    kept = _last_runners()
+    outs, st = run(2)
+    assert _last_runners() is kept
+    after = state()
+    clear_graphs()
+    fresh, st_f = run(2)
+    for r, (a, b) in enumerate(zip(outs, fresh)):
+        np.testing.assert_array_equal(a, b, err_msg=str(r))
+    assert _untimed(st) == _untimed(st_f)
+    for name, t in state().items():              # the whole state, bitwise
+        assert torch.equal(after[name], t), name
+
+
+@pytest.mark.parametrize("fault", ["weight_flip", "failover"])
+def test_run_after_a_faulted_run_equals_a_fresh_one(setup, fault):
+    """After a run with an injected weight-plane flip (integrity off: the
+    flip is never repaired) or with a failover replay, the next clean run
+    at the same options serves what a fresh one does: raw params are
+    quantized afresh into the kept planes, and the restore left nothing
+    behind."""
+    from repro_torch.core.qweights import weight_plane_index
+    from repro_torch.launch.serve import prepare_params
+    from repro_torch.launch.steps import clear_graphs
+    from repro_torch.runtime.failover import FailureInjector
+
+    _, cfg, _, params = setup
+    cfg = dataclasses.replace(cfg, dscim="kernel:dscim1:256")
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab, (4, 8))
+    kw = dict(slots=2, seg_len=2, kv="int8", page_size=4, eos_id=-1,
+              device="cpu", log=lambda *_: None)
+    if fault == "weight_flip":
+        path = next(p for p, w in weight_plane_index(
+            prepare_params(cfg, params, "cpu")) if "w_up" in p)
+        knobs = dict(injector=FailureInjector(
+            weight_flips={0: ((path, "q", 7, 0x40),)}))
+    else:
+        knobs = dict(snapshot_every=1,
+                     injector=FailureInjector(fail_at=(1,)))
+    clear_graphs()
+    fresh, _ = serve_continuous(cfg, params, prompts, 6, **kw)
+    clear_graphs()
+    faulted, st = serve_continuous(cfg, params, prompts, 6, **kw, **knobs)
+    if fault == "weight_flip":
+        assert any(not np.array_equal(a, b) for a, b in zip(faulted, fresh))
+    else:
+        assert st["replays"] == 1
+    after, _ = serve_continuous(cfg, params, prompts, 6, **kw)
+    for r, (a, b) in enumerate(zip(after, fresh)):
+        np.testing.assert_array_equal(a, b, err_msg=str(r))
+
+
+def test_clear_graphs_empties_the_runner_cache(setup):
+    """``clear_graphs`` drops every kept runner set and kept plane."""
+    from repro_torch.launch import steps
+
+    _, cfg, _, params = setup
+    cfg = dataclasses.replace(cfg, dscim="kernel:dscim1:256")
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab, (2, 8))
+    serve_continuous(cfg, params, prompts, 3, slots=2, kv="int8",
+                     page_size=4, device="cpu")
+    assert steps._RUNNERS and steps._PLANES
+    assert any(steps._PLANES.values())
+    steps.clear_graphs()
+    assert not steps._RUNNERS and not steps._PLANES
 
 
 def test_continuous_eos_completion(setup):

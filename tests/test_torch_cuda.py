@@ -897,11 +897,13 @@ def test_spec_continuous_matches_plain_on_card(cuda):
     every request the tokens of the plain captured segments, and return
     every page."""
     from repro_torch.launch.serve import prepare_params, serve_continuous
+    from repro_torch.launch.steps import clear_graphs
 
     cfg, params, prompts = _reduced()
     params = prepare_params(cfg, params, cuda)
     kw = dict(slots=3, seg_len=2, kv="int8", page_size=4, eos_id=-1,
               max_new=[8, 3, 6, 5], device="cuda")
+    clear_graphs()
     ref, _ = serve_continuous(cfg, params, prompts, 8, **kw)
     got, st = serve_continuous(cfg, params, prompts, 8, spec="dscim2:3",
                                **kw)
@@ -984,11 +986,15 @@ def test_prefix_warm_equals_cold_on_card(cuda):
 @pytest.mark.parametrize("fault", ["failover", "eviction"])
 def test_restores_keep_the_segment_graph(cuda, fault):
     """A failover restore and an eviction's ``insert_slot_pages`` copy
-    into the serve state in place: the segment step is bound (and
-    captured) once, and every request's tokens are those of the
-    undisturbed run (sampled, so the stream must survive too)."""
+    into the serve state in place: the segment step is bound once (the
+    failover run replays the graph the undisturbed run captured, at the
+    same options, across the restore; the eviction run's smaller pool is
+    another runner set, captured once), and every request's tokens are
+    those of the undisturbed run (sampled, so the stream must survive
+    too)."""
     from repro_torch.core.kvcache import n_pages_for
     from repro_torch.launch.serve import prepare_params, serve_continuous
+    from repro_torch.launch.steps import clear_graphs
     from repro_torch.runtime.failover import FailureInjector
 
     cfg, params, prompts = _reduced()
@@ -997,7 +1003,9 @@ def test_restores_keep_the_segment_graph(cuda, fault):
     kw = dict(slots=3, seg_len=2, kv="int8", page_size=4, eos_id=-1,
               max_new=[6, 8, 8, 6, 6, 6], sample="topk:20:0.9", rng_seed=4,
               device="cuda")
-    ref, _ = serve_continuous(cfg, params, prompts, 8, **kw)
+    clear_graphs()
+    ref, st_ref = serve_continuous(cfg, params, prompts, 8, **kw)
+    assert st_ref["captures"]["segment"] == 1 and st_ref["capture_s"] > 0
     knobs = {"failover": dict(snapshot_every=1,
                               injector=FailureInjector(fail_at=(2,)),
                               log=lambda *_: None),
@@ -1006,7 +1014,8 @@ def test_restores_keep_the_segment_graph(cuda, fault):
     outs, st = serve_continuous(cfg, params, prompts, 8, **kw, **knobs)
     for a, b in zip(outs, ref):
         np.testing.assert_array_equal(a, b)
-    assert st["bindings"]["segment"] == 1 and st["capture_s"] > 0
+    assert st["bindings"]["segment"] == 1
+    assert st["captures"]["segment"] == (fault == "eviction")
     if fault == "failover":
         assert st["replays"] == 1 and st["snapshots"]["restores"] == 1
     else:
@@ -1208,6 +1217,86 @@ def test_probe_leaves_the_captured_state_unchanged(cuda):
     assert st["probes"] > 0 and st["bindings"]["segment"] == 1
 
 
+def test_second_monitored_run_captures_nothing_on_card(cuda):
+    """The runners are kept across serving runs at the same options: a
+    first monitored run captures the segment step and, at its first
+    probe, the probe; a second run captures nothing, replays every probe
+    (whose launches the counters see as today: a replay adds the step's
+    launches) and serves the first run's tokens bitwise, as does an
+    unmonitored run."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import prepare_params, serve_continuous
+    from repro_torch.launch.steps import clear_graphs
+    from repro_torch.runtime.serving import watchdog_for_spec
+
+    cfg, params, prompts = _reduced("kernel:dscim2:64")
+    params = prepare_params(cfg, params, cuda)
+    kw = dict(slots=2, seg_len=2, kv="int8", page_size=4, eos_id=-1,
+              max_new=[6, 8, 5, 7], device="cuda")
+    clear_graphs()
+    runs = []
+    for _ in range(2):
+        before = {c.name: c.count for c in build.COUNTERS}
+        outs, st = serve_continuous(
+            cfg, params, prompts, 8, snapshot_every=2,
+            monitor=watchdog_for_spec(cfg.dscim, probe_every=1), **kw)
+        torch.cuda.synchronize()
+        runs.append((outs, st, {c.name: c.count - before.get(c.name, 0)
+                                for c in build.COUNTERS}))
+    (o1, s1, n1), (o2, s2, n2) = runs
+    assert s1["probes"] >= 1 and s2["probes"] == s1["probes"]
+    assert s1["captures"] == {"segment": 1, "extend": 0, "probe": 1}
+    assert s2["captures"] == {"segment": 0, "extend": 0, "probe": 0}
+    assert s2["capture_s"] == 0.0 and s2["escalation_captures"] == 0
+    assert s1["probe_bindings"] == s2["probe_bindings"] == 1
+    assert s2["bindings"] == {"segment": 1, "extend": 0}
+    # run 2 launched nothing but its steps: per decode step 3 MLP matmuls
+    # a layer and the head, one paged read a layer; per probe one paged
+    # read a layer (exact mode: no fused MVM); per admission one forward;
+    # run 1 launched those and its captures' preparations
+    L, steps = cfg.n_layers, kw["seg_len"] * s2["segments"]
+    assert n2["paged_attention_decode"] == L * (steps + s2["probes"])
+    assert n2["dscim_fused_mvm"] == (3 * L + 1) * (steps + len(prompts))
+    assert all(n1[k] >= n2[k] for k in n2)
+    plain, _ = serve_continuous(cfg, params, prompts, 8, **kw)
+    for a, b, c in zip(o1, o2, plain):
+        np.testing.assert_array_equal(b, a)
+        np.testing.assert_array_equal(c, a)
+
+
+def test_clear_graphs_releases_the_graph_pools_on_card(cuda):
+    """``clear_graphs`` frees the kept runner sets' graphs and their
+    memory pools with no collection: the card's reserved memory falls
+    back to what it was before the run captured them."""
+    import gc
+
+    from repro_torch.launch.serve import serve_continuous
+    from repro_torch.launch.steps import clear_graphs
+
+    cfg, params, prompts = _reduced()
+    kw = dict(slots=2, seg_len=2, kv="int8", page_size=4, eos_id=-1,
+              max_new=[6, 8, 5, 7], integrity="scrub:2", device="cuda")
+    serve_continuous(cfg, params, prompts, 8, **kw)   # the kernels' buffers
+    clear_graphs()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    gc.disable()
+    try:
+        _, st = serve_continuous(cfg, params, prompts, 8, **kw)
+        torch.cuda.synchronize()
+        assert st["captures"]["segment"] == 1
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved()
+        clear_graphs()
+        torch.cuda.empty_cache()
+        after = torch.cuda.memory_reserved()
+    finally:
+        gc.enable()
+    assert held > base and after <= base, (base, held, after)
+
+
 def test_ladder_reports_its_captures_on_card(cuda):
     """A stuck-at fault escalates every request; the stats count the
     decode graphs the ladder's serve_batch runs captured (each rung's
@@ -1254,9 +1343,12 @@ def test_integrity_verify_equals_off_on_card(cuda):
     """``integrity='verify'`` serves ``'off'``'s tokens with zero
     mismatches and launches the same counted kernels but the digest
     kernel, which only it launches: with integrity off the cache has no
-    digest plane at all."""
+    digest plane at all.  Each run starts from no kept runners, so each
+    captures its segment step (whose preparation launches the kernels
+    too)."""
     from repro_torch.kernels import build
     from repro_torch.launch.serve import prepare_params, serve_continuous
+    from repro_torch.launch.steps import clear_graphs
 
     cfg, params, prompts = _reduced()
     params = prepare_params(cfg, params, cuda)
@@ -1264,6 +1356,7 @@ def test_integrity_verify_equals_off_on_card(cuda):
               max_new=[6, 8, 5, 7], device="cuda")
     runs = {}
     for mode in ("off", "verify", "off"):
+        clear_graphs()
         before = {c.name: c.count for c in build.COUNTERS}
         outs, st = serve_continuous(cfg, params, prompts, 8,
                                     integrity=mode, **kw)
